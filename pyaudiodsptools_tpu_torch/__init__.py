@@ -1,0 +1,32 @@
+"""pyaudiodsptools_tpu_torch -- the PyTorch/CUDA port of pyaudiodsptools_tpu.
+
+A second package beside the JAX one, for an NVIDIA H100: effects are pure
+``(params, state, block) -> (state, block)`` functions over torch tensors,
+chains fuse LTI runs into one segmented convolution and delay / tremolo /
+waveshaper runs into one tail pass, and both of those run as CUDA C++ kernels
+written by hand for sm_90a (``csrc/``, built at first use). It imports
+``torch`` and ``numpy``, and nothing of JAX or of the JAX package.
+
+Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``; on
+a CPU tensor every kernel-backed effect runs its plain PyTorch version.
+
+Layers:
+  core      config and device resolution, blocking, wav I/O
+  ops       the effect library of the port's slices so far
+  kernels   CUDA kernel wrappers, plain versions, and the nvcc build
+  engine    Chain composition and fusion, offline render
+  convert   build a chain from a plain numpy description of its params
+"""
+
+from .core.config import EngineConfig, resolve_device
+from .core import block, wavio
+from . import ops
+from .engine import Chain, render, render_file
+from . import convert
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "EngineConfig", "resolve_device", "block", "wavio", "ops", "Chain",
+    "render", "render_file", "convert",
+]

@@ -1,0 +1,103 @@
+"""Build the port's effects from a plain numpy description.
+
+``chain_from_numpy(spec, device)`` takes a list with one dict per effect:
+
+    {"op": <effect name>, "meta": {<static fields>},
+     "params": {<field>: numpy array}, "lti_kernel": float64 array or None}
+
+which is what one gets from an effect of the JAX package by taking
+``np.asarray`` of every array leaf of its params, its static fields as they
+are, and its ``lti_kernel`` as float64. This module imports no JAX: whoever
+holds the JAX effects (the parity tests) does the extraction.
+
+What is carried across, per effect:
+
+* FIR effects (``lowcut``, ``highcut``, ``eq3band_fft``, ``fir``, fused
+  cascades): ``lti_kernel`` and ``meta["block_size"]`` -- not the JAX
+  package's spectra, because the port plans its own window and builds its own
+  spectrum from the same float64 kernel;
+* ``delay``: ``ramp``, and ``time_in_samples``, ``feedback_loops``, ``wet``,
+  ``block_size`` (pre-filter variants are built with ``ops.delay``);
+* ``tremolo``: ``lfo``, ``omega``, ``depth``, and ``lfo_length``,
+  ``block_size``;
+* waveshapers: their scalars (``coeff``, ``makeup``, ``mode``; ``drive``).
+
+The port's own factories give the same params; ``tests/test_torch_chain.py``
+holds them to that.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.config import DEFAULT_DEVICE, resolve_device
+from .engine.chain import Chain
+from .ops import fft_filter, waveshapers as ws
+from .ops.base import Effect, host_scalar
+# ``ops.delay`` / ``ops.tremolo`` name the factories; the modules behind them:
+from .ops.delay import DelayParams, make_effect as make_delay, tap_kernel
+from .ops.tremolo import (TremoloParams, init_state as tremolo_init_state,
+                          offline as tremolo_offline, step as tremolo_step)
+
+
+def _scalar(value) -> torch.Tensor:
+    return host_scalar(np.asarray(value, dtype=np.float32).reshape(()))
+
+
+def effect_from_numpy(entry: dict, device=DEFAULT_DEVICE) -> Effect:
+    """One effect from its description (see the module docstring)."""
+    dev = resolve_device(device)
+    op = entry["op"]
+    meta = entry.get("meta", {})
+    params = entry.get("params", {})
+    if op == "delay":
+        if meta.get("use_lowcut") or meta.get("use_highcut"):
+            raise ValueError(
+                "a delay with pre-filters is not carried as numpy params; "
+                "build it with ops.delay(...)")
+        ramp = np.asarray(params["ramp"], dtype=np.float32)
+        p = DelayParams(
+            ramp=torch.from_numpy(ramp.copy()), lowcut=None, highcut=None,
+            time_in_samples=int(meta["time_in_samples"]),
+            feedback_loops=int(meta["feedback_loops"]),
+            wet=bool(meta["wet"]), block_size=int(meta["block_size"]),
+            use_lowcut=False, use_highcut=False)
+        kernel = tap_kernel(ramp, p.time_in_samples, p.wet)
+        return make_delay(p, kernel, dev)
+    if entry.get("lti_kernel") is not None:
+        return fft_filter.fir(np.asarray(entry["lti_kernel"], np.float64),
+                              int(meta["block_size"]), name=op, device=dev)
+    if op == "tremolo":
+        p = TremoloParams(
+            lfo=torch.from_numpy(
+                np.asarray(params["lfo"], dtype=np.float32).copy()).to(dev),
+            omega=_scalar(params["omega"]), depth=_scalar(params["depth"]),
+            lfo_length=int(meta["lfo_length"]),
+            block_size=int(meta["block_size"]))
+        return Effect(name="tremolo", params=p,
+                      init_state=tremolo_init_state,
+                      step=tremolo_step, offline=tremolo_offline,
+                      device=dev)
+    if op == "saturator":
+        p = ws.SaturatorParams(coeff=_scalar(params["coeff"]),
+                               makeup=_scalar(params["makeup"]),
+                               mode=int(meta["mode"]))
+        return ws._stateless(op, p, ws._saturate, dev)
+    if op == "softclipper":
+        p = ws.SoftClipperParams(drive=_scalar(params["drive"]))
+        return ws._stateless(op, p, ws._softclip, dev)
+    if op == "harddistortion":
+        return ws.harddistortion(None, device=dev)
+    if op == "bitcrusher":
+        return ws.bitcrusher(None, device=dev)
+    raise ValueError(
+        f"effect {op!r} is not part of the port yet (see ROADMAP.md for the "
+        "slices still to come)")
+
+
+def chain_from_numpy(spec, device=DEFAULT_DEVICE, fuse: bool = True) -> Chain:
+    """A :class:`Chain` on ``device`` from a list of effect descriptions."""
+    dev = resolve_device(device)
+    return Chain([effect_from_numpy(entry, dev) for entry in spec],
+                 fuse=fuse, device=dev)

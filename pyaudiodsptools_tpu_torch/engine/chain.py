@@ -1,0 +1,188 @@
+"""Effect chains: composition, fusion, state, and execution.
+
+Counterpart of ``pyaudiodsptools_tpu/engine/chain.py``. A chain is function
+composition over ``(params, state, block)`` ops; an offline render chains
+each op's whole-signal ``offline`` path, falling back to a loop of its
+streaming step over the blocks.
+
+Differences from the JAX package, all of them consequences of PyTorch
+running eagerly:
+
+* there is no ``jit``, so there is no structure/params split and no compiled
+  program cache;
+* the device is an argument of the Chain (default ``"cuda"``) and not a
+  process-wide backend read at build time;
+* fusion does not depend on the device: LTI runs and tail runs always fuse,
+  and on a CPU tensor the fused effects run their plain versions.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Sequence
+
+import torch
+
+from ..core.config import DEFAULT_DEVICE, resolve_device
+from ..ops.base import Effect
+
+
+class Chain:
+    """An ordered effect chain with explicit state.
+
+    >>> chain = Chain([ops.lowcut(cfg, 800), ops.softclipper(cfg)])
+    >>> out_blocks = chain.render_blocks(blocks)       # offline
+    >>> state = chain.init_state()
+    >>> state, out = chain.step(state, block)          # streaming
+
+    Every effect must have been built for the chain's ``device``; with
+    ``device="cuda"`` and no card the constructor raises.
+    """
+
+    def __init__(self, effects: Sequence[Effect], fuse: bool = True,
+                 device=DEFAULT_DEVICE):
+        self.device = resolve_device(device)
+        self.effects = tuple(effects)
+        for e in self.effects:
+            if e.device.type != self.device.type:
+                raise ValueError(
+                    f"effect {e.name!r} was built for device {e.device} but "
+                    f"the chain runs on {self.device}; pass the same device "
+                    "to the op factories and to Chain")
+        # Consecutive LTI effects collapse into ONE segmented convolution
+        # (their cascade's impulse response is the convolution of their
+        # effective kernels); what is left of delay / tremolo / waveshaper
+        # runs collapses into one fused tail pass.
+        self._exec_effects = fuse_lti_runs(self.effects) if fuse \
+            else self.effects
+        self.params = tuple(e.params for e in self._exec_effects)
+
+    def __iter__(self):
+        return iter(self.effects)
+
+    def __len__(self) -> int:
+        return len(self.effects)
+
+    @property
+    def exec_effects(self) -> tuple[Effect, ...]:
+        """The effects actually executed (runs fused), in order."""
+        return self._exec_effects
+
+    def init_state(self, batch_shape: tuple[int, ...] = ()) -> tuple[Any, ...]:
+        return tuple(e.state(batch_shape) for e in self._exec_effects)
+
+    def step(self, state, block: torch.Tensor):
+        """Process one block through the whole chain. Raises
+        NotImplementedError for a chain that holds a FIR effect until the
+        streaming slice of the port lands."""
+        return chain_step(self._exec_effects, self.params, state, block)
+
+    def render_blocks(self, blocks: torch.Tensor,
+                      use_kernels: bool = True) -> torch.Tensor:
+        """Offline: process all ``(..., num_blocks, block_size)`` blocks.
+        The input is never overwritten: both kernels read halos that other
+        thread blocks still need, so every stage writes a fresh output.
+
+        ``use_kernels=False`` runs every effect's plain PyTorch version on
+        whatever device ``blocks`` is on (the reference for the kernels)."""
+        if blocks.device.type != self.device.type:
+            raise ValueError(
+                f"blocks are on {blocks.device} but the chain was built for "
+                f"{self.device}")
+        return chain_render(self._exec_effects, self.params, blocks,
+                            use_kernels=use_kernels)
+
+
+def fuse_lti_runs(effects: tuple[Effect, ...]) -> tuple[Effect, ...]:
+    """Fuse runs of >= 2 consecutive fusable effects:
+
+    * LTI effects (carry an ``lti_kernel``) -> one FIR whose impulse
+      response is the cascade's (ops/fft_filter.fuse_lti). A run is cut
+      where the fused kernel, its zero prefix stripped, would outgrow the
+      one-window segmented convolution (a long delay next to a filter): the
+      members on either side of the cut fuse separately or stay as they are;
+    * tail runs (delay without pre-filters / tremolo / stateless
+      waveshapers) left over after the pass above -> one windowed kernel
+      pass (kernels/tail.fused_tail). A run the tail kernel cannot take
+      (delays that reach back further than a thread block's shared memory
+      holds) raises there; ``Chain(..., fuse=False)`` runs the members one
+      by one.
+
+    The dynamics pair (compressor / gate) joins with the dynamics slice.
+    """
+    from ..ops.fft_filter import fits_one_window, fuse_lti, fused_kernel
+
+    out: list[Effect] = []
+    run: list[Effect] = []
+
+    def flush():
+        if len(run) >= 2:
+            out.append(fuse_lti(run))
+        else:
+            out.extend(run)
+        run.clear()
+
+    for e in effects:
+        if e.lti_kernel is None:
+            flush()
+            out.append(e)
+            continue
+        if run and not fits_one_window(fused_kernel(run + [e])):
+            flush()
+        run.append(e)
+    flush()
+    return fuse_tail_runs(tuple(out))
+
+
+def fuse_tail_runs(effects: tuple[Effect, ...]) -> tuple[Effect, ...]:
+    """Second fusion pass: collapse runs of >= 2 consecutive tail-fusable
+    effects into one fused tail. Runs AFTER LTI fusion so a delay adjacent
+    to other LTI ops prefers the FIR cascade."""
+    from ..kernels.tail import fused_tail, tail_fusable
+
+    out: list[Effect] = []
+    run: list[Effect] = []
+
+    def flush():
+        if len(run) >= 2:
+            out.append(fused_tail(run))
+        else:
+            out.extend(run)
+        run.clear()
+
+    for e in effects:
+        if tail_fusable(e):
+            run.append(e)
+        else:
+            flush()
+            out.append(e)
+    flush()
+    return tuple(out)
+
+
+def chain_step(effects, params, state, block):
+    """Streaming step over the executed effects."""
+    new_states = []
+    for e, p, st in zip(effects, params, state):
+        st, block = e.step(p, st, block)
+        new_states.append(st)
+    return tuple(new_states), block
+
+
+def scan_offline(init_fn, step_fn, params, blocks: torch.Tensor) -> torch.Tensor:
+    """Fallback offline path: a loop of a streaming step over the blocks."""
+    state = init_fn(params, blocks.shape[:-2])
+    outs = []
+    for i in range(blocks.shape[-2]):
+        state, y = step_fn(params, state, blocks[..., i, :])
+        outs.append(y)
+    return torch.stack(outs, dim=-2)
+
+
+def chain_render(effects, params, blocks, use_kernels: bool = True):
+    """Offline render over the executed effects."""
+    for e, p in zip(effects, params):
+        if e.offline is not None:
+            blocks = e.offline(p, blocks, use_kernels=use_kernels)
+        else:
+            blocks = scan_offline(e.init_state, e.step, p, blocks)
+    return blocks

@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), their wrappers and their
+plain PyTorch versions.
+
+``segconv``  segmented overlap-save convolution  (csrc/segconv.cu)
+``tail``     fused delay/tremolo/waveshaper tail (csrc/tail.cu)
+``_build``   compiles csrc/*.cu with nvcc at first use and loads them with
+             ctypes
+
+Importing these modules needs neither ``nvcc`` nor a card: a kernel is built
+and loaded inside the call that first launches it.
+"""

@@ -1,0 +1,257 @@
+"""Segmented overlap-save convolution: wrapper, plain version and plan.
+
+Replaces the TPU kernel ``pyaudiodsptools_tpu/kernels/pallas_conv.py ::
+segmented_conv_fused`` (bodies ``_kernel_dma_union`` / ``_kernel_dma``). It
+computes what that kernel computes, per channel of a (C, T) float32 signal:
+
+    y[c, m] = sum_k h[k] * x[c, m - shift - k],   0 <= m < T
+
+(with ``y[c, m < shift] = 0`` exactly) and none of its choreography: no row
+offset, no phasor delay folded into the spectrum, no zero-extended tail buffer, no (8, 128) alignment gates, no
+bf16x3 split, no matmul DFT. A thread block gathers its window from any
+sample offset and masks ``idx < 0`` and ``idx >= T`` to zero itself.
+
+What bounds it on an H100: by bytes it must read the signal ``n/seg`` times
+and write it once, a few hundred microseconds at the main-path shape; the
+fp32 FFT on the CUDA cores, with every pass going through shared memory and
+ending in a barrier, costs several times that, so this kernel is bound by
+shared-memory passes and not by device memory. The design keeps everything
+between the window gather and the wrap-free store in shared memory (one
+device-memory read and one write per window), packs two real windows into
+one complex transform, does two radix-4 levels per pass in registers, runs
+the innermost levels of both directions and the spectrum multiply as one
+pass, and stores the spectrum in the forward transform's output order so
+that no reorder pass is needed. Tensor-core DFTs are left to a later change
+(PERF.md, open questions).
+
+The CUDA source is ``csrc/segconv.cu``. The plain version,
+:func:`segmented_conv_plain`, is the same windowed overlap-save on
+``torch.fft``; it runs for CPU tensors, or on request
+(``use_kernels=False``), and is never a fallback for a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import _build
+
+# One window of complex float32 must fit a thread block's shared memory:
+# 8 bytes * 16384 = 128 KB of the 227 KB a block may have on sm_90.
+MAX_WINDOW = 16384
+MIN_WINDOW = 16
+
+# Number of kernel launches made by :func:`segmented_conv` (and by nothing
+# else) since the caller last set it to 0.
+launch_count = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlan:
+    """Geometry and device tables of one FIR for the segmented convolution.
+
+    A window holds ``n = halo + seg`` samples; consecutive windows start
+    ``seg`` samples apart and each yields its last ``seg`` (wrap-free)
+    output samples. ``shift`` delays the output (the kernel's stripped zero
+    prefix)."""
+
+    n: int
+    halo: int
+    seg: int
+    shift: int
+    kernel_len: int
+    spectrum_rfft: torch.Tensor   # (n//2+1,) complex64: plain version
+    spectrum_dif: torch.Tensor    # (n, 2) f32: full spectrum / n, in the
+                                  # forward DIF's output order: CUDA kernel
+    twiddle: torch.Tensor         # (L, 2) f32: per-pass twiddle rows
+
+
+def stage_radices(n: int) -> list[int]:
+    """Radices of the forward transform's levels: radix 4 while it divides,
+    then one radix-2 level if log2(n) is odd. ``csrc/segconv.cu`` runs the
+    same levels (grouped into passes, see :func:`pass_schedule`)."""
+    radices = []
+    m = n
+    while m >= 4:
+        radices.append(4)
+        m //= 4
+    if m == 2:
+        radices.append(2)
+    return radices
+
+
+def dif_positions(n: int) -> np.ndarray:
+    """``pos[k]``: where the in-place decimation-in-frequency transform
+    leaves frequency ``k`` (mixed-radix digit reversal)."""
+    rem = np.arange(n)
+    pos = np.zeros(n, dtype=np.int64)
+    span = n
+    for r in stage_radices(n):
+        span //= r
+        pos += (rem % r) * span
+        rem //= r
+    return pos
+
+
+def pass_schedule(n: int) -> list[tuple[str, int]]:
+    """The kernel's passes over the levels above its innermost pass, in
+    forward order: ``("two", lm)`` runs the radix-4 levels of size ``2**lm``
+    and ``2**(lm-2)`` in one pass, ``("one", lm)`` the level of size
+    ``2**lm`` alone. The innermost pass takes the levels of size <= 16
+    (log2(n) even) or <= 8 (odd) and needs no table."""
+    ln = n.bit_length() - 1
+    inner = 3 if ln & 1 else 4
+    passes = []
+    lm = ln
+    while lm - 4 >= inner:
+        passes.append(("two", lm))
+        lm -= 4
+    if lm > inner:
+        passes.append(("one", lm))
+    return passes
+
+
+_twiddles: dict[tuple[int, str], torch.Tensor] = {}
+
+
+def pass_twiddles(n: int, device: torch.device) -> torch.Tensor:
+    """(L, 2) float32 twiddle rows for ``csrc/segconv.cu``, built in float64
+    on the host; one table per window size and device.
+
+    The rows of each pass follow one another in forward order, indexed by the
+    thread's own ``j`` so that consecutive threads read consecutive entries:
+    a two-level pass at size m has six rows of m/16 entries, ``w_m^(j*p)``
+    then ``w_(m/4)^(j*p)`` for p = 1, 2, 3; a one-level pass has three rows of
+    m/4 entries, ``w_m^(j*p)``. (``w_m = exp(-2*pi*i/m)``.)"""
+    key = (n, str(device))
+    tab = _twiddles.get(key)
+    if tab is None:
+        rows = [np.zeros(0, dtype=np.complex128)]
+        for kind, lm in pass_schedule(n):
+            m = 1 << lm
+            if kind == "two":
+                j = np.arange(m >> 4)
+                rows += [np.exp(-2j * np.pi * j * p / m) for p in (1, 2, 3)]
+                rows += [np.exp(-2j * np.pi * j * p / (m >> 2)) for p in (1, 2, 3)]
+            else:
+                j = np.arange(m >> 2)
+                rows += [np.exp(-2j * np.pi * j * p / m) for p in (1, 2, 3)]
+        w = np.concatenate(rows)
+        if w.size == 0:                    # n = 16: the innermost pass alone
+            w = np.ones(1, dtype=np.complex128)
+        tab = torch.from_numpy(
+            np.stack([w.real, w.imag], axis=1).astype(np.float32)).to(device)
+        _twiddles[key] = tab
+    return tab
+
+
+def make_plan(kernel: np.ndarray, halo: int, seg: int, shift: int,
+              device) -> ConvPlan:
+    """Build the plan of a real float64 ``kernel`` (zero prefix already
+    stripped) for windows of ``halo + seg`` samples."""
+    kernel = np.asarray(kernel, dtype=np.float64)
+    n = halo + seg
+    _check_geometry(n, halo, seg, shift, len(kernel))
+    device = torch.device(device)
+    full = np.fft.fft(np.concatenate([kernel, np.zeros(n - len(kernel))]))
+    permuted = np.empty(n, dtype=np.complex128)
+    permuted[dif_positions(n)] = full / n
+    return ConvPlan(
+        n=n, halo=halo, seg=seg, shift=shift, kernel_len=len(kernel),
+        spectrum_rfft=torch.from_numpy(
+            full[: n // 2 + 1].astype(np.complex64)).to(device),
+        spectrum_dif=torch.from_numpy(np.stack(
+            [permuted.real, permuted.imag], axis=1).astype(np.float32)
+        ).to(device),
+        twiddle=pass_twiddles(n, device),
+    )
+
+
+def _check_geometry(n: int, halo: int, seg: int, shift: int,
+                    kernel_len: int) -> None:
+    """What the CUDA kernel relies on, checked where it is relied on."""
+    if n & (n - 1) or not MIN_WINDOW <= n <= MAX_WINDOW:
+        raise ValueError(
+            f"window of {n} samples: the segmented-conv kernel takes a power "
+            f"of two between {MIN_WINDOW} and {MAX_WINDOW} (one complex "
+            "window must fit a thread block's shared memory)")
+    if halo < 0 or seg < 1 or halo + seg != n:
+        raise ValueError(f"bad window geometry: halo {halo} + seg {seg} != {n}")
+    if kernel_len - 1 > halo:
+        raise ValueError(
+            f"halo of {halo} samples does not cover a {kernel_len}-tap kernel")
+    if shift < 0:
+        raise ValueError(f"output delay must be >= 0, got {shift}")
+
+
+def segmented_conv_plain(x: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
+    """The plain PyTorch version: windowed overlap-save on ``torch.fft``."""
+    C, T = x.shape
+    n, halo, seg, shift = plan.n, plan.halo, plan.seg, plan.shift
+    n_seg = -(-T // seg)
+    # Left padding = halo + output delay: gathering every window `shift`
+    # samples early lands its wrap-free region on y[m] = conv[m - shift].
+    xp = torch.nn.functional.pad(x, (halo + shift, n_seg * seg - T))
+    windows = xp.unfold(-1, n, seg)[:, :n_seg]
+    conv = torch.fft.irfft(torch.fft.rfft(windows, dim=-1) * plan.spectrum_rfft,
+                           n=n, dim=-1)
+    y = conv[..., halo:].reshape(C, n_seg * seg)[:, :T]
+    y = y.to(torch.float32).contiguous()
+    # The output delay is exact: the first `shift` samples are silence, not
+    # the transform's rounding noise.
+    y[:, :shift] = 0.0
+    return y
+
+
+def _launch(x: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
+    global launch_count
+    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(
+            "segmented_conv takes a contiguous (C, T) float32 tensor, got "
+            f"{tuple(x.shape)} {x.dtype} contiguous={x.is_contiguous()}")
+    _check_geometry(plan.n, plan.halo, plan.seg, plan.shift, plan.kernel_len)
+    for name, rows in (("spectrum_dif", plan.n),
+                       ("twiddle", pass_twiddles(plan.n, x.device).shape[0])):
+        t = getattr(plan, name)
+        if t.device != x.device or t.shape != (rows, 2) \
+                or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                f"plan.{name} must be a contiguous ({rows}, 2) float32 "
+                f"tensor on {x.device}, got {tuple(t.shape)} {t.dtype} on "
+                f"{t.device}")
+    C, T = x.shape
+    if T >= 2 ** 31 - plan.n - plan.shift:
+        raise ValueError(f"signal of {T} samples is too long for int32 indexing")
+    y = torch.empty_like(x)
+    if C == 0 or T == 0:
+        return y
+    lib = _build.load("segconv")
+    fn = lib.segconv_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), y.data_ptr(), plan.spectrum_dif.data_ptr(),
+                 plan.twiddle.data_ptr(), C, T, plan.n, plan.halo, plan.seg,
+                 plan.shift, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"segconv kernel launch failed with CUDA error {err} "
+            f"(C={C}, T={T}, n={plan.n}, halo={plan.halo}, seg={plan.seg})")
+    launch_count += 1
+    return y
+
+
+def segmented_conv(x: torch.Tensor, plan: ConvPlan,
+                   use_kernels: bool = True) -> torch.Tensor:
+    """``y[c, m] = conv(x[c], h)[m - plan.shift]`` for x of shape (C, T).
+
+    A CUDA tensor goes through the hand-written kernel, or the call raises.
+    The plain version runs for a CPU tensor, or when ``use_kernels`` is
+    False."""
+    if x.is_cuda and use_kernels:
+        return _launch(x, plan)
+    return segmented_conv_plain(x, plan)

@@ -1,0 +1,194 @@
+"""Windowed-sinc FFT filters (high-cut / low-cut) and the generic FIR effect.
+
+Counterpart of ``pyaudiodsptools_tpu/ops/fft_filter.py``. A filter's
+*effective impulse response* (windowed sinc at its one-block latency shift)
+is built once on the host in float64 and executed by the generic ``fir``
+machinery: offline runs the segmented overlap-save convolution with the
+exact-zero latency prefix stripped and re-applied as a free output delay.
+One code path serves the named filters and fused LTI cascades alike.
+
+The planner is this package's own. The JAX planner sizes windows for the
+TPU's matmul DFT and its (8, 128) DMA alignment; here the CUDA kernel
+(``kernels/segconv.py``) gathers a window from any sample offset, and the
+only hard limit is that one window of complex float32 fits a thread block's
+shared memory (``MAX_WINDOW``). Parity with the JAX package is judged on the
+output, not on the geometry.
+
+Streaming (``fir_step``) belongs to the streaming slice of the port and
+raises until then.
+"""
+
+from __future__ import annotations
+
+from functools import reduce
+
+import numpy as np
+import torch
+
+from ..core.config import DEFAULT_DEVICE, EngineConfig, resolve_device
+from ..kernels import segconv
+from .base import Effect, params_dataclass
+
+STREAMING_NOT_PORTED = (
+    "the streaming step of FIR effects (fir_step, the counterpart of the JAX "
+    "package's conv_pairs_fused path) is not ported yet: it belongs to the "
+    "streaming slice of the PyTorch/CUDA port (see ROADMAP.md). Use the "
+    "offline render.")
+
+MAX_WINDOW = segconv.MAX_WINDOW
+# The planner's floor (the kernel itself takes windows from 16 samples up):
+# below this a block is too small to be worth a launch slot.
+MIN_WINDOW = 1024
+# The halo is the stripped kernel's reach rounded up to this many samples, so
+# that a window's output span starts on a 512-byte boundary of the signal.
+HALO_STEP = 128
+
+
+def sinc_kernel(cutoff_hz: float, sample_rate: float, filter_length: int,
+                window: str = "blackman", invert: bool = False) -> np.ndarray:
+    """Host-side windowed-sinc FIR construction, float64: sinc, window,
+    unity-gain normalize, optional spectral inversion (lowpass -> highpass),
+    in the reference's order."""
+    n = np.arange(filter_length)
+    h = np.sinc(2 * cutoff_hz / sample_rate * (n - (filter_length - 1) / 2))
+    if window == "blackman":
+        h *= np.blackman(filter_length)
+    elif window == "kaiser6":
+        h *= np.kaiser(filter_length, 6.0)
+    else:  # pragma: no cover
+        raise ValueError(f"unknown window: {window}")
+    h /= np.sum(h)
+    if invert:
+        h = -h
+        h[(filter_length - 1) // 2] += 1
+    return h
+
+
+def _make(cfg: EngineConfig, cutoff_hz: float, invert: bool, name: str,
+          device) -> Effect:
+    B = cfg.block_size
+    fl = (B // 2) - 1
+    kernel = sinc_kernel(cutoff_hz, cfg.sample_rate, fl, "blackman", invert)
+    # Effective impulse response incl. the 1-block latency: y = conv(x, e).
+    eff_kernel = np.concatenate([np.zeros(B - fl // 2), kernel])
+    return fir(eff_kernel, B, name=name, device=device)
+
+
+def highcut(cfg: EngineConfig, cutoff_hz: float = 8000.0,
+            device=DEFAULT_DEVICE) -> Effect:
+    """Lowpass ("high cut") filter."""
+    return _make(cfg, cutoff_hz, invert=False, name="highcut", device=device)
+
+
+def lowcut(cfg: EngineConfig, cutoff_hz: float = 160.0,
+           device=DEFAULT_DEVICE) -> Effect:
+    """Highpass ("low cut") filter."""
+    return _make(cfg, cutoff_hz, invert=True, name="lowcut", device=device)
+
+
+def _halo_for(kernel_len: int) -> int:
+    return HALO_STEP * max(1, -(-(kernel_len - 1) // HALO_STEP))
+
+
+def plan_segments(kernel_len: int) -> tuple[int, int]:
+    """(halo, seg) in samples for a kernel of this length.
+
+    ``halo >= kernel_len - 1`` covers the kernel; the window
+    ``n = halo + seg`` is a power of two, at least 8x the halo where the cap
+    allows (wasted window fraction <= 1/8) and never more than
+    ``MAX_WINDOW``. A kernel whose halo would take more than half of the
+    largest window raises: longer kernels (reverb tap trains) need the
+    partitioned convolution that comes with the reverb slice."""
+    halo = _halo_for(kernel_len)
+    if 2 * halo > MAX_WINDOW:
+        raise ValueError(
+            f"a {kernel_len}-tap kernel needs a halo of {halo} samples, "
+            f"more than half of the largest window the segmented-conv CUDA "
+            f"kernel holds in shared memory ({MAX_WINDOW}). Kernels this long "
+            "(reverb tap trains, ROADMAP Queue 1 #8) come with the reverb "
+            "slice of the port.")
+    n = MIN_WINDOW
+    while n < 8 * halo and n < MAX_WINDOW:
+        n *= 2
+    return halo, n - halo
+
+
+def fits_one_window(kernel: np.ndarray) -> bool:
+    """Whether ``fir`` can take this kernel (its zero prefix stripped)."""
+    nz = np.flatnonzero(kernel)
+    klen = len(kernel) - int(nz[0]) if nz.size else 1
+    return 2 * _halo_for(klen) <= MAX_WINDOW
+
+
+def segmented_fft_conv(params: "FIRParams", blocks: torch.Tensor,
+                       use_kernels: bool = True) -> torch.Tensor:
+    """Linear convolution + output delay via large-segment overlap-save:
+    ``out[m] = conv(x, h)[m - lead]`` per channel, on the flattened
+    ``(..., nb*B)`` signal. Both block sizes flatten to the same (C, T) for
+    the kernel; only the filter design depends on B."""
+    shape = blocks.shape
+    T = shape[-2] * shape[-1]
+    x = blocks.reshape(-1, T)
+    y = segconv.segmented_conv(x, params.plan, use_kernels=use_kernels)
+    return y.reshape(shape)
+
+
+# ---------------------------------------------------------------------------
+# Generic FIR effect from an arbitrary kernel.
+# ---------------------------------------------------------------------------
+
+
+@params_dataclass(meta_fields=("block_size", "lead"))
+class FIRParams:
+    plan: segconv.ConvPlan   # spectra and twiddles on device + the window's
+                             # geometry (n, halo, seg, kernel_len)
+    block_size: int          # ENGINE block size
+    lead: int                # stripped zero prefix, re-applied as delay
+
+
+def fir(kernel: np.ndarray, block_size: int, name: str = "fir",
+        device=DEFAULT_DEVICE) -> Effect:
+    """An Effect computing ``y = conv(x, kernel)`` (causal, zero-latency
+    beyond what the kernel itself encodes), offline through the segmented
+    overlap-save path. Fused cascades carry a long EXACT-ZERO prefix (each
+    member's latency shift): it is stripped and re-applied as a free output
+    delay, which shrinks the halo by the prefix length."""
+    dev = resolve_device(device)
+    kernel = np.asarray(kernel, dtype=np.float64)
+    nz = np.flatnonzero(kernel)
+    lead = int(nz[0]) if nz.size else 0
+    stripped = kernel[lead:] if nz.size else kernel[:1]
+    halo, seg = plan_segments(len(stripped))
+    plan = segconv.make_plan(stripped, halo, seg, lead, dev)
+    params = FIRParams(plan=plan, block_size=block_size, lead=lead)
+    return Effect(name=name, params=params, init_state=fir_init_state,
+                  step=fir_step, offline=fir_offline,
+                  lti_kernel=kernel, device=dev)
+
+
+def fir_init_state(params: FIRParams, batch_shape: tuple[int, ...] = ()):
+    raise NotImplementedError(STREAMING_NOT_PORTED)
+
+
+def fir_step(params: FIRParams, state, block: torch.Tensor):
+    raise NotImplementedError(STREAMING_NOT_PORTED)
+
+
+def fir_offline(params: FIRParams, blocks: torch.Tensor,
+                use_kernels: bool = True) -> torch.Tensor:
+    return segmented_fft_conv(params, blocks, use_kernels)
+
+
+def fuse_lti(effects, name: str = "fir_cascade") -> Effect:
+    """Fuse consecutive LTI effects into one FIR: the cascade's impulse
+    response is the convolution of the members' effective kernels (built in
+    float64 on the host)."""
+    kernel = fused_kernel(effects)
+    B = getattr(effects[0].params, "block_size")
+    return fir(kernel, B, name=name + ":" + "+".join(e.name for e in effects),
+               device=effects[0].device)
+
+
+def fused_kernel(effects) -> np.ndarray:
+    return reduce(np.convolve,
+                  [np.asarray(e.lti_kernel, dtype=np.float64) for e in effects])

@@ -1,0 +1,112 @@
+"""PyTorch/CUDA port, FIR effects: ``fir``, ``fuse_lti``, the named filters
+and ``eq3band_fft`` against the JAX package's ``fir_offline`` (its CPU XLA
+path) and against a float64 ``np.convolve`` oracle."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import pyaudiodsptools_tpu as jx
+import pyaudiodsptools_tpu_torch as pt
+from pyaudiodsptools_tpu.ops import fft_filter as jx_fir
+from pyaudiodsptools_tpu_torch.ops import fft_filter as pt_fir
+
+from torch_port_util import conv_oracle, snr_db
+
+CPU = "cpu"
+
+
+def _effects(pkg, cfg, which, **kw):
+    members = [pkg.ops.lowcut(cfg, 120.0, **kw),
+               pkg.ops.highcut(cfg, 12000.0, **kw),
+               pkg.ops.eq3band_fft(cfg, 250.0, 2.0, 1500.0, -1.5, 6000.0, 2.5,
+                                   **kw)]
+    if which == "cascade":
+        fuse = jx_fir.fuse_lti if pkg is jx else pt_fir.fuse_lti
+        return fuse(members)
+    return members[("lowcut", "highcut", "eq3band_fft").index(which)]
+
+
+@pytest.mark.parametrize("B", [512, 4096])
+@pytest.mark.parametrize("which", ["lowcut", "highcut", "eq3band_fft",
+                                   "cascade"])
+def test_fir_matches_jax_and_oracle(B, which):
+    jeff = _effects(jx, jx.EngineConfig(44100, B), which)
+    peff = _effects(pt, pt.EngineConfig(44100, B), which, device=CPU)
+    assert peff.name == jeff.name
+    np.testing.assert_array_equal(peff.lti_kernel, jeff.lti_kernel)
+    assert peff.params.lead == jeff.params.lead
+    nb = 44 if B == 512 else 9
+    x = (np.random.default_rng(B).standard_normal((2, nb, B)) * 0.4
+         ).astype(np.float32)
+    got = peff.offline(peff.params, torch.from_numpy(x)).numpy()
+    want = np.asarray(jeff.offline(jeff.params, jnp.asarray(x)))
+    oracle = conv_oracle(x.reshape(2, -1), peff.lti_kernel)
+    # both sides are f32 FFT convolutions of the same f64-built kernel
+    assert snr_db(want, got) >= 100.0
+    # the bar the JAX package holds its own conv kernel to on the chip
+    assert snr_db(oracle, got.reshape(2, -1)) > 95.0
+    # the stripped zero prefix comes back as an exact output delay
+    lead = peff.params.lead
+    assert lead > 0
+    assert not got.reshape(2, -1)[:, :lead].any()
+
+
+def test_cascade_geometry_of_the_flagship_chain():
+    """The fused FIR of lowcut+highcut+eq3band_fft: the same lead and tap
+    counts as the JAX package builds, and the port's own window."""
+    for B, lead, taps, n in ((512, 1155, 1017, 8192), (4096, 9219, 8185, 16384)):
+        p = _effects(pt, pt.EngineConfig(44100, B), "cascade", device=CPU).params
+        assert (p.lead, p.plan.kernel_len) == (lead, taps)
+        assert p.plan.shift == lead
+        assert p.plan.n == n == p.plan.halo + p.plan.seg
+        assert p.plan.halo >= taps - 1
+
+
+@pytest.mark.parametrize("klen", [1, 2, 129, 255, 1017, 4097, 8185, 8193])
+def test_planner_invariants(klen):
+    halo, seg = pt_fir.plan_segments(klen)  # in samples
+    n = halo + seg
+    assert halo >= klen - 1                 # the halo covers the kernel
+    assert n & (n - 1) == 0                 # power of two
+    assert n <= pt_fir.MAX_WINDOW           # the kernel path's cap
+    assert seg >= halo                      # at least half a window is output
+    assert n >= min(8 * halo, pt_fir.MAX_WINDOW)
+
+
+def test_kernel_too_long_names_the_later_slice():
+    with pytest.raises(ValueError, match="reverb"):
+        pt_fir.plan_segments(8194)
+    with pytest.raises(ValueError, match="reverb"):
+        pt_fir.fir(np.ones(9000), 512, device=CPU)
+    assert pt_fir.fits_one_window(np.ones(8193))
+    assert not pt_fir.fits_one_window(np.ones(8194))
+    # a long zero prefix is free: it is stripped before planning
+    assert pt_fir.fits_one_window(np.r_[np.zeros(50000), np.ones(100)])
+
+
+def test_fir_streaming_raises_until_its_slice():
+    e = pt.ops.lowcut(pt.EngineConfig(44100, 512), 120.0, device=CPU)
+    with pytest.raises(NotImplementedError, match="streaming slice"):
+        e.state((2,))
+    with pytest.raises(NotImplementedError, match="streaming slice"):
+        e.step(e.params, None, torch.zeros(2, 512))
+
+
+def test_all_zero_and_identity_kernels():
+    x = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 6, 512)).astype(np.float32))
+    ident = pt_fir.fir(np.array([1.0]), 512, device=CPU)
+    assert snr_db(x.numpy(), ident.offline(ident.params, x).numpy()) > 120.0
+    zero = pt_fir.fir(np.zeros(7), 512, device=CPU)
+    assert not zero.offline(zero.params, x).any()
+
+
+def test_sinc_kernel_matches_jax():
+    for args in ((8000.0, 44100, 255, "blackman", False),
+                 (160.0, 44100, 2047, "blackman", True),
+                 (1875.0, 48000, 255, "kaiser6", True)):
+        np.testing.assert_array_equal(pt_fir.sinc_kernel(*args),
+                                      jx_fir.sinc_kernel(*args))
