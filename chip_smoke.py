@@ -14,18 +14,26 @@ failed check raises (exit code != 0, no result line):
 3. ``kernel_cases``  each hand-written kernel against its plain PyTorch
    version (and the conv against a float64 oracle) on small cases that cover
    the edges: odd window counts, ragged tiles, re-zeroing before the signal
-   start, a shrunk tile, a run the tail kernel refuses.
-4. ``main_path``  the chain7 configuration of the flagship chain (saturator
-   in place of the compressor/gate pair, whose kernels come with the next
-   slice) through ``render`` at 64 channels x 30 s, block size 4096 then 512,
-   on noise bursts generated on the card from a seed. The kernels' launch
-   counts are set to 0 just before and read just after. Then the outputs are
-   held against the same render with ``use_kernels=False`` on the card and,
-   for two channels, against a float64 numpy oracle of the whole chain.
+   start, a shrunk tile, a run the tail kernel refuses; pack and unpack on
+   ragged lengths and 1, 3 and 64 channels (exact, pad lanes zero); the two
+   dynamics walks on three signals for compressor, gate, their cascade and
+   the one-sample attack (exit states equal, 0 mismatching samples), and the
+   whole speculative stage against the plain one-segment (serial) walk.
+4. ``main_path``  two paths through ``render`` at 64 channels x 30 s on noise
+   bursts generated on the card from a seed, each with every kernel's launch
+   count set to 0 just before and read just after. First the earlier path,
+   chain7 (saturator in place of the compressor/gate pair) at block size
+   4096; then the main path, **chain8**, the flagship 8-effect chain, at
+   block size 4096 then 512, through all six kernels. The outputs are held
+   against the same render with ``use_kernels=False`` on the card and, for
+   two channels, against a float64 numpy oracle of the whole chain (chain8:
+   over an excerpt, because the oracle walks the two automatons sample by
+   sample in Python).
 5. ``kernel_timing``  each kernel at the main-path shapes: time (CUDA events,
    median of 5 after a warm-up) beside its plain version, a library
    yardstick where there is one, and its bound (bytes over the card's memory
-   rate, operations over its fp32 rate, whichever is larger).
+   rate, operations over its fp32 rate, whichever is larger). Also the whole
+   dynamics stage for a range of segment counts (the planner's sweep).
 6. ``throughput``  samples/s of the whole render, median of 3 chained passes.
    With ``--profile``, a ``profile`` phase follows: ``torch.profiler`` over a
    few renders, device time by kernel name and the device's idle share.
@@ -48,7 +56,8 @@ import numpy as np
 import torch
 
 import pyaudiodsptools_tpu_torch as pt
-from pyaudiodsptools_tpu_torch.kernels import _build, segconv, tail
+from pyaudiodsptools_tpu_torch.kernels import (_build, dynamics as kdyn,
+                                               relayout, segconv, tail)
 from pyaudiodsptools_tpu_torch.ops import fft_filter
 from pyaudiodsptools_tpu_torch.ops.tremolo import TremoloParams, gain_row
 
@@ -81,6 +90,31 @@ CRUSH_FRACTION_AFTER_ROUNDING_STAGE = 1e-3
 # float64 oracle (the JAX package's bar for its kernel-backed chain).
 CHAIN_DB_PLAIN = 100.0
 CHAIN_DB_ORACLE = 90.0
+# With the dynamics pair in the chain the plain render is no longer one
+# rounding away: the conv kernel and the cuFFT plain version differ in the
+# last bits, and where a sample lies within that of a threshold the
+# compressor's or the gate's mask bit flips and a ramp restarts or runs on
+# (both renders are right for their own conv output). A few dozen such
+# samples in 85 million put the whole-chain figure near 100 dB, so the plain
+# render is held to the JAX package's bar for its kernel-backed chain, and
+# the 100 dB bar goes to the plain versions of the stages AFTER the conv run
+# on the kernel render's own conv output, where no mask can flip.
+CHAIN8_DB_PLAIN = 90.0
+# pack, unpack and the two dynamics walks are held to EQUALITY with their
+# plain versions: they move or select values, convert ints exactly, and round
+# each product and sum on its own exactly as the plain versions do.
+
+# chain8's float64 oracle walks the two automatons sample by sample in Python,
+# so it covers an excerpt: the first 32 blocks of 4096 (2.97 s) of 2 channels.
+ORACLE_EXCERPT = 32 * 4096
+# Operations per sample of one automaton, for the operations side of the
+# walks' bound (counted from csrc/dynamics.cu: compares, selects, the two
+# ramps and the output product; without the gain path for the state walk's
+# last op).
+WALK_OPS_WITH_GAIN = 25
+WALK_OPS_STATE_ONLY = 12
+# Segment counts of the planner's sweep (kernel_timing).
+SWEEP_SEGMENTS = (64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
 
 
 def emit(obj) -> None:
@@ -106,6 +140,7 @@ def snr_db_cuda(golden: torch.Tensor, ours: torch.Tensor) -> float:
 
 
 def db_json(x: float):
+    """dB for a JSON line; null stands for infinity, i.e. bit-equal."""
     return None if x == float("inf") else round(x, 2)
 
 
@@ -143,6 +178,8 @@ def fft_conv64(x: np.ndarray, kernel: np.ndarray, shift: int = 0) -> np.ndarray:
 
 
 def chain7_effects(cfg, device):
+    """The earlier path: chain8 with a stateless saturator where the
+    compressor -> gate pair stands."""
     o = pt.ops
     return [o.lowcut(cfg, 120.0, device=device),
             o.highcut(cfg, 12000.0, device=device),
@@ -152,6 +189,22 @@ def chain7_effects(cfg, device):
             o.delay(cfg, 150.0, 2, device=device),
             o.tremolo(cfg, 0.3, 5.0, device=device),
             o.softclipper(cfg, 0.44, device=device)]
+
+
+def chain8_effects(cfg, device):
+    """The main path: the flagship 8-effect chain."""
+    o = pt.ops
+    effects = chain7_effects(cfg, device)
+    effects[3:4] = [o.compressor(cfg, -18.0, 0.6, 3.1, 30.1, device=device),
+                    o.gate(cfg, -45.0, 0.1, 3.1, 200.1, device=device)]
+    return effects
+
+
+CHAIN7_NAMES = ["fir_cascade:lowcut+highcut+eq3band_fft",
+                "tail:saturator+delay+tremolo+softclipper"]
+CHAIN8_NAMES = ["fir_cascade:lowcut+highcut+eq3band_fft",
+                "dynamics_cascade:compressor+gate",
+                "tail:delay+tremolo+softclipper"]
 
 
 def burst_noise(channels: int, n: int, seed: int) -> torch.Tensor:
@@ -166,45 +219,96 @@ def burst_noise(channels: int, n: int, seed: int) -> torch.Tensor:
     return torch.clip(noise * burst, -0.99, 0.99)
 
 
-def chain7_oracle(x: np.ndarray, effects, block_size: int) -> np.ndarray:
-    """The whole chain in float64 numpy, from the ops' definitions: three
-    causal FIRs (the filters' float64 impulse responses), the saturator
-    knee, the delay's taps, the tremolo's LFO table walked block by block
-    (freeze quirk included), the soft clipper."""
+def automaton_gains64(over, attack_env, release_env) -> np.ndarray:
+    """The compressor / gate automaton of the reference, one channel, walked
+    sample by sample in Python from REST: the four-field machine (mode, x, y,
+    skip) as ops/dynamics.py's docstring derives it, gains read from the
+    ramps' tables as float64. ``over`` is the over-threshold mask."""
+    att = [float(v) for v in attack_env]
+    rel = [float(v) for v in release_env]
+    x_max, y_max, ratio = len(att), len(rel), att[-1]
+    REST, ATTACK, HOLD, RELEASE = range(4)
+    mode, x, y, skip = REST, 0, 0, False
+    gains = np.ones(len(over))
+    for i, o in enumerate(over.tolist()):
+        if skip:                      # the sample after a completed release
+            skip = False
+            continue
+        if mode == REST:
+            if o:                     # gain att[0] == 1.0 on the trigger
+                mode, x = (HOLD if x_max == 1 else ATTACK), 1
+            continue
+        if mode == ATTACK:            # advances whatever the mask says
+            gains[i] = att[x]
+            x += 1
+            if x >= x_max:
+                mode = HOLD
+            continue
+        if o:                         # HOLD stays, RELEASE re-triggers
+            gains[i] = ratio
+            mode, x, y = HOLD, x_max, 0
+            continue
+        gains[i] = rel[y]             # first or next release sample
+        mode, x, y = RELEASE, 0, y + 1
+        if y >= y_max:
+            mode, y, skip = REST, 0, True
+    return gains
+
+
+def chain_oracle(x: np.ndarray, effects, block_size: int) -> np.ndarray:
+    """A whole chain in float64 numpy, from the ops' definitions: causal FIRs
+    (the filters' float64 impulse responses), the saturator knee, the
+    compressor and gate automatons (mask from the unscaled input, gains from
+    :func:`automaton_gains64`), the delay's taps, the tremolo's LFO table
+    walked block by block (freeze quirk included), the soft clipper."""
     C, T = x.shape
     y = x.astype(np.float64)
-    for e in effects[:3]:
-        y = fft_conv64(y, e.lti_kernel)
-    sat, dly, trem, clip = (e.params for e in effects[3:])
-    coeff, makeup = float(sat.coeff), float(sat.makeup)
-    a = np.abs(y)
-    over = a - coeff
-    shaped = coeff + over / (1.0 + (over / (1.0 - coeff)) ** sat.mode)
-    a = np.where(a > coeff, shaped, a)
-    a = np.where(a > 1.0, (coeff + 1.0) / 2.0, a)
-    y = makeup * np.where(y < 0, -a, a)
-    acc = y.copy()
-    for k in range(dly.feedback_loops):
-        d = dly.time_in_samples * (k + 1)
-        if d < T:
-            acc[:, d:] += float(dly.ramp[k]) * y[:, :T - d]
-    y = acc
-    L = trem.lfo_length
-    depth = float(trem.depth)
-    lfo = (np.sin(float(trem.omega) * np.arange(L)) / 2 + 0.5) * depth \
-        + (1 - depth)
-    phase, avail, gains = 0, L, np.empty(T)
-    for b in range(T // block_size):
-        gains[b * block_size:(b + 1) * block_size] = \
-            lfo[(phase + np.arange(block_size)) % L]
-        if avail < block_size:
-            avail += L * (-(-(block_size - avail) // L))
-        if avail != block_size:
-            phase, avail = (phase + block_size) % L, avail - block_size
-    y = y * gains
-    a = np.minimum(np.abs(y), 1.0)
-    a = -np.abs(a - 1.0) ** float(clip.drive) + 1.0
-    return np.where(y < 0, -a, a)
+    for e in effects:
+        p = e.params
+        if e.name in ("lowcut", "highcut", "eq3band_fft"):
+            y = fft_conv64(y, e.lti_kernel)
+        elif e.name == "saturator":
+            coeff, makeup = float(p.coeff), float(p.makeup)
+            a = np.abs(y)
+            over = a - coeff
+            shaped = coeff + over / (1.0 + (over / (1.0 - coeff)) ** p.mode)
+            a = np.where(a > coeff, shaped, a)
+            a = np.where(a > 1.0, (coeff + 1.0) / 2.0, a)
+            y = makeup * np.where(y < 0, -a, a)
+        elif e.name in ("compressor", "gate"):
+            gains = np.stack([
+                automaton_gains64(np.abs(y[c]) > float(p.threshold),
+                                  p.attack_env.numpy(), p.release_env.numpy())
+                for c in range(C)])
+            y = y * float(p.pre_gain) * gains
+        elif e.name == "delay":
+            acc = y.copy()
+            for k in range(p.feedback_loops):
+                d = p.time_in_samples * (k + 1)
+                if d < T:
+                    acc[:, d:] += float(p.ramp[k]) * y[:, :T - d]
+            y = acc
+        elif e.name == "tremolo":
+            L = p.lfo_length
+            depth = float(p.depth)
+            lfo = (np.sin(float(p.omega) * np.arange(L)) / 2 + 0.5) * depth \
+                + (1 - depth)
+            phase, avail, gains = 0, L, np.empty(T)
+            for b in range(T // block_size):
+                gains[b * block_size:(b + 1) * block_size] = \
+                    lfo[(phase + np.arange(block_size)) % L]
+                if avail < block_size:
+                    avail += L * (-(-(block_size - avail) // L))
+                if avail != block_size:
+                    phase, avail = (phase + block_size) % L, avail - block_size
+            y = y * gains
+        elif e.name == "softclipper":
+            a = np.minimum(np.abs(y), 1.0)
+            a = -np.abs(a - 1.0) ** float(p.drive) + 1.0
+            y = np.where(y < 0, -a, a)
+        else:
+            raise ValueError(f"the oracle does not know {e.name!r}")
+    return y
 
 
 # ---------------------------------------------------------------------------
@@ -346,6 +450,179 @@ def tail_cases() -> dict:
             "oversized_run_refused": refused}
 
 
+def relayout_cases() -> dict:
+    """pack and unpack against their plain versions: exact equality, pad
+    lanes and ragged rows zero, for 1, 3 and 64 channels and segment counts
+    that divide the length or leave a ragged last segment."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(13)
+    results = []
+    for C in (1, 3, 64):
+        for T, segments in ((50037, 7), (65536, 64), (4097, 1), (1000, 999)):
+            x = torch.randn((C, T), generator=gen, device="cuda")
+            G, L, Rp = relayout.geometry(C, T, segments)
+            before = (relayout.pack_launch_count, relayout.unpack_launch_count)
+            tm = relayout.pack(x, G, L, Rp)
+            back = relayout.unpack(tm, C, T, G, L)
+            torch.cuda.synchronize()
+            assert (relayout.pack_launch_count, relayout.unpack_launch_count) \
+                == (before[0] + 1, before[1] + 1)
+            want = relayout.pack(x, G, L, Rp, use_kernels=False)
+            r = {"C": C, "T": T, "G": G, "L": L, "Rp": Rp,
+                 "pack_equal": torch.equal(tm, want),
+                 "unpack_equal": torch.equal(
+                     back, relayout.unpack(want, C, T, G, L,
+                                           use_kernels=False)),
+                 "roundtrip_equal": torch.equal(back, x),
+                 "pad_lanes_zero": not bool(tm[:, C * G:].any()),
+                 "ragged_rows_zero": not bool(
+                     tm[T - (G - 1) * L:, (G - 1) * C:].any())}
+            assert (relayout.pack_launch_count, relayout.unpack_launch_count) \
+                == (before[0] + 1, before[1] + 1)
+            results.append(r)
+            assert all(v for k, v in r.items() if k.endswith(("equal", "zero"))), r
+    return {"phase": "kernel_cases", "name": "relayout (pack, unpack)",
+            "replaces": "pyaudiodsptools_tpu/kernels/relayout.py:"
+                        "time_major_pack, time_major_unpack",
+            "cases": results, "all_exact": True}
+
+
+def dynamics_signals() -> dict:
+    """The signals of the CPU tests: bursty noise, an alternation around the
+    thresholds, silence (all three synchronise within a segment: two walks;
+    4,000 samples), and short bursts followed by silence (12,000 samples,
+    longer than the gate's release of 8,824), where the release spans many
+    segments and the loop must hand states on walk after walk; and a loud
+    level with silent gaps one sample shorter than, as long as and one sample
+    longer than the short-release ops' releases (88 and 132 samples), so
+    that a release completes right before a loud sample: the skipped
+    sample."""
+    rng = np.random.default_rng(42)
+    n = 4000
+    decay = np.zeros((2, 12000), np.float32)
+    decay[:, 100:400] = 0.5
+    decay[1, 9500:9600] = -0.5
+    return {
+        "decay": decay,
+        "gaps": gap_signal(),
+        "bursty": (rng.standard_normal((2, n)) * 0.3
+                   * (rng.random((2, n)) > 0.5)).astype(np.float32),
+        "alternating": np.tile([0.9, 1e-4], n // 2)[None, :].repeat(
+            2, 0).astype(np.float32),
+        "silence": np.zeros((2, n), np.float32),
+    }
+
+
+def gap_signal() -> np.ndarray:
+    pieces = []
+    for gap in (87, 88, 89, 131, 132, 133, 300):
+        pieces += [np.full(300, 0.5, np.float32), np.zeros(gap, np.float32)]
+    row = np.concatenate(pieces + [np.full(300, 0.5, np.float32)])
+    return np.stack([row, -row])
+
+
+def dynamics_cases() -> dict:
+    """The two walks against their plain versions (exit states equal, 0
+    mismatching samples) from REST and from random legal entry states, and
+    the whole speculative stage (kernels, 16 segments) against the plain
+    stage: for the flagship cascade on every signal, for the one-sample
+    attack and for the short releases on the gap signal, the plain
+    ONE-segment walk, which is the serial simulation;
+    elsewhere the plain stage at the same segmentation. (The plain walks are
+    Python loops over the rows, about 0.3 ms a row and op on a card, which
+    is why the cases are no larger.)"""
+    cfg = pt.EngineConfig(SAMPLE_RATE, 512)
+    o = pt.ops
+    comp = o.compressor(cfg, -18.0, 0.6, 3.1, 30.1, device="cuda")
+    gate = o.gate(cfg, -45.0, 0.1, 3.1, 200.1, device="cuda")
+    short = o.compressor(cfg, -20.0, 0.5, 1000.0 / 44100.0, 2.0,
+                         device="cuda")             # x_max == 1
+    assert short.params.x_max == 1
+    short_release = [o.compressor(cfg, -20.0, 0.5, 3.1, 2.0, device="cuda"),
+                     o.gate(cfg, -45.0, 0.1, 3.1, 3.0, device="cuda")]
+    assert [e.params.y_max for e in short_release] == [88, 132]
+    cascades = {"compressor": [comp], "gate": [gate],
+                "cascade": [comp, gate], "short_attack": [short],
+                "short_release": short_release,
+                "cascade_of_4": [gate, short, comp, gate]}
+    rng = np.random.default_rng(17)
+    results = []
+    for cname, members in cascades.items():
+        params = [e.params for e in members]
+        scalars = [kdyn.op_scalars(p) for p in params]
+        for sname, sig in dynamics_signals().items():
+            if cname in ("cascade_of_4", "short_release") \
+                    and sname in ("decay", "silence"):
+                continue
+            x = torch.from_numpy(sig).cuda()
+            G, L, Rp = relayout.geometry(2, x.shape[1], 16)
+            tm = relayout.pack(x, G, L, Rp)
+            random_entry = torch.from_numpy(np.stack([
+                rng.integers(-1, sc[7], Rp) for sc in scalars]
+            ).astype(np.int32)).cuda()
+            r = {"ops": cname, "signal": sname, "T": x.shape[1], "L": L,
+                 "Rp": Rp}
+            for ename, entry in (("rest", torch.zeros_like(random_entry)),
+                                 ("random", random_entry)):
+                before = (kdyn.state_walk_launch_count,
+                          kdyn.audio_walk_launch_count)
+                z_state = kdyn.state_walk(scalars, tm, entry)
+                out, z = kdyn.audio_walk(scalars, tm, entry)
+                torch.cuda.synchronize()
+                assert (kdyn.state_walk_launch_count,
+                        kdyn.audio_walk_launch_count) == \
+                    (before[0] + 1, before[1] + 1)
+                p_out, p_z = kdyn.audio_walk(scalars, tm, entry,
+                                             use_kernels=False)
+                equal = torch.equal(z, p_z) and torch.equal(z_state, z)
+                if ename == "rest":
+                    equal = equal and torch.equal(z_state, kdyn.state_walk(
+                        scalars, tm, entry, use_kernels=False))
+                assert (kdyn.state_walk_launch_count,
+                        kdyn.audio_walk_launch_count) == \
+                    (before[0] + 1, before[1] + 1)
+                r[f"{ename}_exit_states_equal"] = bool(equal)
+                r[f"{ename}_mismatching_samples"] = int((out != p_out).sum())
+            # the whole stage
+            got, r["walks"] = stage_walks(
+                lambda: kdyn.dynamics_offline(params, x, segments=16))
+            assert bool(torch.isfinite(got).all())
+            serial = cname == "cascade" or (cname, sname) in (
+                ("short_attack", "bursty"), ("short_release", "gaps"))
+            plain = kdyn.dynamics_offline(params, x, use_kernels=False,
+                                          segments=1 if serial else 16)
+            r["stage_held_to"] = "plain serial walk (1 segment)" if serial \
+                else "plain stage (16 segments)"
+            r["stage_mismatching_samples"] = int((got != plain).sum())
+            results.append(r)
+            assert r["rest_exit_states_equal"] and r["random_exit_states_equal"], r
+            assert r["rest_mismatching_samples"] == 0, r
+            assert r["random_mismatching_samples"] == 0, r
+            assert r["stage_mismatching_samples"] == 0, r
+            assert 2 <= r["walks"] <= G + 2, r
+            if sname == "decay" and cname in ("gate", "cascade"):
+                # a release that outlasts a segment costs a walk per segment
+                assert r["walks"] >= 8, r
+    # ragged length, 3 channels, the planner's own segment count; the fused
+    # effect through blocks
+    fused = kdyn.fused_dynamics([comp, gate])
+    x = torch.from_numpy((rng.standard_normal((3, 97, 512)) * 0.3
+                          * (rng.random((3, 97, 512)) > 0.6)
+                          ).astype(np.float32)).cuda()
+    got = fused.offline(fused.params, x)
+    want = fused.offline(fused.params, x, use_kernels=False)
+    planner_equal = torch.equal(got, want)
+    assert planner_equal
+    # streaming state is born on the effect's device
+    assert all(v.is_cuda for st in fused.state((2,)) for v in st.values())
+    return {"phase": "kernel_cases", "name": "dynamics (state_walk, audio_walk)",
+            "replaces": "pyaudiodsptools_tpu/kernels/dynamics_pallas.py:"
+                        "_spec_state_kernel, _spec_kernel",
+            "cases": results,
+            "max_mismatching_samples": 0, "all_exit_states_equal": True,
+            "fused_effect_planner_segments_equal_plain": planner_equal}
+
+
 # ---------------------------------------------------------------------------
 # phases 4-6: the main path
 
@@ -365,6 +642,298 @@ def tail_ops_per_sample(stages) -> int:
         else:
             ops += per_map[s[1]]
     return ops
+
+
+# name -> (source under csrc/, "file:line" of the TPU kernel it replaces)
+KERNELS = {
+    "segconv": ("segconv.cu", "pallas_conv.py:926"),
+    "tail": ("tail.cu", "tail_pallas.py:281"),
+    "pack": ("relayout.cu", "relayout.py:283"),
+    "state_walk": ("dynamics.cu", "dynamics_pallas.py:358"),
+    "audio_walk": ("dynamics.cu", "dynamics_pallas.py:323"),
+    "unpack": ("relayout.cu", "relayout.py:316"),
+}
+
+
+def launch_counts() -> dict:
+    return {"segconv": segconv.launch_count, "tail": tail.launch_count,
+            "pack": relayout.pack_launch_count,
+            "state_walk": kdyn.state_walk_launch_count,
+            "audio_walk": kdyn.audio_walk_launch_count,
+            "unpack": relayout.unpack_launch_count}
+
+
+def zero_launch_counts() -> None:
+    segconv.launch_count = 0
+    tail.launch_count = 0
+    relayout.pack_launch_count = 0
+    relayout.unpack_launch_count = 0
+    kdyn.state_walk_launch_count = 0
+    kdyn.audio_walk_launch_count = 0
+
+
+def check_render(chain, cfg, signal, out, n: int,
+                 oracle_samples: int | None = None,
+                 db_plain_bar: float = CHAIN_DB_PLAIN) -> dict:
+    """Hold a render to the plain render on the card, to the plain versions
+    of the stages after the conv run on the kernel's conv output (see
+    CHAIN8_DB_PLAIN) and, for the first and last channel, to the float64
+    oracle (over the first ``oracle_samples`` samples: every effect is
+    causal, so a prefix of the output depends on the same prefix of the
+    input only)."""
+    C, B = signal.shape[0], cfg.block_size
+    T = out.shape[-1]
+    assert out.shape == (C, -(-n // B) * B) and out.dtype == torch.float32
+    assert bool(torch.isfinite(out).all())
+    counts = launch_counts()
+    plain = pt.render(chain, signal, cfg, use_kernels=False)
+    torch.cuda.synchronize()
+    assert launch_counts() == counts, "a plain render launched a kernel"
+    db_plain = snr_db_cuda(plain, out)
+    del plain
+    blocks = pt.block.make_blocks(signal, B)
+    fir_e, rest = chain.exec_effects[0], chain.exec_effects[1:]
+    after = fir_e.offline(fir_e.params, blocks)     # the conv kernel again
+    for e in rest:
+        after = e.offline(e.params, after, use_kernels=False)
+    db_after_conv = snr_db_cuda(after.reshape(C, T), out)
+    del after, blocks
+    pick = [0, C - 1]
+    m = T if oracle_samples is None else oracle_samples
+    assert m % B == 0 and m <= T
+    x2 = torch.nn.functional.pad(signal[pick], (0, T - n))[:, :m].cpu().numpy()
+    oracle = chain_oracle(x2, chain.effects, B)
+    db_oracle = snr_db(oracle, out[pick, :m].cpu().numpy())
+    r = {"db_plain": db_json(db_plain),
+         "db_plain_after_conv": db_json(db_after_conv),
+         "db_oracle_2ch": db_json(db_oracle),
+         "oracle_samples": m, "peak": float(out.abs().max())}
+    assert db_plain >= db_plain_bar, r
+    assert db_after_conv >= CHAIN_DB_PLAIN, r
+    assert db_oracle >= CHAIN_DB_ORACLE, r
+    assert 0.0 < r["peak"] <= 1.0, r
+    return r
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: bytes over its memory rate or
+    operations over its fp32 rate, whichever is larger (ms)."""
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    to = ops / FP32_FLOP_PER_S * 1e3
+    return {"bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "bound_bytes_ms": tb, "bound_operations_ms": to}
+
+
+def time_segconv(x, fir_e, by_B: dict, B: int) -> torch.Tensor:
+    """The segmented conv at the main-path shape; returns its output."""
+    C, T = x.shape
+    plan = fir_e.params.plan
+    y_kernel = segconv.segmented_conv(x, plan)
+    y_plain = segconv.segmented_conv(x, plan, use_kernels=False)
+    torch.cuda.synchronize()
+    max_err = float((y_kernel - y_plain).abs().max())
+    db_plain = snr_db_cuda(y_plain, y_kernel)
+    pick = [0, C - 1]
+    stripped = fir_e.lti_kernel[plan.shift:]
+    db_oracle = snr_db(
+        fft_conv64(x[pick].cpu().numpy(), stripped, plan.shift),
+        y_kernel[pick].cpu().numpy())
+    assert db_plain >= CONV_DB_PLAIN and db_oracle >= CONV_DB_ORACLE, \
+        (B, db_plain, db_oracle)
+    del y_plain
+    ms = time_ms(lambda: segconv.segmented_conv(x, plan))
+    plain_ms = time_ms(
+        lambda: segconv.segmented_conv(x, plan, use_kernels=False))
+    # library yardstick: the batched cuFFT convolution at this geometry,
+    # on windows gathered beforehand
+    n_seg = -(-T // plan.seg)
+    windows = torch.nn.functional.pad(
+        x, (plan.halo + plan.shift, n_seg * plan.seg - T)
+    ).unfold(-1, plan.n, plan.seg)[:, :n_seg].contiguous()
+    library_ms = time_ms(lambda: torch.fft.irfft(
+        torch.fft.rfft(windows, dim=-1) * plan.spectrum_rfft,
+        n=plan.n, dim=-1))
+    del windows
+    n_pairs = C * -(-n_seg // 2)
+    log2n = plan.n.bit_length() - 1
+    by_B[B] = {
+        "n": plan.n, "halo": plan.halo, "seg": plan.seg,
+        "taps": plan.kernel_len, "shift": plan.shift, "C": C, "T": T,
+        "db_plain": db_json(db_plain), "db_oracle_2ch": db_json(db_oracle),
+        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": library_ms,
+        **bound(8 * C * T + 2 * 8 * plan.n,
+                n_pairs * (2 * 5 * plan.n * log2n + 6 * plan.n)),
+        # what this design must move: the signal n/seg times in, once out
+        "bound_with_window_overlap_ms":
+            4 * C * T * (plan.n / plan.seg + 1) / HBM_BYTES_PER_S * 1e3,
+    }
+    return y_kernel
+
+
+def time_dynamics(x, dyn_e, timing: dict, B: int) -> torch.Tensor:
+    """pack, the two walks and unpack at the shapes and on the data the main
+    path gives them (the conv stage's output, the planner's segments, the
+    entries the loop passes); returns the stage's output."""
+    C, T = x.shape
+    scalars = [kdyn.op_scalars(p) for p in dyn_e.params]
+    n_ops = len(scalars)
+    G, L, Rp = relayout.geometry(C, T, kdyn.plan_segments(C, T))
+    geom = {"C": C, "T": T, "G": G, "L": L, "Rp": Rp}
+    sig_bytes, tm_bytes, st_bytes = 4 * C * T, 4 * L * Rp, 4 * n_ops * Rp
+
+    tm = relayout.pack(x, G, L, Rp)
+    tm_plain = relayout.pack(x, G, L, Rp, use_kernels=False)
+    assert torch.equal(tm, tm_plain), "pack differs from its plain version"
+    err = float((tm - tm_plain).abs().max())
+    del tm_plain
+    lib_in = x if G * L == T else torch.nn.functional.pad(x, (0, G * L - T))
+    timing["pack"][B] = {
+        **geom, "max_abs_err": err,
+        "ms": time_ms(lambda: relayout.pack(x, G, L, Rp)),
+        "plain_ms": time_ms(
+            lambda: relayout.pack(x, G, L, Rp, use_kernels=False)),
+        # one PyTorch call: the strided copy (on a length padded beforehand
+        # where the last segment is ragged)
+        "library_ms": time_ms(
+            lambda: lib_in.reshape(C, G, L).permute(2, 1, 0).contiguous()),
+        **bound(sig_bytes + tm_bytes, 0)}
+    del lib_in
+
+    # the loop's first two walks: the state walk from REST, then the audio
+    # walk from its shifted exits
+    e0 = torch.zeros((n_ops, Rp), dtype=torch.int32, device=x.device)
+    z1 = kdyn.state_walk(scalars, tm, e0)
+    z1_plain = kdyn.state_walk(scalars, tm, e0, use_kernels=False)
+    assert torch.equal(z1, z1_plain), "state walk: exit states differ"
+    ops_state = L * Rp * (WALK_OPS_WITH_GAIN * (n_ops - 1)
+                          + WALK_OPS_STATE_ONLY)
+    timing["state_walk"][B] = {
+        **geom, "n_ops": n_ops, "exit_states_equal": True,
+        "max_abs_err": float((z1 - z1_plain).abs().max()),
+        "ms": time_ms(lambda: kdyn.state_walk(scalars, tm, e0)),
+        "plain_ms": time_ms(
+            lambda: kdyn.state_walk(scalars, tm, e0, use_kernels=False),
+            runs=1),
+        "plain_ran_with": f"G={G}, a Python loop over L={L} rows, 1 timed run",
+        "library_ms": None,
+        **bound(tm_bytes + 2 * st_bytes, ops_state)}
+    e1 = torch.zeros_like(z1)
+    e1[:, C:C * G] = z1[:, :C * G - C]
+    del z1, z1_plain
+    out, z2 = kdyn.audio_walk(scalars, tm, e1)
+    out_plain, z2_plain = kdyn.audio_walk(scalars, tm, e1, use_kernels=False)
+    mismatching = int((out != out_plain).sum())
+    assert torch.equal(z2, z2_plain), "audio walk: exit states differ"
+    assert mismatching == 0, f"audio walk: {mismatching} samples differ"
+    err = float((out - out_plain).abs().max())
+    del out_plain, z2_plain
+    timing["audio_walk"][B] = {
+        **geom, "n_ops": n_ops, "exit_states_equal": True,
+        "mismatching_samples": mismatching, "max_abs_err": err,
+        "ms": time_ms(lambda: kdyn.audio_walk(scalars, tm, e1)),
+        "plain_ms": time_ms(
+            lambda: kdyn.audio_walk(scalars, tm, e1, use_kernels=False),
+            runs=1),
+        "plain_ran_with": f"G={G}, a Python loop over L={L} rows, 1 timed run",
+        "library_ms": None,
+        **bound(2 * tm_bytes + 2 * st_bytes,
+                L * Rp * WALK_OPS_WITH_GAIN * n_ops)}
+
+    y = relayout.unpack(out, C, T, G, L)
+    y_plain = relayout.unpack(out, C, T, G, L, use_kernels=False)
+    assert torch.equal(y, y_plain), "unpack differs from its plain version"
+    err = float((y - y_plain).abs().max())
+    del y_plain
+    timing["unpack"][B] = {
+        **geom, "max_abs_err": err,
+        "ms": time_ms(lambda: relayout.unpack(out, C, T, G, L)),
+        "plain_ms": time_ms(
+            lambda: relayout.unpack(out, C, T, G, L, use_kernels=False)),
+        "library_ms": time_ms(
+            lambda: out[:, :C * G].reshape(L, G, C).permute(2, 1, 0)
+            .contiguous()),
+        **bound(sig_bytes + tm_bytes, 0)}
+    # what the loop returns, whether or not it needed a third walk
+    return kdyn.dynamics_offline(list(dyn_e.params), x)
+
+
+def stage_walks(fn):
+    """(result, walks) of one call of a dynamics stage."""
+    w0 = kdyn.state_walk_launch_count + kdyn.audio_walk_launch_count
+    result = fn()
+    torch.cuda.synchronize()
+    return result, (kdyn.state_walk_launch_count
+                    + kdyn.audio_walk_launch_count - w0)
+
+
+def time_dynamics_stage(x, dyn_e, y_dyn) -> dict:
+    """The fused effect's whole ``offline`` (pack, walks to the fixpoint with
+    one read-back each, unpack) on the conv stage's output."""
+    C, T = x.shape
+    blocks = x.reshape(C, 1, T)
+    got, walks = stage_walks(lambda: dyn_e.offline(dyn_e.params, blocks))
+    assert torch.equal(got.reshape(C, T), y_dyn)
+    plain = dyn_e.offline(dyn_e.params, blocks, use_kernels=False)
+    mismatching = int((got != plain).sum())
+    assert mismatching == 0, f"dynamics stage: {mismatching} samples differ"
+    del plain, got
+    return {"segments": kdyn.plan_segments(C, T), "walks": walks,
+            "mismatching_samples_vs_plain": mismatching,
+            "ms": time_ms(lambda: dyn_e.offline(dyn_e.params, blocks)),
+            "plain_ms": time_ms(
+                lambda: dyn_e.offline(dyn_e.params, blocks,
+                                      use_kernels=False), runs=1)}
+
+
+def sweep_segments(x, dyn_e, want) -> list:
+    """The whole dynamics stage for a range of segment counts: the result
+    does not depend on the count (checked), the time and the walks do."""
+    params = list(dyn_e.params)
+    rows = []
+    for segments in SWEEP_SEGMENTS:
+        got, walks = stage_walks(
+            lambda: kdyn.dynamics_offline(params, x, segments=segments))
+        if want is None:
+            want = got
+        assert torch.equal(got, want), f"segments={segments} changes the result"
+        del got
+        G, L, Rp = relayout.geometry(x.shape[0], x.shape[1], segments)
+        rows.append({"G": G, "L": L, "lanes": Rp, "walks": walks,
+                     "ms": time_ms(lambda: kdyn.dynamics_offline(
+                         params, x, segments=segments), runs=3)})
+    return rows
+
+
+def time_tail(x, chain, tail_e, by_B: dict, B: int) -> None:
+    """The fused tail, fed what the dynamics stage feeds it."""
+    C, T = x.shape
+    members = tail_e.params
+    stages, _, _, D = tail._plan_stages(chain.effects[5:])
+    nb = T // B
+    gains = torch.stack([gain_row(p, nb, B, x.device) for p in members
+                         if isinstance(p, TremoloParams)])
+    blocks = x.reshape(C, nb, B)
+    t_kernel = tail.tail_kernel(stages, D, members, x, gains)
+    t_plain = tail_e.offline(members, blocks, use_kernels=False).reshape(C, T)
+    torch.cuda.synchronize()
+    t_err = float((t_kernel - t_plain).abs().max())
+    t_db = snr_db_cuda(t_plain, t_kernel)
+    assert t_db >= TAIL_DB_PLAIN, (B, t_db)
+    del t_plain, t_kernel
+    by_B[B] = {
+        "halo": D, "tile": tail.tile_for(T, D), "C": C, "T": T,
+        "db_plain": db_json(t_db), "max_abs_err": t_err,
+        "ms": time_ms(lambda: tail.tail_kernel(stages, D, members, x, gains)),
+        "offline_with_gain_row_ms": time_ms(
+            lambda: tail_e.offline(members, blocks)),
+        "plain_ms": time_ms(
+            lambda: tail_e.offline(members, blocks, use_kernels=False)),
+        "library_ms": None,
+        **bound(8 * C * T + 4 * gains.numel(),
+                C * T * tail_ops_per_sample(stages)),
+    }
 
 
 def profile_renders(chain, signal, cfg, render_ms: float, passes: int = 3
@@ -444,152 +1013,100 @@ def main() -> None:
     # ---- 3. small cases
     emit(conv_cases())
     emit(tail_cases())
+    for cases in (relayout_cases, dynamics_cases):
+        t0 = time.perf_counter()
+        emit({**cases(), "seconds": round(time.perf_counter() - t0, 1)})
 
-    # ---- 4. main path: counts to 0, render at both block sizes, read counts
+    # ---- 4. the paths: counts to 0, render, read counts
     C = CHANNELS
     n = int(SECONDS * SAMPLE_RATE)
     signal = burst_noise(C, n, args.seed)
+
+    # the earlier path, chain7, at one block size
+    B7 = BLOCK_SIZES[0]
+    cfg7 = pt.EngineConfig(SAMPLE_RATE, B7)
+    chain7 = pt.Chain(chain7_effects(cfg7, "cuda"), device="cuda")
+    assert [e.name for e in chain7.exec_effects] == CHAIN7_NAMES
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    out7 = pt.render(chain7, signal, cfg7)
+    torch.cuda.synchronize()
+    launches7 = launch_counts()
+    assert launches7["segconv"] >= 1 and launches7["tail"] >= 1, launches7
+    assert sum(launches7.values()) == launches7["segconv"] + launches7["tail"]
+    check7 = check_render(chain7, cfg7, signal, out7, n)
+    emit({"phase": "main_path", "chain": "chain7 (earlier path)",
+          "channels": C, "seconds_of_audio": SECONDS,
+          "samples_per_channel": n, "launches": launches7,
+          "by_block_size": {str(B7): check7}, "nvidia_smi": smi})
+    del out7
+
+    # the main path, chain8, at both block sizes
     chains = {}
     for B in BLOCK_SIZES:
         cfg = pt.EngineConfig(SAMPLE_RATE, B)
-        chains[B] = (cfg, pt.Chain(chain7_effects(cfg, "cuda"), device="cuda"))
-        assert [e.name for e in chains[B][1].exec_effects] == [
-            "fir_cascade:lowcut+highcut+eq3band_fft",
-            "tail:saturator+delay+tremolo+softclipper"]
+        chains[B] = (cfg, pt.Chain(chain8_effects(cfg, "cuda"), device="cuda"))
+        assert [e.name for e in chains[B][1].exec_effects] == CHAIN8_NAMES
     torch.cuda.synchronize()
 
-    segconv.launch_count = 0
-    tail.launch_count = 0
-    outputs = {}
+    zero_launch_counts()
+    outputs, walks = {}, {}
     for B in BLOCK_SIZES:
         cfg, chain = chains[B]
+        w0 = kdyn.state_walk_launch_count + kdyn.audio_walk_launch_count
         outputs[B] = pt.render(chain, signal, cfg)
         torch.cuda.synchronize()
-    launches = {"segconv": segconv.launch_count, "tail": tail.launch_count}
-    assert launches["segconv"] >= len(BLOCK_SIZES), launches
-    assert launches["tail"] >= len(BLOCK_SIZES), launches
+        walks[B] = kdyn.state_walk_launch_count \
+            + kdyn.audio_walk_launch_count - w0
+    launches = launch_counts()
+    for name, count in launches.items():
+        assert count >= len(BLOCK_SIZES), (name, launches)
 
     main_checks = {}
     for B in BLOCK_SIZES:
         cfg, chain = chains[B]
-        out = outputs[B]
-        T = out.shape[-1]
-        assert out.shape == (C, -(-n // B) * B) and out.dtype == torch.float32
-        assert bool(torch.isfinite(out).all())
-        plain = pt.render(chain, signal, cfg, use_kernels=False)
-        torch.cuda.synchronize()
-        db_plain = snr_db_cuda(plain, out)
-        del plain
-        pick = [0, C - 1]
-        x2 = torch.nn.functional.pad(signal[pick], (0, T - n)).cpu().numpy()
-        oracle = chain7_oracle(x2, chain.effects, B)
-        db_oracle = snr_db(oracle, out[pick].cpu().numpy())
-        main_checks[B] = {"db_plain": db_json(db_plain),
-                          "db_oracle_2ch": db_json(db_oracle),
-                          "peak": float(out.abs().max())}
-        assert db_plain >= CHAIN_DB_PLAIN, main_checks
-        assert db_oracle >= CHAIN_DB_ORACLE, main_checks
-        assert 0.0 < main_checks[B]["peak"] <= 1.0
-    assert (segconv.launch_count, tail.launch_count) == \
-        (launches["segconv"], launches["tail"]), \
-        "a plain-version render launched a kernel"
-    emit({"phase": "main_path", "chain": "chain7", "channels": C,
+        main_checks[B] = check_render(chain, cfg, signal, outputs[B], n,
+                                      oracle_samples=ORACLE_EXCERPT,
+                                      db_plain_bar=CHAIN8_DB_PLAIN)
+        main_checks[B]["dynamics_walks"] = walks[B]
+    T = -(-n // BLOCK_SIZES[0]) * BLOCK_SIZES[0]
+    emit({"phase": "main_path", "chain": "chain8", "channels": C,
           "seconds_of_audio": SECONDS, "samples_per_channel": n,
           "launches": launches,
+          "dynamics_segments": kdyn.plan_segments(C, T),
+          "oracle": f"float64, 2 channels, first {ORACLE_EXCERPT} samples "
+                    f"({ORACLE_EXCERPT / SAMPLE_RATE:.2f} s): the automatons "
+                    "are walked sample by sample in Python",
           "by_block_size": {str(B): main_checks[B] for B in BLOCK_SIZES},
           "nvidia_smi": smi})
     outputs.clear()
 
     # ---- 5. the kernels at the main-path shapes
-    summary = []
-    conv_by_B, tail_by_B = {}, {}
+    timing = {name: {} for name in KERNELS}
+    stage_by_B, sweep = {}, {}
     for B in BLOCK_SIZES:
         cfg, chain = chains[B]
-        fir_e, tail_e = chain.exec_effects
+        fir_e, dyn_e, tail_e = chain.exec_effects
         T = -(-n // B) * B
         x = torch.nn.functional.pad(signal, (0, T - n)).contiguous()
-        plan = fir_e.params.plan
-
-        # segmented conv
-        y_kernel = segconv.segmented_conv(x, plan)
-        y_plain = segconv.segmented_conv(x, plan, use_kernels=False)
-        torch.cuda.synchronize()
-        max_err = float((y_kernel - y_plain).abs().max())
-        db_plain = snr_db_cuda(y_plain, y_kernel)
-        pick = [0, C - 1]
-        stripped = fir_e.lti_kernel[plan.shift:]
-        db_oracle = snr_db(
-            fft_conv64(x[pick].cpu().numpy(), stripped, plan.shift),
-            y_kernel[pick].cpu().numpy())
-        assert db_plain >= CONV_DB_PLAIN and db_oracle >= CONV_DB_ORACLE, \
-            (B, db_plain, db_oracle)
-        del y_plain
-        ms = time_ms(lambda: segconv.segmented_conv(x, plan))
-        plain_ms = time_ms(
-            lambda: segconv.segmented_conv(x, plan, use_kernels=False))
-        # library yardstick: the batched cuFFT convolution at this geometry,
-        # on windows gathered beforehand
-        n_seg = -(-T // plan.seg)
-        windows = torch.nn.functional.pad(
-            x, (plan.halo + plan.shift, n_seg * plan.seg - T)
-        ).unfold(-1, plan.n, plan.seg)[:, :n_seg].contiguous()
-        library_ms = time_ms(lambda: torch.fft.irfft(
-            torch.fft.rfft(windows, dim=-1) * plan.spectrum_rfft,
-            n=plan.n, dim=-1))
-        del windows
-        n_pairs = C * -(-n_seg // 2)
-        log2n = plan.n.bit_length() - 1
-        flops = n_pairs * (2 * 5 * plan.n * log2n + 6 * plan.n)
-        nbytes = 8 * C * T + 2 * 8 * plan.n
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOP_PER_S * 1e3
-        conv_by_B[B] = {
-            "n": plan.n, "halo": plan.halo, "seg": plan.seg,
-            "taps": plan.kernel_len, "shift": plan.shift, "C": C, "T": T,
-            "db_plain": db_json(db_plain), "db_oracle_2ch": db_json(db_oracle),
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
-            # what this design must move: the signal n/seg times in, once out
-            "bound_with_window_overlap_ms":
-                4 * C * T * (plan.n / plan.seg + 1) / HBM_BYTES_PER_S * 1e3,
-        }
-
-        # fused tail, fed what the conv stage feeds it
-        members = tail_e.params
-        stages, _, _, D = tail._plan_stages(chain.effects[3:])
-        nb = T // B
-        gains = torch.stack([gain_row(p, nb, B, x.device) for p in members
-                             if isinstance(p, TremoloParams)])
-        blocks = y_kernel.reshape(C, nb, B)
-        t_kernel = tail.tail_kernel(stages, D, members, y_kernel, gains)
-        t_plain = tail_e.offline(members, blocks, use_kernels=False
-                                 ).reshape(C, T)
-        torch.cuda.synchronize()
-        t_err = float((t_kernel - t_plain).abs().max())
-        t_db = snr_db_cuda(t_plain, t_kernel)
-        assert t_db >= TAIL_DB_PLAIN, (B, t_db)
-        del t_plain, t_kernel
-        t_ms = time_ms(
-            lambda: tail.tail_kernel(stages, D, members, y_kernel, gains))
-        t_offline_ms = time_ms(lambda: tail_e.offline(members, blocks))
-        t_plain_ms = time_ms(
-            lambda: tail_e.offline(members, blocks, use_kernels=False))
-        tb = (8 * C * T + 4 * gains.numel()) / HBM_BYTES_PER_S * 1e3
-        to = C * T * tail_ops_per_sample(stages) / FP32_FLOP_PER_S * 1e3
-        tail_by_B[B] = {
-            "halo": D, "tile": tail.tile_for(T, D), "C": C, "T": T,
-            "db_plain": db_json(t_db), "max_abs_err": t_err, "ms": t_ms,
-            "offline_with_gain_row_ms": t_offline_ms, "plain_ms": t_plain_ms,
-            "library_ms": None, "bound_ms": max(tb, to),
-            "bound_by": "bytes" if tb >= to else "operations",
-            "bound_bytes_ms": tb, "bound_operations_ms": to,
-        }
-        del x, y_kernel, blocks, gains
+        y_conv = time_segconv(x, fir_e, timing["segconv"], B)
+        y_dyn = time_dynamics(y_conv, dyn_e, timing, B)
+        stage_by_B[B] = time_dynamics_stage(y_conv, dyn_e, y_dyn)
+        if B == BLOCK_SIZES[0]:
+            gaps = (torch.sin(2 * torch.pi * torch.arange(T, device="cuda")
+                              / SAMPLE_RATE) > 0.3).to(torch.float32)
+            sweep = {"main_path_input": sweep_segments(y_conv, dyn_e, y_dyn),
+                     "input_with_0.6s_silences_every_second":
+                         sweep_segments(y_conv * gaps, dyn_e, None)}
+            del gaps
+        del x, y_conv
+        time_tail(y_dyn, chain, tail_e, timing["tail"], B)
+        del y_dyn
     emit({"phase": "kernel_timing", "nvidia_smi": smi,
-          "segconv": {str(B): v for B, v in conv_by_B.items()},
-          "tail": {str(B): v for B, v in tail_by_B.items()}})
+          **{name: {str(B): v for B, v in by_B.items()}
+             for name, by_B in timing.items()},
+          "dynamics_stage": {str(B): v for B, v in stage_by_B.items()},
+          "segment_sweep": sweep})
 
     # ---- 6. throughput of the whole render: 3 chained passes, o = chain(o)
     rates = {}
@@ -608,11 +1125,11 @@ def main() -> None:
         rates[str(B)] = {"samples_per_s": total / statistics.median(times),
                          "render_ms": statistics.median(times) * 1e3,
                          "samples": total}
-    emit({"phase": "throughput", "chain": "chain7", "channels": C,
+    emit({"phase": "throughput", "chain": "chain8", "channels": C,
           "by_block_size": rates, "nvidia_smi": smi})
 
     if args.profile:
-        emit({"phase": "profile", "chain": "chain7", "channels": C,
+        emit({"phase": "profile", "chain": "chain8", "channels": C,
               "by_block_size": {
                   str(B): profile_renders(chains[B][1], signal, chains[B][0],
                                           rates[str(B)]["render_ms"])
@@ -621,15 +1138,15 @@ def main() -> None:
 
     # ---- 7. the kernels, one line; headline numbers at block size 4096
     head = BLOCK_SIZES[0]
-    for name, source, replaces, by_B in (
-            ("segconv", "pyaudiodsptools_tpu_torch/csrc/segconv.cu",
-             "pyaudiodsptools_tpu/kernels/pallas_conv.py:926", conv_by_B),
-            ("tail", "pyaudiodsptools_tpu_torch/csrc/tail.cu",
-             "pyaudiodsptools_tpu/kernels/tail_pallas.py:281", tail_by_B)):
+    summary = []
+    for name, (source, replaces) in KERNELS.items():
+        by_B = timing[name]
         h = by_B[head]
         summary.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "name": name, "route": "cuda",
+            "source": f"pyaudiodsptools_tpu_torch/csrc/{source}",
+            "replaces": f"pyaudiodsptools_tpu/kernels/{replaces}",
+            "launches": launches[name],
             "max_abs_err": max(v["max_abs_err"] for v in by_B.values()),
             "ms": h["ms"], "plain_ms": h["plain_ms"],
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],

@@ -2,8 +2,9 @@
 
 A second package beside the JAX one, for an NVIDIA H100: effects are pure
 ``(params, state, block) -> (state, block)`` functions over torch tensors,
-chains fuse LTI runs into one segmented convolution and delay / tremolo /
-waveshaper runs into one tail pass, and both of those run as CUDA C++ kernels
+chains fuse LTI runs into one segmented convolution, compressor / gate runs
+into one cascade of speculative segment-parallel walks, and delay / tremolo /
+waveshaper runs into one tail pass, and all of those run as CUDA C++ kernels
 written by hand for sm_90a (``csrc/``, built at first use). It imports
 ``torch`` and ``numpy``, and nothing of JAX or of the JAX package.
 

@@ -20,7 +20,9 @@ What is carried across, per effect:
   ``block_size`` (pre-filter variants are built with ``ops.delay``);
 * ``tremolo``: ``lfo``, ``omega``, ``depth``, and ``lfo_length``,
   ``block_size``;
-* waveshapers: their scalars (``coeff``, ``makeup``, ``mode``; ``drive``).
+* waveshapers: their scalars (``coeff``, ``makeup``, ``mode``; ``drive``);
+* ``compressor`` / ``gate``: ``threshold``, ``pre_gain``, ``attack_env``,
+  ``release_env``, and ``x_max``, ``y_max``.
 
 The port's own factories give the same params; ``tests/test_torch_chain.py``
 holds them to that.
@@ -33,7 +35,7 @@ import torch
 
 from .core.config import DEFAULT_DEVICE, resolve_device
 from .engine.chain import Chain
-from .ops import fft_filter, waveshapers as ws
+from .ops import dynamics, fft_filter, waveshapers as ws
 from .ops.base import Effect, host_scalar
 # ``ops.delay`` / ``ops.tremolo`` name the factories; the modules behind them:
 from .ops.delay import DelayParams, make_effect as make_delay, tap_kernel
@@ -79,6 +81,16 @@ def effect_from_numpy(entry: dict, device=DEFAULT_DEVICE) -> Effect:
                       init_state=tremolo_init_state,
                       step=tremolo_step, offline=tremolo_offline,
                       device=dev)
+    if op in ("compressor", "gate"):
+        p = dynamics.DynamicsParams(
+            threshold=_scalar(params["threshold"]),
+            pre_gain=_scalar(params["pre_gain"]),
+            attack_env=torch.from_numpy(
+                np.asarray(params["attack_env"], dtype=np.float32).copy()),
+            release_env=torch.from_numpy(
+                np.asarray(params["release_env"], dtype=np.float32).copy()),
+            x_max=int(meta["x_max"]), y_max=int(meta["y_max"]))
+        return dynamics.make_effect(op, p, dev)
     if op == "saturator":
         p = ws.SaturatorParams(coeff=_scalar(params["coeff"]),
                                makeup=_scalar(params["makeup"]),

@@ -12,8 +12,9 @@ running eagerly:
   program cache;
 * the device is an argument of the Chain (default ``"cuda"``) and not a
   process-wide backend read at build time;
-* fusion does not depend on the device: LTI runs and tail runs always fuse,
-  and on a CPU tensor the fused effects run their plain versions.
+* fusion does not depend on the device: LTI runs, dynamics runs and tail runs
+  always fuse, and on a CPU tensor the fused effects run their plain
+  versions.
 """
 
 from __future__ import annotations
@@ -50,8 +51,9 @@ class Chain:
                     "to the op factories and to Chain")
         # Consecutive LTI effects collapse into ONE segmented convolution
         # (their cascade's impulse response is the convolution of their
-        # effective kernels); what is left of delay / tremolo / waveshaper
-        # runs collapses into one fused tail pass.
+        # effective kernels); compressor / gate runs collapse into one
+        # cascaded walk; what is left of delay / tremolo / waveshaper runs
+        # collapses into one fused tail pass.
         self._exec_effects = fuse_lti_runs(self.effects) if fuse \
             else self.effects
         self.params = tuple(e.params for e in self._exec_effects)
@@ -100,14 +102,17 @@ def fuse_lti_runs(effects: tuple[Effect, ...]) -> tuple[Effect, ...]:
       where the fused kernel, its zero prefix stripped, would outgrow the
       one-window segmented convolution (a long delay next to a filter): the
       members on either side of the cut fuse separately or stay as they are;
+    * dynamics automatons (compressor / gate, in any order) -> one cascaded
+      speculative walk (kernels/dynamics.fused_dynamics). A run longer than
+      one kernel walks (kernels/dynamics.MAX_OPS) is cut into consecutive
+      cascades, which gives the same result. A lone compressor or gate stays
+      as it is: its own ``offline`` already takes the same kernels;
     * tail runs (delay without pre-filters / tremolo / stateless
-      waveshapers) left over after the pass above -> one windowed kernel
+      waveshapers) left over after the passes above -> one windowed kernel
       pass (kernels/tail.fused_tail). A run the tail kernel cannot take
       (delays that reach back further than a thread block's shared memory
       holds) raises there; ``Chain(..., fuse=False)`` runs the members one
       by one.
-
-    The dynamics pair (compressor / gate) joins with the dynamics slice.
     """
     from ..ops.fft_filter import fits_one_window, fuse_lti, fused_kernel
 
@@ -130,7 +135,32 @@ def fuse_lti_runs(effects: tuple[Effect, ...]) -> tuple[Effect, ...]:
             flush()
         run.append(e)
     flush()
-    return fuse_tail_runs(tuple(out))
+    return fuse_tail_runs(fuse_dynamics_runs(tuple(out)))
+
+
+def fuse_dynamics_runs(effects: tuple[Effect, ...]) -> tuple[Effect, ...]:
+    """Collapse runs of >= 2 consecutive compressor / gate effects into
+    dynamics cascades of at most ``MAX_OPS`` members each."""
+    from ..kernels.dynamics import MAX_OPS, fused_dynamics
+    from ..ops.dynamics import DynamicsParams
+
+    out: list[Effect] = []
+    run: list[Effect] = []
+
+    def flush():
+        for i in range(0, len(run), MAX_OPS):
+            part = run[i:i + MAX_OPS]
+            out.extend([fused_dynamics(part)] if len(part) >= 2 else part)
+        run.clear()
+
+    for e in effects:
+        if isinstance(e.params, DynamicsParams):
+            run.append(e)
+        else:
+            flush()
+            out.append(e)
+    flush()
+    return tuple(out)
 
 
 def fuse_tail_runs(effects: tuple[Effect, ...]) -> tuple[Effect, ...]:

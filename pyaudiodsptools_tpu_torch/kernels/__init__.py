@@ -3,6 +3,8 @@ plain PyTorch versions.
 
 ``segconv``  segmented overlap-save convolution  (csrc/segconv.cu)
 ``tail``     fused delay/tremolo/waveshaper tail (csrc/tail.cu)
+``relayout`` natural <-> time-major pack / unpack (csrc/relayout.cu)
+``dynamics`` speculative compressor/gate walks   (csrc/dynamics.cu)
 ``_build``   compiles csrc/*.cu with nvcc at first use and loads them with
              ctypes
 

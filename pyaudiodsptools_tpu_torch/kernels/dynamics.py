@@ -1,0 +1,362 @@
+"""Speculative segment-parallel dynamics: planner, fixpoint loop, the two
+walk kernels' wrappers and plain versions, and the fused cascade effect.
+
+Replaces, of ``pyaudiodsptools_tpu/kernels/dynamics_pallas.py``:
+``dynamics_pallas_offline`` with its two TPU kernels ``_spec_kernel`` (here
+:func:`audio_walk`) and ``_spec_state_kernel`` (here :func:`state_walk`),
+``encode_state``, and the effect factory ``fused_dynamics``.
+
+Why speculation is sound: the over-threshold mask depends only on the INPUT,
+never on the automaton's own output, so the gain trajectory is a
+deterministic function of (entry state, mask sequence). Time is cut into G
+segments; every (segment, channel) lane walks its segment from a guessed
+entry state (REST); each segment's exit state becomes the next segment's
+entry and the walk repeats until the entries no longer change. The automaton
+synchronises (a run of over-samples forces HOLD, a completed release forces
+REST, whatever the entry), so on real audio most exits are right at once;
+the worst case is G walks. The fixpoint is the serial state trajectory, so
+the result does not depend on G: ``segments=1`` IS the serial walk, and every
+other segmentation is bit-equal to it.
+
+State: one int per lane and op (:func:`encode_state`):
+
+    s = -1            skip (one sample after a completed release)
+    s = 0             REST
+    s in [1, x_max)   ATTACK, x == s
+    s = x_max         HOLD
+    s = x_max + y     RELEASE, y in [1, y_max)
+
+The ramps are arithmetic (``start + i*step``), as in the JAX kernels, which
+differs from the faithful step's float32 ``linspace`` tables by <= 2 ulp.
+
+The loop ("hybrid", the JAX package's default): one states-only walk from
+REST, then audio walks until the shifted exits equal the entries, at most
+G+2 walks in all (unreachable: entries settle at least one segment per
+walk). The shift and the comparison are a few PyTorch calls on (n_ops, Rp)
+ints; the comparison is the one device read-back per walk. The audio always
+comes from converged entries.
+
+What bounds the walks on an H100: a lane's walk is serial, about a dozen
+dependent instructions per op and sample, so what matters is how many lanes
+there are. :func:`plan_segments` chooses G for this card (the sweep is in
+PERF.md); it is free to, because the result does not depend on G. The CUDA
+source is ``csrc/dynamics.cu``; the layout kernels are ``kernels/relayout``.
+The plain versions (:func:`walk_plain`: the same single-int automaton as
+tensor code over all lanes with a Python loop over the rows, separate ``mul``
+and ``add`` calls in the kernel's order) run for CPU tensors, or on request
+(``use_kernels=False``), and are never a fallback for a CUDA tensor. Kernel
+and plain version agree bit for bit.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..ops import dynamics as dyn
+from ..ops.base import Effect
+from ..ops.dynamics import ATTACK, HOLD, RELEASE, DynamicsParams
+from . import _build, relayout
+
+# Mirror of DYN_MAX_OPS in csrc/dynamics.cu: ops per cascade kernel.
+MAX_OPS = 4
+
+# The planner's two constants, chosen from a sweep of the whole stage over G
+# on an H100 at 64 channels x 30 s (chip_smoke.py, `segment_sweep`; the table
+# is in PERF.md). More lanes shorten a walk until the card is full (about
+# 131,072 lanes), but a segment shorter than a release hands its state on
+# one segment per walk: on audio with silences the walks grow as
+# 2 + release / L (the flagship gate's release is 8,824 samples), on audio
+# that never falls silent they stay at 2. 32,768 lanes (G = 512 at 64
+# channels, L = 2,584) had the smallest sum of the two cases' times.
+TARGET_LANES = 32768
+MIN_SEGMENT = 2048
+
+# Launches of the two kernels made by :func:`state_walk` / :func:`audio_walk`
+# (and by nothing else) since the caller last set them to 0.
+state_walk_launch_count = 0
+audio_walk_launch_count = 0
+
+_F = np.float32
+
+
+class _Op(ctypes.Structure):
+    _fields_ = [("thr", ctypes.c_float), ("pre", ctypes.c_float),
+                ("ratio", ctypes.c_float), ("att_step", ctypes.c_float),
+                ("rel0", ctypes.c_float), ("rel_step", ctypes.c_float),
+                ("x_max", ctypes.c_int), ("end", ctypes.c_int)]
+
+
+class _Ops(ctypes.Structure):
+    _fields_ = [("n_ops", ctypes.c_int), ("op", _Op * MAX_OPS)]
+
+
+def op_scalars(params: DynamicsParams) -> tuple:
+    """(thr, pre, ratio, att_step, rel0, rel_step, x_max, end) of one op, the
+    floats as numpy float32 computed in float32 like the JAX package's
+    ``_pack_fscal``. ``ratio`` (hold / re-trigger gain, ``attack_env[-1]``)
+    and ``rel0`` (``release_env[0]``) differ when x_max == 1, because
+    ``numpy.linspace(1.0, r, num=1)`` is ``[1.0]``: both are carried."""
+    ratio = _F(params.attack_env[-1].item())
+    rel0 = _F(params.release_env[0].item())
+    return (_F(params.threshold.item()), _F(params.pre_gain.item()), ratio,
+            (ratio - _F(1.0)) / _F(max(params.x_max - 1, 1)),
+            rel0, (_F(1.0) - rel0) / _F(max(params.y_max - 1, 1)),
+            int(params.x_max), int(params.x_max + params.y_max))
+
+
+def _as_list(params) -> list[DynamicsParams]:
+    plist = list(params) if isinstance(params, (list, tuple)) else [params]
+    if not 1 <= len(plist) <= MAX_OPS:
+        raise ValueError(
+            f"a dynamics cascade of {len(plist)} ops: one kernel walks 1 to "
+            f"{MAX_OPS}; Chain cuts longer runs into consecutive cascades")
+    return plist
+
+
+def encode_state(params: DynamicsParams, state) -> torch.Tensor:
+    """Pack the 4-field carry (ops/dynamics.init_state layout) into single
+    ints."""
+    mode, x, y = state["mode"], state["x"], state["y"]
+    s = torch.where(mode == ATTACK, x,
+                    torch.where(mode == HOLD, params.x_max,
+                                torch.where(mode == RELEASE,
+                                            params.x_max + y, 0)))
+    return torch.where(state["skip"], -1, s).to(torch.int32)
+
+
+def plan_segments(C: int, T: int) -> int:
+    """Segments to ask for: TARGET_LANES lanes, but no segment shorter than
+    MIN_SEGMENT samples (shorter ones rarely synchronise within themselves
+    and cost walks)."""
+    return max(1, min(TARGET_LANES // max(C, 1), T // MIN_SEGMENT))
+
+
+# ---------------------------------------------------------------------------
+# the walks
+
+
+def _int_automaton(sc: tuple, s: torch.Tensor, row: torch.Tensor,
+                   with_gain: bool = True):
+    """One sample of one op on all lanes: (state, row) -> (output row, next
+    state); ``dynamics_pallas._int_automaton`` in PyTorch, each product and
+    sum a call of its own."""
+    thr, pre, ratio, att_step, rel0, rel_step, x_max, end = sc
+    over = torch.abs(row) > float(thr)
+    pos = s > 0
+    in_att = pos & (s < x_max)
+    out = row
+    if with_gain:
+        s_f = s.to(torch.float32)
+        att_g = torch.add(torch.mul(s_f, float(att_step)), 1.0)
+        rel_g = torch.add(torch.mul(torch.sub(s_f, float(x_max)),
+                                    float(rel_step)), float(rel0))
+        hi_g = torch.where(over, float(ratio), rel_g)
+        gain = torch.where(pos, torch.where(in_att, att_g, hi_g), 1.0)
+        out = torch.mul(torch.mul(row, float(pre)), gain)
+    sp1 = s + 1
+    rel_next = torch.where(sp1 == end, -1, sp1)      # release done -> skip
+    hi_next = torch.where(over, x_max, rel_next)     # hold stay / re-trigger
+    n = torch.where(in_att, sp1, hi_next)            # attack ignores the mask
+    n = torch.where(s == 0, over.to(torch.int32), n)  # REST trigger
+    n = torch.where(s < 0, 0, n)                     # skip consumes itself
+    return out, n
+
+
+def walk_plain(scalars: list[tuple], x: torch.Tensor, entry: torch.Tensor,
+               audio: bool):
+    """The plain version of both walks: x (L, Rp), entry (n_ops, Rp) int32
+    -> (out (L, Rp) or None, exit (n_ops, Rp) int32). Without ``audio`` the
+    last op's gain is left out, as in the state-walk kernel."""
+    n_ops = len(scalars)
+    states = [entry[j] for j in range(n_ops)]
+    rows = []
+    for l in range(x.shape[0]):
+        row = x[l]
+        for j, sc in enumerate(scalars):
+            row, states[j] = _int_automaton(
+                sc, states[j], row, with_gain=audio or j + 1 < n_ops)
+        if audio:
+            rows.append(row)
+    out = None
+    if audio:
+        out = torch.stack(rows) if rows else torch.empty_like(x)
+    return out, torch.stack(states).to(torch.int32)
+
+
+def _check_walk(scalars, x: torch.Tensor, entry: torch.Tensor) -> None:
+    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(
+            "a walk takes a contiguous (L, Rp) float32 tensor, got "
+            f"{tuple(x.shape)} {x.dtype} contiguous={x.is_contiguous()}")
+    if not 1 <= len(scalars) <= MAX_OPS:
+        raise ValueError(f"a walk takes 1 to {MAX_OPS} ops, got {len(scalars)}")
+    want = (len(scalars), x.shape[1])
+    if entry.dtype != torch.int32 or tuple(entry.shape) != want \
+            or entry.device != x.device or not entry.is_contiguous():
+        raise ValueError(
+            f"entry states must be a contiguous {want} int32 tensor on "
+            f"{x.device}, got {tuple(entry.shape)} {entry.dtype} on "
+            f"{entry.device}")
+    if x.shape[1] < 1:
+        raise ValueError("a walk needs at least one lane")
+
+
+def _ops_table(scalars) -> _Ops:
+    table = _Ops()
+    table.n_ops = len(scalars)
+    for j, sc in enumerate(scalars):
+        op = table.op[j]
+        (op.thr, op.pre, op.ratio, op.att_step, op.rel0, op.rel_step) = \
+            (float(v) for v in sc[:6])
+        op.x_max, op.end = sc[6], sc[7]
+    return table
+
+
+def _launch_walk(scalars, x, entry, audio: bool):
+    L, Rp = x.shape
+    out = torch.empty_like(x) if audio else None
+    exit_state = torch.empty_like(entry)
+    table = _ops_table(scalars)
+    lib = _build.load("dynamics")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if audio:
+            fn = lib.dynamics_audio_walk_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(_Ops),
+                                                   ctypes.c_int, ctypes.c_int,
+                                                   ctypes.c_void_p]
+            err = fn(x.data_ptr(), out.data_ptr(), entry.data_ptr(),
+                     exit_state.data_ptr(), ctypes.byref(table), L, Rp, stream)
+        else:
+            fn = lib.dynamics_state_walk_launch
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.POINTER(_Ops),
+                                                   ctypes.c_int, ctypes.c_int,
+                                                   ctypes.c_void_p]
+            err = fn(x.data_ptr(), entry.data_ptr(), exit_state.data_ptr(),
+                     ctypes.byref(table), L, Rp, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"dynamics {'audio' if audio else 'state'} walk launch failed "
+            f"with CUDA error {err} (n_ops={len(scalars)}, L={L}, Rp={Rp})")
+    return out, exit_state
+
+
+def state_walk(scalars, x: torch.Tensor, entry: torch.Tensor,
+               use_kernels: bool = True) -> torch.Tensor:
+    """Exit states (n_ops, Rp) of walking x (L, Rp) from ``entry``. A CUDA
+    tensor goes through the hand-written kernel, or the call raises."""
+    global state_walk_launch_count
+    _check_walk(scalars, x, entry)
+    if not (x.is_cuda and use_kernels):
+        return walk_plain(scalars, x, entry, audio=False)[1]
+    _, exit_state = _launch_walk(scalars, x, entry, audio=False)
+    state_walk_launch_count += 1
+    return exit_state
+
+
+def audio_walk(scalars, x: torch.Tensor, entry: torch.Tensor,
+               use_kernels: bool = True):
+    """(out (L, Rp), exit states (n_ops, Rp)) of walking x from ``entry``."""
+    global audio_walk_launch_count
+    _check_walk(scalars, x, entry)
+    if not (x.is_cuda and use_kernels):
+        return walk_plain(scalars, x, entry, audio=True)
+    out, exit_state = _launch_walk(scalars, x, entry, audio=True)
+    audio_walk_launch_count += 1
+    return out, exit_state
+
+
+# ---------------------------------------------------------------------------
+# the whole stage
+
+
+def dynamics_offline(params, x: torch.Tensor, segments: int | None = None,
+                     use_kernels: bool = True) -> torch.Tensor:
+    """Whole-signal automaton, or cascade of automatons, from REST:
+    (C, T) -> (C, T). ``params`` is one DynamicsParams or a sequence of up
+    to MAX_OPS; in a sequence op j+1 runs on op j's per-sample output inside
+    the same walk. ``segments`` overrides the planner (the result does not
+    depend on it)."""
+    plist = _as_list(params)
+    if x.dim() != 2:
+        raise ValueError(f"dynamics_offline takes (C, T), got {tuple(x.shape)}")
+    C, T = x.shape
+    if C == 0 or T == 0:
+        return x.to(torch.float32).clone()
+    scalars = [op_scalars(p) for p in plist]
+    if segments is None:
+        segments = plan_segments(C, T)
+    G, L, Rp = relayout.geometry(C, T, segments)
+    R = C * G
+    tm = relayout.pack(x.contiguous(), G, L, Rp, use_kernels)
+
+    def next_entries(z: torch.Tensor) -> torch.Tensor:
+        # lane r = g*C + c: segment g+1 takes segment g's exit, i.e. a shift
+        # by C lanes; segment 0 keeps REST, and so do the pad lanes.
+        e = torch.zeros_like(z)
+        e[:, C:R] = z[:, :R - C]
+        return e
+
+    e0 = torch.zeros((len(plist), Rp), dtype=torch.int32, device=x.device)
+    e = next_entries(state_walk(scalars, tm, e0, use_kernels))
+    for _ in range(G + 1):
+        out, z = audio_walk(scalars, tm, e, use_kernels)
+        e_next = next_entries(z)
+        if torch.equal(e_next, e):      # the one read-back per walk
+            break
+        e = e_next
+    else:
+        raise RuntimeError(
+            f"the dynamics entries did not settle within {G + 2} walks")
+    return relayout.unpack(out, C, T, G, L, use_kernels)
+
+
+def offline_blocks(params, blocks: torch.Tensor,
+                   use_kernels: bool = True) -> torch.Tensor:
+    """``dynamics_offline`` on a blocked signal (..., num_blocks, block_size):
+    leading axes are channels, the blocks are one timeline."""
+    if blocks.dim() < 2:
+        raise ValueError(
+            f"dynamics takes (..., num_blocks, block_size) blocks, got "
+            f"{tuple(blocks.shape)}")
+    shape = blocks.shape
+    x = blocks.reshape(-1, shape[-2] * shape[-1])
+    return dynamics_offline(params, x, None, use_kernels).reshape(shape)
+
+
+def fused_dynamics(effects) -> Effect:
+    """ONE Effect running a cascade of dynamics automatons (compressor / gate
+    in any order, up to MAX_OPS) in a single pass per walk: op j+1 consumes
+    op j's per-sample output inside the loop, so compressor -> gate costs one
+    round trip through device memory instead of two.
+
+    Streaming folds the members' faithful steps (state = tuple of per-op
+    dicts): exact, and slow on a card until the streaming slice ports the
+    serial kernel (``dynamics_pallas.dynamics_pallas``)."""
+    members = tuple(effects)
+    _as_list([e.params for e in members])
+
+    def offline(params, blocks: torch.Tensor,
+                use_kernels: bool = True) -> torch.Tensor:
+        return offline_blocks(list(params), blocks, use_kernels)
+
+    def step(params, state, block: torch.Tensor):
+        new_states = []
+        for p, st in zip(params, state):
+            st, block = dyn.step(p, st, block)
+            new_states.append(st)
+        return tuple(new_states), block
+
+    def init_state(params, batch_shape: tuple[int, ...] = ()):
+        return tuple(e.init_state(p, batch_shape)
+                     for e, p in zip(members, params))
+
+    name = "dynamics_cascade:" + "+".join(e.name for e in members)
+    return Effect(name=name, params=tuple(e.params for e in members),
+                  init_state=init_state, step=step, offline=offline,
+                  time_parallel=False, device=members[0].device)

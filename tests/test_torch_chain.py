@@ -1,7 +1,8 @@
-"""PyTorch/CUDA port, the slice as a whole: the chain7 configuration of the
-flagship chain (saturator in place of the compressor/gate pair) through
-``Chain`` and ``render`` against the JAX package's ``Chain`` on the CPU, the
-conversion layer against the port's own factories, and the import rule."""
+"""PyTorch/CUDA port, the slices as a whole: the flagship 8-effect chain
+(chain8) and its earlier stand-in chain7 (saturator in place of the
+compressor/gate pair) through ``Chain`` and ``render`` against the JAX
+package's ``Chain`` on the CPU, the conversion layer against the port's own
+factories, and the import rule."""
 
 import ast
 import dataclasses
@@ -19,7 +20,9 @@ import pyaudiodsptools_tpu as jx
 import pyaudiodsptools_tpu_torch as pt
 from pyaudiodsptools_tpu.core import block as jx_block
 from pyaudiodsptools_tpu_torch import convert
-from pyaudiodsptools_tpu_torch.kernels import segconv, tail as pt_tail
+from pyaudiodsptools_tpu_torch.kernels import (dynamics as pt_dynamics,
+                                               relayout as pt_relayout,
+                                               segconv, tail as pt_tail)
 
 from torch_port_util import snr_db, spec_from_jax
 
@@ -27,6 +30,8 @@ CPU = "cpu"
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FIR_NAME = "fir_cascade:lowcut+highcut+eq3band_fft"
 TAIL_NAME = "tail:saturator+delay+tremolo+softclipper"
+DYN_NAME = "dynamics_cascade:compressor+gate"
+TAIL8_NAME = "tail:delay+tremolo+softclipper"
 
 
 def _chain7_effects(pkg, cfg, **kw):
@@ -35,6 +40,17 @@ def _chain7_effects(pkg, cfg, **kw):
             o.eq3band_fft(cfg, 250.0, 2.0, 1500.0, -1.5, 6000.0, 2.5, **kw),
             o.saturator(cfg, **kw),          # stands where compressor -> gate
             o.delay(cfg, 150.0, 2, **kw),    # stand in the 8-effect chain
+            o.tremolo(cfg, 0.3, 5.0, **kw), o.softclipper(cfg, 0.44, **kw)]
+
+
+def _chain8_effects(pkg, cfg, **kw):
+    """The flagship chain, with the arguments of ``__graft_entry__._chain8``."""
+    o = pkg.ops
+    return [o.lowcut(cfg, 120.0, **kw), o.highcut(cfg, 12000.0, **kw),
+            o.eq3band_fft(cfg, 250.0, 2.0, 1500.0, -1.5, 6000.0, 2.5, **kw),
+            o.compressor(cfg, -18.0, 0.6, 3.1, 30.1, **kw),
+            o.gate(cfg, -45.0, 0.1, 3.1, 200.1, **kw),
+            o.delay(cfg, 150.0, 2, **kw),
             o.tremolo(cfg, 0.3, 5.0, **kw), o.softclipper(cfg, 0.44, **kw)]
 
 
@@ -73,6 +89,36 @@ def test_chain7_render_matches_jax(B):
         pt.render(chain, x, pcfg, use_kernels=False).numpy(), got)
 
 
+@pytest.mark.parametrize("build", ["factories", "converted"])
+@pytest.mark.parametrize("B", [512, 4096])
+def test_chain8_render_matches_jax(B, build):
+    """The real 8-effect chain, built by the port's own factories and through
+    the conversion layer from the JAX effects' numpy params. The JAX Chain on
+    the CPU runs its faithful path (scans for the dynamics pair, no kernel
+    routing); the bar is the JAX package's own for its kernel-backed chain
+    against that path, 90 dB. What separates the two: the conv's fp32
+    rounding, and the walks' arithmetic ramps (<= 2 ulp off the tables)."""
+    pcfg = pt.EngineConfig(44100, B)
+    jeffects = _chain8_effects(jx, jx.EngineConfig(44100, B))
+    if build == "factories":
+        chain = pt.Chain(_chain8_effects(pt, pcfg, device=CPU), device=CPU)
+    else:
+        chain = convert.chain_from_numpy(spec_from_jax(jeffects), device=CPU)
+    assert [e.name for e in chain.exec_effects] == \
+        [FIR_NAME, DYN_NAME, TAIL8_NAME]
+    n = 24576 - 100          # 6 blocks of 4096 or 48 of 512, the last ragged
+    x = _signal(2, n, seed=B + 8)
+    got = pt.render(chain, x, pcfg).numpy()
+    assert got.shape == (2, 24576) and got.dtype == np.float32
+
+    blocks = jx_block.make_blocks(jnp.asarray(x), B)
+    want = np.asarray(jx_block.combine_blocks(
+        jx.Chain(jeffects).render_blocks(blocks)))
+    assert snr_db(want, got) >= 90.0
+    np.testing.assert_array_equal(
+        pt.render(chain, x, pcfg, use_kernels=False).numpy(), got)
+
+
 def _leaves(params):
     """Flatten a params object to comparable (path, value) pairs."""
     out = []
@@ -96,6 +142,21 @@ def test_conversion_gives_the_factories_params_exactly(B):
                    device=CPU)
     assert [e.name for e in converted.exec_effects] == \
         [e.name for e in own.exec_effects] == [FIR_NAME, TAIL_NAME]
+    _assert_same_chain(converted, own, B)
+
+
+@pytest.mark.parametrize("B", [512, 4096])
+def test_conversion_gives_the_factories_params_exactly_chain8(B):
+    jeffects = _chain8_effects(jx, jx.EngineConfig(44100, B))
+    converted = convert.chain_from_numpy(spec_from_jax(jeffects), device=CPU)
+    own = pt.Chain(_chain8_effects(pt, pt.EngineConfig(44100, B), device=CPU),
+                   device=CPU)
+    assert [e.name for e in converted.exec_effects] == \
+        [e.name for e in own.exec_effects] == [FIR_NAME, DYN_NAME, TAIL8_NAME]
+    _assert_same_chain(converted, own, B)
+
+
+def _assert_same_chain(converted, own, B):
     a, b = _leaves(converted.params), _leaves(own.params)
     assert [k for k, _ in a] == [k for k, _ in b]
     for (key, va), (_, vb) in zip(a, b):
@@ -114,7 +175,7 @@ def test_conversion_gives_the_factories_params_exactly(B):
 
 def test_conversion_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="not part of the port"):
-        convert.effect_from_numpy({"op": "compressor"}, device=CPU)
+        convert.effect_from_numpy({"op": "reverb"}, device=CPU)
 
 
 def test_cuda_device_without_a_card_raises():
@@ -166,6 +227,24 @@ def test_fusion_structure():
                   o.delay(cfg, 150.0, 2, device=CPU),
                   o.softclipper(cfg, device=CPU)]) == \
         ["fir_cascade:lowcut+highcut", "tail:delay+softclipper"]
+    # the flagship chain: three fused stages
+    assert names(_chain8_effects(pt, cfg, device=CPU)) == \
+        [FIR_NAME, DYN_NAME, TAIL8_NAME]
+    assert len(names(_chain8_effects(pt, cfg, device=CPU), fuse=False)) == 8
+    # a lone compressor stays a compressor (its own offline takes the walks);
+    # a run longer than one kernel walks is cut into consecutive cascades
+    comp = lambda: o.compressor(cfg, -18.0, 0.6, device=CPU)
+    gate = lambda: o.gate(cfg, -45.0, 0.1, device=CPU)
+    assert names([o.lowcut(cfg, 120.0, device=CPU), comp(),
+                  o.softclipper(cfg, device=CPU)]) == \
+        ["lowcut", "compressor", "softclipper"]
+    assert names([gate(), comp()]) == ["dynamics_cascade:gate+compressor"]
+    assert pt_dynamics.MAX_OPS == 4
+    assert names([comp(), gate(), comp(), gate(), comp(), gate()]) == \
+        ["dynamics_cascade:compressor+gate+compressor+gate",
+         "dynamics_cascade:compressor+gate"]
+    assert names([comp(), gate(), comp(), gate(), comp()]) == \
+        ["dynamics_cascade:compressor+gate+compressor+gate", "compressor"]
     # a lone tail member stays as it is; a scan-only effect still renders
     lone = pt.Chain([o.tremolo(cfg, device=CPU)], device=CPU)
     assert names([o.tremolo(cfg, device=CPU)]) == ["tremolo"]
@@ -184,12 +263,33 @@ def test_chain_refuses_mixed_devices():
         pt.Chain([fake], device=CPU)
 
 
+def _launch_counts():
+    return (segconv.launch_count, pt_tail.launch_count,
+            pt_relayout.pack_launch_count, pt_relayout.unpack_launch_count,
+            pt_dynamics.state_walk_launch_count,
+            pt_dynamics.audio_walk_launch_count)
+
+
 def test_cpu_render_launches_no_kernel():
-    before = (segconv.launch_count, pt_tail.launch_count)
+    before = _launch_counts()
     cfg = pt.EngineConfig(44100, 512)
-    chain = pt.Chain(_chain7_effects(pt, cfg, device=CPU), device=CPU)
-    pt.render(chain, _signal(1, 4096, 0), cfg)
-    assert (segconv.launch_count, pt_tail.launch_count) == before
+    for effects in (_chain7_effects, _chain8_effects):
+        chain = pt.Chain(effects(pt, cfg, device=CPU), device=CPU)
+        pt.render(chain, _signal(1, 4096, 0), cfg)
+    assert _launch_counts() == before
+
+
+def test_cut_cascades_render_what_the_members_render_in_sequence():
+    """Six dynamics effects fuse into a cascade of four and one of two; the
+    result is that of the six run one by one."""
+    cfg = pt.EngineConfig(44100, 512)
+    o = pt.ops
+    effs = [o.compressor(cfg, -18.0, 0.6, device=CPU),
+            o.gate(cfg, -45.0, 0.1, 3.1, 20.0, device=CPU)] * 3
+    x = _signal(2, 8 * 512, seed=4)
+    fused = pt.render(pt.Chain(effs, device=CPU), x, cfg)
+    apart = pt.render(pt.Chain(effs, device=CPU, fuse=False), x, cfg)
+    assert torch.equal(fused, apart)
 
 
 def test_render_file_roundtrip(tmp_path):
@@ -239,6 +339,7 @@ def test_importing_the_port_loads_no_jax():
         f"{FORBIDDEN!r}]\n"
         "assert not bad, bad\n"
         "assert 'pyaudiodsptools_tpu_torch.kernels.tail' in sys.modules\n"
+        "assert 'pyaudiodsptools_tpu_torch.kernels.dynamics' in sys.modules\n"
         "print('clean')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -1,0 +1,443 @@
+"""PyTorch/CUDA port, the dynamics stage: compressor / gate factories, the
+faithful step, and the speculative segment-parallel walks
+(``kernels/dynamics.py``) against the JAX package on the CPU.
+
+The same numpy inputs go to both packages. The port runs with
+``device="cpu"``, i.e. the plain versions of its kernels; the JAX side runs
+its faithful ``lax.scan`` and its Pallas kernels with ``interpret=True``, as
+its own tests do. ``emulate_walk`` (tests/torch_port_util.py) is a third,
+scalar reading of the automaton, written the way one CUDA thread runs it.
+"""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import pyaudiodsptools_tpu as jx
+import pyaudiodsptools_tpu_torch as pt
+from pyaudiodsptools_tpu.kernels import dynamics_pallas as jx_dp
+from pyaudiodsptools_tpu_torch.kernels import dynamics as kd, relayout as rl
+
+from torch_port_util import emulate_walk, snr_db
+
+CPU = "cpu"
+JCFG = jx.EngineConfig(44100, 512)
+PCFG = pt.EngineConfig(44100, 512)
+
+# name -> (factory name, arguments). "chain8_*" are the flagship chain's
+# arguments; "short_attack" has x_max == 1, where ATTACK collapses (a trigger
+# jumps straight to HOLD) and the hold gain (1.0) differs from release_env[0].
+OPS = {
+    "compressor_default": ("compressor", ()),
+    "gate_default": ("gate", ()),
+    "chain8_compressor": ("compressor", (-18.0, 0.6, 3.1, 30.1)),
+    "chain8_gate": ("gate", (-45.0, 0.1, 3.1, 200.1)),
+    "short_attack": ("compressor", (-20.0, 0.5, 1000.0 / 44100.0, 2.0)),
+}
+# what the offline tests walk: single ops and the flagship cascade
+CASCADES = {
+    "compressor": ("chain8_compressor",),
+    "gate": ("chain8_gate",),
+    "cascade": ("chain8_compressor", "chain8_gate"),
+}
+N = 12000       # longer than the gate's release (8,824 samples)
+
+
+def _jx(name):
+    fac, args = OPS[name]
+    return getattr(jx.ops, fac)(JCFG, *args)
+
+
+def _pt(name):
+    fac, args = OPS[name]
+    return getattr(pt.ops, fac)(PCFG, *args, device=CPU)
+
+
+def _signals(n=N):
+    """The three signals of the JAX package's speculative-dynamics tests,
+    which all synchronise within a segment (two walks), and a fourth that
+    does not: short bursts followed by silence, so that the gate's release
+    (8,824 samples) spans many segments and the loop must hand states on."""
+    rng = np.random.default_rng(42)
+    decay = np.zeros((2, n), np.float32)
+    decay[:, 100:400] = 0.5
+    decay[1, 9500:9600] = -0.5
+    return {
+        "decay": decay,
+        "bursty": (rng.standard_normal((2, n)) * 0.3
+                   * (rng.random((2, n)) > 0.5)).astype(np.float32),
+        # hovers around the threshold with no synchronising window anywhere:
+        # drives the loop towards its serial worst case
+        "alternating": np.tile([0.9, 1e-4], n // 2)[None, :].repeat(
+            2, 0).astype(np.float32),
+        "silence": np.zeros((2, n), np.float32),
+    }
+
+
+SIGNALS = _signals()
+
+
+@functools.lru_cache(maxsize=None)
+def _serial(cascade: str, signal: str) -> torch.Tensor:
+    """The port's serial oracle: the plain walk with ONE segment."""
+    params = [_pt(n).params for n in CASCADES[cascade]]
+    return kd.dynamics_offline(params, torch.from_numpy(SIGNALS[signal]),
+                               segments=1)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_scan_fold(cascade: str, signal: str) -> np.ndarray:
+    y = jnp.asarray(SIGNALS[signal])
+    for n in CASCADES[cascade]:
+        e = _jx(n)
+        _, y = e.step(e.params, e.init_state(e.params, (y.shape[0],)), y)
+    return np.asarray(y)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_kernel(cascade: str, signal: str) -> np.ndarray:
+    params = [_jx(n).params for n in CASCADES[cascade]]
+    return np.asarray(jx_dp.dynamics_pallas_offline(
+        params, jnp.asarray(SIGNALS[signal]), segments=5, interpret=True))
+
+
+# ---------------------------------------------------------------------------
+# factories
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_factory_params_equal_jax(name):
+    je, pe = _jx(name), _pt(name)
+    assert pe.name == je.name and pe.time_parallel is False
+    jp, pp = je.params, pe.params
+    assert (pp.x_max, pp.y_max) == (jp.x_max, jp.y_max)
+    assert type(pp).meta_fields == ("x_max", "y_max")
+    for field in ("threshold", "pre_gain", "attack_env", "release_env"):
+        want = np.asarray(getattr(jp, field))
+        got = getattr(pp, field)
+        assert got.dtype == torch.float32 and got.device.type == "cpu", field
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=field)
+    if name == "short_attack":
+        assert pp.x_max == 1 and float(pp.attack_env[-1]) == 1.0 \
+            and float(pp.release_env[0]) == 0.5
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_kernel_scalars_equal_jax(name):
+    """The eight scalars the walks take by value, bit for bit those the JAX
+    kernels read from SMEM."""
+    jp = _jx(name).params
+    want_f = np.asarray(jx_dp._pack_fscal(jp)).reshape(6)
+    sc = kd.op_scalars(_pt(name).params)
+    assert all(isinstance(v, np.float32) for v in sc[:6])
+    np.testing.assert_array_equal(np.array(sc[:6], np.float32), want_f)
+    assert sc[6:] == (jp.x_max, jp.x_max + jp.y_max)
+
+
+def test_encode_state_matches_jax():
+    rng = np.random.default_rng(5)
+    pp, jp = _pt("chain8_gate").params, _jx("chain8_gate").params
+    n = 4000
+    mode = rng.integers(0, 4, n).astype(np.int32)
+    # legal states: x counts in ATTACK (1..x_max-1) and is x_max in HOLD, y
+    # counts in RELEASE (1..y_max-1); skip only ever accompanies REST
+    x = np.where(mode == 1, rng.integers(1, pp.x_max, n),
+                 np.where(mode == 2, pp.x_max, 0)).astype(np.int32)
+    y = np.where(mode == 3, rng.integers(1, pp.y_max, n), 0).astype(np.int32)
+    skip = (mode == 0) & (rng.random(n) < 0.3)
+    want = np.asarray(jx_dp.encode_state(jp, {
+        "mode": jnp.asarray(mode), "x": jnp.asarray(x), "y": jnp.asarray(y),
+        "skip": jnp.asarray(skip)}))
+    got = kd.encode_state(pp, {
+        "mode": torch.from_numpy(mode), "x": torch.from_numpy(x),
+        "y": torch.from_numpy(y), "skip": torch.from_numpy(skip)})
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    # every kind of state was drawn: skip, REST, ATTACK, HOLD, RELEASE
+    assert {-1, 0, 1, pp.x_max} <= set(want.tolist()) \
+        and want.max() > pp.x_max
+
+
+# ---------------------------------------------------------------------------
+# the faithful step
+
+
+@pytest.mark.parametrize("name", ["chain8_compressor", "chain8_gate",
+                                  "short_attack"])
+def test_faithful_step_matches_jax_step(name):
+    """Several blocks with the state carried. Both sides gather the same
+    float32 table and multiply block * pre_gain * gain in the same order, so
+    the state is exactly equal and the audio is bit-equal (the bar asked for
+    is 120 dB; equality is what is asserted)."""
+    je, pe = _jx(name), _pt(name)
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal((3, 5, 700)) * 0.3
+         * (rng.random((3, 5, 700)) > 0.4)).astype(np.float32)
+    x[:, 2] *= 0.001                       # a quiet block: releases complete
+    jst = je.init_state(je.params, (3,))
+    pst = pe.state((3,))
+    assert all(v.shape == (3,) for v in pst.values())
+    for b in range(x.shape[1]):
+        jst, want = je.step(je.params, jst, jnp.asarray(x[:, b]))
+        pst, got = pe.step(pe.params, pst, torch.from_numpy(x[:, b]))
+        assert got.dtype == torch.float32
+        assert snr_db(np.asarray(want), got.numpy()) >= 120.0
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        for k in ("mode", "x", "y", "skip"):
+            np.testing.assert_array_equal(pst[k].numpy(), np.asarray(jst[k]),
+                                          err_msg=f"{k} after block {b}")
+    assert pst["mode"].dtype == torch.int32 and pst["skip"].dtype == torch.bool
+
+
+def test_fused_dynamics_step_folds_the_faithful_steps():
+    comp, gate = _pt("chain8_compressor"), _pt("chain8_gate")
+    fused = kd.fused_dynamics([comp, gate])
+    assert fused.name == "dynamics_cascade:compressor+gate"
+    assert fused.time_parallel is False and fused.device.type == "cpu"
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy((rng.standard_normal((2, 1500)) * 0.4
+                          ).astype(np.float32))
+    st = fused.state((2,))
+    st, out = fused.step(fused.params, st, x)
+    _, mid = comp.step(comp.params, comp.state((2,)), x)
+    st2, want = gate.step(gate.params, gate.state((2,)), mid)
+    assert torch.equal(out, want)
+    assert torch.equal(st[1]["y"], st2["y"])
+
+
+# ---------------------------------------------------------------------------
+# the speculative walks
+
+
+@pytest.mark.parametrize("segments", [1, 5, 16])
+@pytest.mark.parametrize("cascade", CASCADES)
+def test_offline_bit_equal_across_segmentations_and_close_to_jax(cascade,
+                                                                 segments):
+    """The fixpoint is the serial trajectory, so every segmentation is
+    BIT-equal to the one-segment walk. Against the JAX faithful scans the
+    bar is the JAX package's own, > 100 dB: the walks compute the ramps
+    arithmetically, within 2 ulp of the scans' float32 tables. The same bar
+    holds against the JAX kernel in interpret mode (same arithmetic; XLA on
+    the CPU may contract a multiply-add that PyTorch keeps apart)."""
+    params = [_pt(n).params for n in CASCADES[cascade]]
+    for signal, x in SIGNALS.items():
+        got = kd.dynamics_offline(params if len(params) > 1 else params[0],
+                                  torch.from_numpy(x), segments=segments)
+        assert got.dtype == torch.float32 and got.shape == x.shape
+        assert torch.equal(got, _serial(cascade, signal)), (signal, segments)
+        assert snr_db(_jax_scan_fold(cascade, signal), got.numpy()) > 100.0, \
+            (signal, segments)
+        assert snr_db(_jax_kernel(cascade, signal), got.numpy()) > 100.0, \
+            (signal, segments)
+
+
+@pytest.mark.parametrize("C", [1, 3, 64])
+def test_offline_ragged_length_and_channel_counts(C):
+    """T is no multiple of the segment length: the last segment is ragged,
+    its zero rows are walked and its exit state is dropped."""
+    T = 5037
+    rng = np.random.default_rng(C)
+    x = (rng.standard_normal((C, T)) * 0.3
+         * (rng.random((C, T)) > 0.5)).astype(np.float32)
+    params = [_pt(n).params for n in CASCADES["cascade"]]
+    xt = torch.from_numpy(x)
+    serial = kd.dynamics_offline(params, xt, segments=1)
+    G, L, _ = rl.geometry(C, T, 7)
+    assert G * L != T
+    assert torch.equal(kd.dynamics_offline(params, xt, segments=7), serial)
+    assert torch.equal(kd.dynamics_offline(params, xt), serial)   # planner
+    y = jnp.asarray(x)
+    for n in CASCADES["cascade"]:
+        e = _jx(n)
+        _, y = e.step(e.params, e.init_state(e.params, (C,)), y)
+    assert snr_db(np.asarray(y), serial.numpy()) > 100.0
+
+
+def test_offline_short_attack_edge():
+    """x_max == 1: the hold gain is attack_env[0] == 1.0 while the release
+    ramp still starts at the ratio; both scalars are carried apart."""
+    je, pe = _jx("short_attack"), _pt("short_attack")
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((1, 8000)) * 0.5).astype(np.float32)
+    _, want = je.step(je.params, je.init_state(je.params, (1,)),
+                      jnp.asarray(x))
+    xt = torch.from_numpy(x)
+    got = kd.dynamics_offline(pe.params, xt, segments=7)
+    assert torch.equal(got, kd.dynamics_offline(pe.params, xt, segments=1))
+    assert snr_db(np.asarray(want), got.numpy()) > 100.0
+
+
+def _gap_signal():
+    """A loud level with silent gaps one sample shorter than, as long as and
+    one sample longer than the releases of the ops below (88 and 132)."""
+    pieces = []
+    for gap in (87, 88, 89, 131, 132, 133, 300):
+        pieces += [np.full(300, 0.5, np.float32), np.zeros(gap, np.float32)]
+    row = np.concatenate(pieces + [np.full(300, 0.5, np.float32)])
+    return np.stack([row, -row])
+
+
+def test_skip_sample_after_a_completed_release():
+    """A release that completes on the last silent sample makes the next
+    sample a SKIPPED one (gain 1, not examined) and the trigger comes one
+    sample later. The other signals hardly ever put a loud sample right
+    after a completed release; this one does, for both ops of a cascade."""
+    jeffs = [jx.ops.compressor(JCFG, -20.0, 0.5, 3.1, 2.0),
+             jx.ops.gate(JCFG, -45.0, 0.1, 3.1, 3.0)]
+    peffs = [pt.ops.compressor(PCFG, -20.0, 0.5, 3.1, 2.0, device=CPU),
+             pt.ops.gate(PCFG, -45.0, 0.1, 3.1, 3.0, device=CPU)]
+    assert [e.params.y_max for e in peffs] == [88, 132]
+    x = _gap_signal()
+    xt = torch.from_numpy(x)
+    comp = peffs[0].params
+    alone = kd.dynamics_offline(comp, xt, segments=1)
+    after_87 = 300 + 87              # re-trigger out of RELEASE: hold gain
+    after_88 = after_87 + 300 + 88   # release completed: this one is skipped
+    assert alone[0, after_87] == 0.25
+    assert alone[0, after_88] == 0.5 and alone[0, after_88 + 1] == 0.5
+    assert alone[0, after_88 + 2] < 0.5          # the attack ramp, one late
+    params = [e.params for e in peffs]
+    serial = kd.dynamics_offline(params, xt, segments=1)
+    for segments in (5, 16):
+        assert torch.equal(kd.dynamics_offline(params, xt, segments=segments),
+                           serial)
+    y = jnp.asarray(x)
+    for e in jeffs:
+        _, y = e.step(e.params, e.init_state(e.params, (2,)), y)
+    assert snr_db(np.asarray(y), serial.numpy()) > 100.0
+    scalars = [kd.op_scalars(p) for p in params]
+    np.testing.assert_array_equal(
+        emulate_walk(scalars, x[0], [0, 0])[0], serial[0].numpy())
+
+
+@pytest.mark.parametrize("signal", SIGNALS)
+def test_scalar_mirror_of_the_cuda_walk_is_bit_equal(signal):
+    """One lane walked by ``emulate_walk`` (branches, one rounded float32
+    operation at a time, as csrc/dynamics.cu runs it) against the plain
+    tensor walk: audio and exit states, audio walk and state walk, from REST
+    and from a mid-release entry."""
+    scalars = [kd.op_scalars(_pt(n).params) for n in CASCADES["cascade"]]
+    x = SIGNALS[signal][:1, :4000]
+    tm = torch.from_numpy(np.ascontiguousarray(x.T))          # (L, 1)
+    for entry in ([0, 0], [scalars[0][6] + 40, scalars[1][6] + 3000],
+                  [5, -1]):
+        e = torch.tensor(entry, dtype=torch.int32).reshape(2, 1)
+        out, z = kd.audio_walk(scalars, tm, e)
+        m_out, m_z = emulate_walk(scalars, x[0], entry, audio=True)
+        np.testing.assert_array_equal(out[:, 0].numpy(), m_out)
+        assert z[:, 0].tolist() == m_z
+        zs = kd.state_walk(scalars, tm, e)
+        assert zs[:, 0].tolist() == emulate_walk(scalars, x[0], entry,
+                                                 audio=False)[1] == m_z
+
+
+def test_loop_walks_until_the_entries_settle(monkeypatch):
+    """On the decay signal at 16 segments of 750 samples the gate's release
+    crosses a dozen segments: the loop takes one walk per segment crossed
+    and never more than G + 2, and the result is still the serial one
+    (asserted for every signal in the test above)."""
+    walks = []
+    plain = kd.walk_plain
+    monkeypatch.setattr(kd, "walk_plain",
+                        lambda *a, **k: walks.append(k["audio"]) or plain(*a, **k))
+    params = [_pt(n).params for n in CASCADES["cascade"]]
+    got = kd.dynamics_offline(params, torch.from_numpy(SIGNALS["decay"]),
+                              segments=16)
+    assert walks[0] is False and all(walks[1:])     # one state walk, first
+    assert 8 <= len(walks) <= 16 + 2
+    assert torch.equal(got, _serial("cascade", "decay"))
+    walks.clear()
+    kd.dynamics_offline(params, torch.from_numpy(SIGNALS["bursty"]),
+                        segments=16)
+    assert walks == [False, True]
+
+
+def test_state_walk_equals_audio_walks_exit_states():
+    scalars = [kd.op_scalars(_pt(n).params) for n in CASCADES["cascade"]]
+    G, L, Rp = rl.geometry(2, N, 5)
+    tm = rl.pack(torch.from_numpy(SIGNALS["bursty"]), G, L, Rp)
+    e = torch.zeros((2, Rp), dtype=torch.int32)
+    out, z = kd.audio_walk(scalars, tm, e)
+    assert torch.equal(kd.state_walk(scalars, tm, e), z)
+    # pad lanes walk zeros from REST and stay at REST
+    assert not bool(z[:, 2 * G:].any()) and not bool(out[:, 2 * G:].any())
+
+
+# ---------------------------------------------------------------------------
+# effects, planner, refusals
+
+
+def test_lone_effect_offline_takes_the_walks_and_no_kernel_on_cpu():
+    comp = _pt("chain8_compressor")
+    before = (kd.state_walk_launch_count, kd.audio_walk_launch_count,
+              rl.pack_launch_count, rl.unpack_launch_count)
+    x = torch.from_numpy(SIGNALS["bursty"][:, :6000])
+    blocks = x.reshape(2, 12, 500)
+    got = comp.offline(comp.params, blocks)
+    assert got.shape == blocks.shape
+    assert torch.equal(got.reshape(2, -1),
+                       kd.dynamics_offline(comp.params, x, segments=1))
+    # mono (nb, B) blocks are one channel
+    mono = comp.offline(comp.params, blocks[0])
+    assert torch.equal(mono, got[0])
+    assert torch.equal(comp.offline(comp.params, blocks, use_kernels=False),
+                       got)
+    assert before == (kd.state_walk_launch_count, kd.audio_walk_launch_count,
+                      rl.pack_launch_count, rl.unpack_launch_count)
+
+
+def test_fused_dynamics_offline_equals_the_cascade_walk():
+    fused = kd.fused_dynamics([_pt(n) for n in CASCADES["cascade"]])
+    x = SIGNALS["bursty"]
+    got = fused.offline(fused.params, torch.from_numpy(x).reshape(2, -1, 500))
+    assert torch.equal(got.reshape(2, -1), _serial("cascade", "bursty"))
+
+
+def test_planner_and_geometry():
+    assert kd.plan_segments(64, 1323008) * 64 <= kd.TARGET_LANES
+    assert 1323008 // kd.plan_segments(64, 1323008) >= kd.MIN_SEGMENT
+    assert kd.plan_segments(2, 100) == 1
+    assert kd.plan_segments(1, 10 * kd.MIN_SEGMENT) == 10
+    G, L, Rp = rl.geometry(3, 1000, 7)
+    assert (G, L) == (7, 143) and Rp == 32 and (G - 1) * L < 1000 <= G * L
+    # a request for more segments than samples gives one sample a segment
+    assert rl.geometry(1, 5, 9)[:2] == (5, 1)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    sc = [kd.op_scalars(_pt("chain8_gate").params)]
+    tm = torch.zeros((10, 32))
+    e = torch.zeros((1, 32), dtype=torch.int32)
+    with pytest.raises(ValueError, match="float32"):
+        kd.audio_walk(sc, tm.double(), e)
+    with pytest.raises(ValueError, match="contiguous"):
+        kd.state_walk(sc, torch.zeros((32, 10)).T, e)
+    with pytest.raises(ValueError, match="int32"):
+        kd.state_walk(sc, tm, e.long())
+    with pytest.raises(ValueError, match="entry states"):
+        kd.audio_walk(sc * 2, tm, e)
+    with pytest.raises(ValueError, match="1 to 4"):
+        kd.dynamics_offline([_pt("chain8_gate").params] * 5,
+                            torch.zeros((1, 100)))
+    with pytest.raises(ValueError, match=r"\(C, T\)"):
+        kd.dynamics_offline(_pt("chain8_gate").params, torch.zeros(100))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cascade", CASCADES)
+def test_cuda_walks_bit_equal_to_plain_on_card(cascade):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    params = [_pt(n).params for n in CASCADES[cascade]]
+    for signal, x in SIGNALS.items():
+        xd = torch.from_numpy(x).cuda()
+        before = (kd.state_walk_launch_count, kd.audio_walk_launch_count)
+        got = kd.dynamics_offline(params, xd, segments=16)
+        torch.cuda.synchronize()
+        assert kd.state_walk_launch_count == before[0] + 1
+        assert kd.audio_walk_launch_count > before[1]
+        assert torch.equal(got.cpu(), _serial(cascade, signal)), signal

@@ -10,6 +10,11 @@
   run without a card; the mirrors let the CPU tests hold the kernels'
   ALGORITHMS (twiddle and spectrum tables, digit-reversed order, the in-place
   tap walk, the re-zeroing rule) against the plain versions.
+* ``emulate_walk`` -- csrc/dynamics.cu's walk of ONE lane as a scalar numpy
+  loop: the single-int automaton written the way the CUDA thread runs it
+  (branches instead of selects, one rounded float32 operation at a time), a
+  third reading of ``dynamics_pallas._int_automaton`` beside the JAX kernel
+  and the port's tensor code.
 """
 
 from __future__ import annotations
@@ -322,3 +327,47 @@ def emulate_tail(x: np.ndarray, gains, table, S: int, threads: int = 64
                     w[lo:] = v[lo:]
             out[c, t0:t0 + width] = w[D:D + width]
     return out
+
+
+# ---------------------------------------------------------------------------
+# csrc/dynamics.cu in numpy: one thread's walk
+
+
+def emulate_walk(scalars, x_lane: np.ndarray, entry, audio: bool = True):
+    """One lane of csrc/dynamics.cu: walk ``x_lane`` (L,) float32 through
+    the cascade ``scalars`` (one tuple per op, as
+    ``kernels.dynamics.op_scalars`` gives them) from the per-op ``entry``
+    states. Returns (out (L,) float32 or None, exit states). Without
+    ``audio`` the last op computes no gain, as in the state-walk kernel."""
+    s = [int(v) for v in entry]
+    n_ops = len(scalars)
+    out = np.empty(len(x_lane), _F) if audio else None
+    for l, v in enumerate(x_lane):
+        row = _F(v)
+        for j, (thr, pre, ratio, att_step, rel0, rel_step, x_max, end) \
+                in enumerate(scalars):
+            over = abs(row) > thr
+            sj = s[j]
+            if audio or j + 1 < n_ops:
+                if sj <= 0:
+                    gain = _F(1.0)
+                elif sj < x_max:
+                    gain = _F(_F(1.0) + _F(_F(sj) * att_step))
+                elif over:
+                    gain = ratio
+                else:
+                    gain = _F(rel0 + _F(_F(_F(sj) - _F(x_max)) * rel_step))
+                row = _F(_F(row * pre) * gain)
+            if sj < 0:                  # skip consumes itself
+                s[j] = 0
+            elif sj == 0:               # REST: trigger
+                s[j] = 1 if over else 0
+            elif sj < x_max:            # ATTACK ignores the mask
+                s[j] = sj + 1
+            elif over:                  # HOLD stays / RELEASE re-triggers
+                s[j] = x_max
+            else:                       # release advances; done -> skip
+                s[j] = -1 if sj + 1 == end else sj + 1
+        if audio:
+            out[l] = row
+    return out, s
