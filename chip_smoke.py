@@ -12,32 +12,50 @@ failed check raises (exit code != 0, no result line):
    for sm_90a (one process per source, started together). Set-up time: it
    is in no rate below.
 3. ``kernel_cases``  each hand-written kernel against its plain PyTorch
-   version (and the conv against a float64 oracle) on small cases that cover
+   version (and the convs against a float64 oracle) on small cases that cover
    the edges: odd window counts, ragged tiles, re-zeroing before the signal
    start, a shrunk tile, a run the tail kernel refuses; pack and unpack on
    ragged lengths and 1, 3 and 64 channels (exact, pad lanes zero); the two
    dynamics walks on three signals for compressor, gate, their cascade and
    the one-sample attack (exit states equal, 0 mismatching samples), and the
-   whole speculative stage against the plain one-segment (serial) walk.
-4. ``main_path``  two paths through ``render`` at 64 channels x 30 s on noise
+   whole speculative stage against the plain one-segment (serial) walk;
+   ``convpairs_cases``: the circular convolution at every power of two from
+   16 to 16,384 and 1, 2, 5 and 64 rows; ``serial_walk_cases``: the serial
+   walk equal to its plain version and to the audio walk at one segment.
+4. ``main_path``  two paths through ``render`` at 64 channels on noise
    bursts generated on the card from a seed, each with every kernel's launch
    count set to 0 just before and read just after. First the earlier path,
    chain7 (saturator in place of the compressor/gate pair) at block size
-   4096; then the main path, **chain8**, the flagship 8-effect chain, at
-   block size 4096 then 512, through all six kernels. The outputs are held
-   against the same render with ``use_kernels=False`` on the card and, for
-   two channels, against a float64 numpy oracle of the whole chain (chain8:
-   over an excerpt, because the oracle walks the two automatons sample by
-   sample in Python).
-5. ``kernel_timing``  each kernel at the main-path shapes: time (CUDA events,
-   median of 5 after a warm-up) beside its plain version, a library
-   yardstick where there is one, and its bound (bytes over the card's memory
-   rate, operations over its fp32 rate, whichever is larger). Also the whole
+   4096 over 10 s; then the offline main path, **chain8**, the flagship
+   8-effect chain, over 30 s at block size 4096 then 512, through six
+   kernels. The outputs are held against the same render with
+   ``use_kernels=False`` on the card and, for two channels, against a
+   float64 numpy oracle of the whole chain (chain8: over an excerpt, because
+   the oracle walks the two automatons sample by sample in Python).
+5. ``stream_path``  the streaming main path: chain8, 64 channels x 30 s,
+   block by block through ``StreamProcessor`` at block size 4096 (323 steps)
+   and 512 (2,584 steps), counts set to 0 just before and read just after
+   (one circular convolution and one serial walk a step, nothing else). The
+   streamed output is held against the offline kernel render, stage by stage
+   and whole, against the plain-version stream over a short excerpt, and
+   against the float64 oracle excerpt; a checkpoint saved in mid-stream and
+   loaded into a fresh processor continues bit-equal; ``render_segmented``
+   equals the streamed fold bit for bit; ``render_resumable`` with an
+   injected stop resumes to the same bits. ``stream_timing``: the step's
+   time (median, p99, max) beside the block's duration, with tensors and
+   with numpy in and out, and the old per-sample step once for the record.
+6. ``kernel_timing``  each kernel at the main-path shapes: time (CUDA events,
+   median of 5 after a warm-up; the two streaming kernels, which are over in
+   tens of microseconds, as launches queued behind a spin so that the host's
+   pace does not show) beside its plain version, a library yardstick where
+   there is one, and its bound (bytes over the card's memory rate,
+   operations over its fp32 rate, whichever is larger). Also the whole
    dynamics stage for a range of segment counts (the planner's sweep).
-6. ``throughput``  samples/s of the whole render, median of 3 chained passes.
+7. ``throughput``  samples/s of the whole render, median of 3 chained passes.
    With ``--profile``, a ``profile`` phase follows: ``torch.profiler`` over a
-   few renders, device time by kernel name and the device's idle share.
-7. the ``{"kernels": [...]}`` summary line, and as the LAST line
+   few renders and over a window of streaming steps, device time by kernel
+   name and the device's idle share.
+8. the ``{"kernels": [...]}`` summary line (all eight), and as the LAST line
    ``{"ok": true, "device": {...}}``.
 
 Tolerances, with their reasons, are the constants below.
@@ -47,18 +65,21 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 import pyaudiodsptools_tpu_torch as pt
-from pyaudiodsptools_tpu_torch.kernels import (_build, dynamics as kdyn,
-                                               relayout, segconv, tail)
-from pyaudiodsptools_tpu_torch.ops import fft_filter
+from pyaudiodsptools_tpu_torch.kernels import (_build, convpairs,
+                                               dynamics as kdyn, relayout,
+                                               segconv, tail)
+from pyaudiodsptools_tpu_torch.ops import dynamics as ops_dynamics, fft_filter
 from pyaudiodsptools_tpu_torch.ops.tremolo import TremoloParams, gain_row
 
 SAMPLE_RATE = 44100
@@ -66,6 +87,23 @@ BLOCK_SIZES = (4096, 512)
 # The main path's size: the flagship render, full width and full length.
 CHANNELS = 64
 SECONDS = 30.0
+# The earlier path (chain7) runs the same width over a shorter signal.
+CHAIN7_SECONDS = 10.0
+# Steps of the plain-version stream (its dynamics walk is a Python loop over
+# the block's samples), by block size.
+PLAIN_STREAM_STEPS = {512: 32, 4096: 4}
+# Rows of the batch that fills the card for the circular convolution: the
+# offline render's window batch at block size 4096 (64 channels x 162
+# windows of 16,384).
+FULL_BATCH_ROWS = 10368
+# Streaming bars: the streamed FIR stage runs another window than the offline
+# one (last bits differ): 110 dB, as between the conv kernel and its plain
+# version. Downstream a last-bit difference can flip a mask bit of the
+# compressor or the gate, so the whole streamed chain is held to the offline
+# kernel render at the bar of the whole plain render (CHAIN8_DB_PLAIN), while
+# the dynamics stage alone, streamed and offline on the SAME input, is held
+# to equality.
+STREAM_FIR_DB = 110.0
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
 # the fp32 rate outside the tensor cores. The bounds below are against these.
@@ -623,8 +661,142 @@ def dynamics_cases() -> dict:
             "fused_effect_planner_segments_equal_plain": planner_equal}
 
 
+def convpairs_cases() -> dict:
+    """The circular convolution against its plain version and a float64
+    oracle: every power of two from 16 to 16,384 (every pass schedule), 1, 2,
+    5 and 64 rows (a lone row, a pair, an odd last row, the step's batch),
+    and rows passed as a strided view of a longer history."""
+    rng = np.random.default_rng(19)
+    results = []
+    n = segconv.MIN_WINDOW
+    while n <= segconv.MAX_WINDOW:
+        kernel = rng.standard_normal(min(n, 1 + n // 2)) * 0.1
+        plan = convpairs.make_plan(kernel, n, "cuda")
+        for R in (1, 2, 5, 64):
+            x = rng.standard_normal((R, n)).astype(np.float32)
+            xd = torch.from_numpy(x).cuda()
+            before = convpairs.launch_count
+            got = convpairs.conv_pairs(xd, plan)
+            torch.cuda.synchronize()
+            assert convpairs.launch_count == before + 1
+            plain = convpairs.conv_pairs(xd, plan, use_kernels=False)
+            assert convpairs.launch_count == before + 1
+            oracle = np.fft.irfft(np.fft.rfft(x.astype(np.float64), axis=-1)
+                                  * np.fft.rfft(kernel, n), n, axis=-1)
+            r = {"n": n, "R": R, "taps": len(kernel),
+                 "db_plain": db_json(snr_db_cuda(plain, got)),
+                 "db_oracle": db_json(snr_db(oracle, got.cpu().numpy()))}
+            results.append(r)
+            assert bool(torch.isfinite(got).all())
+            assert snr_db_cuda(plain, got) >= CONV_DB_PLAIN, r
+            assert snr_db(oracle, got.cpu().numpy()) >= CONV_DB_ORACLE, r
+        n *= 2
+    joined = torch.randn((5, 1155 + 2048), device="cuda")
+    plan = convpairs.make_plan(rng.standard_normal(1017) * 0.1, 2048, "cuda")
+    strided_equal = torch.equal(
+        convpairs.conv_pairs(joined[:, :2048], plan),
+        convpairs.conv_pairs(joined[:, :2048].contiguous(), plan))
+    assert strided_equal
+    for bad in (2 * segconv.MAX_WINDOW, 3072):
+        try:
+            convpairs.make_plan(np.ones(3), bad, "cuda")
+        except ValueError as e:
+            assert str(bad) in str(e)
+        else:
+            raise AssertionError(f"a window of {bad} samples was accepted")
+    return {"phase": "convpairs_cases", "name": "conv_pairs",
+            "replaces": "pyaudiodsptools_tpu/kernels/pallas_conv.py:"
+                        "conv_pairs_fused",
+            "cases": results, "strided_rows_equal": strided_equal,
+            "min_snr_db": min(r["db_plain"] for r in results),
+            "min_snr_db_oracle": min(r["db_oracle"] for r in results)}
+
+
+# (ops, T, C): every T in {1, 512, 1500, 4096} and every C in {1, 3, 64} for
+# the single ops and the cascade of two; the cascade of four stops at 1,500
+# samples (its plain version is a Python loop: 4 ops x T rows x about 0.3 ms).
+SERIAL_CASES = [
+    ("compressor", 1, 1), ("compressor", 512, 3), ("compressor", 1500, 64),
+    ("compressor", 4096, 1),
+    ("gate", 1, 3), ("gate", 512, 64), ("gate", 1500, 1), ("gate", 4096, 3),
+    ("cascade", 1, 64), ("cascade", 512, 1), ("cascade", 1500, 3),
+    ("cascade", 4096, 64),
+    ("cascade_of_4", 1, 1), ("cascade_of_4", 512, 64),
+    ("cascade_of_4", 1500, 3),
+]
+
+
+def serial_walk_cases() -> dict:
+    """The serial walk against its plain version (0 mismatching samples, exit
+    states equal) and against the audio walk at one segment on the same data
+    (the same device functions: equal bits). Channel c takes row c of the
+    dynamics signals above (burst-then-silence and the gap signal included),
+    repeated to T samples; its entry state is REST or a random legal state,
+    alternately."""
+    cfg = pt.EngineConfig(SAMPLE_RATE, 512)
+    o = pt.ops
+    comp = o.compressor(cfg, -18.0, 0.6, 3.1, 30.1, device="cuda")
+    gate = o.gate(cfg, -45.0, 0.1, 3.1, 200.1, device="cuda")
+    short = o.compressor(cfg, -20.0, 0.5, 1000.0 / 44100.0, 2.0,
+                         device="cuda")             # x_max == 1
+    cascades = {"compressor": [comp], "gate": [gate],
+                "cascade": [comp, gate],
+                "cascade_of_4": [gate, short, comp, gate]}
+    rows = [row for sig in dynamics_signals().values() for row in sig]
+    rng = np.random.default_rng(23)
+    results = []
+    for k, (cname, T, C) in enumerate(SERIAL_CASES):
+        params = [e.params for e in cascades[cname]]
+        scalars = [kdyn.op_scalars(p) for p in params]
+        x = np.stack([np.resize(rows[(c + k) % len(rows)], T)
+                      for c in range(C)]).astype(np.float32)
+        entry = np.stack([rng.integers(-1, sc[7], C) for sc in scalars])
+        entry[:, (np.arange(C) + k) % 2 == 0] = 0          # REST
+        xd = torch.from_numpy(x).cuda()
+        ed = torch.from_numpy(entry.astype(np.int32)).cuda()
+        before = kdyn.serial_walk_launch_count
+        out, z = kdyn.serial_walk(scalars, xd, ed)
+        torch.cuda.synchronize()
+        assert kdyn.serial_walk_launch_count == before + 1
+        p_out, p_z = kdyn.serial_walk(scalars, xd, ed, use_kernels=False)
+        assert kdyn.serial_walk_launch_count == before + 1
+        a_out, a_z = kdyn.audio_walk(scalars, xd.t().contiguous(), ed)
+        r = {"ops": cname, "T": T, "C": C,
+             "entries_rest": int((entry[0] == 0).sum()),
+             "mismatching_samples": int((out != p_out).sum()),
+             "exit_states_equal": torch.equal(z, p_z),
+             "mismatching_samples_vs_audio_walk": int((out != a_out.t()).sum()),
+             "exit_states_equal_audio_walk": torch.equal(z, a_z)}
+        results.append(r)
+        assert bool(torch.isfinite(out).all())
+        assert r["mismatching_samples"] == 0 and r["exit_states_equal"], r
+        assert r["mismatching_samples_vs_audio_walk"] == 0 \
+            and r["exit_states_equal_audio_walk"], r
+    # the effects' own steps: a cascade step is one launch and equals the
+    # members' steps one after the other, states included
+    fused = kdyn.fused_dynamics([comp, gate])
+    x = torch.from_numpy(np.stack([np.resize(r, 1500) for r in rows[:3]])
+                         ).cuda()
+    before = kdyn.serial_walk_launch_count
+    st, out = fused.step(fused.params, fused.state((3,)), x)
+    assert kdyn.serial_walk_launch_count == before + 1
+    mid_st, mid = comp.step(comp.params, comp.state((3,)), x)
+    end_st, want = gate.step(gate.params, gate.state((3,)), mid)
+    step_equal = torch.equal(out, want) and all(
+        torch.equal(st[j][f], own[f]) for j, own in enumerate((mid_st, end_st))
+        for f in ("mode", "x", "y", "skip"))
+    assert step_equal
+    assert all(v.is_cuda for part in st for v in part.values())
+    return {"phase": "serial_walk_cases", "name": "serial_walk",
+            "replaces": "pyaudiodsptools_tpu/kernels/dynamics_pallas.py:"
+                        "dynamics_pallas",
+            "cases": results, "max_mismatching_samples": 0,
+            "all_exit_states_equal": True,
+            "cascade_step_equals_op_after_op_steps": step_equal}
+
+
 # ---------------------------------------------------------------------------
-# phases 4-6: the main path
+# phases 4-7: the main paths
 
 
 def tail_ops_per_sample(stages) -> int:
@@ -652,7 +824,11 @@ KERNELS = {
     "state_walk": ("dynamics.cu", "dynamics_pallas.py:358"),
     "audio_walk": ("dynamics.cu", "dynamics_pallas.py:323"),
     "unpack": ("relayout.cu", "relayout.py:316"),
+    "serial_walk": ("dynamics.cu", "dynamics_pallas.py:162"),
+    "conv_pairs": ("convpairs.cu", "pallas_conv.py:448"),
 }
+# the kernels of the streaming path; the others are the offline render's
+STREAM_KERNELS = ("serial_walk", "conv_pairs")
 
 
 def launch_counts() -> dict:
@@ -660,7 +836,9 @@ def launch_counts() -> dict:
             "pack": relayout.pack_launch_count,
             "state_walk": kdyn.state_walk_launch_count,
             "audio_walk": kdyn.audio_walk_launch_count,
-            "unpack": relayout.unpack_launch_count}
+            "unpack": relayout.unpack_launch_count,
+            "serial_walk": kdyn.serial_walk_launch_count,
+            "conv_pairs": convpairs.launch_count}
 
 
 def zero_launch_counts() -> None:
@@ -670,17 +848,21 @@ def zero_launch_counts() -> None:
     relayout.unpack_launch_count = 0
     kdyn.state_walk_launch_count = 0
     kdyn.audio_walk_launch_count = 0
+    kdyn.serial_walk_launch_count = 0
+    convpairs.launch_count = 0
 
 
 def check_render(chain, cfg, signal, out, n: int,
                  oracle_samples: int | None = None,
-                 db_plain_bar: float = CHAIN_DB_PLAIN) -> dict:
+                 db_plain_bar: float = CHAIN_DB_PLAIN,
+                 keep_oracle: dict | None = None) -> dict:
     """Hold a render to the plain render on the card, to the plain versions
     of the stages after the conv run on the kernel's conv output (see
     CHAIN8_DB_PLAIN) and, for the first and last channel, to the float64
     oracle (over the first ``oracle_samples`` samples: every effect is
     causal, so a prefix of the output depends on the same prefix of the
-    input only)."""
+    input only). ``keep_oracle`` receives the oracle excerpt under the block
+    size, for the streaming path to be held to as well."""
     C, B = signal.shape[0], cfg.block_size
     T = out.shape[-1]
     assert out.shape == (C, -(-n // B) * B) and out.dtype == torch.float32
@@ -703,6 +885,8 @@ def check_render(chain, cfg, signal, out, n: int,
     assert m % B == 0 and m <= T
     x2 = torch.nn.functional.pad(signal[pick], (0, T - n))[:, :m].cpu().numpy()
     oracle = chain_oracle(x2, chain.effects, B)
+    if keep_oracle is not None:
+        keep_oracle[B] = oracle
     db_oracle = snr_db(oracle, out[pick, :m].cpu().numpy())
     r = {"db_plain": db_json(db_plain),
          "db_plain_after_conv": db_json(db_after_conv),
@@ -936,6 +1120,359 @@ def time_tail(x, chain, tail_e, by_B: dict, B: int) -> None:
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the streaming path
+
+
+def percentile(values, q: float) -> float:
+    return float(np.percentile(np.asarray(values, dtype=np.float64), q))
+
+
+def step_stats(step_s: list, wall_s: float, block_ms: float) -> dict:
+    """Per-step host-clock times of one streamed run (ms)."""
+    ms = [t * 1e3 for t in step_s]
+    return {"steps": len(ms), "median_ms": statistics.median(ms),
+            "p99_ms": percentile(ms, 99), "max_ms": max(ms),
+            "wall_ms_per_step": wall_s * 1e3 / len(ms),
+            "stream_wall_s": wall_s, "block_budget_ms": block_ms,
+            "times_realtime": block_ms / (wall_s * 1e3 / len(ms))}
+
+
+def stream_run(chain, cfg, x: torch.Tensor, as_numpy: bool = False,
+               save_at: int | None = None, save_path: str | None = None):
+    """Stream x (C, T) block by block through a fresh, warmed-up
+    StreamProcessor, every launch count set to 0 just before the first block
+    and read just after the last. Returns (outputs, per-step seconds on the
+    host clock, seconds for the whole stream with the device drained, the
+    counts). With
+    ``as_numpy`` the blocks go in and come out as numpy arrays (a copy each
+    way and a synchronisation per block); otherwise nothing waits until the
+    end. ``save_at`` writes a checkpoint before that step."""
+    C, T = x.shape
+    B = cfg.block_size
+    sp = pt.StreamProcessor(chain, cfg, (C,))
+    sp.warmup()
+    src = x.cpu().numpy() if as_numpy else x
+    outs, step_s = [], []
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t_all = time.perf_counter()
+    for i in range(T // B):
+        if i == save_at:
+            sp.save_state(save_path)
+        t0 = time.perf_counter()
+        outs.append(sp.process(src[:, i * B:(i + 1) * B]))
+        step_s.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    torch.cuda.synchronize()
+    return outs, step_s, time.perf_counter() - t_all, counts
+
+
+def plain_chain_step(chain, scalars, state, block):
+    """One step of chain8 through the plain versions of the two streaming
+    kernels (the tail's members have no kernel in their steps)."""
+    fir_e, dyn_e, tail_e = chain.exec_effects
+    s_fir, s_dyn, s_tail = state
+    s_fir, block = fft_filter.fir_step(fir_e.params, s_fir, block,
+                                       use_kernels=False)
+    s_dyn, block = kdyn.cascade_step(scalars, dyn_e.params, s_dyn, block,
+                                     use_kernels=False)
+    s_tail, block = tail_e.step(tail_e.params, s_tail, block)
+    return (s_fir, s_dyn, s_tail), block
+
+
+def fold_steps(effect, x: torch.Tensor, B: int) -> torch.Tensor:
+    """One effect's step folded over the blocks of x (C, T)."""
+    state = effect.state((x.shape[0],))
+    outs = []
+    for i in range(x.shape[1] // B):
+        state, y = effect.step(effect.params, state, x[:, i * B:(i + 1) * B])
+        outs.append(y)
+    return torch.cat(outs, dim=-1)
+
+
+def stream_path(chain, cfg, signal, n: int, offline_out: torch.Tensor,
+                oracle: np.ndarray, workdir: str) -> tuple[dict, dict, dict]:
+    """Drive and check the streaming main path at one block size. Returns
+    (checks, timing, launch counts of the counted run)."""
+    C, B = signal.shape[0], cfg.block_size
+    T = -(-n // B) * B
+    nb = T // B
+    x = torch.nn.functional.pad(signal, (0, T - n)).contiguous()
+    fir_e, dyn_e, tail_e = chain.exec_effects
+    block_ms = cfg.block_duration_ms
+
+    # the counted run: tensors in and out, nothing waits
+    outs, step_s, wall_s, counts = stream_run(chain, cfg, x)
+    # one circular convolution and one serial walk a step, nothing else
+    assert all(v == (nb if k in STREAM_KERNELS else 0)
+               for k, v in counts.items()), counts
+    streamed = torch.cat(outs, dim=-1)
+    del outs
+    assert streamed.shape == (C, T) and streamed.dtype == torch.float32
+    assert bool(torch.isfinite(streamed).all())
+    r = {"steps": nb, "launches": counts,
+         "window": fir_e.params.stream.n, "lead": fir_e.params.lead,
+         "history_samples": fft_filter.history_len(fir_e.params),
+         "peak": float(streamed.abs().max())}
+    timing = {"tensors_in_and_out": step_stats(step_s, wall_s, block_ms)}
+
+    # against the offline kernel render, whole and stage by stage
+    r["db_offline"] = db_json(snr_db_cuda(offline_out, streamed))
+    blocks = x.reshape(C, nb, B)
+    y_conv = fir_e.offline(fir_e.params, blocks).reshape(C, T)
+    r["db_fir_stage"] = db_json(snr_db_cuda(y_conv, fold_steps(fir_e, x, B)))
+    dyn_off = dyn_e.offline(dyn_e.params, y_conv.reshape(C, nb, B))
+    dyn_stream = fold_steps(dyn_e, y_conv, B)
+    r["dynamics_stage_mismatching_samples"] = int(
+        (dyn_stream != dyn_off.reshape(C, T)).sum())
+    del y_conv, dyn_off, dyn_stream, blocks
+
+    # against the plain-version stream over a short excerpt
+    k = PLAIN_STREAM_STEPS[B]
+    scalars = [kdyn.op_scalars(p) for p in dyn_e.params]
+    state = chain.init_state((C,))
+    plain = []
+    before = launch_counts()
+    for i in range(k):
+        state, y = plain_chain_step(chain, scalars, state,
+                                    x[:, i * B:(i + 1) * B])
+        plain.append(y)
+    assert launch_counts() == before, "a plain step launched a kernel"
+    r["plain_stream_steps"] = k
+    r["db_plain_stream"] = db_json(snr_db_cuda(torch.cat(plain, dim=-1),
+                                               streamed[:, :k * B]))
+    del plain, state
+
+    # against the float64 oracle excerpt (first and last channel)
+    m = oracle.shape[1]
+    r["db_oracle_2ch"] = db_json(snr_db(
+        oracle, streamed[[0, C - 1], :m].cpu().numpy()))
+    r["oracle_samples"] = m
+
+    # numpy in and out, with a checkpoint written in mid-stream ...
+    half = nb // 2
+    ckpt = os.path.join(workdir, f"stream_{B}.npz")
+    outs_np, step_np, wall_np, _ = stream_run(chain, cfg, x, as_numpy=True,
+                                              save_at=half, save_path=ckpt)
+    timing["numpy_in_and_out"] = step_stats(step_np, wall_np, block_ms)
+    r["numpy_stream_equal"] = bool(np.array_equal(
+        np.concatenate(outs_np, axis=-1), streamed.cpu().numpy()))
+    del outs_np
+    # ... which a fresh processor loads and continues from, bit-equal
+    sp = pt.StreamProcessor(chain, cfg, (C,))
+    sp.load_state(ckpt)
+    resumed = torch.cat([sp.process(x[:, i * B:(i + 1) * B])
+                         for i in range(half, nb)], dim=-1)
+    r["checkpoint_resume_equal"] = torch.equal(resumed, streamed[:, half * B:])
+    r["checkpoint_bytes"] = os.path.getsize(ckpt)
+    del resumed, sp
+
+    # the segmented render IS the streamed fold
+    seg = pt.render_segmented(chain, signal, cfg, segment_blocks=512)
+    r["render_segmented_equal"] = torch.equal(seg, streamed)
+    del seg
+
+    # the resumable render with a stop injected after two segments of four
+    if B == BLOCK_SIZES[0]:
+        ck_dir = os.path.join(workdir, f"resumable_{B}")
+        blocks = x.reshape(C, nb, B)
+        per = -(-nb // 4)
+        try:
+            pt.render_resumable(chain, blocks, ck_dir, segment_blocks=per,
+                                stop_after=2)
+        except RuntimeError as e:
+            assert "injected fault" in str(e)
+        else:
+            raise AssertionError("the injected stop did not stop the render")
+        with open(os.path.join(ck_dir, "meta.json")) as f:
+            assert json.load(f)["segment"] == 2
+        res = pt.render_resumable(chain, blocks, ck_dir, segment_blocks=per)
+        r["render_resumable_equal"] = torch.equal(res.reshape(C, T), streamed)
+        assert r["render_resumable_equal"], r
+        del res, blocks
+
+    assert snr_db_cuda(offline_out, streamed) >= CHAIN8_DB_PLAIN, r
+    assert r["db_fir_stage"] >= STREAM_FIR_DB, r
+    assert r["dynamics_stage_mismatching_samples"] == 0, r
+    assert r["db_plain_stream"] is None \
+        or r["db_plain_stream"] >= CHAIN8_DB_PLAIN, r
+    assert r["db_oracle_2ch"] >= CHAIN_DB_ORACLE, r
+    assert r["numpy_stream_equal"] and r["checkpoint_resume_equal"] \
+        and r["render_segmented_equal"], r
+    assert 0.0 < r["peak"] <= 1.0, r
+
+    # the old per-sample step on one block of 512, once, for the record
+    if B == 512:
+        st = dyn_e.state((C,))
+        blk = streamed[:, :B].contiguous()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p, s_op in zip(dyn_e.params, st):
+            _, blk = ops_dynamics.step_faithful(p, s_op, blk)
+        torch.cuda.synchronize()
+        timing["step_faithful_dynamics_stage_one_block_ms"] = \
+            (time.perf_counter() - t0) * 1e3
+    return r, timing, counts
+
+
+# Cycles of the spin that holds the device while launches queue behind it
+# (about 20 ms at the H100's clock).
+SPIN_CYCLES = 40_000_000
+
+
+def queued_ms(fn, runs: int = 50) -> dict:
+    """Device time per call of a kernel that is over in microseconds: the
+    launches are queued behind a spin kernel, so they run back to back and
+    the host's pace (which is what a plain event pair around them would
+    measure) does not show. ``host_ms`` is what one call costs the host."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(runs):
+        fn()
+    b.record()
+    host_s = time.perf_counter() - t0
+    still_spinning = not a.query()
+    torch.cuda.synchronize()
+    if not still_spinning:
+        raise RuntimeError(
+            "the spin ended before the launches were queued: the time would "
+            "be the host's, not the device's")
+    return {"ms": a.elapsed_time(b) / runs, "host_ms": host_s * 1e3 / runs}
+
+
+def time_stream_kernels(chain, cfg, streamed_in: torch.Tensor,
+                        timing: dict) -> None:
+    """The two streaming kernels at the step's shapes, on a block of the
+    main path's own data."""
+    C, B = streamed_in.shape[0], cfg.block_size
+    fir_e, dyn_e, _ = chain.exec_effects
+    plan = fir_e.params.stream
+    n = plan.n
+    # row 8: the step's window batch, as a step passes it: the first n
+    # samples of history + block, rows lead + n apart
+    joined = streamed_in[:, :fft_filter.history_len(fir_e.params) + B
+                         ].contiguous()
+    rows = joined[:, :n]
+    got = convpairs.conv_pairs(rows, plan)
+    plain = convpairs.conv_pairs(rows, plan, use_kernels=False)
+    torch.cuda.synchronize()
+    assert snr_db_cuda(plain, got) >= CONV_DB_PLAIN
+    log2n = n.bit_length() - 1
+    q = queued_ms(lambda: convpairs.conv_pairs(rows, plan))
+    dense = rows.contiguous()
+    timing["conv_pairs"][B] = {
+        "R": C, "n": n, "taps": plan.kernel_len,
+        "db_plain": db_json(snr_db_cuda(plain, got)),
+        "max_abs_err": float((got - plain).abs().max()),
+        "ms": q["ms"], "host_ms_per_call": q["host_ms"],
+        "plain_ms": queued_ms(lambda: convpairs.conv_pairs(
+            rows, plan, use_kernels=False))["ms"],
+        "library_ms": queued_ms(lambda: torch.fft.irfft(
+            torch.fft.rfft(dense, dim=-1) * plan.spectrum_rfft, n=n,
+            dim=-1))["ms"],
+        **bound(8 * C * n + 2 * 8 * n,
+                -(-C // 2) * (2 * 5 * n * log2n + 6 * n))}
+    # row 7: the step's block, from REST
+    scalars = [kdyn.op_scalars(p) for p in dyn_e.params]
+    x = got[:, n - B:].contiguous()
+    entry = torch.zeros((len(scalars), C), dtype=torch.int32, device="cuda")
+    out, z = kdyn.serial_walk(scalars, x, entry)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p_out, p_z = kdyn.serial_walk(scalars, x, entry, use_kernels=False)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    mismatching = int((out != p_out).sum())
+    assert mismatching == 0 and torch.equal(z, p_z)
+    q = queued_ms(lambda: kdyn.serial_walk(scalars, x, entry), runs=20)
+    # the same block time-major through the audio walk at one segment: the
+    # same arithmetic with coalesced rows, to show what the serial walk's
+    # channel-major reads cost
+    xt = x.t().contiguous()
+    a_out, a_z = kdyn.audio_walk(scalars, xt, entry)
+    assert torch.equal(a_out.t(), out) and torch.equal(a_z, z)
+    timing["serial_walk"][B] = {
+        "C": C, "T": B, "n_ops": len(scalars),
+        "mismatching_samples": mismatching, "exit_states_equal": True,
+        "max_abs_err": float((out - p_out).abs().max()),
+        "ms": q["ms"], "host_ms_per_call": q["host_ms"],
+        "audio_walk_one_segment_time_major_ms": queued_ms(
+            lambda: kdyn.audio_walk(scalars, xt, entry), runs=20)["ms"],
+        "plain_ms": plain_ms,
+        "plain_ran_with": f"a Python loop over T={B} rows, 1 timed run, "
+                          "host clock",
+        "library_ms": None,
+        **bound(8 * C * B + 8 * len(scalars) * C,
+                C * B * WALK_OPS_WITH_GAIN * len(scalars))}
+
+
+def time_full_batch() -> dict:
+    """Row 8 at a batch that fills the card: the offline render's window
+    batch at block size 4096, beside the one-call yardstick."""
+    n, R = segconv.MAX_WINDOW, FULL_BATCH_ROWS
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    x = torch.randn((R, n), generator=gen, device="cuda")
+    kernel = np.random.default_rng(5).standard_normal(8185) * 0.02
+    plan = convpairs.make_plan(kernel, n, "cuda")
+    got = convpairs.conv_pairs(x, plan)
+    lib = lambda: torch.fft.irfft(
+        torch.fft.rfft(x, dim=-1) * plan.spectrum_rfft, n=n, dim=-1)
+    db = snr_db_cuda(lib()[:64], got[:64])
+    assert db >= CONV_DB_PLAIN, db
+    del got
+    log2n = n.bit_length() - 1
+    return {"R": R, "n": n, "bytes": 8 * R * n, "db_plain_64_rows": db_json(db),
+            "ms": time_ms(lambda: convpairs.conv_pairs(x, plan)),
+            "library_ms": time_ms(lib),
+            **bound(8 * R * n + 2 * 8 * n,
+                    (R // 2) * (2 * 5 * n * log2n + 6 * n))}
+
+
+def profile_stream(chain, cfg, signal, wall_ms_per_step: float,
+                   steps: int) -> dict:
+    """Device time of ``steps`` streaming steps under ``torch.profiler``, by
+    kernel name, and the device's idle share of a step: 1 - busy time over
+    ``wall_ms_per_step`` (taken WITHOUT the profiler, see profile_renders)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    C, B = signal.shape[0], cfg.block_size
+    sp = pt.StreamProcessor(chain, cfg, (C,))
+    sp.warmup()
+    for i in range(8):
+        sp.process(signal[:, i * B:(i + 1) * B])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(8, 8 + steps):
+            sp.process(signal[:, i * B:(i + 1) * B])
+        torch.cuda.synchronize()
+    by_name, launches = {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3 / steps
+            launches += ev.count
+    if not by_name:
+        raise RuntimeError("torch.profiler recorded no device time")
+    busy_ms = sum(by_name.values())
+    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
+    return {"steps": steps, "device_launches_per_step": launches / steps,
+            "device_busy_ms_per_step": busy_ms,
+            "wall_ms_per_step": wall_ms_per_step,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms_per_step),
+            "device_ms_per_step_by_name": top}
+
+
 def profile_renders(chain, signal, cfg, render_ms: float, passes: int = 3
                     ) -> dict:
     """Device time of ``passes`` chained renders under ``torch.profiler``, by
@@ -1013,7 +1550,8 @@ def main() -> None:
     # ---- 3. small cases
     emit(conv_cases())
     emit(tail_cases())
-    for cases in (relayout_cases, dynamics_cases):
+    for cases in (relayout_cases, dynamics_cases, convpairs_cases,
+                  serial_walk_cases):
         t0 = time.perf_counter()
         emit({**cases(), "seconds": round(time.perf_counter() - t0, 1)})
 
@@ -1022,24 +1560,26 @@ def main() -> None:
     n = int(SECONDS * SAMPLE_RATE)
     signal = burst_noise(C, n, args.seed)
 
-    # the earlier path, chain7, at one block size
+    # the earlier path, chain7, at one block size over a shorter signal
     B7 = BLOCK_SIZES[0]
+    n7 = int(CHAIN7_SECONDS * SAMPLE_RATE)
+    signal7 = signal[:, :n7].contiguous()
     cfg7 = pt.EngineConfig(SAMPLE_RATE, B7)
     chain7 = pt.Chain(chain7_effects(cfg7, "cuda"), device="cuda")
     assert [e.name for e in chain7.exec_effects] == CHAIN7_NAMES
     torch.cuda.synchronize()
     zero_launch_counts()
-    out7 = pt.render(chain7, signal, cfg7)
+    out7 = pt.render(chain7, signal7, cfg7)
     torch.cuda.synchronize()
     launches7 = launch_counts()
     assert launches7["segconv"] >= 1 and launches7["tail"] >= 1, launches7
     assert sum(launches7.values()) == launches7["segconv"] + launches7["tail"]
-    check7 = check_render(chain7, cfg7, signal, out7, n)
+    check7 = check_render(chain7, cfg7, signal7, out7, n7)
     emit({"phase": "main_path", "chain": "chain7 (earlier path)",
-          "channels": C, "seconds_of_audio": SECONDS,
-          "samples_per_channel": n, "launches": launches7,
+          "channels": C, "seconds_of_audio": CHAIN7_SECONDS,
+          "samples_per_channel": n7, "launches": launches7,
           "by_block_size": {str(B7): check7}, "nvidia_smi": smi})
-    del out7
+    del out7, signal7
 
     # the main path, chain8, at both block sizes
     chains = {}
@@ -1060,14 +1600,18 @@ def main() -> None:
             + kdyn.audio_walk_launch_count - w0
     launches = launch_counts()
     for name, count in launches.items():
-        assert count >= len(BLOCK_SIZES), (name, launches)
+        if name in STREAM_KERNELS:          # the offline render has no step
+            assert count == 0, (name, launches)
+        else:
+            assert count >= len(BLOCK_SIZES), (name, launches)
 
-    main_checks = {}
+    main_checks, oracles = {}, {}
     for B in BLOCK_SIZES:
         cfg, chain = chains[B]
         main_checks[B] = check_render(chain, cfg, signal, outputs[B], n,
                                       oracle_samples=ORACLE_EXCERPT,
-                                      db_plain_bar=CHAIN8_DB_PLAIN)
+                                      db_plain_bar=CHAIN8_DB_PLAIN,
+                                      keep_oracle=oracles)
         main_checks[B]["dynamics_walks"] = walks[B]
     T = -(-n // BLOCK_SIZES[0]) * BLOCK_SIZES[0]
     emit({"phase": "main_path", "chain": "chain8", "channels": C,
@@ -1079,10 +1623,47 @@ def main() -> None:
                     "are walked sample by sample in Python",
           "by_block_size": {str(B): main_checks[B] for B in BLOCK_SIZES},
           "nvidia_smi": smi})
-    outputs.clear()
 
-    # ---- 5. the kernels at the main-path shapes
+    # ---- 5. the streaming main path: counts to 0, stream, read counts
     timing = {name: {} for name in KERNELS}
+    stream_checks, stream_times, stream_launches = {}, {}, {}
+    with tempfile.TemporaryDirectory() as workdir:
+        for B in BLOCK_SIZES:
+            cfg, chain = chains[B]
+            t0 = time.perf_counter()
+            stream_checks[B], stream_times[B], stream_launches[B] = \
+                stream_path(chain, cfg, signal, n, outputs.pop(B), oracles[B],
+                            workdir)
+            stream_checks[B]["seconds"] = round(time.perf_counter() - t0, 1)
+    for name in STREAM_KERNELS:
+        launches[name] = sum(c[name] for c in stream_launches.values())
+        assert launches[name] == sum(
+            -(-n // B) for B in BLOCK_SIZES), (name, launches)
+    emit({"phase": "stream_path", "chain": "chain8", "channels": C,
+          "seconds_of_audio": SECONDS, "samples_per_channel": n,
+          "launches": {name: launches[name] for name in STREAM_KERNELS},
+          "by_block_size": {str(B): stream_checks[B] for B in BLOCK_SIZES},
+          "nvidia_smi": smi})
+    for B in BLOCK_SIZES:
+        cfg, chain = chains[B]
+        T = -(-n // B) * B
+        time_stream_kernels(chain, cfg,
+                            torch.nn.functional.pad(signal, (0, T - n)),
+                            timing)
+    near_empty = queued_ms(lambda: kdyn.serial_walk(
+        [kdyn.op_scalars(chains[512][1].exec_effects[1].params[0])],
+        torch.zeros((1, 1), device="cuda"),
+        torch.zeros((1, 1), dtype=torch.int32, device="cuda")))
+    emit({"phase": "stream_timing", "chain": "chain8", "channels": C,
+          "by_block_size": {str(B): {
+              **stream_times[B],
+              "serial_walk": timing["serial_walk"][B],
+              "conv_pairs": timing["conv_pairs"][B]} for B in BLOCK_SIZES},
+          "near_empty_launch": {"what": "serial_walk at C=1, T=1", **near_empty},
+          "conv_pairs_full_card_batch": time_full_batch(),
+          "nvidia_smi": smi})
+
+    # ---- 6. the offline kernels at the main-path shapes
     stage_by_B, sweep = {}, {}
     for B in BLOCK_SIZES:
         cfg, chain = chains[B]
@@ -1104,11 +1685,11 @@ def main() -> None:
         del y_dyn
     emit({"phase": "kernel_timing", "nvidia_smi": smi,
           **{name: {str(B): v for B, v in by_B.items()}
-             for name, by_B in timing.items()},
+             for name, by_B in timing.items() if name not in STREAM_KERNELS},
           "dynamics_stage": {str(B): v for B, v in stage_by_B.items()},
           "segment_sweep": sweep})
 
-    # ---- 6. throughput of the whole render: 3 chained passes, o = chain(o)
+    # ---- 7. throughput of the whole render: 3 chained passes, o = chain(o)
     rates = {}
     for B in BLOCK_SIZES:
         cfg, chain = chains[B]
@@ -1134,9 +1715,15 @@ def main() -> None:
                   str(B): profile_renders(chains[B][1], signal, chains[B][0],
                                           rates[str(B)]["render_ms"])
                   for B in BLOCK_SIZES},
+              "stream_by_block_size": {
+                  str(B): profile_stream(
+                      chains[B][1], chains[B][0], signal,
+                      stream_times[B]["tensors_in_and_out"]["wall_ms_per_step"],
+                      steps=min(200, n // B - 8))
+                  for B in BLOCK_SIZES},
               "nvidia_smi": smi})
 
-    # ---- 7. the kernels, one line; headline numbers at block size 4096
+    # ---- 8. the kernels, one line; headline numbers at block size 4096
     head = BLOCK_SIZES[0]
     summary = []
     for name, (source, replaces) in KERNELS.items():

@@ -5,7 +5,9 @@ A second package beside the JAX one, for an NVIDIA H100: effects are pure
 chains fuse LTI runs into one segmented convolution, compressor / gate runs
 into one cascade of speculative segment-parallel walks, and delay / tremolo /
 waveshaper runs into one tail pass, and all of those run as CUDA C++ kernels
-written by hand for sm_90a (``csrc/``, built at first use). It imports
+written by hand for sm_90a (``csrc/``, built at first use). Streaming steps
+block by block through two more: the circular convolution of the FIR window
+and the serial dynamics walk. It imports
 ``torch`` and ``numpy``, and nothing of JAX or of the JAX package.
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``; on
@@ -15,19 +17,22 @@ Layers:
   core      config and device resolution, blocking, wav I/O
   ops       the effect library of the port's slices so far
   kernels   CUDA kernel wrappers, plain versions, and the nvcc build
-  engine    Chain composition and fusion, offline render
+  engine    Chain composition and fusion, offline render, StreamProcessor,
+            segmented and resumable render
   convert   build a chain from a plain numpy description of its params
 """
 
 from .core.config import EngineConfig, resolve_device
 from .core import block, wavio
 from . import ops
-from .engine import Chain, render, render_file
+from .engine import (Chain, StreamProcessor, render, render_file,
+                     render_resumable, render_segmented)
 from . import convert
 
 __version__ = "0.1.0"
 
 __all__ = [
     "EngineConfig", "resolve_device", "block", "wavio", "ops", "Chain",
-    "render", "render_file", "convert",
+    "render", "render_file", "render_segmented", "render_resumable",
+    "StreamProcessor", "convert",
 ]

@@ -26,6 +26,16 @@ What is carried across, per effect:
 
 The port's own factories give the same params; ``tests/test_torch_chain.py``
 holds them to that.
+
+``state_from_numpy(chain, leaves)`` carries a STREAMING state across: the
+leaves of a JAX chain state as numpy arrays, in ``jax.tree.flatten`` order
+(which is the order of the port's ``engine.stream.state_leaves``, whatever
+runs either chain fused). Dynamics fields, delay buffers and the tremolo's
+position are the same on both sides. A FIR history is not: the JAX step keeps
+``halo_stream`` whole blocks for its own window, the port keeps the last
+``lead + n - B`` samples, so the history is cut from the end of the JAX one
+and padded with silence in front where the JAX one is shorter (those samples
+meet no tap that reaches an output still to come).
 """
 
 from __future__ import annotations
@@ -35,6 +45,7 @@ import torch
 
 from .core.config import DEFAULT_DEVICE, resolve_device
 from .engine.chain import Chain
+from .engine.stream import state_from_leaves, state_paths
 from .ops import dynamics, fft_filter, waveshapers as ws
 from .ops.base import Effect, host_scalar
 # ``ops.delay`` / ``ops.tremolo`` name the factories; the modules behind them:
@@ -113,3 +124,32 @@ def chain_from_numpy(spec, device=DEFAULT_DEVICE, fuse: bool = True) -> Chain:
     dev = resolve_device(device)
     return Chain([effect_from_numpy(entry, dev) for entry in spec],
                  fuse=fuse, device=dev)
+
+
+def state_from_numpy(chain: Chain, jax_state_leaves):
+    """The port's streaming state of ``chain`` from the numpy leaves of the
+    JAX chain's state for the same effects (see the module docstring)."""
+    leaves = [np.asarray(leaf) for leaf in jax_state_leaves]
+    bare = state_paths(chain.init_state(()))
+    if len(leaves) != len(bare):
+        raise ValueError(
+            f"{len(leaves)} state leaves for a chain that keeps {len(bare)}")
+    # The batch shape is whatever a tensor leaf carries in front of its own
+    # axes (a JAX FIR history has two of its own: blocks and samples).
+    batch_shape = ()
+    for (path, own), leaf in zip(bare, leaves):
+        if isinstance(own, torch.Tensor):
+            own_axes = 2 if path[-1] == "hist" else own.dim()
+            batch_shape = tuple(leaf.shape[:leaf.ndim - own_axes])
+            break
+    template = state_paths(chain.init_state(batch_shape))
+    converted = []
+    for (path, own), leaf in zip(template, leaves):
+        if path[-1] == "hist":
+            flat = leaf.reshape(batch_shape + (-1,)).astype(np.float32)
+            keep = own.shape[-1]
+            flat = flat[..., max(flat.shape[-1] - keep, 0):]
+            pad = keep - flat.shape[-1]
+            leaf = np.pad(flat, [(0, 0)] * len(batch_shape) + [(pad, 0)])
+        converted.append(leaf)
+    return state_from_leaves(chain.init_state(batch_shape), converted)

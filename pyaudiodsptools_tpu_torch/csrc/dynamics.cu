@@ -51,6 +51,22 @@
 // another path. Everything else is compares, selects and exact int-to-float
 // conversions, so kernel and plain version agree bit for bit.
 //
+// The serial walk (dynamics_serial_walk) is the streaming step: it replaces
+// dynamics_pallas.py :: dynamics_pallas (body _kernel), which walks ONE op
+// over a (C, T) block from a carried state and returns the state. Here one
+// launch walks a whole cascade (op j+1 reads op j's output sample, which is
+// what the TPU package's op-after-op loop computes), reads and writes the
+// block as it lies, channel-major (C, T), and walks exactly T samples: there
+// is no tile padding whose samples a guard would have to keep off the state.
+// One thread per channel, the same automaton<> and cascade<> as the walks
+// above with the same rounding, so it is bit-equal to the audio walk at one
+// segment. What bounds it: nothing the card has much of. A block of 64
+// channels is two warps; the time is T times the latency of one sample's
+// dependent chain. Thread c reads x[c*T + t], so neighbouring threads are T
+// floats apart and a warp's load touches 32 cache lines; the block (a few
+// hundred KB) sits in L1/L2, each thread's WALK_CHUNK loads are issued
+// before the chunk is walked, and the next seven samples of a line are hits.
+//
 // Plain C interface: each launcher enqueues on the given stream, allocates
 // nothing, and returns cudaGetLastError().
 
@@ -59,6 +75,8 @@
 #define DYN_MAX_OPS 4
 #define WALK_CHUNK 8
 #define WALK_THREADS 128
+// One warp a block: 64 channels spread over two SMs.
+#define SERIAL_THREADS 32
 
 struct DynOp {
   float thr, pre, ratio, att_step, rel0, rel_step;
@@ -172,7 +190,66 @@ int launch(const float* x, float* out, const int* entry, int* exit_state,
   return (int)cudaGetLastError();
 }
 
+template <int N_OPS>
+__global__ void __launch_bounds__(SERIAL_THREADS)
+serial_walk_kernel(const float* __restrict__ x, float* __restrict__ out,
+                   const int* __restrict__ entry, int* __restrict__ exit_state,
+                   const DynOps ops, int C, int T) {
+  const int c = blockIdx.x * SERIAL_THREADS + threadIdx.x;
+  if (c >= C) return;
+  int s[N_OPS];
+#pragma unroll
+  for (int j = 0; j < N_OPS; ++j) s[j] = entry[(size_t)j * C + c];
+
+  const float* xc = x + (size_t)c * T;
+  float* outc = out + (size_t)c * T;
+  int t = 0;
+  for (; t + WALK_CHUNK <= T; t += WALK_CHUNK) {
+    float v[WALK_CHUNK];
+#pragma unroll
+    for (int k = 0; k < WALK_CHUNK; ++k) v[k] = xc[t + k];
+#pragma unroll
+    for (int k = 0; k < WALK_CHUNK; ++k)
+      outc[t + k] = cascade<N_OPS, true>(ops, s, v[k]);
+  }
+  for (; t < T; ++t) outc[t] = cascade<N_OPS, true>(ops, s, xc[t]);
+
+#pragma unroll
+  for (int j = 0; j < N_OPS; ++j) exit_state[(size_t)j * C + c] = s[j];
+}
+
 }  // namespace
+
+// Serial walk: out (C, T) and exit states (n_ops, C) from x (C, T),
+// channel-major, and entry states (n_ops, C).
+extern "C" int dynamics_serial_walk_launch(const float* x, float* out,
+                                           const int* entry, int* exit_state,
+                                           const DynOps* ops, int C, int T,
+                                           void* stream) {
+  if (ops->n_ops < 1 || ops->n_ops > DYN_MAX_OPS || T < 0 || C <= 0)
+    return (int)cudaErrorInvalidValue;
+  const unsigned blocks = (unsigned)((C + SERIAL_THREADS - 1) / SERIAL_THREADS);
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (ops->n_ops) {
+    case 1:
+      serial_walk_kernel<1><<<blocks, SERIAL_THREADS, 0, st>>>(
+          x, out, entry, exit_state, *ops, C, T);
+      break;
+    case 2:
+      serial_walk_kernel<2><<<blocks, SERIAL_THREADS, 0, st>>>(
+          x, out, entry, exit_state, *ops, C, T);
+      break;
+    case 3:
+      serial_walk_kernel<3><<<blocks, SERIAL_THREADS, 0, st>>>(
+          x, out, entry, exit_state, *ops, C, T);
+      break;
+    default:
+      serial_walk_kernel<4><<<blocks, SERIAL_THREADS, 0, st>>>(
+          x, out, entry, exit_state, *ops, C, T);
+      break;
+  }
+  return (int)cudaGetLastError();
+}
 
 // Audio walk: out (L, Rp) and exit states (n_ops, Rp) from x (L, Rp) and
 // entry states (n_ops, Rp).

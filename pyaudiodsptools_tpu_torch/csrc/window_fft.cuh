@@ -1,0 +1,356 @@
+// The window transform shared by csrc/segconv.cu and csrc/convpairs.cu:
+// circular convolution of ONE complex window of n = 2^ln points, resident in
+// a thread block's shared memory, with a spectrum that the host stores
+// pre-scaled and in the forward transform's output order. Packing two real
+// signals into the real and imaginary parts of the window convolves both
+// with a real filter at once (h is real, so the parts never mix).
+//
+// What the passes cost is shared-memory traffic and barriers, not device
+// memory and not fp32 FLOPs, so the transform
+//   * does TWO radix-4 levels per pass in registers (16 points per thread): a
+//     16,384-point transform takes 3 passes each way instead of 7;
+//   * skips every reorder pass: forward is decimation in frequency (natural
+//     order in, digit-reversed out), the host stores the filter's spectrum in
+//     that digit-reversed order (already divided by n), and the inverse is
+//     the exact adjoint, decimation in time (digit-reversed in, natural out);
+//   * runs the innermost levels of both directions and the spectrum multiply
+//     as ONE pass: those levels work on 16 (or 8) neighbouring points, which
+//     one thread holds from the last forward level to the first inverse one;
+//   * pads shared memory by one slot per 16 so that this pass, where each
+//     thread walks its own 16 neighbours, is free of bank conflicts.
+//
+// Twiddles never come from fast-math intrinsics. Fetching them as strided
+// gathers from one n-entry table took a large share of the time on an H100
+// (PERF.md: the per-pass layout halved it), so the host
+// (kernels/segconv.py::pass_twiddles, float64) lays them out per pass,
+// indexed by the thread's own j: consecutive threads read consecutive
+// entries. A two-level pass reads six entries per 16 points, w_m^(j*p) and
+// w_(m/4)^(j*p) for p = 1..3; the remaining factor of the outer level's
+// twiddle, w_m^(c*(m/16)*p) = w_16^(c*p), is a compile-time constant, as are
+// all twiddles of the innermost pass.
+//
+// The levels, for n = 2^ln (kernels/segconv.py::stage_radices is the same
+// list): radix 4 at sizes n, n/4, ... down to 4 (ln even) or 8 (ln odd), then
+// one radix-2 level if ln is odd.
+//
+// A kernel that includes this header fills z[pad(i)], i < n, synchronises,
+// calls convolve_window() with all its threads, and reads z[pad(i)] back (the
+// call ends in a barrier).
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+// 1,024 threads: a 16,384-point window leaves room for one block per SM, and
+// the passes are latency-bound, so the block brings as many warps as it can
+// (fewer threads per block measured slower on an H100: PERF.md).
+#define WINDOW_FFT_THREADS 1024
+
+namespace {
+
+// Shared-memory slot of point i: one pad slot per 16 points.
+__device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+// a * b
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+// a * conj(b)
+__device__ __forceinline__ float2 cmulc(float2 a, float2 b) {
+  return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
+}
+// -i * a  and  +i * a
+__device__ __forceinline__ float2 mul_neg_i(float2 a) {
+  return make_float2(a.y, -a.x);
+}
+__device__ __forceinline__ float2 mul_pos_i(float2 a) {
+  return make_float2(-a.y, a.x);
+}
+
+// v * exp(-2*pi*i*k/16). k is a compile-time constant wherever this is
+// called (fully unrolled loops), so the switch folds away.
+__device__ __forceinline__ float2 mul_w16(float2 v, int k) {
+  const float c1 = 0.92387953251128674f, s1 = 0.38268343236508977f,
+              r = 0.70710678118654752f;
+  switch (k & 15) {
+    case 0: return v;
+    case 1: return cmul(v, make_float2(c1, -s1));
+    case 2: return cmul(v, make_float2(r, -r));
+    case 3: return cmul(v, make_float2(s1, -c1));
+    case 4: return mul_neg_i(v);
+    case 5: return cmul(v, make_float2(-s1, -c1));
+    case 6: return cmul(v, make_float2(-r, -r));
+    case 7: return cmul(v, make_float2(-c1, -s1));
+    case 8: return make_float2(-v.x, -v.y);
+    case 9: return cmul(v, make_float2(-c1, s1));
+    case 10: return cmul(v, make_float2(-r, r));
+    case 11: return cmul(v, make_float2(-s1, c1));
+    case 12: return mul_pos_i(v);
+    case 13: return cmul(v, make_float2(s1, c1));
+    case 14: return cmul(v, make_float2(r, r));
+    default: return cmul(v, make_float2(c1, s1));
+  }
+}
+
+// 4-point DFT on registers (decimation in frequency, w = -i), and its
+// adjoint (w = +i). Twiddles are applied by the callers.
+__device__ __forceinline__ void dft4_forward(float2& a0, float2& a1, float2& a2,
+                                             float2& a3) {
+  const float2 t0 = cadd(a0, a2), t1 = csub(a0, a2), t2 = cadd(a1, a3),
+               t3 = mul_neg_i(csub(a1, a3));
+  a0 = cadd(t0, t2);
+  a1 = cadd(t1, t3);
+  a2 = csub(t0, t2);
+  a3 = csub(t1, t3);
+}
+__device__ __forceinline__ void dft4_inverse(float2& a0, float2& a1, float2& a2,
+                                             float2& a3) {
+  const float2 t0 = cadd(a0, a2), t1 = csub(a0, a2), t2 = cadd(a1, a3),
+               t3 = mul_pos_i(csub(a1, a3));
+  a0 = cadd(t0, t2);
+  a1 = cadd(t1, t3);
+  a2 = csub(t0, t2);
+  a3 = csub(t1, t3);
+}
+
+// One pass over ONE radix-4 level of size m = 2^lm, in place. `tw` points at
+// this pass's three rows of m/4 twiddles: row p-1 holds w_m^(j*p).
+template <bool kForward>
+__device__ __forceinline__ void pass_one_level(float2* z,
+                                               const float2* __restrict__ tw,
+                                               int ln, int lm) {
+  const int lq = lm - 2, q = 1 << lq;
+  for (int t = threadIdx.x; t < (1 << (ln - 2)); t += blockDim.x) {
+    const int j = t & (q - 1);
+    const int i0 = ((t >> lq) << lm) + j;
+    const float2 w1 = __ldg(tw + j), w2 = __ldg(tw + q + j),
+                 w3 = __ldg(tw + 2 * q + j);
+    float2 a0 = z[pad(i0)], a1 = z[pad(i0 + q)], a2 = z[pad(i0 + 2 * q)],
+           a3 = z[pad(i0 + 3 * q)];
+    if (kForward) {
+      dft4_forward(a0, a1, a2, a3);
+      a1 = cmul(a1, w1);
+      a2 = cmul(a2, w2);
+      a3 = cmul(a3, w3);
+    } else {
+      a1 = cmulc(a1, w1);
+      a2 = cmulc(a2, w2);
+      a3 = cmulc(a3, w3);
+      dft4_inverse(a0, a1, a2, a3);
+    }
+    z[pad(i0)] = a0;
+    z[pad(i0 + q)] = a1;
+    z[pad(i0 + 2 * q)] = a2;
+    z[pad(i0 + 3 * q)] = a3;
+  }
+}
+
+// One pass over TWO radix-4 levels, sizes m = 2^lm and m/4, in place. A
+// thread holds the 16 points b + j + c*(m/16) + a*(m/4), a, c in 0..3: the
+// outer level combines over a for each c, the inner one over c for each a
+// (after the outer level, index a names the quarter the point now lives in).
+// `tw` points at this pass's six rows of m/16 twiddles: rows 0..2 hold
+// w_m^(j*p), rows 3..5 hold w_(m/4)^(j*p), p = 1..3. The outer level's
+// twiddle for column c is w_m^((j + c*m/16)*p) = w_m^(j*p) * w_16^(c*p).
+template <bool kForward>
+__device__ __forceinline__ void pass_two_levels(float2* z,
+                                                const float2* __restrict__ tw,
+                                                int ln, int lm) {
+  const int lq2 = lm - 4, q2 = 1 << lq2, q1 = q2 << 2;
+  for (int t = threadIdx.x; t < (1 << (ln - 4)); t += blockDim.x) {
+    const int j = t & (q2 - 1);
+    const int i0 = ((t >> lq2) << lm) + j;
+    float2 w[6];
+#pragma unroll
+    for (int p = 0; p < 6; ++p) w[p] = __ldg(tw + p * q2 + j);
+    float2 x[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) x[a][c] = z[pad(i0 + c * q2 + a * q1)];
+    if (kForward) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        dft4_forward(x[0][c], x[1][c], x[2][c], x[3][c]);
+#pragma unroll
+        for (int p = 1; p < 4; ++p)
+          x[p][c] = mul_w16(cmul(x[p][c], w[p - 1]), c * p);
+      }
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        dft4_forward(x[a][0], x[a][1], x[a][2], x[a][3]);
+#pragma unroll
+        for (int p = 1; p < 4; ++p) x[a][p] = cmul(x[a][p], w[2 + p]);
+      }
+    } else {
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+#pragma unroll
+        for (int p = 1; p < 4; ++p) x[a][p] = cmulc(x[a][p], w[2 + p]);
+        dft4_inverse(x[a][0], x[a][1], x[a][2], x[a][3]);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+#pragma unroll
+        for (int p = 1; p < 4; ++p)
+          x[p][c] = cmulc(mul_w16(x[p][c], 16 - c * p), w[p - 1]);
+        dft4_inverse(x[0][c], x[1][c], x[2][c], x[3][c]);
+      }
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) z[pad(i0 + c * q2 + a * q1)] = x[a][c];
+  }
+}
+
+// The innermost pass for even ln: forward levels 16 and 4, the spectrum
+// multiply, inverse levels 4 and 16, on 16 neighbouring points per thread.
+// Its twiddles, w_16^(c*p), are compile-time constants.
+__device__ __forceinline__ void center_pass_16(float2* z,
+                                               const float2* __restrict__ spec,
+                                               int ln) {
+  for (int t = threadIdx.x; t < (1 << (ln - 4)); t += blockDim.x) {
+    const int i0 = t << 4;
+    float2 x[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) x[a][c] = z[pad(i0 + c + 4 * a)];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      dft4_forward(x[0][c], x[1][c], x[2][c], x[3][c]);
+#pragma unroll
+      for (int p = 1; p < 4; ++p) x[p][c] = mul_w16(x[p][c], c * p);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      dft4_forward(x[a][0], x[a][1], x[a][2], x[a][3]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        x[a][c] = cmul(x[a][c], __ldg(spec + i0 + c + 4 * a));
+      dft4_inverse(x[a][0], x[a][1], x[a][2], x[a][3]);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int p = 1; p < 4; ++p) x[p][c] = mul_w16(x[p][c], 16 - c * p);
+      dft4_inverse(x[0][c], x[1][c], x[2][c], x[3][c]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) z[pad(i0 + c + 4 * a)] = x[a][c];
+  }
+}
+
+// The innermost pass for odd ln: forward level 8 and the radix-2 level, the
+// spectrum multiply, and their inverses, on 8 neighbouring points per thread.
+// Its twiddles are w_8^(c*p) = w_16^(2*c*p).
+__device__ __forceinline__ void center_pass_8(float2* z,
+                                              const float2* __restrict__ spec,
+                                              int ln) {
+  for (int t = threadIdx.x; t < (1 << (ln - 3)); t += blockDim.x) {
+    const int i0 = t << 3;
+    float2 x[4][2];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) x[a][c] = z[pad(i0 + c + 2 * a)];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      dft4_forward(x[0][c], x[1][c], x[2][c], x[3][c]);
+#pragma unroll
+      for (int p = 1; p < 4; ++p) x[p][c] = mul_w16(x[p][c], 2 * c * p);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      float2 s = cadd(x[a][0], x[a][1]), d = csub(x[a][0], x[a][1]);
+      s = cmul(s, __ldg(spec + i0 + 2 * a));
+      d = cmul(d, __ldg(spec + i0 + 2 * a + 1));
+      x[a][0] = cadd(s, d);
+      x[a][1] = csub(s, d);
+    }
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int p = 1; p < 4; ++p) x[p][c] = mul_w16(x[p][c], 16 - 2 * c * p);
+      dft4_inverse(x[0][c], x[1][c], x[2][c], x[3][c]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) z[pad(i0 + c + 2 * a)] = x[a][c];
+  }
+}
+
+// The whole circular convolution of the window in z (n = 2^ln points at
+// z[pad(i)], already synchronised): forward passes, the innermost pass with
+// the spectrum multiply, the adjoint passes back. `tw` points at the per-pass
+// twiddle rows, which the passes walk down and back up again. Every thread of
+// the block must call it; it ends in a barrier.
+__device__ __forceinline__ void convolve_window(float2* z,
+                                                const float2* __restrict__ spec,
+                                                const float2* __restrict__ tw,
+                                                int ln) {
+  // The innermost pass takes the levels of size <= 16 (ln even) or <= 8
+  // (ln odd); the outer levels go two per pass from the top, and one alone
+  // if their number is odd.
+  const int inner = (ln & 1) ? 3 : 4;
+  int lm = ln;
+  for (; lm - 4 >= inner; lm -= 4) {
+    pass_two_levels<true>(z, tw, ln, lm);
+    tw += 6 << (lm - 4);
+    __syncthreads();
+  }
+  const bool single = lm > inner;      // one outer level of size 2^lm left
+  if (single) {
+    pass_one_level<true>(z, tw, ln, lm);
+    __syncthreads();
+  }
+
+  if (ln & 1) center_pass_8(z, spec, ln);
+  else center_pass_16(z, spec, ln);
+  __syncthreads();
+
+  // Back out: lm is the lowest outer level (the single one, or the innermost
+  // pass's top), so the two-level passes resume four levels of two above it.
+  if (single) {
+    pass_one_level<false>(z, tw, ln, lm);
+    __syncthreads();
+  }
+  for (lm += 4; lm <= ln; lm += 4) {
+    tw -= 6 << (lm - 4);
+    pass_two_levels<false>(z, tw, ln, lm);
+    __syncthreads();
+  }
+}
+
+// log2(n) for a power of two n >= 16, else -1.
+inline int window_log2(int n) {
+  int ln = 0;
+  while ((1 << ln) < n) ++ln;
+  return ((1 << ln) == n && ln >= 4) ? ln : -1;
+}
+
+// Dynamic shared memory of one window, pad slots included.
+inline size_t window_smem_bytes(int n) {
+  return (size_t)(n + (n >> 4)) * sizeof(float2);
+}
+
+// Threads of a block for an n-point window: one per 16 points, a whole warp
+// at least, WINDOW_FFT_THREADS at most.
+inline int window_threads(int n) {
+  int threads = n / 16;
+  if (threads > WINDOW_FFT_THREADS) threads = WINDOW_FFT_THREADS;
+  if (threads < 32) threads = 32;
+  return threads;
+}
+
+}  // namespace

@@ -73,9 +73,9 @@ class Chain:
         return tuple(e.state(batch_shape) for e in self._exec_effects)
 
     def step(self, state, block: torch.Tensor):
-        """Process one block through the whole chain. Raises
-        NotImplementedError for a chain that holds a FIR effect until the
-        streaming slice of the port lands."""
+        """Process one ``(..., block_size)`` block (on the chain's device)
+        through the whole chain: (state, block) -> (state, block). On the
+        card a step is a few dozen launches and reads nothing back."""
         return chain_step(self._exec_effects, self.params, state, block)
 
     def render_blocks(self, blocks: torch.Tensor,

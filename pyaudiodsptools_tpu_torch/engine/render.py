@@ -1,8 +1,9 @@
 """Offline rendering: signal/file -> chain -> signal/file.
 
 Counterpart of ``pyaudiodsptools_tpu/engine/render.py``: block the signal,
-render the whole chain, deblock. Output length is padded to whole blocks
-unless ``trim=True``.
+render the whole chain (at once through the offline kernels, or segment by
+segment through the streaming step), deblock. Output length is padded to
+whole blocks unless ``trim=True``.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from ..core import block as blk
 from ..core import wavio
 from ..core.config import EngineConfig
 from .chain import Chain
+from .resumable import render_segment
 
 
 def render(chain: Chain, signal, cfg: EngineConfig, trim: bool = False,
@@ -26,6 +28,34 @@ def render(chain: Chain, signal, cfg: EngineConfig, trim: bool = False,
     n = signal.shape[-1]
     blocks = blk.make_blocks(signal, cfg.block_size)
     out = chain.render_blocks(blocks, use_kernels=use_kernels)
+    return blk.combine_blocks(out, n if trim else None)
+
+
+def render_segmented(chain: Chain, signal, cfg: EngineConfig,
+                     segment_blocks: int = 512,
+                     trim: bool = False) -> torch.Tensor:
+    """Bounded-memory exact render for signals too long to render at once.
+
+    ``render`` keeps the whole signal plus several intermediates in device
+    memory; this path folds the chain's streaming step over
+    ``segment_blocks``-block segments with the state carried across and
+    moves each finished segment to the host, so the device holds the signal,
+    one segment and the state. The result is exactly the streaming fold (the
+    step path IS the op semantics), which on the card is far slower than the
+    offline kernels: use it when memory, not time, is the constraint."""
+    if segment_blocks < 1:
+        raise ValueError(f"segment_blocks must be >= 1, got {segment_blocks}")
+    signal = torch.as_tensor(signal, dtype=cfg.dtype).to(chain.device)
+    n = signal.shape[-1]
+    blocks = blk.make_blocks(signal, cfg.block_size)
+    nb = blocks.shape[-2]
+    state = chain.init_state(tuple(blocks.shape[:-2]))
+    outs = []
+    for lo in range(0, nb, segment_blocks):
+        hi = min(lo + segment_blocks, nb)
+        state, out = render_segment(chain, state, blocks[..., lo:hi, :])
+        outs.append(out.cpu())
+    out = torch.cat(outs, dim=-2).to(chain.device)
     return blk.combine_blocks(out, n if trim else None)
 
 

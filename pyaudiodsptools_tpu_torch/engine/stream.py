@@ -1,0 +1,161 @@
+"""Streaming: realtime-style block-by-block processing.
+
+Counterpart of ``pyaudiodsptools_tpu/engine/stream.py``. The reference's
+realtime path is an audio callback that mutates device state, with a
+deadline of one block's duration (512 samples at 44.1 kHz: 11.6 ms). Here a
+host-side processor feeds fixed-size blocks to the chain's step and carries
+the state explicitly. A step on the card is a few dozen launches and holds no
+read-back, so with tensors in and out the host runs ahead of the card; with
+numpy in and out every block costs one copy each way and a synchronisation,
+which is what a callback pays anyway.
+
+The state is a tree of tuples and dicts whose leaves are tensors on the
+chain's device (filter histories, envelope counters, delay buffers) or plain
+ints (the tremolo's LFO position). :func:`state_leaves` lists the leaves in
+the order the JAX package's ``jax.tree.flatten`` does (tuples in order, dicts
+by sorted key), and a checkpoint is an ``.npz`` of those leaves, so feeding
+it back is all resume takes.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Iterable, Iterator
+
+import numpy as np
+import torch
+
+from ..core.config import EngineConfig
+from .chain import Chain
+
+
+def state_paths(state, path: tuple = ()) -> list:
+    """(path, leaf) pairs of a state tree, tuples in order and dicts by
+    sorted key; a path is the keys and indices that lead to the leaf."""
+    if isinstance(state, dict):
+        return [pair for k in sorted(state)
+                for pair in state_paths(state[k], path + (k,))]
+    if isinstance(state, (tuple, list)):
+        return [pair for i, part in enumerate(state)
+                for pair in state_paths(part, path + (i,))]
+    return [(path, state)]
+
+
+def state_leaves(state) -> list:
+    """The leaves of a state tree in :func:`state_paths` order."""
+    return [leaf for _, leaf in state_paths(state)]
+
+
+def state_from_leaves(template, leaves: Iterable) -> Any:
+    """A state shaped like ``template`` from ``leaves`` (numpy arrays or
+    anything ``np.asarray`` takes) in :func:`state_leaves` order. A tensor
+    leaf takes the template leaf's device and dtype and must have its shape;
+    an int leaf stays a plain int."""
+    it = iter(leaves)
+
+    def build(node):
+        if isinstance(node, dict):
+            built = {k: build(node[k]) for k in sorted(node)}
+            return {k: built[k] for k in node}
+        if isinstance(node, (tuple, list)):
+            return tuple(build(part) for part in node)
+        try:
+            leaf = np.asarray(next(it))
+        except StopIteration:
+            raise ValueError("too few leaves for this chain's state") from None
+        if isinstance(node, torch.Tensor):
+            if leaf.shape != tuple(node.shape):
+                raise ValueError(
+                    f"state leaf of shape {leaf.shape} where this chain "
+                    f"keeps {tuple(node.shape)}")
+            # a copy: the state must not share memory with the caller's
+            return torch.from_numpy(np.array(leaf)).to(
+                device=node.device, dtype=node.dtype)
+        return type(node)(leaf)
+
+    state = build(template)
+    if next(it, None) is not None:
+        raise ValueError("too many leaves for this chain's state")
+    return state
+
+
+def save_state_npz(file, state) -> None:
+    """Write the state's leaves, in order, as one ``.npz`` (``file`` is a
+    path or an open binary file)."""
+    np.savez(file, *[leaf.detach().cpu().numpy()
+                     if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
+                     for leaf in state_leaves(state)])
+
+
+def load_state_npz(file, template):
+    with np.load(file) as archive:
+        return state_from_leaves(template,
+                                 [archive[k] for k in archive.files])
+
+
+class StreamProcessor:
+    """Carries chain state across fixed-size blocks.
+
+    >>> sp = StreamProcessor(chain, cfg)
+    >>> sp.warmup()                  # build and load before the deadline
+    >>> out = sp.process(block)      # inside the audio callback
+    """
+
+    def __init__(self, chain: Chain, cfg: EngineConfig,
+                 batch_shape: tuple[int, ...] = ()):
+        self.chain = chain
+        self.cfg = cfg
+        self.batch_shape = tuple(batch_shape)
+        self.state = chain.init_state(self.batch_shape)
+
+    def warmup(self) -> None:
+        """Run one step on silence and discard it (the state is unchanged).
+        On the card the first step also compiles the CUDA kernels with
+        ``nvcc`` if this checkout has not built them yet (seconds), loads
+        them, and waits for the device, so that the first real block meets
+        none of that."""
+        silent = torch.zeros(self.batch_shape + (self.cfg.block_size,),
+                             dtype=self.cfg.dtype, device=self.chain.device)
+        self.chain.step(self.state, silent)
+        if self.chain.device.type == "cuda":
+            torch.cuda.synchronize(self.chain.device)
+
+    def process(self, block):
+        """Process one ``(..., block_size)`` block, advancing the state. A
+        tensor (on the chain's device) gives a tensor there and waits for
+        nothing; a numpy array gives a numpy array. A shorter final block is
+        padded with silence, stepped whole, and cut back to its length."""
+        as_numpy = not isinstance(block, torch.Tensor)
+        if as_numpy:
+            block = torch.from_numpy(
+                np.ascontiguousarray(block, dtype=np.float32)
+            ).to(self.chain.device)
+        elif block.device.type != self.chain.device.type:
+            raise ValueError(
+                f"the block is on {block.device} but the chain runs on "
+                f"{self.chain.device}")
+        n = block.shape[-1]
+        if n != self.cfg.block_size:
+            if n > self.cfg.block_size:
+                raise ValueError(
+                    f"a block of {n} samples is longer than the block size "
+                    f"{self.cfg.block_size}")
+            block = torch.nn.functional.pad(block,
+                                            (0, self.cfg.block_size - n))
+        self.state, out = self.chain.step(self.state, block)
+        out = out[..., :n]
+        return out.cpu().numpy() if as_numpy else out
+
+    def process_stream(self, blocks: Iterable) -> Iterator:
+        for b in blocks:
+            yield self.process(b)
+
+    def reset(self) -> None:
+        self.state = self.chain.init_state(self.batch_shape)
+
+    # -- checkpoint / resume -------------------------------------------------
+
+    def save_state(self, path: str) -> None:
+        save_state_npz(path, self.state)
+
+    def load_state(self, path: str) -> None:
+        self.state = load_state_npz(path, self.state)

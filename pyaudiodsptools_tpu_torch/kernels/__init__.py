@@ -2,9 +2,12 @@
 plain PyTorch versions.
 
 ``segconv``  segmented overlap-save convolution  (csrc/segconv.cu)
+``convpairs`` circular convolution of real rows, the streaming window
+             (csrc/convpairs.cu; both share csrc/window_fft.cuh)
 ``tail``     fused delay/tremolo/waveshaper tail (csrc/tail.cu)
 ``relayout`` natural <-> time-major pack / unpack (csrc/relayout.cu)
-``dynamics`` speculative compressor/gate walks   (csrc/dynamics.cu)
+``dynamics`` speculative compressor/gate walks and the serial walk of the
+             streaming step                      (csrc/dynamics.cu)
 ``_build``   compiles csrc/*.cu with nvcc at first use and loads them with
              ctypes
 

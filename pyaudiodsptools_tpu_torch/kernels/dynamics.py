@@ -1,10 +1,13 @@
-"""Speculative segment-parallel dynamics: planner, fixpoint loop, the two
-walk kernels' wrappers and plain versions, and the fused cascade effect.
+"""Dynamics on the card: the speculative segment-parallel walks (planner,
+fixpoint loop) for whole signals, the serial walk for the streaming step,
+their wrappers and plain versions, and the fused cascade effect.
 
 Replaces, of ``pyaudiodsptools_tpu/kernels/dynamics_pallas.py``:
 ``dynamics_pallas_offline`` with its two TPU kernels ``_spec_kernel`` (here
 :func:`audio_walk`) and ``_spec_state_kernel`` (here :func:`state_walk`),
-``encode_state``, and the effect factory ``fused_dynamics``.
+the serial kernel ``dynamics_pallas`` (here :func:`serial_walk`, which
+:func:`cascade_step` wraps for the effects' ``step``), ``encode_state``, and
+the effect factory ``fused_dynamics``.
 
 Why speculation is sound: the over-threshold mask depends only on the INPUT,
 never on the automaton's own output, so the gain trajectory is a
@@ -41,6 +44,14 @@ dependent instructions per op and sample, so what matters is how many lanes
 there are. :func:`plan_segments` chooses G for this card (the sweep is in
 PERF.md); it is free to, because the result does not depend on G. The CUDA
 source is ``csrc/dynamics.cu``; the layout kernels are ``kernels/relayout``.
+
+Streaming: :func:`serial_walk` walks one (C, T) block, channel-major as it
+lies, from the carried states with one thread per channel, a whole cascade
+in one launch, and returns the exit states. It runs the same device
+functions as the audio walk and is bit-equal to it at one segment. The
+4-field carry of ``ops/dynamics.py`` is packed and unpacked on the device
+(:func:`encode_state`, :func:`decode_state`), so a step reads nothing back.
+
 The plain versions (:func:`walk_plain`: the same single-int automaton as
 tensor code over all lanes with a Python loop over the rows, separate ``mul``
 and ``add`` calls in the kernel's order) run for CPU tensors, or on request
@@ -55,9 +66,8 @@ import ctypes
 import numpy as np
 import torch
 
-from ..ops import dynamics as dyn
 from ..ops.base import Effect
-from ..ops.dynamics import ATTACK, HOLD, RELEASE, DynamicsParams
+from ..ops.dynamics import ATTACK, HOLD, RELEASE, REST, DynamicsParams
 from . import _build, relayout
 
 # Mirror of DYN_MAX_OPS in csrc/dynamics.cu: ops per cascade kernel.
@@ -78,6 +88,8 @@ MIN_SEGMENT = 2048
 # (and by nothing else) since the caller last set them to 0.
 state_walk_launch_count = 0
 audio_walk_launch_count = 0
+# Launches of the serial-walk kernel made by :func:`serial_walk`.
+serial_walk_launch_count = 0
 
 _F = np.float32
 
@@ -125,6 +137,23 @@ def encode_state(params: DynamicsParams, state) -> torch.Tensor:
                                 torch.where(mode == RELEASE,
                                             params.x_max + y, 0)))
     return torch.where(state["skip"], -1, s).to(torch.int32)
+
+
+def decode_state(params: DynamicsParams, s: torch.Tensor) -> dict:
+    """The inverse of :func:`encode_state` on every state the automaton can
+    be in: REST and skip carry x = y = 0, ATTACK counts x in [1, x_max),
+    HOLD has x = x_max, RELEASE counts y in [1, y_max) with x = 0."""
+    x_max = params.x_max
+    attack = (s > 0) & (s < x_max)
+    hold = s == x_max
+    release = s > x_max
+    mode = torch.where(attack, ATTACK,
+                       torch.where(hold, HOLD,
+                                   torch.where(release, RELEASE, REST)))
+    return {"mode": mode.to(torch.int32),
+            "x": torch.where(attack | hold, s, 0).to(torch.int32),
+            "y": torch.where(release, s - x_max, 0).to(torch.int32),
+            "skip": s < 0}
 
 
 def plan_segments(C: int, T: int) -> int:
@@ -191,20 +220,37 @@ def _check_walk(scalars, x: torch.Tensor, entry: torch.Tensor) -> None:
         raise ValueError(
             "a walk takes a contiguous (L, Rp) float32 tensor, got "
             f"{tuple(x.shape)} {x.dtype} contiguous={x.is_contiguous()}")
+    _check_entry(scalars, x.shape[1], entry, x.device)
+
+
+def _check_entry(scalars, lanes: int, entry: torch.Tensor, device) -> None:
     if not 1 <= len(scalars) <= MAX_OPS:
         raise ValueError(f"a walk takes 1 to {MAX_OPS} ops, got {len(scalars)}")
-    want = (len(scalars), x.shape[1])
+    want = (len(scalars), lanes)
     if entry.dtype != torch.int32 or tuple(entry.shape) != want \
-            or entry.device != x.device or not entry.is_contiguous():
+            or entry.device != device or not entry.is_contiguous():
         raise ValueError(
             f"entry states must be a contiguous {want} int32 tensor on "
-            f"{x.device}, got {tuple(entry.shape)} {entry.dtype} on "
+            f"{device}, got {tuple(entry.shape)} {entry.dtype} on "
             f"{entry.device}")
-    if x.shape[1] < 1:
+    if lanes < 1:
         raise ValueError("a walk needs at least one lane")
 
 
+_tables: dict[tuple, _Ops] = {}
+
+
 def _ops_table(scalars) -> _Ops:
+    """The kernels' by-value table of a cascade, built once per cascade (a
+    streaming step must not rebuild it block after block)."""
+    key = tuple(tuple(sc) for sc in scalars)
+    table = _tables.get(key)
+    if table is None:
+        table = _tables[key] = _build_table(scalars)
+    return table
+
+
+def _build_table(scalars) -> _Ops:
     table = _Ops()
     table.n_ops = len(scalars)
     for j, sc in enumerate(scalars):
@@ -271,6 +317,64 @@ def audio_walk(scalars, x: torch.Tensor, entry: torch.Tensor,
     return out, exit_state
 
 
+def serial_walk_plain(scalars, x: torch.Tensor, entry: torch.Tensor):
+    """The plain version of :func:`serial_walk`: :func:`walk_plain` on the
+    transposed block, i.e. the audio walk's plain version at one segment."""
+    out, exit_state = walk_plain(scalars, x.t(), entry, audio=True)
+    return out.t().contiguous(), exit_state
+
+
+def serial_walk(scalars, x: torch.Tensor, entry: torch.Tensor,
+                use_kernels: bool = True):
+    """One block of a cascade, walked serially: x (C, T) float32 contiguous
+    (channel-major, as a streaming block lies) and entry (n_ops, C) int32 in
+    :func:`encode_state`'s encoding -> (out (C, T), exit (n_ops, C)). A CUDA
+    tensor goes through the hand-written kernel, or the call raises."""
+    global serial_walk_launch_count
+    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(
+            "serial_walk takes a contiguous (C, T) float32 block, got "
+            f"{tuple(x.shape)} {x.dtype} contiguous={x.is_contiguous()}")
+    C, T = x.shape
+    _check_entry(scalars, C, entry, x.device)
+    if not (x.is_cuda and use_kernels):
+        return serial_walk_plain(scalars, x, entry)
+    out = torch.empty_like(x)
+    exit_state = torch.empty_like(entry)
+    if T == 0:
+        return out, entry.clone()
+    fn = _build.load("dynamics").dynamics_serial_walk_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(_Ops), ctypes.c_int,
+                                           ctypes.c_int, ctypes.c_void_p]
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), out.data_ptr(), entry.data_ptr(),
+                 exit_state.data_ptr(), ctypes.byref(_ops_table(scalars)),
+                 C, T, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"dynamics serial walk launch failed with CUDA error {err} "
+            f"(n_ops={len(scalars)}, C={C}, T={T})")
+    serial_walk_launch_count += 1
+    return out, exit_state
+
+
+def cascade_step(scalars, params, states, block: torch.Tensor,
+                 use_kernels: bool = True):
+    """The streaming step of a cascade: ``states`` (one 4-field dict per op)
+    and a ``(..., B)`` block -> (new states, output block), through ONE
+    :func:`serial_walk`. The states are packed and unpacked on the block's
+    device; nothing is read back to the host."""
+    batch = block.shape[:-1]
+    x = block.reshape(-1, block.shape[-1]).to(torch.float32).contiguous()
+    entry = torch.stack([encode_state(p, st).reshape(-1)
+                         for p, st in zip(params, states)])
+    out, exit_state = serial_walk(scalars, x, entry, use_kernels)
+    new_states = tuple(decode_state(p, exit_state[j].reshape(batch))
+                       for j, p in enumerate(params))
+    return new_states, out.reshape(block.shape)
+
+
 # ---------------------------------------------------------------------------
 # the whole stage
 
@@ -335,28 +439,28 @@ def fused_dynamics(effects) -> Effect:
     op j's per-sample output inside the loop, so compressor -> gate costs one
     round trip through device memory instead of two.
 
-    Streaming folds the members' faithful steps (state = tuple of per-op
-    dicts): exact, and slow on a card until the streaming slice ports the
-    serial kernel (``dynamics_pallas.dynamics_pallas``)."""
+    Streaming is one serial walk per block (:func:`cascade_step`); the state
+    is a tuple of the members' 4-field dicts. The walk's scalars are read
+    from the params once, here."""
     members = tuple(effects)
-    _as_list([e.params for e in members])
+    own_params = tuple(e.params for e in members)
+    _as_list(own_params)
+    own_scalars = [op_scalars(p) for p in own_params]
 
     def offline(params, blocks: torch.Tensor,
                 use_kernels: bool = True) -> torch.Tensor:
         return offline_blocks(list(params), blocks, use_kernels)
 
     def step(params, state, block: torch.Tensor):
-        new_states = []
-        for p, st in zip(params, state):
-            st, block = dyn.step(p, st, block)
-            new_states.append(st)
-        return tuple(new_states), block
+        scalars = own_scalars if params is own_params \
+            else [op_scalars(p) for p in params]
+        return cascade_step(scalars, params, state, block)
 
     def init_state(params, batch_shape: tuple[int, ...] = ()):
         return tuple(e.init_state(p, batch_shape)
                      for e, p in zip(members, params))
 
     name = "dynamics_cascade:" + "+".join(e.name for e in members)
-    return Effect(name=name, params=tuple(e.params for e in members),
+    return Effect(name=name, params=own_params,
                   init_state=init_state, step=step, offline=offline,
                   time_parallel=False, device=members[0].device)

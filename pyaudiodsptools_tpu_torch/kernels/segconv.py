@@ -24,7 +24,10 @@ pass, and stores the spectrum in the forward transform's output order so
 that no reorder pass is needed. Tensor-core DFTs are left to a later change
 (PERF.md, open questions).
 
-The CUDA source is ``csrc/segconv.cu``. The plain version,
+The CUDA source is ``csrc/segconv.cu``; the transform itself lives in
+``csrc/window_fft.cuh``, which the streaming windows' convolution
+(``kernels/convpairs.py``) shares, together with this module's twiddle and
+spectrum tables. The plain version,
 :func:`segmented_conv_plain`, is the same windowed overlap-save on
 ``torch.fft``; it runs for CPU tensors, or on request
 (``use_kernels=False``), and is never a fallback for a CUDA tensor.
@@ -157,28 +160,56 @@ def make_plan(kernel: np.ndarray, halo: int, seg: int, shift: int,
     n = halo + seg
     _check_geometry(n, halo, seg, shift, len(kernel))
     device = torch.device(device)
+    spectrum_rfft, spectrum_dif = spectrum_tables(kernel, n, device)
+    return ConvPlan(
+        n=n, halo=halo, seg=seg, shift=shift, kernel_len=len(kernel),
+        spectrum_rfft=spectrum_rfft, spectrum_dif=spectrum_dif,
+        twiddle=pass_twiddles(n, device),
+    )
+
+
+def spectrum_tables(kernel: np.ndarray, n: int, device
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The two forms of a real float64 kernel's n-point spectrum, on
+    ``device``: (n//2+1,) complex64 for the plain versions, and for the CUDA
+    transform (``csrc/window_fft.cuh``) the full spectrum divided by n, in
+    the forward transform's output order, as (n, 2) float32."""
     full = np.fft.fft(np.concatenate([kernel, np.zeros(n - len(kernel))]))
     permuted = np.empty(n, dtype=np.complex128)
     permuted[dif_positions(n)] = full / n
-    return ConvPlan(
-        n=n, halo=halo, seg=seg, shift=shift, kernel_len=len(kernel),
-        spectrum_rfft=torch.from_numpy(
-            full[: n // 2 + 1].astype(np.complex64)).to(device),
-        spectrum_dif=torch.from_numpy(np.stack(
-            [permuted.real, permuted.imag], axis=1).astype(np.float32)
-        ).to(device),
-        twiddle=pass_twiddles(n, device),
-    )
+    return (torch.from_numpy(full[: n // 2 + 1].astype(np.complex64)
+                             ).to(device),
+            torch.from_numpy(np.stack([permuted.real, permuted.imag], axis=1
+                                      ).astype(np.float32)).to(device))
+
+
+def check_window(n: int) -> None:
+    """The window sizes ``csrc/window_fft.cuh`` transforms."""
+    if n & (n - 1) or not MIN_WINDOW <= n <= MAX_WINDOW:
+        raise ValueError(
+            f"window of {n} samples: the convolution kernels take a power "
+            f"of two between {MIN_WINDOW} and {MAX_WINDOW} (one complex "
+            "window must fit a thread block's shared memory)")
+
+
+def check_tables(n: int, spectrum_dif: torch.Tensor, twiddle: torch.Tensor,
+                 device) -> None:
+    """The device tables of an n-point window, as the kernels read them."""
+    for name, t, rows in (("spectrum_dif", spectrum_dif, n),
+                          ("twiddle", twiddle,
+                           pass_twiddles(n, device).shape[0])):
+        if t.device != device or t.shape != (rows, 2) \
+                or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(
+                f"plan.{name} must be a contiguous ({rows}, 2) float32 "
+                f"tensor on {device}, got {tuple(t.shape)} {t.dtype} on "
+                f"{t.device}")
 
 
 def _check_geometry(n: int, halo: int, seg: int, shift: int,
                     kernel_len: int) -> None:
     """What the CUDA kernel relies on, checked where it is relied on."""
-    if n & (n - 1) or not MIN_WINDOW <= n <= MAX_WINDOW:
-        raise ValueError(
-            f"window of {n} samples: the segmented-conv kernel takes a power "
-            f"of two between {MIN_WINDOW} and {MAX_WINDOW} (one complex "
-            "window must fit a thread block's shared memory)")
+    check_window(n)
     if halo < 0 or seg < 1 or halo + seg != n:
         raise ValueError(f"bad window geometry: halo {halo} + seg {seg} != {n}")
     if kernel_len - 1 > halo:
@@ -214,15 +245,7 @@ def _launch(x: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
             "segmented_conv takes a contiguous (C, T) float32 tensor, got "
             f"{tuple(x.shape)} {x.dtype} contiguous={x.is_contiguous()}")
     _check_geometry(plan.n, plan.halo, plan.seg, plan.shift, plan.kernel_len)
-    for name, rows in (("spectrum_dif", plan.n),
-                       ("twiddle", pass_twiddles(plan.n, x.device).shape[0])):
-        t = getattr(plan, name)
-        if t.device != x.device or t.shape != (rows, 2) \
-                or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(
-                f"plan.{name} must be a contiguous ({rows}, 2) float32 "
-                f"tensor on {x.device}, got {tuple(t.shape)} {t.dtype} on "
-                f"{t.device}")
+    check_tables(plan.n, plan.spectrum_dif, plan.twiddle, x.device)
     C, T = x.shape
     if T >= 2 ** 31 - plan.n - plan.shift:
         raise ValueError(f"signal of {T} samples is too long for int32 indexing")

@@ -10,8 +10,8 @@ Streaming keeps the reference's sliding buffer as explicit state. The
 feedback ramp is ``linspace(0.5, 0.1, feedback_loops)``.
 
 The optional pre-filters are the standard FFT filters (with their 1-block
-latency) applied to the input first; offline they ride the segmented
-convolution, streaming they wait for the FIR step of the streaming slice.
+latency) applied to the input first: offline they ride the segmented
+convolution, streaming the FIR step, each with its own history in the state.
 """
 
 from __future__ import annotations
@@ -108,16 +108,26 @@ def _buffer_len(params: DelayParams) -> int:
 def init_state(params: DelayParams, batch_shape: tuple[int, ...],
                device):
     """The zeroed sliding buffer, on ``device`` (the effect's own: see
-    :func:`make_effect`)."""
-    if params.use_lowcut or params.use_highcut:
-        raise NotImplementedError(fft_filter.STREAMING_NOT_PORTED)
-    return {"buffer": torch.zeros(tuple(batch_shape) + (_buffer_len(params),),
-                                  dtype=torch.float32, device=device)}
+    :func:`make_effect`), and the enabled pre-filters' histories."""
+    state = {"buffer": torch.zeros(
+        tuple(batch_shape) + (_buffer_len(params),), dtype=torch.float32,
+        device=device)}
+    if params.use_lowcut:
+        state["lowcut"] = fft_filter.fir_init_state(params.lowcut, batch_shape)
+    if params.use_highcut:
+        state["highcut"] = fft_filter.fir_init_state(params.highcut,
+                                                     batch_shape)
+    return state
 
 
 def step(params: DelayParams, state, block: torch.Tensor):
-    if params.use_lowcut or params.use_highcut:
-        raise NotImplementedError(fft_filter.STREAMING_NOT_PORTED)
+    new_state = {}
+    if params.use_lowcut:
+        new_state["lowcut"], block = fft_filter.fir_step(
+            params.lowcut, state["lowcut"], block)
+    if params.use_highcut:
+        new_state["highcut"], block = fft_filter.fir_step(
+            params.highcut, state["highcut"], block)
     n = block.shape[-1]
     buf = state["buffer"].clone()
     # Write input * ramp[k] at offsets time*(k+1).
@@ -127,8 +137,9 @@ def step(params: DelayParams, state, block: torch.Tensor):
     head = buf[..., :n]
     out = head if params.wet else block + head
     # Slide the buffer left by one block and zero-fill.
-    buf = torch.cat([buf[..., n:], torch.zeros_like(block)], dim=-1)
-    return {"buffer": buf}, out.to(torch.float32)
+    new_state["buffer"] = torch.cat([buf[..., n:], torch.zeros_like(block)],
+                                    dim=-1)
+    return new_state, out.to(torch.float32)
 
 
 def offline(params: DelayParams, blocks: torch.Tensor,

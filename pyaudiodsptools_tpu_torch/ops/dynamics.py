@@ -16,26 +16,28 @@ the INPUT and on a small state, never on the output.
   ramps running 1.0 <-> 1/depth; its mask still comes from the unscaled
   input.
 
-Two paths:
+Three paths:
 
-* :func:`step` is the FAITHFUL form, the exact counterpart of the JAX
-  package's ``step``: the 4-field carry (mode, x, y, skip), gains gathered
-  from the float32 ``numpy.linspace`` tables, a Python loop over the block's
-  samples vectorised over the batch. It is what streaming runs until the
-  streaming slice brings the serial kernel
-  (``dynamics_pallas.dynamics_pallas``); on a card it is slow (a few dozen
-  small PyTorch calls per SAMPLE) and hides no kernel, because the port has
-  none for it yet.
+* :func:`step` is the streaming step: one serial walk of the block from the
+  carried 4-field state (mode, x, y, skip) through
+  ``kernels/dynamics.cascade_step`` (hand-written CUDA on a CUDA tensor, its
+  plain version on a CPU tensor), the counterpart of the JAX package's
+  kernel-backed step (``dynamics_pallas.dynamics_pallas``). Its ramps are
+  arithmetic, within 2 ulp of the tables.
+* :func:`step_faithful` is the exact counterpart of the JAX package's scan
+  ``step``: gains gathered from the float32 ``numpy.linspace`` tables, a
+  Python loop over the block's samples vectorised over the batch (a few
+  dozen small PyTorch calls per SAMPLE). The tests hold the walks to it; no
+  effect runs it.
 * :func:`offline` renders a whole signal through the speculative
-  segment-parallel walks of ``kernels/dynamics.py`` (hand-written CUDA on a
-  CUDA tensor). A lone compressor or gate takes this path too; the JAX
-  package's bare ``offline`` falls to a serial scan instead.
+  segment-parallel walks of ``kernels/dynamics.py``. A lone compressor or
+  gate takes this path too; the JAX package's bare ``offline`` falls to a
+  serial scan instead.
 
 Params: ``threshold`` and ``pre_gain`` are host scalars, and so are the two
 ramps (float32 tensors on the HOST, a few thousand entries): the kernels take
-the ramps' end points and slopes by value in their launch arguments, which
-must not cost a device read-back per call. The faithful ``step`` copies the
-tables to the block's device when it runs.
+the ramps' end points and slopes by value in their launch arguments, read
+from the params once when the effect is built.
 """
 
 from __future__ import annotations
@@ -97,14 +99,23 @@ def gate(cfg: EngineConfig, threshold_db: float = -5.0, depth: float = 0.1,
 
 
 def make_effect(name: str, params: DynamicsParams, device) -> Effect:
+    from ..kernels.dynamics import op_scalars
+
     dev = resolve_device(device)
+    own_params = params
+    own_scalars = [op_scalars(params)]      # read from the params once
 
     def init_on_device(params: DynamicsParams,
                        batch_shape: tuple[int, ...] = ()):
         return init_state(params, batch_shape, dev)
 
+    def step_with_scalars(params: DynamicsParams, state, block: torch.Tensor):
+        return step(params, state, block,
+                    own_scalars if params is own_params else None)
+
     return Effect(name=name, params=params, init_state=init_on_device,
-                  step=step, offline=offline, time_parallel=False, device=dev)
+                  step=step_with_scalars, offline=offline,
+                  time_parallel=False, device=dev)
 
 
 def init_state(params: DynamicsParams, batch_shape: tuple[int, ...], device):
@@ -177,9 +188,20 @@ def _automaton_step(x_max: int, y_max: int, attack_env, release_env, carry,
     return (n_mode, n_x, n_y, n_skip), gain
 
 
-def step(params: DynamicsParams, state, block: torch.Tensor):
-    """The faithful streaming step (see the module docstring): exact, and
-    slow on a card until the streaming slice brings its kernel."""
+def step(params: DynamicsParams, state, block: torch.Tensor, scalars=None):
+    """The streaming step: one serial walk of the block from ``state``.
+    ``scalars`` are the walk's scalars of ``params`` where the caller has
+    read them before (an effect's own ``step`` has)."""
+    from ..kernels.dynamics import cascade_step, op_scalars
+
+    (new_state,), out = cascade_step(scalars or [op_scalars(params)],
+                                     (params,), (state,), block)
+    return new_state, out
+
+
+def step_faithful(params: DynamicsParams, state, block: torch.Tensor):
+    """The table-driven per-sample step (see the module docstring): the
+    tests' reference for the walks."""
     dev = block.device
     attack_env = params.attack_env.to(dev)
     release_env = params.release_env.to(dev)

@@ -14,8 +14,18 @@ only hard limit is that one window of complex float32 fits a thread block's
 shared memory (``MAX_WINDOW``). Parity with the JAX package is judged on the
 output, not on the geometry.
 
-Streaming (``fir_step``) belongs to the streaming slice of the port and
-raises until then.
+Streaming (``fir_step``) has its own window too. The JAX step keeps the full
+kernel, zero prefix included, in a window of a 7-smooth number of blocks; the
+port strips the prefix in streaming as it does offline and pays it back as a
+delay held in the history. For the output block ``t0 .. t0+B-1`` the window
+is ``x[t0+B-lead-n .. t0+B-lead-1]`` with ``n`` the smallest power of two
+``>= stripped kernel length - 1 + B``: its last ``B`` outputs are wrap-free
+and are the block. The state is a flat per-channel history of the last
+``lead + n - B`` input samples. The window goes through
+``kernels/convpairs.conv_pairs`` (hand-written CUDA on a CUDA tensor) as a
+strided view of history-plus-block, so a step is three launches (append the
+block, convolve, and the consumer's copy of the output slice) and reads
+nothing back to the host.
 """
 
 from __future__ import annotations
@@ -26,14 +36,8 @@ import numpy as np
 import torch
 
 from ..core.config import DEFAULT_DEVICE, EngineConfig, resolve_device
-from ..kernels import segconv
+from ..kernels import convpairs, segconv
 from .base import Effect, params_dataclass
-
-STREAMING_NOT_PORTED = (
-    "the streaming step of FIR effects (fir_step, the counterpart of the JAX "
-    "package's conv_pairs_fused path) is not ported yet: it belongs to the "
-    "streaming slice of the PyTorch/CUDA port (see ROADMAP.md). Use the "
-    "offline render.")
 
 MAX_WINDOW = segconv.MAX_WINDOW
 # The planner's floor (the kernel itself takes windows from 16 samples up):
@@ -113,6 +117,17 @@ def plan_segments(kernel_len: int) -> tuple[int, int]:
     return halo, n - halo
 
 
+def stream_window(kernel_len: int, block_size: int) -> int:
+    """Samples in the streaming window of a stripped kernel of this length:
+    the smallest power of two that leaves ``block_size`` wrap-free outputs
+    (0 where that would exceed ``MAX_WINDOW``: such an effect renders offline
+    only, and its ``init_state`` and ``step`` raise)."""
+    n = segconv.MIN_WINDOW
+    while n < kernel_len - 1 + block_size:
+        n *= 2
+    return n if n <= MAX_WINDOW else 0
+
+
 def fits_one_window(kernel: np.ndarray) -> bool:
     """Whether ``fir`` can take this kernel (its zero prefix stripped)."""
     nz = np.flatnonzero(kernel)
@@ -142,6 +157,9 @@ def segmented_fft_conv(params: "FIRParams", blocks: torch.Tensor,
 class FIRParams:
     plan: segconv.ConvPlan   # spectra and twiddles on device + the window's
                              # geometry (n, halo, seg, kernel_len)
+    stream: convpairs.PairsPlan | None   # the streaming window's tables
+                             # (n, spectra, twiddles); None where that
+                             # window would exceed MAX_WINDOW
     block_size: int          # ENGINE block size
     lead: int                # stripped zero prefix, re-applied as delay
 
@@ -149,10 +167,11 @@ class FIRParams:
 def fir(kernel: np.ndarray, block_size: int, name: str = "fir",
         device=DEFAULT_DEVICE) -> Effect:
     """An Effect computing ``y = conv(x, kernel)`` (causal, zero-latency
-    beyond what the kernel itself encodes), offline through the segmented
-    overlap-save path. Fused cascades carry a long EXACT-ZERO prefix (each
-    member's latency shift): it is stripped and re-applied as a free output
-    delay, which shrinks the halo by the prefix length."""
+    beyond what the kernel itself encodes): offline through the segmented
+    overlap-save path, streaming through one circular convolution of a
+    power-of-two window per block. Fused cascades carry a long EXACT-ZERO
+    prefix (each member's latency shift): it is stripped and re-applied as a
+    free output delay, which shrinks the halo by the prefix length."""
     dev = resolve_device(device)
     kernel = np.asarray(kernel, dtype=np.float64)
     nz = np.flatnonzero(kernel)
@@ -160,18 +179,57 @@ def fir(kernel: np.ndarray, block_size: int, name: str = "fir",
     stripped = kernel[lead:] if nz.size else kernel[:1]
     halo, seg = plan_segments(len(stripped))
     plan = segconv.make_plan(stripped, halo, seg, lead, dev)
-    params = FIRParams(plan=plan, block_size=block_size, lead=lead)
+    n_stream = stream_window(len(stripped), block_size)
+    stream = convpairs.make_plan(stripped, n_stream, dev) if n_stream \
+        else None
+    params = FIRParams(plan=plan, stream=stream, block_size=block_size,
+                       lead=lead)
     return Effect(name=name, params=params, init_state=fir_init_state,
                   step=fir_step, offline=fir_offline,
                   lti_kernel=kernel, device=dev)
 
 
+def _stream_plan(params: FIRParams) -> convpairs.PairsPlan:
+    if params.stream is None:
+        need = params.plan.kernel_len - 1 + params.block_size
+        raise ValueError(
+            f"a {params.plan.kernel_len}-tap kernel streamed in blocks of "
+            f"{params.block_size} needs a window of {need} samples, more "
+            f"than the largest window the convolution CUDA kernels hold in "
+            f"shared memory ({MAX_WINDOW}). Kernels this long (reverb tap "
+            "trains, ROADMAP Queue 1 #8) come with the reverb slice of the "
+            "port; the effect renders offline.")
+    return params.stream
+
+
+def history_len(params: FIRParams) -> int:
+    """Samples of input a streaming FIR keeps per channel."""
+    return params.lead + _stream_plan(params).n - params.block_size
+
+
 def fir_init_state(params: FIRParams, batch_shape: tuple[int, ...] = ()):
-    raise NotImplementedError(STREAMING_NOT_PORTED)
+    """Silence: ``{"hist": (..., lead + n - B)}`` on the plan's device."""
+    return {"hist": torch.zeros(
+        tuple(batch_shape) + (history_len(params),), dtype=torch.float32,
+        device=params.plan.twiddle.device)}
 
 
-def fir_step(params: FIRParams, state, block: torch.Tensor):
-    raise NotImplementedError(STREAMING_NOT_PORTED)
+def fir_step(params: FIRParams, state, block: torch.Tensor,
+             use_kernels: bool = True):
+    """One block: the window is the first ``n`` samples of history + block
+    (the last ``lead`` samples wait in the history: the output delay), and
+    the block's output is the window's last ``B`` (wrap-free) samples."""
+    stream = _stream_plan(params)
+    B = block.shape[-1]
+    if B != params.block_size:
+        raise ValueError(
+            f"this FIR streams blocks of {params.block_size} samples, got "
+            f"{B}")
+    joined = torch.cat([state["hist"], block.to(torch.float32)], dim=-1)
+    rows = joined.reshape(-1, joined.shape[-1])
+    out = convpairs.conv_pairs(rows[:, :stream.n], stream, use_kernels)
+    out = out[:, stream.n - B:].reshape(block.shape)
+    return {"hist": joined[..., B:]}, out
 
 
 def fir_offline(params: FIRParams, blocks: torch.Tensor,

@@ -195,8 +195,17 @@ def test_cuda_device_without_a_card_raises():
 def test_chain_step_raises_with_a_fir_and_runs_a_tail():
     cfg = pt.EngineConfig(44100, 512)
     chain = pt.Chain(_chain7_effects(pt, cfg, device=CPU), device=CPU)
-    with pytest.raises(NotImplementedError, match="streaming slice"):
-        chain.init_state((2,))
+    # with the streaming slice a chain that holds a FIR steps too, and folds
+    # to its offline render (another window, the same convolution)
+    x = torch.from_numpy(_signal(2, 12 * 512, 5))
+    state = chain.init_state((2,))
+    assert state[0]["hist"].shape == (2, 1155 + 2048 - 512)
+    outs = []
+    for i in range(12):
+        state, y = chain.step(state, x[:, i * 512:(i + 1) * 512])
+        outs.append(y)
+    assert snr_db(pt.render(chain, x, cfg).numpy(),
+                  torch.cat(outs, dim=-1).numpy()) >= 110.0
     tail = pt.Chain(_chain7_effects(pt, cfg, device=CPU)[3:], device=CPU)
     assert [e.name for e in tail.exec_effects] == [TAIL_NAME]
     blocks = pt.block.make_blocks(torch.from_numpy(_signal(2, 30 * 512, 3)), 512)

@@ -21,6 +21,7 @@ import pyaudiodsptools_tpu as jx
 import pyaudiodsptools_tpu_torch as pt
 from pyaudiodsptools_tpu.kernels import dynamics_pallas as jx_dp
 from pyaudiodsptools_tpu_torch.kernels import dynamics as kd, relayout as rl
+from pyaudiodsptools_tpu_torch.ops import dynamics as pt_dyn
 
 from torch_port_util import emulate_walk, snr_db
 
@@ -183,7 +184,8 @@ def test_faithful_step_matches_jax_step(name):
     assert all(v.shape == (3,) for v in pst.values())
     for b in range(x.shape[1]):
         jst, want = je.step(je.params, jst, jnp.asarray(x[:, b]))
-        pst, got = pe.step(pe.params, pst, torch.from_numpy(x[:, b]))
+        pst, got = pt_dyn.step_faithful(pe.params, pst,
+                                        torch.from_numpy(x[:, b]))
         assert got.dtype == torch.float32
         assert snr_db(np.asarray(want), got.numpy()) >= 120.0
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
@@ -194,6 +196,9 @@ def test_faithful_step_matches_jax_step(name):
 
 
 def test_fused_dynamics_step_folds_the_faithful_steps():
+    """One cascade walk per block is bit-equal to the members' own steps one
+    after the other (op j+1 reads op j's output sample either way), and as
+    close to the faithful table-driven steps as the arithmetic ramps allow."""
     comp, gate = _pt("chain8_compressor"), _pt("chain8_gate")
     fused = kd.fused_dynamics([comp, gate])
     assert fused.name == "dynamics_cascade:compressor+gate"
@@ -206,7 +211,11 @@ def test_fused_dynamics_step_folds_the_faithful_steps():
     _, mid = comp.step(comp.params, comp.state((2,)), x)
     st2, want = gate.step(gate.params, gate.state((2,)), mid)
     assert torch.equal(out, want)
-    assert torch.equal(st[1]["y"], st2["y"])
+    for k in ("mode", "x", "y", "skip"):
+        assert torch.equal(st[1][k], st2[k]), k
+    _, f_mid = pt_dyn.step_faithful(comp.params, comp.state((2,)), x)
+    f_st, f_want = pt_dyn.step_faithful(gate.params, gate.state((2,)), f_mid)
+    assert snr_db(f_want.numpy(), out.numpy()) > 100.0
 
 
 # ---------------------------------------------------------------------------
@@ -425,6 +434,256 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                             torch.zeros((1, 100)))
     with pytest.raises(ValueError, match=r"\(C, T\)"):
         kd.dynamics_offline(_pt("chain8_gate").params, torch.zeros(100))
+
+
+# ---------------------------------------------------------------------------
+# the serial walk: the streaming step
+
+
+def _burst(C, n, seed=3):
+    """The signal of the JAX package's kernel tests (tests/test_kernels.py)."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((C, n)) * 0.02).astype(np.float32)
+    for start in range(0, n, 3000):
+        w = min(700, n - start)
+        x[:, start:start + w] += (rng.standard_normal((C, w)) * 0.7
+                                  ).astype(np.float32)
+    return np.clip(x, -0.99, 0.99).astype(np.float32)
+
+
+def _legal_states(params, n, rng):
+    """n random states of every kind the automaton can be in."""
+    mode = rng.integers(0, 4, n).astype(np.int32)
+    if params.x_max == 1:
+        mode[mode == 1] = 2              # no ATTACK state when x_max == 1
+    x = np.where(mode == 1, rng.integers(1, max(params.x_max, 2), n),
+                 np.where(mode == 2, params.x_max, 0)).astype(np.int32)
+    y = np.where(mode == 3, rng.integers(1, params.y_max, n), 0
+                 ).astype(np.int32)
+    skip = (mode == 0) & (rng.random(n) < 0.3)
+    return {"mode": mode, "x": x, "y": y, "skip": skip}
+
+
+def _max_ulp(a: np.ndarray, b: np.ndarray) -> int:
+    """Largest distance in float32 representation steps."""
+    def key(v):
+        i = np.asarray(v, np.float32).view(np.int32).astype(np.int64)
+        return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int(np.abs(key(a) - key(b)).max()) if a.size else 0
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_decode_state_inverts_encode_state(name):
+    """decode(encode(s)) == s field by field for every state the automaton
+    can return: REST, ATTACK with x in 1..x_max-1, HOLD with x = x_max,
+    RELEASE with x = 0 and y in 1..y_max-1, and the skipped sample."""
+    p = _pt(name).params
+    rng = np.random.default_rng(23)
+    s = _legal_states(p, 5000, rng)
+    # and every boundary value by hand
+    edge = {"mode": [0, 0, 2, 3, 3] + ([1, 1] if p.x_max > 1 else []),
+            "x": [0, 0, p.x_max, 0, 0] + ([1, p.x_max - 1] if p.x_max > 1
+                                          else []),
+            "y": [0, 0, 0, 1, p.y_max - 1] + ([0, 0] if p.x_max > 1 else []),
+            "skip": [False, True, False, False, False]
+                    + ([False, False] if p.x_max > 1 else [])}
+    state = {k: torch.from_numpy(np.concatenate(
+        [s[k], np.asarray(edge[k], s[k].dtype)])) for k in s}
+    code = kd.encode_state(p, state)
+    assert int(code.min()) == -1 and int(code.max()) == p.x_max + p.y_max - 1
+    back = kd.decode_state(p, code)
+    for k in ("mode", "x", "y", "skip"):
+        assert back[k].dtype == state[k].dtype, k
+        assert torch.equal(back[k], state[k]), k
+    # ... and encode(decode(c)) == c for every code there is
+    codes = torch.arange(-1, p.x_max + p.y_max, dtype=torch.int32)
+    assert torch.equal(kd.encode_state(p, kd.decode_state(p, codes)), codes)
+
+
+@pytest.mark.parametrize("name", ["chain8_compressor", "chain8_gate",
+                                  "short_attack"])
+def test_serial_walk_plain_matches_jax_serial_kernel(name, capsys):
+    """The plain serial walk against ``dynamics_pallas(..., interpret=True)``
+    on one (C, T) block, from REST and from random legal states: the state
+    fields are equal, and the audio is within the bar the JAX package holds
+    its kernel to (> 100 dB). Both compute the ramps arithmetically; XLA on
+    the CPU may contract a multiply-add that PyTorch keeps apart, so the
+    audio need not be bit-equal: the largest difference is printed."""
+    je, pe = _jx(name), _pt(name)
+    C, T = 4, 1500
+    x = _burst(C, T, seed=5)
+    rng = np.random.default_rng(29)
+    scalars = [kd.op_scalars(pe.params)]
+    for label, st in (("rest", {k: np.zeros(C, d) for k, d in (
+            ("mode", np.int32), ("x", np.int32), ("y", np.int32),
+            ("skip", bool))}), ("random", _legal_states(pe.params, C, rng))):
+        jst, want = jx_dp.dynamics_pallas(
+            je.params, {k: jnp.asarray(v) for k, v in st.items()},
+            jnp.asarray(x), t_tile=1024, interpret=True)
+        entry = kd.encode_state(
+            pe.params, {k: torch.from_numpy(v) for k, v in st.items()}
+        ).reshape(1, C)
+        out, exit_state = kd.serial_walk(scalars, torch.from_numpy(x), entry)
+        assert out.shape == (C, T) and out.dtype == torch.float32
+        got = kd.decode_state(pe.params, exit_state[0])
+        for k in ("mode", "x", "y", "skip"):
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(jst[k]),
+                                          err_msg=f"{label}: {k}")
+        assert snr_db(np.asarray(want), out.numpy()) > 100.0, label
+        with capsys.disabled():
+            print(f"\n  serial walk vs dynamics_pallas [{name}, {label}]: "
+                  f"largest difference {_max_ulp(np.asarray(want), out.numpy())}"
+                  " ulp")
+        # one lane, the way a CUDA thread walks it
+        m_out, m_z = emulate_walk(scalars, x[1], [int(entry[0, 1])])
+        np.testing.assert_array_equal(out[1].numpy(), m_out)
+        assert [int(exit_state[0, 1])] == m_z
+
+
+@pytest.mark.parametrize("factory,args,B", [
+    ("compressor", (), 512), ("gate", (), 512),
+    ("compressor", (-18.0, 0.6), 1500),   # longer than, and no multiple of,
+])                                        # the TPU kernel's time tile
+def test_step_carries_state_like_the_jax_kernel_and_scan(factory, args, B):
+    """The three cases of the JAX package's kernel tests: six blocks through
+    the port's ``step`` (the serial walk), the JAX kernel-backed step in
+    interpret mode and the JAX faithful scan, the state carried. State
+    fields equal after every block, audio > 100 dB."""
+    jcfg, pcfg = jx.EngineConfig(44100, B), pt.EngineConfig(44100, B)
+    base = getattr(jx.ops, factory)(jcfg, *args)
+    fast = jx_dp.fast_effect(base, interpret=True)
+    pe = getattr(pt.ops, factory)(pcfg, *args, device=CPU)
+    x = _burst(2, B * 6, seed=9 if B == 512 else 13).reshape(2, 6, B)
+    b_state = base.init_state(base.params, (2,))
+    f_state = fast.init_state(fast.params, (2,))
+    p_state = pe.state((2,))
+    before = kd.serial_walk_launch_count
+    for i in range(6):
+        b_state, b_out = base.step(base.params, b_state, jnp.asarray(x[:, i]))
+        f_state, f_out = fast.step(fast.params, f_state, jnp.asarray(x[:, i]))
+        p_state, p_out = pe.step(pe.params, p_state,
+                                 torch.from_numpy(x[:, i]))
+        assert snr_db(np.asarray(b_out), p_out.numpy()) > 100.0
+        assert snr_db(np.asarray(f_out), p_out.numpy()) > 100.0
+        for k in ("mode", "x", "y", "skip"):
+            np.testing.assert_array_equal(p_state[k].numpy(),
+                                          np.asarray(b_state[k]),
+                                          err_msg=f"{k} after block {i}")
+            np.testing.assert_array_equal(p_state[k].numpy(),
+                                          np.asarray(f_state[k]),
+                                          err_msg=f"{k} after block {i}")
+    assert kd.serial_walk_launch_count == before     # no kernel on the CPU
+
+
+def test_step_short_attack_edge():
+    """x_max == 1 through the step: the hold gain is 1.0, the release ramp
+    starts at the ratio; six blocks against the JAX scan and its kernel."""
+    je, pe = _jx("short_attack"), _pt("short_attack")
+    fast = jx_dp.fast_effect(je, interpret=True)
+    x = _burst(2, 512 * 6, seed=17).reshape(2, 6, 512)
+    jst = je.init_state(je.params, (2,))
+    fst = fast.init_state(fast.params, (2,))
+    pst = pe.state((2,))
+    fst_p = pe.state((2,))
+    for i in range(6):
+        jst, want = je.step(je.params, jst, jnp.asarray(x[:, i]))
+        fst, f_out = fast.step(fast.params, fst, jnp.asarray(x[:, i]))
+        pst, got = pe.step(pe.params, pst, torch.from_numpy(x[:, i]))
+        fst_p, f_got = pt_dyn.step_faithful(pe.params, fst_p,
+                                            torch.from_numpy(x[:, i]))
+        assert snr_db(np.asarray(want), got.numpy()) > 100.0
+        assert snr_db(np.asarray(f_out), got.numpy()) > 100.0
+        np.testing.assert_array_equal(f_got.numpy(), np.asarray(want))
+        for k in ("mode", "x", "y", "skip"):
+            np.testing.assert_array_equal(pst[k].numpy(), np.asarray(jst[k]))
+            np.testing.assert_array_equal(pst[k].numpy(), fst_p[k].numpy())
+    assert int((pst["mode"] == 1).sum()) == 0        # ATTACK never held
+
+
+def test_cascade_step_bit_equal_to_op_after_op_steps():
+    """One launch for the cascade gives what the JAX package's op-after-op
+    loop gives: a cascade of three over five blocks (mono and batched)
+    against the members' own steps, bit for bit, states included; and the
+    streamed fold equals the offline walk of the whole signal."""
+    members = [_pt("chain8_gate"), _pt("short_attack"),
+               _pt("chain8_compressor")]
+    fused = kd.fused_dynamics(members)
+    x = torch.from_numpy(_burst(3, 700 * 5, seed=21).reshape(3, 5, 700))
+    for blocks, batch in ((x, (3,)), (x[0], ())):
+        st = fused.state(batch)
+        own = [e.state(batch) for e in members]
+        outs = []
+        for i in range(5):
+            blk = blocks[..., i, :]
+            st, out = fused.step(fused.params, st, blk)
+            want = blk
+            for j, e in enumerate(members):
+                own[j], want = e.step(e.params, own[j], want)
+            assert torch.equal(out, want), i
+            for j in range(3):
+                for k in ("mode", "x", "y", "skip"):
+                    assert st[j][k].shape == batch
+                    assert torch.equal(st[j][k], own[j][k]), (i, j, k)
+            outs.append(out)
+        whole = kd.dynamics_offline([e.params for e in members],
+                                    blocks.reshape(-1, 3500), segments=1)
+        assert torch.equal(torch.stack(outs, dim=-2).reshape(-1, 3500), whole)
+
+
+def test_serial_walk_refuses_what_its_kernel_does_not_take():
+    sc = [kd.op_scalars(_pt("chain8_gate").params)]
+    x = torch.zeros((3, 40))
+    e = torch.zeros((1, 3), dtype=torch.int32)
+    out, z = kd.serial_walk(sc, x, e)
+    assert out.shape == (3, 40) and z.shape == (1, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        kd.serial_walk(sc, torch.zeros((40, 3)).T, e)
+    with pytest.raises(ValueError, match="float32"):
+        kd.serial_walk(sc, x.double(), e)
+    with pytest.raises(ValueError, match="entry states"):
+        kd.serial_walk(sc, x, torch.zeros((1, 4), dtype=torch.int32))
+    with pytest.raises(ValueError, match="1 to 4"):
+        kd.serial_walk(sc * 5, x, torch.zeros((5, 3), dtype=torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cascade", CASCADES)
+def test_cuda_serial_walk_bit_equal_to_plain_on_card(cascade):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    plist = [_pt(n).params for n in CASCADES[cascade]]
+    scalars = [kd.op_scalars(p) for p in plist]
+    rng = np.random.default_rng(31)
+    for signal, x in SIGNALS.items():
+        xd = torch.from_numpy(np.ascontiguousarray(x[:, :1500])).cuda()
+        entry = torch.from_numpy(np.stack(
+            [rng.integers(-1, sc[7], 2) for sc in scalars]).astype(np.int32)
+        ).cuda()
+        before = kd.serial_walk_launch_count
+        out, z = kd.serial_walk(scalars, xd, entry)
+        torch.cuda.synchronize()
+        assert kd.serial_walk_launch_count == before + 1
+        p_out, p_z = kd.serial_walk(scalars, xd, entry, use_kernels=False)
+        assert kd.serial_walk_launch_count == before + 1
+        assert torch.equal(out, p_out) and torch.equal(z, p_z), signal
+
+
+@pytest.mark.cuda
+def test_cuda_step_carries_state_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    cfg = pt.EngineConfig(44100, 1500)
+    card = pt.ops.compressor(cfg, -18.0, 0.6, device="cuda")
+    host = pt.ops.compressor(cfg, -18.0, 0.6, device=CPU)
+    x = _burst(2, 1500 * 6, seed=13).reshape(2, 6, 1500)
+    cst, hst = card.state((2,)), host.state((2,))
+    for i in range(6):
+        cst, c_out = card.step(card.params, cst,
+                               torch.from_numpy(x[:, i]).cuda())
+        hst, h_out = host.step(host.params, hst, torch.from_numpy(x[:, i]))
+        assert torch.equal(c_out.cpu(), h_out)
+        for k in ("mode", "x", "y", "skip"):
+            assert cst[k].is_cuda and torch.equal(cst[k].cpu(), hst[k])
 
 
 @pytest.mark.cuda

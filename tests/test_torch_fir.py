@@ -88,11 +88,27 @@ def test_kernel_too_long_names_the_later_slice():
 
 
 def test_fir_streaming_raises_until_its_slice():
+    """Streaming is ported: a filter keeps ``lead + n - B`` samples of
+    history and steps. What still raises, naming the reverb slice, is a
+    kernel whose streaming window would outgrow the CUDA kernels' largest
+    (the effect still renders offline)."""
     e = pt.ops.lowcut(pt.EngineConfig(44100, 512), 120.0, device=CPU)
-    with pytest.raises(NotImplementedError, match="streaming slice"):
-        e.state((2,))
-    with pytest.raises(NotImplementedError, match="streaming slice"):
-        e.step(e.params, None, torch.zeros(2, 512))
+    p = e.params
+    assert (p.lead, p.plan.kernel_len, p.stream.n) == (385, 255, 1024)
+    st = e.state((2,))
+    assert st["hist"].shape == (2, 385 + 1024 - 512)
+    st, y = e.step(p, st, torch.zeros(2, 512))
+    assert y.shape == (2, 512) and st["hist"].shape == (2, 897)
+    with pytest.raises(ValueError, match="blocks of 512"):
+        e.step(p, st, torch.zeros(2, 256))
+    big = pt.ops.lowcut(pt.EngineConfig(44100, 16384), 120.0, device=CPU)
+    assert big.params.stream is None and big.params.plan.n == 16384
+    with pytest.raises(ValueError, match="reverb slice"):
+        big.state((2,))
+    with pytest.raises(ValueError, match="reverb slice"):
+        big.step(big.params, None, torch.zeros(2, 16384))
+    assert big.offline(big.params, torch.zeros(1, 2, 16384)).shape \
+        == (1, 2, 16384)
 
 
 def test_all_zero_and_identity_kernels():

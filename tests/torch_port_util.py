@@ -4,9 +4,10 @@
 * ``spec_from_jax`` -- the plain numpy description of JAX effects that
   ``pyaudiodsptools_tpu_torch.convert.chain_from_numpy`` takes. The port
   imports no JAX, so the extraction lives here.
-* ``emulate_segconv`` / ``emulate_tail`` -- numpy mirrors of the two CUDA
-  kernels' schedules (csrc/segconv.cu, csrc/tail.cu): same passes, same
-  tables, same in-place order, float32 throughout. The CUDA sources cannot
+* ``emulate_segconv`` / ``emulate_convpairs`` / ``emulate_tail`` -- numpy
+  mirrors of the CUDA kernels' schedules (csrc/segconv.cu and
+  csrc/convpairs.cu with their shared csrc/window_fft.cuh, csrc/tail.cu):
+  same passes, same tables, same in-place order, float32 throughout. The CUDA sources cannot
   run without a card; the mirrors let the CPU tests hold the kernels'
   ALGORITHMS (twiddle and spectrum tables, digit-reversed order, the in-place
   tap walk, the re-zeroing rule) against the plain versions.
@@ -93,7 +94,7 @@ def _dft4(a, sign):
 
 
 def emulate_window_fft(z: np.ndarray, plan) -> np.ndarray:
-    """One complex window through csrc/segconv.cu's passes, with its index
+    """One complex window through csrc/window_fft.cuh's passes, with its index
     arithmetic: padded shared memory, per-pass twiddle rows indexed by j, two
     radix-4 levels per pass (one alone if the outer levels are odd in
     number), constant 16th roots, and the innermost pass that runs the last
@@ -241,6 +242,22 @@ def emulate_segconv(x: np.ndarray, plan) -> np.ndarray:
                     y[c, o:o + w] = part[halo:halo + w]
     y[:, :shift] = 0.0      # the store masks the output delay to silence
     return y
+
+
+def emulate_convpairs(flat: np.ndarray, plan) -> np.ndarray:
+    """csrc/convpairs.cu: one 'thread block' per pair of rows (row 2p in the
+    real part, row 2p+1 in the imaginary part, an odd last row alone), the
+    window transform, all n samples stored."""
+    R, n = flat.shape
+    out = np.full((R, n), np.nan, np.float32)
+    for r0 in range(0, R, 2):
+        has_b = r0 + 1 < R
+        b = flat[r0 + 1] if has_b else np.zeros(n, np.float32)
+        z = emulate_window_fft(flat[r0] + 1j * b, plan)
+        out[r0] = z.real
+        if has_b:
+            out[r0 + 1] = z.imag
+    return out
 
 
 # ---------------------------------------------------------------------------
