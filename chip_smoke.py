@@ -20,8 +20,13 @@ failed check raises (exit code != 0, no result line):
    the one-sample attack (exit states equal, 0 mismatching samples), and the
    whole speculative stage against the plain one-segment (serial) walk;
    ``convpairs_cases``: the circular convolution at every power of two from
-   16 to 16,384 and 1, 2, 5 and 64 rows; ``serial_walk_cases``: the serial
-   walk equal to its plain version and to the audio walk at one segment.
+   16 to 16,384 and 1, 2, 5 and 64 rows, and its step entry point (window
+   gathered from history and block, the kept samples, the next history)
+   bit-equal to it on the same window in both versions of the kernel (one
+   block a pair, a cluster of four); ``serial_walk_cases``: the serial walk
+   equal to its plain version and to the audio walk at one segment, also on
+   the signals a stream meets at the step's two shapes, with the rounds its
+   fixpoint loop took.
 4. ``main_path``  two paths through ``render`` at 64 channels on noise
    bursts generated on the card from a seed, each with every kernel's launch
    count set to 0 just before and read just after. First the earlier path,
@@ -35,7 +40,8 @@ failed check raises (exit code != 0, no result line):
 5. ``stream_path``  the streaming main path: chain8, 64 channels x 30 s,
    block by block through ``StreamProcessor`` at block size 4096 (323 steps)
    and 512 (2,584 steps), counts set to 0 just before and read just after
-   (one circular convolution and one serial walk a step, nothing else). The
+   (one launch of the circular convolution's step and one of the serial walk
+   a step: the FIR stage and the dynamics stage, nothing else counted). The
    streamed output is held against the offline kernel render, stage by stage
    and whole, against the plain-version stream over a short excerpt, and
    against the float64 oracle excerpt; a checkpoint saved in mid-stream and
@@ -43,7 +49,10 @@ failed check raises (exit code != 0, no result line):
    equals the streamed fold bit for bit; ``render_resumable`` with an
    injected stop resumes to the same bits. ``stream_timing``: the step's
    time (median, p99, max) beside the block's duration, with tensors and
-   with numpy in and out, and the old per-sample step once for the record.
+   with numpy in and out, and the old per-sample step once for the record;
+   the two streaming kernels at the step's shapes beside their times before
+   the redesign, both versions of the convolution by window and by batch,
+   and the serial walk's sweep over segment lengths.
 6. ``kernel_timing``  each kernel at the main-path shapes: time (CUDA events,
    median of 5 after a warm-up; the two streaming kernels, which are over in
    tens of microseconds, as launches queued behind a spin so that the host's
@@ -697,6 +706,7 @@ def convpairs_cases() -> dict:
         convpairs.conv_pairs(joined[:, :2048], plan),
         convpairs.conv_pairs(joined[:, :2048].contiguous(), plan))
     assert strided_equal
+    step_results, step_min_db = convpairs_step_cases(rng)
     for bad in (2 * segconv.MAX_WINDOW, 3072):
         try:
             convpairs.make_plan(np.ones(3), bad, "cuda")
@@ -708,8 +718,79 @@ def convpairs_cases() -> dict:
             "replaces": "pyaudiodsptools_tpu/kernels/pallas_conv.py:"
                         "conv_pairs_fused",
             "cases": results, "strided_rows_equal": strided_equal,
+            "step_cases": step_results,
+            "step_all_bit_equal_to_conv_pairs": True,
+            "step_min_snr_db": db_json(step_min_db),
             "min_snr_db": min(r["db_plain"] for r in results),
             "min_snr_db_oracle": min(r["db_oracle"] for r in results)}
+
+
+# The smallest window csrc/convpairs.cu's cluster version takes.
+CLUSTER_TAKES_FROM = 1024
+
+
+def convpairs_step_cases(rng) -> tuple[list, float]:
+    """The step entry point at every power of two the kernel takes, 1, 5 and
+    64 rows (a lone row, an odd last row, the step's batch), with the window
+    wholly in the history (the flagship geometries: n = 4 B, lead > 2 B),
+    across history and block, and with no lead: the output BIT-EQUAL to
+    ``conv_pairs`` on the same window (both versions of the kernel, one block
+    and the cluster of four, where the window allows a cluster), the next
+    history equal to the shifted concatenation, the old history untouched,
+    the block a slice of a longer signal; and CONV_DB_PLAIN to the step's
+    plain version. Returns the cases and the least dB to the plain version."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(41)
+    results, min_db = [], float("inf")
+    n = segconv.MIN_WINDOW
+    while n <= segconv.MAX_WINDOW:
+        kernel = rng.standard_normal(min(n, 1 + n // 2)) * 0.1
+        plan = convpairs.make_plan(kernel, n, "cuda")
+        for R in (1, 5, 64):
+            for B, lead in ((max(n // 4, 1), 9 * n // 16 + 3), (n // 2, 5),
+                            (n, 0)):
+                H = lead + n - B
+                hist = torch.randn((R, H), generator=gen, device="cuda")
+                signal = torch.randn((R, 3 * B + 1), generator=gen,
+                                     device="cuda")
+                block = signal[:, B:2 * B]
+                kept = hist.clone()
+                before = convpairs.launch_count
+                out, new_hist = convpairs.conv_pairs_step(hist, block, plan,
+                                                          lead)
+                torch.cuda.synchronize()
+                assert convpairs.launch_count == before + 1
+                cat = torch.cat([hist, block], dim=-1)
+                window = cat[:, :n].contiguous()
+                r = {"n": n, "R": R, "B": B, "lead": lead,
+                     "equal_conv_pairs": torch.equal(
+                         out, convpairs.conv_pairs(window, plan)[:, n - B:]),
+                     "next_history_equal": torch.equal(new_hist, cat[:, B:]),
+                     "old_history_untouched": torch.equal(hist, kept)}
+                versions = [convpairs._launch(window, plan, cluster=False)]
+                if n >= CLUSTER_TAKES_FROM:
+                    versions.append(convpairs._launch(window, plan,
+                                                      cluster=True))
+                    for cluster in (False, True):
+                        o2, h2 = convpairs._launch_step(hist, block, plan,
+                                                        cluster=cluster)
+                        versions.append(torch.nn.functional.pad(
+                            o2, (n - B, 0)))
+                        r["next_history_equal"] &= torch.equal(h2, cat[:, B:])
+                r["versions_equal"] = all(
+                    torch.equal(v[:, n - B:], out) for v in versions)
+                plain, plain_hist = convpairs.conv_pairs_step(
+                    hist, block, plan, lead, use_kernels=False)
+                db = snr_db_cuda(plain, out)
+                min_db = min(min_db, db)
+                r["db_plain"] = db_json(db)
+                results.append(r)
+                assert torch.equal(plain_hist, new_hist), r
+                assert r["equal_conv_pairs"] and r["next_history_equal"] \
+                    and r["old_history_untouched"] and r["versions_equal"], r
+                assert db >= CONV_DB_PLAIN, r
+        n *= 2
+    return results, min_db
 
 
 # (ops, T, C): every T in {1, 512, 1500, 4096} and every C in {1, 3, 64} for
@@ -724,6 +805,103 @@ SERIAL_CASES = [
     ("cascade_of_4", 1, 1), ("cascade_of_4", 512, 64),
     ("cascade_of_4", 1500, 3),
 ]
+
+
+def stream_signals(C: int, T: int) -> dict:
+    """name -> (x (2 T,) per channel as a (C, 2 T) tensor: the block BEFORE
+    the measured one and the measured one). The measured block is walked from
+    the state the block before leaves behind, as a stream would."""
+    noise = burst_noise(C, 3 * SAMPLE_RATE, 29)[:, SAMPLE_RATE:SAMPLE_RATE
+                                                + 2 * T].contiguous()
+    loud_then_silent = torch.zeros((C, 2 * T), device="cuda")
+    loud_then_silent[:, :T] = 0.5
+    dies_away = torch.zeros((C, 2 * T), device="cuda")
+    dies_away[:, T:T + T // 8] = 0.5
+    alternating = torch.from_numpy(np.tile(
+        np.asarray([0.9, 1e-4], np.float32), (C, T))).cuda()
+    return {
+        # the main path's input: both ops re-trigger all the time
+        "noise_bursts": noise,
+        # a burst in the block before, silence in this one: the gate's
+        # release (8,824 samples) spans this block and the next
+        "burst_then_silence": loud_then_silent,
+        # silence, then a sound that dies away inside the measured block
+        "dies_away_inside_the_block": dies_away,
+        # the JAX package's tests/test_fusion.py signal, from REST (its first
+        # block: the attack is handed on a segment a round) ...
+        "alternating_from_rest": alternating[:, T:],
+        # ... and carried
+        "alternating": alternating,
+    }
+
+
+PLAIN_AT_FULL_LENGTH = ("noise_bursts", "burst_then_silence",
+                        "alternating_from_rest")
+
+
+def serial_walk_signal_cases(members) -> list:
+    """The serial walk on the signals a stream meets, at the step's two
+    shapes: equal to the audio walk at one segment and to its plain version
+    (samples and exit states; the plain version at 4,096 samples on the
+    signals of PLAIN_AT_FULL_LENGTH), with the rounds of its fixpoint loop
+    (the most any channel took) and its device time as launches queued behind
+    a spin; rounds and time also of the kernel without the jump over quiet
+    segments."""
+    params = [e.params for e in members]
+    scalars = [kdyn.op_scalars(p) for p in params]
+    results = []
+    for T in (512, 4096):
+        for name, x2 in stream_signals(CHANNELS, T).items():
+            entry = torch.zeros((len(scalars), CHANNELS), dtype=torch.int32,
+                                device="cuda")
+            if x2.shape[1] == 2 * T:
+                _, entry = kdyn.serial_walk(scalars, x2[:, :T].contiguous(),
+                                            entry)
+            x = x2[:, -T:].contiguous()
+            out, z, rounds = kdyn._launch_serial(scalars, x, entry,
+                                                 want_rounds=True)
+            a_out, a_z = kdyn.audio_walk(scalars, x.t().contiguous(), entry)
+            # the plain version is a Python loop over the T rows (seconds at
+            # 4,096): there it is run on the three signals named first, and
+            # the other two are held to the audio walk alone
+            if T <= 512 or name in PLAIN_AT_FULL_LENGTH:
+                p_out, p_z = kdyn.serial_walk(scalars, x, entry,
+                                              use_kernels=False)
+            else:
+                p_out, p_z = a_out.t(), a_z
+            lseg, segments, threads = kdyn.serial_geometry(T)
+            r = {"signal": name, "C": CHANNELS, "T": T,
+                 "segment": 1 << lseg, "segments": segments,
+                 "threads": threads,
+                 "entry_modes": sorted(set(
+                     kdyn.decode_state(params[-1], entry[-1])["mode"]
+                     .cpu().tolist())),
+                 "rounds": int(rounds.max()),
+                 "held_to_plain": T <= 512 or name in PLAIN_AT_FULL_LENGTH,
+                 "mismatching_samples": int((out != p_out).sum()),
+                 "exit_states_equal": torch.equal(z, p_z),
+                 "equal_audio_walk_one_segment":
+                     torch.equal(out, a_out.t()) and torch.equal(z, a_z),
+                 "queued_ms": queued_ms(
+                     lambda: kdyn.serial_walk(scalars, x, entry),
+                     runs=30)["ms"]}
+            # the kernel without the jump over quiet segments, beside it: the
+            # same result in more rounds
+            n_out, n_z, n_rounds = kdyn._launch_serial(
+                scalars, x, entry, want_rounds=True, quiet_jump=False)
+            assert torch.equal(n_out, out) and torch.equal(n_z, z), name
+            assert 1 <= int(n_rounds.max()) <= segments, name
+            r["without_quiet_jump"] = {
+                "rounds": int(n_rounds.max()),
+                "queued_ms": queued_ms(lambda: kdyn._launch_serial(
+                    scalars, x, entry, quiet_jump=False), runs=30)["ms"]}
+            results.append(r)
+            assert r["mismatching_samples"] == 0 and r["exit_states_equal"] \
+                and r["equal_audio_walk_one_segment"], r
+            assert 1 <= r["rounds"] <= segments, r
+            if name == "burst_then_silence":
+                assert r["rounds"] == 1, r     # the closed-form guess is exact
+    return results
 
 
 def serial_walk_cases() -> dict:
@@ -772,6 +950,7 @@ def serial_walk_cases() -> dict:
         assert r["mismatching_samples"] == 0 and r["exit_states_equal"], r
         assert r["mismatching_samples_vs_audio_walk"] == 0 \
             and r["exit_states_equal_audio_walk"], r
+    signal_results = serial_walk_signal_cases(cascades["cascade"])
     # the effects' own steps: a cascade step is one launch and equals the
     # members' steps one after the other, states included
     fused = kdyn.fused_dynamics([comp, gate])
@@ -792,6 +971,7 @@ def serial_walk_cases() -> dict:
                         "dynamics_pallas",
             "cases": results, "max_mismatching_samples": 0,
             "all_exit_states_equal": True,
+            "signals": signal_results,
             "cascade_step_equals_op_after_op_steps": step_equal}
 
 
@@ -1346,6 +1526,10 @@ def queued_ms(fn, runs: int = 50) -> dict:
     return {"ms": a.elapsed_time(b) / runs, "host_ms": host_s * 1e3 / runs}
 
 
+# Segment lengths (log2) of the serial walk's sweep.
+SWEEP_LSEG = (3, 4, 5, 6)
+
+
 def time_stream_kernels(chain, cfg, streamed_in: torch.Tensor,
                         timing: dict) -> None:
     """The two streaming kernels at the step's shapes, on a block of the
@@ -1353,36 +1537,78 @@ def time_stream_kernels(chain, cfg, streamed_in: torch.Tensor,
     C, B = streamed_in.shape[0], cfg.block_size
     fir_e, dyn_e, _ = chain.exec_effects
     plan = fir_e.params.stream
-    n = plan.n
-    # row 8: the step's window batch, as a step passes it: the first n
-    # samples of history + block, rows lead + n apart
-    joined = streamed_in[:, :fft_filter.history_len(fir_e.params) + B
-                         ].contiguous()
+    n, lead = plan.n, fir_e.params.lead
+    H = fft_filter.history_len(fir_e.params)
+    # row 8: the step's window: the first n samples of history + block
+    hist = streamed_in[:, :H].contiguous()
+    block = streamed_in[:, H:H + B]              # a slice, as a stream passes
+    joined = streamed_in[:, :H + B].contiguous()
     rows = joined[:, :n]
     got = convpairs.conv_pairs(rows, plan)
     plain = convpairs.conv_pairs(rows, plan, use_kernels=False)
+    out, new_hist = convpairs.conv_pairs_step(hist, block, plan, lead)
     torch.cuda.synchronize()
     assert snr_db_cuda(plain, got) >= CONV_DB_PLAIN
+    assert torch.equal(out, got[:, n - B:]), "step differs from conv_pairs"
+    assert torch.equal(new_hist, joined[:, B:])
     log2n = n.bit_length() - 1
     q = queued_ms(lambda: convpairs.conv_pairs(rows, plan))
     dense = rows.contiguous()
+    # both versions of the kernel, in turns, for the rule in
+    # kernels/convpairs._uses_cluster
+    versions = {}
+    for cluster in (False, True, True, False):
+        name = "cluster_of_four" if cluster else "one_block"
+        v = versions.setdefault(name, {"conv_pairs_ms": [], "step_ms": []})
+        v["conv_pairs_ms"].append(queued_ms(lambda: convpairs._launch(
+            rows, plan, cluster=cluster))["ms"])
+        v["step_ms"].append(queued_ms(lambda: convpairs._launch_step(
+            hist, block, plan, cluster=cluster))["ms"])
+
+    def join_convolve_slice():
+        # the FIR stage of a step before the step entry point: three launches
+        j = torch.cat([hist, block], dim=-1)
+        o = convpairs._launch(j[:, :n], plan, cluster=False)
+        return o[:, n - B:].contiguous(), j[:, B:]
+
+    q_step = queued_ms(lambda: convpairs.conv_pairs_step(hist, block, plan,
+                                                         lead))
+    operations = -(-C // 2) * (2 * 5 * n * log2n + 6 * n)
+    # The headline figures are those of the entry point the main path
+    # launches, the step: it reads history and block once and writes the
+    # block's output and the next history once. `conv_pairs` on the same
+    # window stands beside it.
     timing["conv_pairs"][B] = {
-        "R": C, "n": n, "taps": plan.kernel_len,
+        "R": C, "n": n, "taps": plan.kernel_len, "history": H, "B": B,
+        "headline_is": "conv_pairs_step(hist, block, plan, lead)",
+        "version": "cluster_of_four" if convpairs._uses_cluster(n, C)
+                   else "one_block",
         "db_plain": db_json(snr_db_cuda(plain, got)),
-        "max_abs_err": float((got - plain).abs().max()),
-        "ms": q["ms"], "host_ms_per_call": q["host_ms"],
-        "plain_ms": queued_ms(lambda: convpairs.conv_pairs(
-            rows, plan, use_kernels=False))["ms"],
+        "max_abs_err": float((out - plain[:, n - B:]).abs().max()),
+        "ms": q_step["ms"], "host_ms_per_call": q_step["host_ms"],
+        "step_equal_conv_pairs": True,
+        "step_as_join_convolve_slice_3_launches_ms":
+            queued_ms(join_convolve_slice)["ms"],
+        "plain_ms": queued_ms(lambda: convpairs.conv_pairs_step(
+            hist, block, plan, lead, use_kernels=False))["ms"],
+        # the one call that computes the window's convolution; it is given
+        # the window already joined and leaves the history to the caller
         "library_ms": queued_ms(lambda: torch.fft.irfft(
             torch.fft.rfft(dense, dim=-1) * plan.spectrum_rfft, n=n,
             dim=-1))["ms"],
-        **bound(8 * C * n + 2 * 8 * n,
-                -(-C // 2) * (2 * 5 * n * log2n + 6 * n))}
+        **bound(4 * C * (2 * H + 2 * B) + 2 * 8 * n, operations),
+        "conv_pairs_ms": q["ms"],
+        "conv_pairs_host_ms_per_call": q["host_ms"],
+        "conv_pairs_plain_ms": queued_ms(lambda: convpairs.conv_pairs(
+            rows, plan, use_kernels=False))["ms"],
+        "conv_pairs_bound_ms":
+            bound(8 * C * n + 2 * 8 * n, operations)["bound_ms"],
+        "versions": versions}
     # row 7: the step's block, from REST
     scalars = [kdyn.op_scalars(p) for p in dyn_e.params]
     x = got[:, n - B:].contiguous()
     entry = torch.zeros((len(scalars), C), dtype=torch.int32, device="cuda")
-    out, z = kdyn.serial_walk(scalars, x, entry)
+    out, z, rounds = kdyn._launch_serial(scalars, x, entry, want_rounds=True)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     p_out, p_z = kdyn.serial_walk(scalars, x, entry, use_kernels=False)
@@ -1391,30 +1617,92 @@ def time_stream_kernels(chain, cfg, streamed_in: torch.Tensor,
     mismatching = int((out != p_out).sum())
     assert mismatching == 0 and torch.equal(z, p_z)
     q = queued_ms(lambda: kdyn.serial_walk(scalars, x, entry), runs=20)
-    # the same block time-major through the audio walk at one segment: the
-    # same arithmetic with coalesced rows, to show what the serial walk's
-    # channel-major reads cost
+    # the step itself: the same walk with the 4-field state read and written
+    # by the kernel, one launch
+    state = dyn_e.state((C,))
+    before = kdyn.serial_walk_launch_count
+    new_state, s_out = dyn_e.step(dyn_e.params, state, x)
+    assert kdyn.serial_walk_launch_count == before + 1
+    assert torch.equal(s_out, out)
+    for j, p in enumerate(dyn_e.params):
+        want = kdyn.decode_state(p, z[j])
+        assert all(torch.equal(new_state[j][f], want[f])
+                   and new_state[j][f].dtype == want[f].dtype
+                   for f in kdyn.FIELDS), j
+    q_step = queued_ms(lambda: dyn_e.step(dyn_e.params, state, x), runs=20)
+    # the same block time-major through the audio walk at one segment: one
+    # thread a channel, the design before the redesign with coalesced rows
     xt = x.t().contiguous()
     a_out, a_z = kdyn.audio_walk(scalars, xt, entry)
     assert torch.equal(a_out.t(), out) and torch.equal(a_z, z)
+    # one sample of the dependent chain: two one-round walks of silence that
+    # differ only in the segment's length
+    silence = torch.zeros_like(x)
+    one_round = {k: queued_ms(lambda: kdyn._launch_serial(
+        scalars, silence, entry, lseg=k), runs=30)["ms"] for k in (7, 8)}
+    sample_ns = (one_round[8] - one_round[7]) / 128 * 1e6
+    lseg, segments, threads = kdyn.serial_geometry(B)
     timing["serial_walk"][B] = {
         "C": C, "T": B, "n_ops": len(scalars),
+        "segment": 1 << lseg, "segments": segments, "threads": threads,
+        "rounds": int(rounds.max()),
         "mismatching_samples": mismatching, "exit_states_equal": True,
         "max_abs_err": float((out - p_out).abs().max()),
-        "ms": q["ms"], "host_ms_per_call": q["host_ms"],
+        # the headline is the entry point the main path launches, the step
+        # (the 4-field state read and written by the kernel); the walk on
+        # encoded states stands beside it
+        "headline_is": "cascade_step(scalars, params, states, block)",
+        "ms": q_step["ms"], "host_ms_per_call": q_step["host_ms"],
+        "serial_walk_ms": q["ms"],
+        "serial_walk_host_ms_per_call": q["host_ms"],
+        "cascade_step_equal_walk_and_decoded_states": True,
         "audio_walk_one_segment_time_major_ms": queued_ms(
             lambda: kdyn.audio_walk(scalars, xt, entry), runs=20)["ms"],
+        "dependent_chain_ns_per_sample": sample_ns,
+        # rounds x segment x one sample's dependent chain: what this design
+        # cannot go below on this data, launch aside
+        "critical_path_ms": int(rounds.max()) * (1 << lseg) * sample_ns * 1e-6,
         "plain_ms": plain_ms,
         "plain_ran_with": f"a Python loop over T={B} rows, 1 timed run, "
                           "host clock",
         "library_ms": None,
-        **bound(8 * C * B + 8 * len(scalars) * C,
+        # 13 bytes of state an op and channel, read and written
+        **bound(8 * C * B + 2 * 13 * len(scalars) * C,
                 C * B * WALK_OPS_WITH_GAIN * len(scalars))}
+
+
+def sweep_serial_segments(chain, cfg) -> dict:
+    """The serial walk for a range of segment lengths on the stream's signals
+    (kernels/dynamics.SERIAL_SEGMENT_LOG2 comes from this table): signal ->
+    segment length -> [rounds, ms]. The result does not depend on the
+    segment length (checked)."""
+    C, B = CHANNELS, cfg.block_size
+    scalars = [kdyn.op_scalars(p) for p in chain.exec_effects[1].params]
+    table = {}
+    for name, x2 in stream_signals(C, B).items():
+        entry = torch.zeros((len(scalars), C), dtype=torch.int32,
+                            device="cuda")
+        if x2.shape[1] == 2 * B:
+            _, entry = kdyn.serial_walk(scalars, x2[:, :B].contiguous(), entry)
+        x = x2[:, -B:].contiguous()
+        want = kdyn.serial_walk(scalars, x, entry)
+        row = {}
+        for lseg in SWEEP_LSEG:
+            out, z, rounds = kdyn._launch_serial(scalars, x, entry, lseg=lseg,
+                                                 want_rounds=True)
+            assert torch.equal(out, want[0]) and torch.equal(z, want[1]), \
+                f"a segment of {1 << lseg} samples changes the result"
+            row[str(1 << lseg)] = [int(rounds.max()), queued_ms(
+                lambda: kdyn._launch_serial(scalars, x, entry, lseg=lseg),
+                runs=30)["ms"]]
+        table[name] = row
+    return table
 
 
 def time_full_batch() -> dict:
     """Row 8 at a batch that fills the card: the offline render's window
-    batch at block size 4096, beside the one-call yardstick."""
+    batch at block size 4096, beside the one-call yardstick; both versions of
+    the kernel there and at the batches between the step's and that one."""
     n, R = segconv.MAX_WINDOW, FULL_BATCH_ROWS
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
@@ -1422,17 +1710,56 @@ def time_full_batch() -> dict:
     kernel = np.random.default_rng(5).standard_normal(8185) * 0.02
     plan = convpairs.make_plan(kernel, n, "cuda")
     got = convpairs.conv_pairs(x, plan)
+    assert not convpairs._uses_cluster(n, R)
     lib = lambda: torch.fft.irfft(
         torch.fft.rfft(x, dim=-1) * plan.spectrum_rfft, n=n, dim=-1)
     db = snr_db_cuda(lib()[:64], got[:64])
     assert db >= CONV_DB_PLAIN, db
+    assert torch.equal(got[:64], convpairs._launch(x[:64], plan, cluster=True))
     del got
+    by_rows = {}
+    for rows in (64, 80, 96, 112, 128, 256, 1024, R):
+        xr = x[:rows]
+        timer = time_ms if rows >= 1024 else \
+            (lambda fn: queued_ms(fn)["ms"])
+        by_rows[str(rows)] = {
+            "chosen": "cluster_of_four" if convpairs._uses_cluster(n, rows)
+                      else "one_block",
+            **{name: [timer(lambda: convpairs._launch(xr, plan,
+                                                      cluster=cluster))
+                      for _ in range(2)]
+               for name, cluster in (("one_block", False),
+                                     ("cluster_of_four", True))}}
     log2n = n.bit_length() - 1
     return {"R": R, "n": n, "bytes": 8 * R * n, "db_plain_64_rows": db_json(db),
             "ms": time_ms(lambda: convpairs.conv_pairs(x, plan)),
             "library_ms": time_ms(lib),
+            "versions_ms_by_rows": by_rows,
             **bound(8 * R * n + 2 * 8 * n,
                     (R // 2) * (2 * 5 * n * log2n + 6 * n))}
+
+
+def time_cluster_by_window() -> dict:
+    """Both versions of the circular convolution at the step's batch (64
+    rows) for every window a cluster takes: n -> version -> ms."""
+    rng = np.random.default_rng(31)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(31)
+    table = {}
+    n = CLUSTER_TAKES_FROM
+    while n <= segconv.MAX_WINDOW:
+        plan = convpairs.make_plan(rng.standard_normal(n // 2) * 0.05, n,
+                                   "cuda")
+        x = torch.randn((CHANNELS, n), generator=gen, device="cuda")
+        table[str(n)] = {
+            "chosen": "cluster_of_four" if convpairs._uses_cluster(
+                n, CHANNELS) else "one_block",
+            **{name: [queued_ms(lambda: convpairs._launch(
+                x, plan, cluster=cluster))["ms"] for _ in range(2)]
+               for name, cluster in (("one_block", False),
+                                     ("cluster_of_four", True))}}
+        n *= 2
+    return table
 
 
 def profile_stream(chain, cfg, signal, wall_ms_per_step: float,
@@ -1525,6 +1852,7 @@ def main() -> None:
         sys.exit(2)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1660,6 +1988,9 @@ def main() -> None:
               "serial_walk": timing["serial_walk"][B],
               "conv_pairs": timing["conv_pairs"][B]} for B in BLOCK_SIZES},
           "near_empty_launch": {"what": "serial_walk at C=1, T=1", **near_empty},
+          "serial_walk_sweep": {str(B): sweep_serial_segments(
+              chains[B][1], chains[B][0]) for B in BLOCK_SIZES},
+          "conv_pairs_cluster_by_window": time_cluster_by_window(),
           "conv_pairs_full_card_batch": time_full_batch(),
           "nvidia_smi": smi})
 
@@ -1738,9 +2069,15 @@ def main() -> None:
             "ms": h["ms"], "plain_ms": h["plain_ms"],
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
             "library_ms": h["library_ms"],
+            # a bound the card can reach: a near-empty launch's device time
+            "launch_floor_ms": near_empty["ms"],
             "by_block_size": {str(B): {k: v[k] for k in (
-                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "critical_path_ms", "serial_walk_ms", "conv_pairs_ms",
+                "conv_pairs_bound_ms")
+                if k in v}
                 for B, v in by_B.items()}})
+    emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})
     emit({"kernels": summary})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -2,79 +2,300 @@
 // cores: the streaming windows' convolution.
 //
 // Replaces the TPU kernel pyaudiodsptools_tpu/kernels/pallas_conv.py ::
-// conv_pairs_fused (body _kernel). For a (R, n) float32 array and a real
+// conv_pairs_fused (body _kernel). For R real rows of n samples and a real
 // filter's spectrum it computes, per row,
 //
-//     out[r] = irfft(rfft(in[r]) * H)          (n a power of two, 16..16,384)
+//     out[r] = irfft(rfft(row[r]) * H)         (n a power of two, 16..16,384)
 //
-// the whole circular convolution: all n samples are stored, and the caller
-// keeps the wrap-free ones.
+// It has two entry points over one kernel body:
 //
-// What bounds it: by bytes one read and one write of the rows; in the
-// streaming step that is a few hundred KB, so a launch is over before the
-// card is full (32 blocks for 64 rows) and its time is the latency of one
-// block's passes through shared memory. The design is that of
-// csrc/segconv.cu without the gather: one thread block per PAIR of rows
-// (row 2p in the real part, row 2p+1 in the imaginary part of one complex
-// window; an odd last row rides alone), the window resident in shared memory
-// from load to store, and the transform of csrc/window_fft.cuh. Rows may be
-// strided (in_stride floats apart), so the caller can pass a view of a longer
-// history without copying it first.
+//   convpairs_launch       rows given as an array (possibly strided); all n
+//                          samples of every row are stored.
+//   convpairs_step_launch  the streaming step of a FIR in ONE launch. Row r
+//                          is the first n samples of concat(hist[r], block[r])
+//                          gathered from the TWO arrays; only the last B
+//                          (wrap-free) samples of the result are stored,
+//                          contiguous (R, B); and the next history,
+//                          concat(hist[r], block[r])[B:], is written to a
+//                          third array. The old history is only read, so the
+//                          caller's previous state stays valid, and each
+//                          thread block touches its own two rows only.
 //
-// Plain C interface: convpairs_launch() enqueues on the given stream,
-// allocates nothing, and returns cudaGetLastError().
+// What bounds it: by bytes one read of the rows (and of the history) and one
+// write of what is kept. In the streaming step that is a few hundred KB to a
+// few MB, so a launch is over before the card is full and its time is the
+// latency of one pair's passes through shared memory. The design is that of csrc/segconv.cu: a PAIR of rows per
+// transform (row 2p in the real part, row 2p+1 in the imaginary part of one
+// complex window; an odd last row rides alone), the window resident in
+// shared memory from load to store, and the transform of
+// csrc/window_fft.cuh.
+//
+// Two ways to spread a pair over the card, chosen by the host per window
+// size and batch (kernels/convpairs.py has the rule, PERF.md the
+// measurements: the cluster is ahead by a quarter to a fifth at 64 to 112
+// rows of 16,384, by 1-3 us at the smaller windows, and behind from 128 rows
+// on, so it takes the largest window of a step's batch only):
+//
+//   one block a pair    (convpairs_kernel<false>) the whole window in one
+//                       thread block's shared memory.
+//   a cluster of four   (convpairs_kernel<true>, sm_90 thread-block cluster)
+//                       block q of the cluster holds quarter q of the
+//                       window. The top two radix-4 levels combine points
+//                       n/4 and n/16 apart: each thread gathers its 16 points
+//                       from the four blocks' shared memory (distributed
+//                       shared memory), does the same register work as the
+//                       one-block pass, and scatters them back; every level
+//                       below is local to a quarter and runs the one-block
+//                       passes on it. Same operations on the same operands
+//                       in the same order: the two versions agree bit for
+//                       bit. Four times the blocks (128 for 64 rows), each
+//                       with a quarter of the butterflies, the loads and the
+//                       stores.
+//
+// The next history is written by blocks of their own, which do nothing else
+// and run beside the transforming ones: the copy (11 MB of traffic at block
+// size 4,096) hides behind the transform instead of adding to it.
+//
+// Plain C interface: the launchers enqueue on the given stream, allocate
+// nothing, and return cudaGetLastError().
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "window_fft.cuh"
 
+namespace cg = cooperative_groups;
+
+#define CLUSTER_BLOCKS 4
+// Samples of the next history that one copying block writes.
+#define COPY_CHUNK 4096
+
+// Where the rows come from and where the results go.
+struct PairsIo {
+  // sample i of row r: i < split ? a[r*a_stride + i] : b[r*b_stride + i-split]
+  const float* a;
+  const float* b;
+  long long a_stride, b_stride;
+  int split;
+  // samples [keep0, n) of row r's result go to out[r*(n - keep0) + i - keep0]
+  float* out;
+  int keep0;
+  // next[r*next_len + k] = sample (shift + k) of row r's source, k < next_len
+  // (past the window too: the source is split + block samples long); null:
+  // nothing is written
+  float* next;
+  int next_len, shift;
+};
+
 namespace {
 
+__device__ __forceinline__ float source(const PairsIo& io, int r, int i) {
+  return i < io.split ? io.a[(size_t)r * io.a_stride + i]
+                      : io.b[(size_t)r * io.b_stride + (i - io.split)];
+}
+
+// The top pass of a window spread over a cluster: two radix-4 levels of size
+// n and n/4. Point j + c*(n/16) + a*(n/4) lives in block a at local index
+// j + c*(n/16); this block does the n/64 values of j that start at
+// rank * n/64.
+template <bool kForward>
+__device__ __forceinline__ void pass_two_levels_cluster(
+    float2* (&zq)[CLUSTER_BLOCKS], const float2* __restrict__ tw, int ln,
+    int rank) {
+  const int q2 = 1 << (ln - 4);
+  const int share = q2 / CLUSTER_BLOCKS;
+  for (int t = threadIdx.x; t < share; t += blockDim.x) {
+    const int j = rank * share + t;
+    float2 w[6];
+#pragma unroll
+    for (int p = 0; p < 6; ++p) w[p] = __ldg(tw + p * q2 + j);
+    float2 x[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) x[a][c] = zq[a][pad(j + c * q2)];
+    two_levels_on_registers<kForward>(x, w);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) zq[a][pad(j + c * q2)] = x[a][c];
+  }
+}
+
+// kCluster false: one block a pair, the first `pairs` blocks of the grid.
+// kCluster true: clusters of CLUSTER_BLOCKS blocks, the first
+// CLUSTER_BLOCKS * pairs blocks, each holding n / CLUSTER_BLOCKS points (the
+// launcher sets the cluster's size). The blocks after those (whole clusters
+// of them) only copy: block k of them writes chunk k of the next history,
+// COPY_CHUNK samples of one row, straight from the source to its place
+// (nothing of it passes through the transform), while the others transform.
+template <bool kCluster>
 __global__ void __launch_bounds__(WINDOW_FFT_THREADS)
-convpairs_kernel(const float* __restrict__ in, float* __restrict__ out,
-                 const float2* __restrict__ spec,
-                 const float2* __restrict__ tw, int R, int ln,
-                 long long in_stride) {
+convpairs_kernel(const PairsIo io, const float2* __restrict__ spec,
+                 const float2* __restrict__ tw, int R, int ln) {
   extern __shared__ float2 z[];
   const int n = 1 << ln;
-  const int r0 = 2 * blockIdx.x;
-  const bool has_b = r0 + 1 < R;
-  const float* a_row = in + (size_t)r0 * in_stride;
-  const float* b_row = a_row + in_stride;
-
-  for (int i = threadIdx.x; i < n; i += blockDim.x)
-    z[pad(i)] = make_float2(a_row[i], has_b ? b_row[i] : 0.0f);
-  __syncthreads();
-
-  convolve_window(z, spec, tw, ln);
-
-  float* a_out = out + (size_t)r0 * n;
-  float* b_out = a_out + n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float2 v = z[pad(i)];
-    a_out[i] = v.x;
-    if (has_b) b_out[i] = v.y;
+  const int parts = kCluster ? CLUSTER_BLOCKS : 1;
+  const int pairs = (R + 1) / 2;
+  if ((int)blockIdx.x >= pairs * parts) {
+    const int chunk = (int)blockIdx.x - pairs * parts;
+    const int per_row = (io.next_len + COPY_CHUNK - 1) / COPY_CHUNK;
+    const int r = chunk / per_row;
+    if (r >= R) return;            // the grid is rounded up to whole clusters
+    const int k0 = (chunk - r * per_row) * COPY_CHUNK;
+    const int k1 = min(io.next_len, k0 + COPY_CHUNK);
+    float* dst = io.next + (size_t)r * io.next_len;
+    for (int k = k0 + threadIdx.x; k < k1; k += blockDim.x)
+      dst[k] = source(io, r, io.shift + k);
+    return;
   }
+  const int rank = kCluster ? (int)(blockIdx.x % CLUSTER_BLOCKS) : 0;
+  const int r0 = 2 * (int)(blockIdx.x / parts);
+  const bool has_b = r0 + 1 < R;
+  const int m = n / parts;          // points this block holds
+  const int base = rank * m;        // the window index of its first point
+
+  for (int i = threadIdx.x; i < m; i += blockDim.x)
+    z[pad(i)] = make_float2(source(io, r0, base + i),
+                            has_b ? source(io, r0 + 1, base + i) : 0.0f);
+
+  if (kCluster) {
+    cg::cluster_group cluster = cg::this_cluster();
+    float2* zq[CLUSTER_BLOCKS];
+#pragma unroll
+    for (int a = 0; a < CLUSTER_BLOCKS; ++a)
+      zq[a] = cluster.map_shared_rank(z, a);
+    cluster.sync();
+    pass_two_levels_cluster<true>(zq, tw, ln, rank);
+    cluster.sync();
+    convolve_levels(z, spec + base, tw + (6 << (ln - 4)), ln - 2, ln - 4);
+    cluster.sync();
+    pass_two_levels_cluster<false>(zq, tw, ln, rank);
+    cluster.sync();
+  } else {
+    __syncthreads();
+    convolve_window(z, spec, tw, ln);
+  }
+
+  const int keep = n - io.keep0;
+  float* a_out = io.out + (size_t)r0 * keep;
+  float* b_out = a_out + keep;
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
+    const int o = base + i - io.keep0;
+    if (o < 0) continue;
+    const float2 v = z[pad(i)];
+    a_out[o] = v.x;
+    if (has_b) b_out[o] = v.y;
+  }
+}
+
+// Threads of a block that holds m points of a window spread over a cluster:
+// a pass needs m/16, the loads, the stores and the history copy like more.
+// Four points a thread up to 512 threads measured fastest on an H100 at every
+// window from 2,048 to 16,384; 1,024 threads lose at 16,384.
+int cluster_threads(int m) {
+  int threads = m / 4;
+  if (threads > 512) threads = 512;
+  if (threads < 32) threads = 32;
+  return threads;
+}
+
+// Blocks that copy the next history (0 where there is none), in whole
+// clusters.
+unsigned copy_blocks(const PairsIo& io, int R) {
+  if (io.next == nullptr || io.next_len == 0) return 0;
+  const unsigned chunks =
+      (unsigned)R * (unsigned)((io.next_len + COPY_CHUNK - 1) / COPY_CHUNK);
+  return (chunks + CLUSTER_BLOCKS - 1) / CLUSTER_BLOCKS * CLUSTER_BLOCKS;
+}
+
+int launch(const PairsIo& io, const float* spec, const float* tw, int R, int n,
+           int cluster, void* stream) {
+  const int ln = window_log2(n);
+  if (ln < 0 || R <= 0) return (int)cudaErrorInvalidValue;
+  const float2* spec2 = reinterpret_cast<const float2*>(spec);
+  const float2* tw2 = reinterpret_cast<const float2*>(tw);
+  const unsigned pairs = (unsigned)((R + 1) / 2);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (!cluster) {
+    const size_t smem = window_smem_bytes(n);
+    cudaError_t err = cudaFuncSetAttribute(
+        convpairs_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    convpairs_kernel<false>
+        <<<pairs + copy_blocks(io, R), window_threads(n), smem, st>>>(
+            io, spec2, tw2, R, ln);
+    return (int)cudaGetLastError();
+  }
+  // a quarter must keep a whole two-level pass above it and a whole
+  // innermost pass below: n >= 1,024
+  if (ln < 10) return (int)cudaErrorInvalidValue;
+  const int m = n / CLUSTER_BLOCKS;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(pairs * CLUSTER_BLOCKS + copy_blocks(io, R));
+  config.blockDim = dim3(cluster_threads(m));
+  config.dynamicSmemBytes = window_smem_bytes(m);
+  config.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER_BLOCKS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  cudaError_t err = cudaFuncSetAttribute(
+      convpairs_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)config.dynamicSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaLaunchKernelEx(&config, convpairs_kernel<true>, io, spec2, tw2, R,
+                           ln);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // in: R rows of n floats, row r at in + r*in_stride; out: (R, n) contiguous;
 // spec: (n, 2) spectrum / n in the forward transform's output order; tw: the
-// per-pass twiddle rows of an n-point window.
+// per-pass twiddle rows of an n-point window; cluster: 0 for one block a
+// pair, 1 for a cluster of four.
 extern "C" int convpairs_launch(const float* in, float* out, const float* spec,
                                 const float* tw, int R, int n,
-                                long long in_stride, void* stream) {
-  const int ln = window_log2(n);
-  if (ln < 0 || R <= 0 || in_stride < n) return (int)cudaErrorInvalidValue;
-  const size_t smem = window_smem_bytes(n);
-  cudaError_t err = cudaFuncSetAttribute(
-      convpairs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const unsigned blocks = (unsigned)((R + 1) / 2);
-  convpairs_kernel<<<blocks, window_threads(n), smem, (cudaStream_t)stream>>>(
-      in, out, reinterpret_cast<const float2*>(spec),
-      reinterpret_cast<const float2*>(tw), R, ln, in_stride);
-  return (int)cudaGetLastError();
+                                long long in_stride, int cluster,
+                                void* stream) {
+  if (in_stride < n) return (int)cudaErrorInvalidValue;
+  PairsIo io = {};
+  io.a = in;
+  io.a_stride = in_stride;
+  io.split = n;
+  io.out = out;
+  return launch(io, spec, tw, R, n, cluster, stream);
+}
+
+// The streaming step. hist: (R, hist_len) contiguous; block: R rows of B
+// floats, row r at block + r*block_stride (a slice of a longer signal is
+// taken as it lies); the window of row r is the first n samples of
+// concat(hist[r], block[r]) (n <= hist_len + B); out: (R, B), the window's
+// last B output samples; next: (R, hist_len), concat(hist[r], block[r])[B:].
+extern "C" int convpairs_step_launch(const float* hist, const float* block,
+                                     float* out, float* next,
+                                     const float* spec, const float* tw, int R,
+                                     int n, int hist_len, int B,
+                                     long long block_stride, int cluster,
+                                     void* stream) {
+  if (hist_len < 0 || B < 1 || B > n || n > hist_len + B || block_stride < B)
+    return (int)cudaErrorInvalidValue;
+  PairsIo io = {};
+  io.a = hist;
+  io.b = block;
+  io.a_stride = hist_len;
+  io.b_stride = block_stride;
+  io.split = hist_len;
+  io.out = out;
+  io.keep0 = n - B;
+  io.next = next;
+  io.next_len = hist_len;
+  io.shift = B;
+  return launch(io, spec, tw, R, n, cluster, stream);
 }

@@ -51,21 +51,56 @@
 // another path. Everything else is compares, selects and exact int-to-float
 // conversions, so kernel and plain version agree bit for bit.
 //
-// The serial walk (dynamics_serial_walk) is the streaming step: it replaces
-// dynamics_pallas.py :: dynamics_pallas (body _kernel), which walks ONE op
-// over a (C, T) block from a carried state and returns the state. Here one
-// launch walks a whole cascade (op j+1 reads op j's output sample, which is
-// what the TPU package's op-after-op loop computes), reads and writes the
-// block as it lies, channel-major (C, T), and walks exactly T samples: there
-// is no tile padding whose samples a guard would have to keep off the state.
-// One thread per channel, the same automaton<> and cascade<> as the walks
-// above with the same rounding, so it is bit-equal to the audio walk at one
-// segment. What bounds it: nothing the card has much of. A block of 64
-// channels is two warps; the time is T times the latency of one sample's
-// dependent chain. Thread c reads x[c*T + t], so neighbouring threads are T
-// floats apart and a warp's load touches 32 cache lines; the block (a few
-// hundred KB) sits in L1/L2, each thread's WALK_CHUNK loads are issued
-// before the chunk is walked, and the next seven samples of a line are hits.
+// The serial walk (dynamics_serial_walk / dynamics_serial_step) is the
+// streaming step: it replaces dynamics_pallas.py :: dynamics_pallas (body
+// _kernel), which walks ONE op over a (C, T) block from a carried state and
+// returns the state. Here one launch walks a whole cascade (op j+1 reads op
+// j's output sample, which is what the TPU package's op-after-op loop
+// computes), reads and writes the block as it lies, channel-major (C, T),
+// walks exactly T samples, and (the step entry point) reads and writes the
+// four fields {mode, x, y, skip} of every op's carried state itself, as the
+// TPU kernel does, packing them into the walk's single int in registers.
+//
+// What bounds it: nothing the card has much of. The block is a few hundred KB
+// and a channel's samples depend on each other through the state, so one
+// thread a channel is T times the latency of one sample's dependent chain on
+// two warps of the card. The design brings the offline stage's speculation
+// inside a thread block:
+//   * one thread block a channel: 64 channels sit on 64 SMs;
+//   * the channel's samples go through shared memory, loaded and stored with
+//     coalesced accesses along time by all the block's threads, a tile of G
+//     segments of L = 2^lseg samples at a time (a longer block is walked tile after tile,
+//     each from the exit of the one before);
+//   * one thread a segment. Every thread walks its segment from a
+//     guessed entry, writes its exit to shared memory, takes a new entry
+//     from the exits to its left, and repeats until every entry equals its
+//     left neighbour's exit. Segment 0's entry is the carried state, never a
+//     guess, and each round fixes at least one more segment, so the loop ends
+//     within
+//     `segments` rounds with every entry the true serial state. Every round
+//     walks with audio into a second tile (the state's dependent chain sets
+//     the pace; the gain rides beside it), so the round that finds nothing
+//     changed has already written the block: a right guess costs ONE walk;
+//   * the first guess is the carried state advanced in closed form by the
+//     segment's offset as if no sample were over the threshold (a release
+//     counts on and ends in skip then REST, HOLD starts a release, an attack
+//     runs out and releases, REST stays): exact in silence, where a gate's
+//     release (8,824 samples in the flagship chain) outlasts whole blocks,
+//     and on loud audio any over-threshold sample sends HOLD and RELEASE to
+//     x_max whatever the guess was. A guess only costs rounds: the fixpoint
+//     is the serial trajectory;
+//   * a sound that dies away inside the block would still hand its state on
+//     one silent segment a round. So each walk notes, per op, whether it saw
+//     a sample over the threshold; an op that saw none moved exactly as the
+//     closed form moves it, and the next entry is taken from the nearest
+//     segment to the left that did see one, advanced in closed form over the
+//     quiet segments between: a quiet stretch settles in one round. (The
+//     kernel also exists without this jump, kJump false, every entry the left
+//     neighbour's exit: only to be timed beside it.)
+// Sample i of a tile lies at shared-memory slot i + i/L: segments are L + 1
+// slots apart, so the threads of a warp, each reading its own segment, hit
+// different banks. Same automaton<> and cascade<> as the walks above with the
+// same rounding, so the result is bit-equal to the audio walk at one segment.
 //
 // Plain C interface: each launcher enqueues on the given stream, allocates
 // nothing, and returns cudaGetLastError().
@@ -75,8 +110,8 @@
 #define DYN_MAX_OPS 4
 #define WALK_CHUNK 8
 #define WALK_THREADS 128
-// One warp a block: 64 channels spread over two SMs.
-#define SERIAL_THREADS 32
+// The serial walk: at most this many segments (threads) a tile.
+#define SERIAL_MAX_THREADS 1024
 
 struct DynOp {
   float thr, pre, ratio, att_step, rel0, rel_step;
@@ -88,12 +123,35 @@ struct DynOps {
   DynOp op[DYN_MAX_OPS];
 };
 
+// Where the serial walk reads and writes the carried states of a channel.
+// Either as single ints, entry and exit (n_ops, C); or (entry == nullptr) as
+// the four fields of each op: mode, x, y (int32) and skip (one byte, 0 or 1)
+// read from one (C,) array each, and written to ints_out, (n_ops, 3, C) in
+// the order mode, x, y, and skip_out, (n_ops, C).
+struct DynCarry {
+  const int* entry;
+  int* exit_state;
+  const int* mode[DYN_MAX_OPS];
+  const int* x[DYN_MAX_OPS];
+  const int* y[DYN_MAX_OPS];
+  const unsigned char* skip[DYN_MAX_OPS];
+  int* ints_out;
+  unsigned char* skip_out;
+};
+
+// The modes of the four-field state (ops/dynamics.py).
+#define MODE_REST 0
+#define MODE_ATTACK 1
+#define MODE_HOLD 2
+#define MODE_RELEASE 3
+
 namespace {
 
-// One sample of one op: returns the op's output, advances s.
+// One sample of one op whose over-threshold bit is `over`: returns the op's
+// output, advances s.
 template <bool WITH_GAIN>
-__device__ __forceinline__ float automaton(const DynOp& p, int& s, float row) {
-  const bool over = fabsf(row) > p.thr;
+__device__ __forceinline__ float automaton(const DynOp& p, int& s, float row,
+                                           bool over) {
   const bool pos = s > 0;
   const bool in_att = pos && (s < p.x_max);
   float out = row;
@@ -114,6 +172,12 @@ __device__ __forceinline__ float automaton(const DynOp& p, int& s, float row) {
   n = (s < 0) ? 0 : n;                              // skip consumes itself
   s = n;
   return out;
+}
+
+// One sample of one op: returns the op's output, advances s.
+template <bool WITH_GAIN>
+__device__ __forceinline__ float automaton(const DynOp& p, int& s, float row) {
+  return automaton<WITH_GAIN>(p, s, row, fabsf(row) > p.thr);
 }
 
 template <int N_OPS, bool AUDIO>
@@ -190,65 +254,264 @@ int launch(const float* x, float* out, const int* entry, int* exit_state,
   return (int)cudaGetLastError();
 }
 
+// State s after d >= 0 samples none of which is over the threshold: from
+// ATTACK, HOLD or RELEASE the single int counts up one a sample (the attack
+// runs out into HOLD, HOLD into the release) until the release completes at
+// `end` with the skip state, then REST.
+__device__ __forceinline__ int advance_quiet(const DynOp& p, int s, int d) {
+  if (d == 0) return s;
+  if (s <= 0) return 0;
+  const int t = s + d;
+  return t < p.end ? t : (t == p.end ? -1 : 0);
+}
+
+// kernels/dynamics.py :: encode_state and decode_state on one channel.
+__device__ __forceinline__ int encode_fields(const DynOp& p, int mode, int x,
+                                             int y, bool skip) {
+  const int s = mode == MODE_ATTACK ? x
+              : mode == MODE_HOLD ? p.x_max
+              : mode == MODE_RELEASE ? p.x_max + y : 0;
+  return skip ? -1 : s;
+}
+
+// One sample through the cascade with audio; loud[j] becomes true if op j
+// finds its input over its threshold.
 template <int N_OPS>
-__global__ void __launch_bounds__(SERIAL_THREADS)
-serial_walk_kernel(const float* __restrict__ x, float* __restrict__ out,
-                   const int* __restrict__ entry, int* __restrict__ exit_state,
-                   const DynOps ops, int C, int T) {
-  const int c = blockIdx.x * SERIAL_THREADS + threadIdx.x;
-  if (c >= C) return;
-  int s[N_OPS];
+__device__ __forceinline__ float cascade_noting_loud(const DynOps& ops,
+                                                     int (&s)[N_OPS],
+                                                     bool (&loud)[N_OPS],
+                                                     float row) {
 #pragma unroll
-  for (int j = 0; j < N_OPS; ++j) s[j] = entry[(size_t)j * C + c];
+  for (int j = 0; j < N_OPS; ++j) {
+    const bool over = fabsf(row) > ops.op[j].thr;
+    loud[j] |= over;
+    row = automaton<true>(ops.op[j], s[j], row, over);
+  }
+  return row;
+}
+
+// `len` samples of one segment walked from states s, with audio. An op whose
+// loud[j] stays false has moved exactly as advance_quiet() moves it.
+template <int N_OPS>
+__device__ __forceinline__ void walk_segment(const DynOps& ops, int (&s)[N_OPS],
+                                             bool (&loud)[N_OPS],
+                                             const float* seg_in,
+                                             float* seg_out, int len) {
+  int i = 0;
+  for (; i + WALK_CHUNK <= len; i += WALK_CHUNK) {
+    float v[WALK_CHUNK];
+#pragma unroll
+    for (int k = 0; k < WALK_CHUNK; ++k) v[k] = seg_in[i + k];
+#pragma unroll
+    for (int k = 0; k < WALK_CHUNK; ++k)
+      seg_out[i + k] = cascade_noting_loud<N_OPS>(ops, s, loud, v[k]);
+  }
+  for (; i < len; ++i)
+    seg_out[i] = cascade_noting_loud<N_OPS>(ops, s, loud, seg_in[i]);
+}
+
+// The nearest segment left of g whose bit in `quiet` (one bit a segment, 32
+// a word) is clear. Bit 0 of word 0 is always clear.
+__device__ __forceinline__ int nearest_loud_left(const unsigned* quiet, int g) {
+  int w = (g - 1) >> 5;
+  unsigned bits = ~quiet[w] & (0xffffffffu >> (31 - ((g - 1) & 31)));
+  while (bits == 0) bits = ~quiet[--w];
+  return (w << 5) + 31 - __clz(bits);
+}
+
+// One thread block a channel, G segments of 2^lseg samples a tile, thread g
+// walking segment g. The block may have more threads than segments (whole
+// warps, G <= blockDim.x): the others help to load and store the tile, which
+// with one thread a segment would take as long as a round. Dynamic shared
+// memory: G * (2^lseg + 1) floats for the tile's input, as many for its
+// output, then N_OPS * G ints for the segments' exit states. `rounds`, where
+// not null, receives per channel the rounds of the fixpoint loop (walks of a
+// segment) summed over the tiles. kJump false leaves out the jump over quiet
+// segments.
+template <int N_OPS, bool kJump>
+__global__ void __launch_bounds__(SERIAL_MAX_THREADS)
+serial_walk_kernel(const float* __restrict__ x, float* __restrict__ out,
+                   const DynCarry carry, const DynOps ops, int C, int T,
+                   int lseg, int G, int* __restrict__ rounds) {
+  extern __shared__ float tile[];
+  __shared__ unsigned quiet[DYN_MAX_OPS * (SERIAL_MAX_THREADS / 32)];
+  const int g = threadIdx.x, L = 1 << lseg, threads = blockDim.x;
+  const int c = blockIdx.x;
+  float* tile_out = tile + G * (L + 1);
+  int* seg_exit = reinterpret_cast<int*>(tile_out + G * (L + 1));
+  const float* seg_in = tile + min(g, G - 1) * (L + 1);
+  float* seg_out = tile_out + min(g, G - 1) * (L + 1);
+
+  int carried[N_OPS];
+#pragma unroll
+  for (int j = 0; j < N_OPS; ++j)
+    carried[j] = carry.entry != nullptr
+        ? carry.entry[(size_t)j * C + c]
+        : encode_fields(ops.op[j], carry.mode[j][c], carry.x[j][c],
+                        carry.y[j][c], carry.skip[j][c] != 0);
 
   const float* xc = x + (size_t)c * T;
   float* outc = out + (size_t)c * T;
-  int t = 0;
-  for (; t + WALK_CHUNK <= T; t += WALK_CHUNK) {
-    float v[WALK_CHUNK];
-#pragma unroll
-    for (int k = 0; k < WALK_CHUNK; ++k) v[k] = xc[t + k];
-#pragma unroll
-    for (int k = 0; k < WALK_CHUNK; ++k)
-      outc[t + k] = cascade<N_OPS, true>(ops, s, v[k]);
-  }
-  for (; t < T; ++t) outc[t] = cascade<N_OPS, true>(ops, s, xc[t]);
+  int n_rounds = 0;
+  for (int t0 = 0; t0 < T; t0 += G * L) {
+    const int len = min(G * L, T - t0);
+    for (int k = g; k < len; k += threads)
+      tile[k + (k >> lseg)] = xc[t0 + k];
+    __syncthreads();
 
+    // threads past the last segment walk nothing (and are never looked at:
+    // a search to the left starts at a segment with samples)
+    const int my_len = g < G ? max(0, min(L, len - g * L)) : 0;
+    const int last = (len - 1) >> lseg;       // the last segment with samples
+    // Every round walks WITH audio into the output tile: the state's
+    // dependent chain sets the pace and the gain rides beside it, and the
+    // round that finds no entry changed has already written the right
+    // samples, so no walk follows the loop.
+    int e[N_OPS];
 #pragma unroll
-  for (int j = 0; j < N_OPS; ++j) exit_state[(size_t)j * C + c] = s[j];
+    for (int j = 0; j < N_OPS; ++j)
+      e[j] = advance_quiet(ops.op[j], carried[j], g * L);
+    for (;;) {
+      int s[N_OPS];
+      bool loud[N_OPS];
+#pragma unroll
+      for (int j = 0; j < N_OPS; ++j) {
+        s[j] = e[j];
+        loud[j] = false;
+      }
+      walk_segment<N_OPS>(ops, s, loud, seg_in, seg_out, my_len);
+#pragma unroll
+      for (int j = 0; j < N_OPS; ++j) {
+        if (g < G) seg_exit[j * G + g] = s[j];
+        if (kJump) {
+          // segment 0 starts from the true state: it counts as loud, so that
+          // every search to the left ends
+          const unsigned m = __ballot_sync(0xffffffffu, !loud[j] && g != 0);
+          if ((g & 31) == 0)
+            quiet[j * (SERIAL_MAX_THREADS / 32) + (g >> 5)] = m;
+        }
+      }
+      __syncthreads();
+      int changed = 0;
+      if (g > 0 && g <= last) {
+#pragma unroll
+        for (int j = 0; j < N_OPS; ++j) {
+          changed |= (seg_exit[j * G + g - 1] != e[j]);
+          // The next entry: the exit of the nearest segment to the left
+          // where op j saw a loud sample, advanced over the quiet segments
+          // between (none: the left neighbour's exit as it is). The
+          // segments that walked from true entries have true exits and true
+          // quiet bits, so this fixes at least one more segment a round,
+          // like taking the neighbour's exit, and a whole quiet stretch at
+          // once.
+          const int h = kJump ? nearest_loud_left(
+              quiet + j * (SERIAL_MAX_THREADS / 32), g) : g - 1;
+          e[j] = advance_quiet(ops.op[j], seg_exit[j * G + h],
+                               (g - 1 - h) * L);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < N_OPS; ++j) carried[j] = seg_exit[j * G + last];
+      ++n_rounds;
+      // a barrier as well: the exits are read before the next round's are
+      // written, and the output tile is whole before it is stored
+      if (!__syncthreads_or(changed)) break;
+    }
+    for (int k = g; k < len; k += threads)
+      outc[t0 + k] = tile_out[k + (k >> lseg)];
+    // the next tile's loads touch the input tile only, and its first barrier
+    // stands between this store and the next write of the output tile
+  }
+
+  if (g != 0) return;
+  if (rounds != nullptr) rounds[c] = n_rounds;
+#pragma unroll
+  for (int j = 0; j < N_OPS; ++j) {
+    const int v = carried[j];
+    if (carry.entry != nullptr) {
+      carry.exit_state[(size_t)j * C + c] = v;
+      continue;
+    }
+    const int x_max = ops.op[j].x_max;
+    const bool attack = v > 0 && v < x_max, hold = v == x_max,
+               release = v > x_max;
+    int* f = carry.ints_out + (size_t)j * 3 * C + c;
+    f[0] = attack ? MODE_ATTACK
+         : hold ? MODE_HOLD : release ? MODE_RELEASE : MODE_REST;
+    f[C] = (attack || hold) ? v : 0;
+    f[2 * (size_t)C] = release ? v - x_max : 0;
+    carry.skip_out[(size_t)j * C + c] = v < 0 ? 1 : 0;
+  }
+}
+
+int launch_serial(const float* x, float* out, const DynCarry& carry,
+                  const DynOps* ops, int C, int T, int lseg, int segments,
+                  int threads, bool jump, int* rounds, void* stream) {
+  if (ops->n_ops < 1 || ops->n_ops > DYN_MAX_OPS || T < 1 || C <= 0 ||
+      lseg < 0 || lseg > 20 || segments < 1 || segments > threads ||
+      threads % 32 != 0 || threads > SERIAL_MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (size_t)segments *
+                      (2 * ((1u << lseg) + 1) + ops->n_ops);
+  cudaStream_t st = (cudaStream_t)stream;
+#define SERIAL_KERNEL(N, JUMP)                                               \
+  {                                                                          \
+    cudaError_t err = cudaFuncSetAttribute(                                  \
+        serial_walk_kernel<N, JUMP>,                                         \
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);             \
+    if (err != cudaSuccess) return (int)err;                                 \
+    serial_walk_kernel<N, JUMP><<<C, threads, smem, st>>>(                   \
+        x, out, carry, *ops, C, T, lseg, segments, rounds);                  \
+  }
+#define SERIAL_CASE(N)                                                       \
+  if (jump) SERIAL_KERNEL(N, true) else SERIAL_KERNEL(N, false)
+  switch (ops->n_ops) {
+    case 1: SERIAL_CASE(1) break;
+    case 2: SERIAL_CASE(2) break;
+    case 3: SERIAL_CASE(3) break;
+    default: SERIAL_CASE(4) break;
+  }
+#undef SERIAL_CASE
+#undef SERIAL_KERNEL
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Serial walk: out (C, T) and exit states (n_ops, C) from x (C, T),
-// channel-major, and entry states (n_ops, C).
+// channel-major, and entry states (n_ops, C), in tiles of `segments` segments
+// of 2^lseg samples, `threads` (>= segments, whole warps) a block.
+// quiet_jump: 1, or 0 for the kernel without the jump over quiet segments
+// (the same result in more rounds; for timing the two side by side). rounds:
+// (C,) ints or null.
 extern "C" int dynamics_serial_walk_launch(const float* x, float* out,
                                            const int* entry, int* exit_state,
                                            const DynOps* ops, int C, int T,
+                                           int lseg, int segments, int threads,
+                                           int quiet_jump, int* rounds,
                                            void* stream) {
-  if (ops->n_ops < 1 || ops->n_ops > DYN_MAX_OPS || T < 0 || C <= 0)
+  if (entry == nullptr || exit_state == nullptr)
     return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((C + SERIAL_THREADS - 1) / SERIAL_THREADS);
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (ops->n_ops) {
-    case 1:
-      serial_walk_kernel<1><<<blocks, SERIAL_THREADS, 0, st>>>(
-          x, out, entry, exit_state, *ops, C, T);
-      break;
-    case 2:
-      serial_walk_kernel<2><<<blocks, SERIAL_THREADS, 0, st>>>(
-          x, out, entry, exit_state, *ops, C, T);
-      break;
-    case 3:
-      serial_walk_kernel<3><<<blocks, SERIAL_THREADS, 0, st>>>(
-          x, out, entry, exit_state, *ops, C, T);
-      break;
-    default:
-      serial_walk_kernel<4><<<blocks, SERIAL_THREADS, 0, st>>>(
-          x, out, entry, exit_state, *ops, C, T);
-      break;
-  }
-  return (int)cudaGetLastError();
+  DynCarry carry = {};
+  carry.entry = entry;
+  carry.exit_state = exit_state;
+  return launch_serial(x, out, carry, ops, C, T, lseg, segments, threads,
+                       quiet_jump != 0, rounds, stream);
+}
+
+// The streaming step: the same walk with the carried states as the four
+// fields of each op. `carry` holds the 4 * n_ops input arrays and the two
+// output arrays (its entry and exit_state are null).
+extern "C" int dynamics_serial_step_launch(const float* x, float* out,
+                                           const DynCarry* carry,
+                                           const DynOps* ops, int C, int T,
+                                           int lseg, int segments, int threads,
+                                           void* stream) {
+  if (carry->entry != nullptr || carry->ints_out == nullptr ||
+      carry->skip_out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_serial(x, out, *carry, ops, C, T, lseg, segments, threads,
+                       true, nullptr, stream);
 }
 
 // Audio walk: out (L, Rp) and exit states (n_ops, Rp) from x (L, Rp) and

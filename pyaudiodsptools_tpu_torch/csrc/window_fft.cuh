@@ -151,13 +151,50 @@ __device__ __forceinline__ void pass_one_level(float2* z,
   }
 }
 
-// One pass over TWO radix-4 levels, sizes m = 2^lm and m/4, in place. A
-// thread holds the 16 points b + j + c*(m/16) + a*(m/4), a, c in 0..3: the
-// outer level combines over a for each c, the inner one over c for each a
-// (after the outer level, index a names the quarter the point now lives in).
-// `tw` points at this pass's six rows of m/16 twiddles: rows 0..2 hold
-// w_m^(j*p), rows 3..5 hold w_(m/4)^(j*p), p = 1..3. The outer level's
-// twiddle for column c is w_m^((j + c*m/16)*p) = w_m^(j*p) * w_16^(c*p).
+// The register work of a pass over TWO radix-4 levels, sizes m and m/4, on
+// the 16 points b + j + c*(m/16) + a*(m/4), a, c in 0..3, held as x[a][c]:
+// the outer level combines over a for each c, the inner one over c for each
+// a (after the outer level, index a names the quarter the point now lives
+// in). w[0..2] hold w_m^(j*p), w[3..5] hold w_(m/4)^(j*p), p = 1..3. The
+// outer level's twiddle for column c is
+// w_m^((j + c*m/16)*p) = w_m^(j*p) * w_16^(c*p).
+template <bool kForward>
+__device__ __forceinline__ void two_levels_on_registers(float2 (&x)[4][4],
+                                                        const float2 (&w)[6]) {
+  if (kForward) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      dft4_forward(x[0][c], x[1][c], x[2][c], x[3][c]);
+#pragma unroll
+      for (int p = 1; p < 4; ++p)
+        x[p][c] = mul_w16(cmul(x[p][c], w[p - 1]), c * p);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      dft4_forward(x[a][0], x[a][1], x[a][2], x[a][3]);
+#pragma unroll
+      for (int p = 1; p < 4; ++p) x[a][p] = cmul(x[a][p], w[2 + p]);
+    }
+  } else {
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int p = 1; p < 4; ++p) x[a][p] = cmulc(x[a][p], w[2 + p]);
+      dft4_inverse(x[a][0], x[a][1], x[a][2], x[a][3]);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int p = 1; p < 4; ++p)
+        x[p][c] = cmulc(mul_w16(x[p][c], 16 - c * p), w[p - 1]);
+      dft4_inverse(x[0][c], x[1][c], x[2][c], x[3][c]);
+    }
+  }
+}
+
+// One pass over TWO radix-4 levels, sizes m = 2^lm and m/4, in place on the
+// 2^ln points of z. `tw` points at this pass's six rows of m/16 twiddles:
+// rows 0..2 hold w_m^(j*p), rows 3..5 hold w_(m/4)^(j*p), p = 1..3.
 template <bool kForward>
 __device__ __forceinline__ void pass_two_levels(float2* z,
                                                 const float2* __restrict__ tw,
@@ -174,35 +211,7 @@ __device__ __forceinline__ void pass_two_levels(float2* z,
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int c = 0; c < 4; ++c) x[a][c] = z[pad(i0 + c * q2 + a * q1)];
-    if (kForward) {
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        dft4_forward(x[0][c], x[1][c], x[2][c], x[3][c]);
-#pragma unroll
-        for (int p = 1; p < 4; ++p)
-          x[p][c] = mul_w16(cmul(x[p][c], w[p - 1]), c * p);
-      }
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        dft4_forward(x[a][0], x[a][1], x[a][2], x[a][3]);
-#pragma unroll
-        for (int p = 1; p < 4; ++p) x[a][p] = cmul(x[a][p], w[2 + p]);
-      }
-    } else {
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-#pragma unroll
-        for (int p = 1; p < 4; ++p) x[a][p] = cmulc(x[a][p], w[2 + p]);
-        dft4_inverse(x[a][0], x[a][1], x[a][2], x[a][3]);
-      }
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-#pragma unroll
-        for (int p = 1; p < 4; ++p)
-          x[p][c] = cmulc(mul_w16(x[p][c], 16 - c * p), w[p - 1]);
-        dft4_inverse(x[0][c], x[1][c], x[2][c], x[3][c]);
-      }
-    }
+    two_levels_on_registers<kForward>(x, w);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -290,20 +299,27 @@ __device__ __forceinline__ void center_pass_8(float2* z,
   }
 }
 
-// The whole circular convolution of the window in z (n = 2^ln points at
-// z[pad(i)], already synchronised): forward passes, the innermost pass with
-// the spectrum multiply, the adjoint passes back. `tw` points at the per-pass
-// twiddle rows, which the passes walk down and back up again. Every thread of
-// the block must call it; it ends in a barrier.
-__device__ __forceinline__ void convolve_window(float2* z,
+// The levels of size <= 2^lm_top of the circular convolution, down and back
+// up, on the 2^ln points of z (already synchronised): forward passes, the
+// innermost pass with the spectrum multiply, the adjoint passes back. With
+// lm_top == ln that is the whole convolution of an n-point window. With
+// lm_top < ln, z holds 2^(ln - lm_top) independent runs of 2^lm_top points
+// whose higher levels the caller has done (and will undo) itself; lm_top
+// then differs from the window's log2 by a multiple of 4 (whole two-level
+// passes), so the levels below pair up as they do in the whole window.
+// `spec` points at the spectrum entry of z's first point and `tw` at the
+// twiddle rows of the first pass at or below lm_top; the passes walk them
+// down and back up again. Every thread of the block must call it; it ends in
+// a barrier.
+__device__ __forceinline__ void convolve_levels(float2* z,
                                                 const float2* __restrict__ spec,
                                                 const float2* __restrict__ tw,
-                                                int ln) {
-  // The innermost pass takes the levels of size <= 16 (ln even) or <= 8
-  // (ln odd); the outer levels go two per pass from the top, and one alone
-  // if their number is odd.
-  const int inner = (ln & 1) ? 3 : 4;
-  int lm = ln;
+                                                int ln, int lm_top) {
+  // The innermost pass takes the levels of size <= 16 (lm_top even) or <= 8
+  // (odd); the outer levels go two per pass from the top, and one alone if
+  // their number is odd.
+  const int inner = (lm_top & 1) ? 3 : 4;
+  int lm = lm_top;
   for (; lm - 4 >= inner; lm -= 4) {
     pass_two_levels<true>(z, tw, ln, lm);
     tw += 6 << (lm - 4);
@@ -315,7 +331,7 @@ __device__ __forceinline__ void convolve_window(float2* z,
     __syncthreads();
   }
 
-  if (ln & 1) center_pass_8(z, spec, ln);
+  if (lm_top & 1) center_pass_8(z, spec, ln);
   else center_pass_16(z, spec, ln);
   __syncthreads();
 
@@ -325,11 +341,19 @@ __device__ __forceinline__ void convolve_window(float2* z,
     pass_one_level<false>(z, tw, ln, lm);
     __syncthreads();
   }
-  for (lm += 4; lm <= ln; lm += 4) {
+  for (lm += 4; lm <= lm_top; lm += 4) {
     tw -= 6 << (lm - 4);
     pass_two_levels<false>(z, tw, ln, lm);
     __syncthreads();
   }
+}
+
+// The whole circular convolution of the n = 2^ln points in z.
+__device__ __forceinline__ void convolve_window(float2* z,
+                                                const float2* __restrict__ spec,
+                                                const float2* __restrict__ tw,
+                                                int ln) {
+  convolve_levels(z, spec, tw, ln, ln);
 }
 
 // log2(n) for a power of two n >= 16, else -1.

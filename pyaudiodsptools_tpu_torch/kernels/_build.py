@@ -13,6 +13,7 @@ package is imported, so machines without ``nvcc`` or a card can import it.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -104,3 +105,33 @@ def load(name: str) -> ctypes.CDLL:
             build_all()
         lib = _loaded[name] = ctypes.CDLL(str(path))
     return lib
+
+
+_launchers: dict[tuple[str, str], object] = {}
+
+
+def launcher(source: str, name: str, argtypes: list):
+    """The C function ``name`` of ``csrc/<source>.cu`` (returns the CUDA
+    error code as an int) with its argument types set, looked up once: a
+    streaming step calls it block after block."""
+    fn = _launchers.get((source, name))
+    if fn is None:
+        fn = getattr(load(source), name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _launchers[(source, name)] = fn
+    return fn
+
+
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def on_device(device):
+    """A context in which the CUDA ``device`` (a ``torch.device``) is the
+    current one, as a launch needs: nothing to enter where it already is,
+    which is what a streaming step meets block after block."""
+    import torch
+
+    if device.index is None or device.index == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(device)

@@ -12,22 +12,31 @@ samples). Rows go through the transform two at a time, as the real and
 imaginary parts of one complex signal; an odd last row rides alone.
 
 What bounds it on an H100: by bytes one read and one write of the rows. In
-the streaming step that is 64 rows of 2,048 or 16,384 samples, 32 thread
-blocks on a card with 132 SMs, so the launch is over in the time ONE block
-needs for its passes through shared memory: latency, not bytes or FLOPs. At
-a batch that fills the card it is bound by the shared-memory passes, as the
-segmented convolution is. The design shares that kernel's transform
+the streaming step that is 64 rows of 2,048 or 16,384 samples, a launch that
+is over before the card is full, so its time is the latency of ONE pair's
+passes through shared memory: latency, not bytes or FLOPs. At a batch that
+fills the card it is bound by the shared-memory passes, as the segmented
+convolution is. The design shares that kernel's transform
 (``csrc/window_fft.cuh``: window resident in shared memory from load to
 store, two radix-4 levels per pass, the spectrum in the forward transform's
 output order, no reorder pass) and its host tables
-(``segconv.pass_twiddles``, ``segconv.spectrum_tables``). Rows may be a
-strided view (``flat.stride(0) >= n``, unit stride along a row), so a
-streaming step passes a slice of its history without copying it.
+(``segconv.pass_twiddles``, ``segconv.spectrum_tables``). Against the latency
+the largest window at a step's batch is spread over a thread-block cluster
+of four (``_uses_cluster``), each block holding a quarter of the window and the
+top pass exchanging through distributed shared memory; the two versions
+agree bit for bit. Rows may be a strided view (``flat.stride(0) >= n``, unit
+stride along a row).
 
-The CUDA source is ``csrc/convpairs.cu``. The plain version,
-:func:`conv_pairs_plain`, is the same function on ``torch.fft``; it runs for
-CPU tensors, or on request (``use_kernels=False``), and is never a fallback
-for a CUDA tensor.
+:func:`conv_pairs_step` is a streaming FIR's whole step in ONE launch of the
+same kernel: the window is gathered from the history and the block as they
+lie, only the block's (wrap-free) output is stored, and the next history is
+written to a new tensor by blocks that run beside the transforming ones.
+
+The CUDA source is ``csrc/convpairs.cu``. The plain versions,
+:func:`conv_pairs_plain` (the same function on ``torch.fft``) and
+:func:`conv_pairs_step_plain` (join, convolve, slice), run for CPU tensors,
+or on request (``use_kernels=False``), and are never a fallback for a CUDA
+tensor.
 """
 
 from __future__ import annotations
@@ -40,9 +49,22 @@ import torch
 
 from . import _build, segconv
 
-# Number of kernel launches made by :func:`conv_pairs` (and by nothing else)
-# since the caller last set it to 0.
+# Number of kernel launches made by :func:`conv_pairs` and
+# :func:`conv_pairs_step` (and by nothing else) since the caller last set it
+# to 0.
 launch_count = 0
+
+# csrc/convpairs.cu has two versions of the kernel, bit-equal to each other:
+# one thread block a pair of rows, and a cluster of four blocks a pair. The
+# cluster goes where it was measured ahead by more than a launch's noise: the
+# largest window at a streaming step's batch. On an H100 at 16,384 samples it
+# is ahead by a quarter at 64 rows and by a fifth at 80, 96 and 112, behind by
+# a fifth at 128 and by more than a third at the batch that fills the card; at
+# the smaller windows it gains 1-3 us at 64 rows. chip_smoke.py times both
+# (`conv_pairs_cluster_by_window`, `versions_ms_by_rows`; PERF.md has the
+# tables).
+CLUSTER_WINDOW = 16384
+CLUSTER_MAX_ROWS = 112
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,29 +102,47 @@ def conv_pairs_plain(flat: torch.Tensor, plan: PairsPlan) -> torch.Tensor:
     return out.to(torch.float32)
 
 
-def _launch(flat: torch.Tensor, plan: PairsPlan) -> torch.Tensor:
-    global launch_count
+def _uses_cluster(n: int, R: int) -> bool:
+    """Whether (R, n) rows go to the cluster version."""
+    return n == CLUSTER_WINDOW and R <= CLUSTER_MAX_ROWS
+
+
+def _check_plan(plan: PairsPlan, device) -> None:
     segconv.check_window(plan.n)
-    segconv.check_tables(plan.n, plan.spectrum_dif, plan.twiddle, flat.device)
+    segconv.check_tables(plan.n, plan.spectrum_dif, plan.twiddle, device)
+
+
+def _raise_on(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"convpairs kernel launch failed with CUDA error {err} ({what})")
+
+
+def _launch(flat: torch.Tensor, plan: PairsPlan,
+            cluster: bool | None = None) -> torch.Tensor:
+    """The kernel on checked rows. ``cluster`` forces one version of it
+    (windows from 1,024 samples take the cluster): for measurement only
+    (chip_smoke.py times the two side by side); no wrapper passes it."""
+    global launch_count
+    _check_plan(plan, flat.device)
     R = flat.shape[0]
     out = torch.empty((R, plan.n), dtype=torch.float32, device=flat.device)
     if flat.stride(1) != 1 or (R > 1 and flat.stride(0) < plan.n):
         raise ValueError(
             "conv_pairs takes rows with unit stride, at least n apart, got "
             f"strides {flat.stride()} for n={plan.n}")
-    fn = _build.load("convpairs").convpairs_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_longlong, ctypes.c_void_p]
-    with torch.cuda.device(flat.device):
+    if cluster is None:
+        cluster = _uses_cluster(plan.n, R)
+    fn = _build.launcher("convpairs", "convpairs_launch",
+                   [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_void_p])
+    with _build.on_device(flat.device):
         err = fn(flat.data_ptr(), out.data_ptr(), plan.spectrum_dif.data_ptr(),
                  plan.twiddle.data_ptr(), R, plan.n,
-                 flat.stride(0) if R > 1 else plan.n,
-                 torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"convpairs kernel launch failed with CUDA error {err} "
-            f"(R={R}, n={plan.n})")
+                 flat.stride(0) if R > 1 else plan.n, int(cluster),
+                 torch.cuda.current_stream(flat.device).cuda_stream)
+    _raise_on(err, f"R={R}, n={plan.n}, cluster={int(cluster)}")
     launch_count += 1
     return out
 
@@ -125,3 +165,89 @@ def conv_pairs(flat: torch.Tensor, plan: PairsPlan,
     if flat.is_cuda and use_kernels:
         return _launch(flat, plan)
     return conv_pairs_plain(flat, plan)
+
+
+# ---------------------------------------------------------------------------
+# the streaming step
+
+
+def conv_pairs_step_plain(hist: torch.Tensor, block: torch.Tensor,
+                          plan: PairsPlan):
+    """The plain PyTorch version of :func:`conv_pairs_step`: join, convolve
+    the first n samples, keep the last B."""
+    B = block.shape[-1]
+    joined = torch.cat([hist, block], dim=-1)
+    out = conv_pairs_plain(joined[:, :plan.n], plan)
+    return out[:, plan.n - B:].contiguous(), joined[:, B:].contiguous()
+
+
+def _launch_step(hist: torch.Tensor, block: torch.Tensor, plan: PairsPlan,
+                 cluster: bool | None = None):
+    """The step's kernel on checked tensors; ``cluster`` as in
+    :func:`_launch`, for measurement only."""
+    global launch_count
+    _check_plan(plan, hist.device)
+    R, H = hist.shape
+    B = block.shape[1]
+    out = torch.empty((R, B), dtype=torch.float32, device=hist.device)
+    new_hist = torch.empty_like(hist)
+    if cluster is None:
+        cluster = _uses_cluster(plan.n, R)
+    fn = _build.launcher("convpairs", "convpairs_step_launch",
+                   [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
+    with _build.on_device(hist.device):
+        err = fn(hist.data_ptr(), block.data_ptr(), out.data_ptr(),
+                 new_hist.data_ptr(), plan.spectrum_dif.data_ptr(),
+                 plan.twiddle.data_ptr(), R, plan.n, H, B,
+                 block.stride(0) if R > 1 else B, int(cluster),
+                 torch.cuda.current_stream(hist.device).cuda_stream)
+    _raise_on(err, f"step: R={R}, n={plan.n}, history={H}, B={B}, "
+                   f"cluster={int(cluster)}")
+    launch_count += 1
+    return out, new_hist
+
+
+def conv_pairs_step(hist: torch.Tensor, block: torch.Tensor, plan: PairsPlan,
+                    lead: int, use_kernels: bool = True):
+    """One streaming step of a FIR whose zero prefix of ``lead`` samples was
+    stripped: ``hist`` (R, lead + n - B), contiguous, and ``block`` (R, B),
+    unit stride along a row (a slice of a longer signal is taken as it lies),
+    both float32 -> (the block's output (R, B), the next history
+    (R, lead + n - B)), both contiguous.
+
+    Row r's window is the first n samples of ``concat(hist[r], block[r])``
+    (the last ``lead`` wait in the history: the output delay); the output is
+    the last B (wrap-free) samples of its circular convolution and the next
+    history is ``concat(hist[r], block[r])[B:]``, a new tensor: ``hist`` is
+    left as it was. On a CUDA tensor all of that is ONE launch of the
+    hand-written kernel (window gathered from the two tensors, only the kept
+    samples stored), bit-equal to :func:`conv_pairs` on the same window, or
+    the call raises."""
+    n = plan.n
+    if block.dim() != 2 or not 1 <= block.shape[1] <= n:
+        raise ValueError(
+            f"conv_pairs_step takes a (R, B) block with 1 <= B <= {n}, got "
+            f"{tuple(block.shape)}")
+    R, B = block.shape
+    H = lead + n - B
+    if block.dtype != torch.float32 or block.stride(1) != 1 \
+            or (R > 1 and block.stride(0) < B):
+        raise ValueError(
+            "conv_pairs_step takes a float32 block whose rows have unit "
+            f"stride and do not overlap, got {block.dtype} with strides "
+            f"{block.stride()}")
+    if hist.dtype != torch.float32 or tuple(hist.shape) != (R, H) \
+            or not hist.is_contiguous() or hist.device != block.device:
+        raise ValueError(
+            f"conv_pairs_step takes a contiguous ({R}, {H}) float32 history "
+            f"on {block.device} (lead + n - B samples a row), got "
+            f"{tuple(hist.shape)} {hist.dtype} on {hist.device} "
+            f"contiguous={hist.is_contiguous()}")
+    if lead < 0:
+        raise ValueError(f"lead must not be negative, got {lead}")
+    if R == 0:
+        return block.new_empty((0, B)), torch.empty_like(hist)
+    if block.is_cuda and use_kernels:
+        return _launch_step(hist, block, plan)
+    return conv_pairs_step_plain(hist, block, plan)

@@ -46,11 +46,18 @@ PERF.md); it is free to, because the result does not depend on G. The CUDA
 source is ``csrc/dynamics.cu``; the layout kernels are ``kernels/relayout``.
 
 Streaming: :func:`serial_walk` walks one (C, T) block, channel-major as it
-lies, from the carried states with one thread per channel, a whole cascade
-in one launch, and returns the exit states. It runs the same device
-functions as the audio walk and is bit-equal to it at one segment. The
-4-field carry of ``ops/dynamics.py`` is packed and unpacked on the device
-(:func:`encode_state`, :func:`decode_state`), so a step reads nothing back.
+lies, from the carried states, a whole cascade in one launch, and returns the
+exit states. Its kernel brings the speculation above inside a thread block:
+one block a channel, the block's samples in shared memory, one thread a
+segment of ``SERIAL_SEGMENT_LOG2`` samples; the first guess is the carried
+state advanced in closed form as if the block were silent (exact where a
+gate's release outlasts the block), and every round walks with audio, so a
+right guess costs one walk. It runs the same device functions as the audio
+walk and is bit-equal to it at one segment. :func:`cascade_step`, the
+effects' ``step``, is ONE launch of that kernel: it reads and writes the four
+fields of ``ops/dynamics.py``'s carry itself, as the TPU kernel does.
+:func:`encode_state` and :func:`decode_state` serve the plain version, the
+offline stage and the tests.
 
 The plain versions (:func:`walk_plain`: the same single-int automaton as
 tensor code over all lanes with a Python loop over the rows, separate ``mul``
@@ -84,11 +91,31 @@ MAX_OPS = 4
 TARGET_LANES = 32768
 MIN_SEGMENT = 2048
 
+# The serial walk's kernel (the streaming step) cuts a block of T samples into
+# segments of 2^k samples, one thread each: (largest T, k) in rising order,
+# None for every longer block. From a sweep on an H100 at 64 channels
+# (chip_smoke.py, `serial_walk_sweep`; the table is in PERF.md): a round costs
+# the segment's length, and a state that is neither quiet nor synchronised (an
+# attack of 136 samples) is handed on one segment a round, so short segments
+# pay in rounds what they save a round. 16 samples at T = 512 and 32 at
+# T = 4,096 had the best worst case of the signals swept.
+SERIAL_SEGMENT_LOG2 = ((1024, 4), (None, 5))
+# Mirrors of csrc/dynamics.cu: threads a block at most, and the samples of a
+# tile (two tiles of floats and the segments' states fit a block's shared
+# memory with room to spare).
+SERIAL_MAX_THREADS = 1024
+SERIAL_MAX_TILE = 16384
+# Threads a block at least where the block is long enough to use them: with
+# one thread a segment the tile's load and store would take as long as a
+# round (same sweep: 512 threads took 0.003 ms off every walk at T = 4,096).
+SERIAL_MIN_THREADS = 512
+
 # Launches of the two kernels made by :func:`state_walk` / :func:`audio_walk`
 # (and by nothing else) since the caller last set them to 0.
 state_walk_launch_count = 0
 audio_walk_launch_count = 0
-# Launches of the serial-walk kernel made by :func:`serial_walk`.
+# Launches of the serial-walk kernel made by :func:`serial_walk` and
+# :func:`cascade_step` (one a call).
 serial_walk_launch_count = 0
 
 _F = np.float32
@@ -103,6 +130,17 @@ class _Op(ctypes.Structure):
 
 class _Ops(ctypes.Structure):
     _fields_ = [("n_ops", ctypes.c_int), ("op", _Op * MAX_OPS)]
+
+
+class _Carry(ctypes.Structure):
+    """csrc/dynamics.cu's DynCarry: where the serial walk's kernel reads and
+    writes the carried states (all device pointers)."""
+    _fields_ = [("entry", ctypes.c_void_p), ("exit_state", ctypes.c_void_p),
+                ("mode", ctypes.c_void_p * MAX_OPS),
+                ("x", ctypes.c_void_p * MAX_OPS),
+                ("y", ctypes.c_void_p * MAX_OPS),
+                ("skip", ctypes.c_void_p * MAX_OPS),
+                ("ints_out", ctypes.c_void_p), ("skip_out", ctypes.c_void_p)]
 
 
 def op_scalars(params: DynamicsParams) -> tuple:
@@ -237,17 +275,20 @@ def _check_entry(scalars, lanes: int, entry: torch.Tensor, device) -> None:
         raise ValueError("a walk needs at least one lane")
 
 
-_tables: dict[tuple, _Ops] = {}
+_tables: dict[int, tuple] = {}
 
 
 def _ops_table(scalars) -> _Ops:
-    """The kernels' by-value table of a cascade, built once per cascade (a
-    streaming step must not rebuild it block after block)."""
-    key = tuple(tuple(sc) for sc in scalars)
-    table = _tables.get(key)
-    if table is None:
-        table = _tables[key] = _build_table(scalars)
-    return table
+    """The kernels' by-value table of a cascade, built once per scalars list
+    (an effect keeps its list, and a streaming step must not rebuild the
+    table block after block). The list is kept with its table, so that its
+    identity stays its own; nothing changes a scalars list once it is made."""
+    hit = _tables.get(id(scalars))
+    if hit is None or hit[0] is not scalars:
+        if len(_tables) >= 256:         # lists made per call: do not keep them
+            _tables.clear()
+        hit = _tables[id(scalars)] = (scalars, _build_table(scalars))
+    return hit[1]
 
 
 def _build_table(scalars) -> _Ops:
@@ -324,49 +365,168 @@ def serial_walk_plain(scalars, x: torch.Tensor, entry: torch.Tensor):
     return out.t().contiguous(), exit_state
 
 
-def serial_walk(scalars, x: torch.Tensor, entry: torch.Tensor,
-                use_kernels: bool = True):
-    """One block of a cascade, walked serially: x (C, T) float32 contiguous
-    (channel-major, as a streaming block lies) and entry (n_ops, C) int32 in
-    :func:`encode_state`'s encoding -> (out (C, T), exit (n_ops, C)). A CUDA
-    tensor goes through the hand-written kernel, or the call raises."""
-    global serial_walk_launch_count
+def serial_geometry(T: int, lseg: int | None = None) -> tuple[int, int, int]:
+    """(log2 of the segment length, segments a tile, threads a block) of the
+    serial walk's kernel for a block of T samples: the segment length from
+    ``SERIAL_SEGMENT_LOG2`` unless given; no more segments than a tile of
+    ``SERIAL_MAX_TILE`` samples holds (a longer block is walked tile after
+    tile); one thread a segment and at least ``SERIAL_MIN_THREADS`` (the
+    others help to load and store the tile), in whole warps."""
+    if lseg is None:
+        lseg = next(v for limit, v in SERIAL_SEGMENT_LOG2
+                    if limit is None or T <= limit)
+    if not 0 <= lseg <= 9:
+        raise ValueError(
+            f"a segment of 2^{lseg} samples: the serial walk's tile holds "
+            "32 segments of at most 512")
+    segments = min(-(-T // (1 << lseg)), SERIAL_MAX_THREADS,
+                   SERIAL_MAX_TILE >> lseg)
+    threads = max(min(SERIAL_MIN_THREADS, -(-T // 32) * 32),
+                  -(-segments // 32) * 32)
+    return lseg, segments, threads
+
+
+def _check_block(x: torch.Tensor) -> None:
     if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError(
             "serial_walk takes a contiguous (C, T) float32 block, got "
             f"{tuple(x.shape)} {x.dtype} contiguous={x.is_contiguous()}")
+
+
+def _launch_serial(scalars, x: torch.Tensor, entry: torch.Tensor,
+                   lseg: int | None = None, want_rounds: bool = False,
+                   quiet_jump: bool = True):
+    """The kernel on encoded states: (out, exit) or, with ``want_rounds``,
+    (out, exit, rounds (C,) int32: the walks of a segment the fixpoint loop
+    took, summed over the tiles).
+
+    The keywords are for measurement only (chip_smoke.py's sweeps); no
+    wrapper passes them and the result depends on none: ``lseg`` overrides
+    the segment length, ``quiet_jump=False`` runs the kernel without the jump
+    over quiet segments (every entry its left neighbour's exit)."""
+    global serial_walk_launch_count
+    C, T = x.shape
+    out = torch.empty_like(x)
+    exit_state = torch.empty_like(entry)
+    rounds = torch.empty((C,), dtype=torch.int32, device=x.device) \
+        if want_rounds else None
+    lseg, segments, threads = serial_geometry(T, lseg)
+    fn = _build.launcher("dynamics", "dynamics_serial_walk_launch",
+                   [ctypes.c_void_p] * 4 + [ctypes.POINTER(_Ops)]
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p])
+    with _build.on_device(x.device):
+        err = fn(x.data_ptr(), out.data_ptr(), entry.data_ptr(),
+                 exit_state.data_ptr(), ctypes.byref(_ops_table(scalars)),
+                 C, T, lseg, segments, threads, int(quiet_jump),
+                 rounds.data_ptr() if want_rounds else None,
+                 torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"dynamics serial walk launch failed with CUDA error {err} "
+            f"(n_ops={len(scalars)}, C={C}, T={T}, lseg={lseg}, "
+            f"segments={segments}, threads={threads})")
+    serial_walk_launch_count += 1
+    return (out, exit_state, rounds) if want_rounds else (out, exit_state)
+
+
+def serial_walk(scalars, x: torch.Tensor, entry: torch.Tensor,
+                use_kernels: bool = True):
+    """One block of a cascade, walked from carried states: x (C, T) float32
+    contiguous (channel-major, as a streaming block lies) and entry
+    (n_ops, C) int32 in :func:`encode_state`'s encoding -> (out (C, T), exit
+    (n_ops, C)). A CUDA tensor goes through the hand-written kernel (one
+    thread block a channel, the block cut into segments that settle their
+    entries among themselves), or the call raises."""
+    _check_block(x)
     C, T = x.shape
     _check_entry(scalars, C, entry, x.device)
     if not (x.is_cuda and use_kernels):
         return serial_walk_plain(scalars, x, entry)
-    out = torch.empty_like(x)
-    exit_state = torch.empty_like(entry)
     if T == 0:
-        return out, entry.clone()
-    fn = _build.load("dynamics").dynamics_serial_walk_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(_Ops), ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
-    with torch.cuda.device(x.device):
-        err = fn(x.data_ptr(), out.data_ptr(), entry.data_ptr(),
-                 exit_state.data_ptr(), ctypes.byref(_ops_table(scalars)),
-                 C, T, torch.cuda.current_stream().cuda_stream)
+        return torch.empty_like(x), entry.clone()
+    return _launch_serial(scalars, x, entry)
+
+
+FIELDS = ("mode", "x", "y", "skip")
+
+
+def _launch_step(scalars, states, x: torch.Tensor, batch: tuple):
+    """The kernel on the 4-field states: it reads every op's mode, x, y and
+    skip as they lie and writes the new ones, so a step is this one launch.
+    The new int fields are views of one (n_ops * 3, ...) tensor and the skip
+    bits of one (n_ops, ...) tensor, each leaf of the batch's shape."""
+    global serial_walk_launch_count
+    C, T = x.shape
+    n_ops = len(scalars)
+    carry = _Carry()
+    device = x.device
+    for j, st in enumerate(states):
+        mode, sx, sy, skip = st["mode"], st["x"], st["y"], st["skip"]
+        for name, leaf in (("mode", mode), ("x", sx), ("y", sy),
+                           ("skip", skip)):
+            want = torch.bool if leaf is skip else torch.int32
+            if leaf.dtype != want or leaf.numel() != C \
+                    or not leaf.is_contiguous() or leaf.device != device:
+                raise ValueError(
+                    f"the dynamics state's {name!r} of op {j} must be a "
+                    f"contiguous {want} tensor of {C} elements on "
+                    f"{device}, got {tuple(leaf.shape)} {leaf.dtype} on "
+                    f"{leaf.device}")
+        carry.mode[j] = mode.data_ptr()
+        carry.x[j] = sx.data_ptr()
+        carry.y[j] = sy.data_ptr()
+        carry.skip[j] = skip.data_ptr()
+    out = torch.empty_like(x)
+    ints = torch.empty((n_ops * 3,) + batch, dtype=torch.int32,
+                       device=x.device)
+    skips = torch.empty((n_ops,) + batch, dtype=torch.bool, device=x.device)
+    carry.ints_out = ints.data_ptr()
+    carry.skip_out = skips.data_ptr()
+    lseg, segments, threads = serial_geometry(T)
+    fn = _build.launcher("dynamics", "dynamics_serial_step_launch",
+                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.POINTER(_Carry),
+                    ctypes.POINTER(_Ops)] + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
+    with _build.on_device(x.device):
+        err = fn(x.data_ptr(), out.data_ptr(), ctypes.byref(carry),
+                 ctypes.byref(_ops_table(scalars)), C, T, lseg, segments,
+                 threads, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(
-            f"dynamics serial walk launch failed with CUDA error {err} "
-            f"(n_ops={len(scalars)}, C={C}, T={T})")
+            f"dynamics serial step launch failed with CUDA error {err} "
+            f"(n_ops={n_ops}, C={C}, T={T}, lseg={lseg}, "
+            f"segments={segments}, threads={threads})")
     serial_walk_launch_count += 1
-    return out, exit_state
+    ints, skips = ints.unbind(0), skips.unbind(0)
+    return tuple({"mode": ints[3 * j], "x": ints[3 * j + 1],
+                  "y": ints[3 * j + 2], "skip": skips[j]}
+                 for j in range(n_ops)), out
 
 
 def cascade_step(scalars, params, states, block: torch.Tensor,
                  use_kernels: bool = True):
     """The streaming step of a cascade: ``states`` (one 4-field dict per op)
-    and a ``(..., B)`` block -> (new states, output block), through ONE
-    :func:`serial_walk`. The states are packed and unpacked on the block's
-    device; nothing is read back to the host."""
-    batch = block.shape[:-1]
-    x = block.reshape(-1, block.shape[-1]).to(torch.float32).contiguous()
+    and a ``(..., B)`` block -> (new states, output block). On a CUDA tensor
+    that is ONE launch of the serial walk's kernel, which reads and writes
+    the four fields itself; nothing is read back to the host. The plain
+    version (CPU tensors, or ``use_kernels=False``) packs the states with
+    :func:`encode_state`, walks with :func:`serial_walk_plain` and unpacks
+    with :func:`decode_state`."""
+    batch = tuple(block.shape[:-1])
+    if len(scalars) != len(states):
+        raise ValueError(
+            f"{len(states)} states for a cascade of {len(scalars)} ops")
+    x = block.reshape(-1, block.shape[-1])
+    if x.dtype != torch.float32 or not x.is_contiguous():
+        x = x.to(torch.float32).contiguous()
+    if x.is_cuda and use_kernels:
+        if not 1 <= len(scalars) <= MAX_OPS:
+            raise ValueError(
+                f"a walk takes 1 to {MAX_OPS} ops, got {len(scalars)}")
+        if x.numel() == 0:
+            return tuple(states), x.reshape(block.shape)
+        new_states, out = _launch_step(scalars, states, x, batch)
+        return new_states, out.reshape(block.shape)
     entry = torch.stack([encode_state(p, st).reshape(-1)
                          for p, st in zip(params, states)])
     out, exit_state = serial_walk(scalars, x, entry, use_kernels)
@@ -439,8 +599,8 @@ def fused_dynamics(effects) -> Effect:
     op j's per-sample output inside the loop, so compressor -> gate costs one
     round trip through device memory instead of two.
 
-    Streaming is one serial walk per block (:func:`cascade_step`); the state
-    is a tuple of the members' 4-field dicts. The walk's scalars are read
+    Streaming is one launch per block (:func:`cascade_step`); the state is a
+    tuple of the members' 4-field dicts. The walk's scalars are read
     from the params once, here."""
     members = tuple(effects)
     own_params = tuple(e.params for e in members)

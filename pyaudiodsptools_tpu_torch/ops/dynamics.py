@@ -18,10 +18,11 @@ the INPUT and on a small state, never on the output.
 
 Three paths:
 
-* :func:`step` is the streaming step: one serial walk of the block from the
-  carried 4-field state (mode, x, y, skip) through
-  ``kernels/dynamics.cascade_step`` (hand-written CUDA on a CUDA tensor, its
-  plain version on a CPU tensor), the counterpart of the JAX package's
+* :func:`step` is the streaming step: one walk of the block from the carried
+  4-field state (mode, x, y, skip) through ``kernels/dynamics.cascade_step``
+  (on a CUDA tensor one launch of hand-written CUDA that reads and writes the
+  four fields itself, on a CPU tensor its plain version), the counterpart of
+  the JAX package's
   kernel-backed step (``dynamics_pallas.dynamics_pallas``). Its ramps are
   arithmetic, within 2 ulp of the tables.
 * :func:`step_faithful` is the exact counterpart of the JAX package's scan

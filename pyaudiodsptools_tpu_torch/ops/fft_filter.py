@@ -21,11 +21,11 @@ delay held in the history. For the output block ``t0 .. t0+B-1`` the window
 is ``x[t0+B-lead-n .. t0+B-lead-1]`` with ``n`` the smallest power of two
 ``>= stripped kernel length - 1 + B``: its last ``B`` outputs are wrap-free
 and are the block. The state is a flat per-channel history of the last
-``lead + n - B`` input samples. The window goes through
-``kernels/convpairs.conv_pairs`` (hand-written CUDA on a CUDA tensor) as a
-strided view of history-plus-block, so a step is three launches (append the
-block, convolve, and the consumer's copy of the output slice) and reads
-nothing back to the host.
+``lead + n - B`` input samples. A step is
+``kernels/convpairs.conv_pairs_step``: on a CUDA tensor ONE launch of the
+hand-written kernel, which gathers the window from the history and the
+block, stores only the block's output and writes the next history to a new
+tensor; nothing is read back to the host.
 """
 
 from __future__ import annotations
@@ -217,19 +217,22 @@ def fir_init_state(params: FIRParams, batch_shape: tuple[int, ...] = ()):
 def fir_step(params: FIRParams, state, block: torch.Tensor,
              use_kernels: bool = True):
     """One block: the window is the first ``n`` samples of history + block
-    (the last ``lead`` samples wait in the history: the output delay), and
-    the block's output is the window's last ``B`` (wrap-free) samples."""
+    (the last ``lead`` samples wait in the history: the output delay), the
+    block's output is the window's last ``B`` (wrap-free) samples, and the
+    next history is a new tensor (the old state stays valid). All of it is
+    ``kernels/convpairs.conv_pairs_step``: one launch on a CUDA tensor."""
     stream = _stream_plan(params)
     B = block.shape[-1]
     if B != params.block_size:
         raise ValueError(
             f"this FIR streams blocks of {params.block_size} samples, got "
             f"{B}")
-    joined = torch.cat([state["hist"], block.to(torch.float32)], dim=-1)
-    rows = joined.reshape(-1, joined.shape[-1])
-    out = convpairs.conv_pairs(rows[:, :stream.n], stream, use_kernels)
-    out = out[:, stream.n - B:].reshape(block.shape)
-    return {"hist": joined[..., B:]}, out
+    hist = state["hist"]
+    out, new_hist = convpairs.conv_pairs_step(
+        hist.reshape(-1, hist.shape[-1]).contiguous(),
+        block.to(torch.float32).reshape(-1, B), stream, params.lead,
+        use_kernels)
+    return {"hist": new_hist.reshape(hist.shape)}, out.reshape(block.shape)
 
 
 def fir_offline(params: FIRParams, blocks: torch.Tensor,

@@ -23,7 +23,8 @@ from pyaudiodsptools_tpu.kernels import dynamics_pallas as jx_dp
 from pyaudiodsptools_tpu_torch.kernels import dynamics as kd, relayout as rl
 from pyaudiodsptools_tpu_torch.ops import dynamics as pt_dyn
 
-from torch_port_util import emulate_walk, snr_db
+from torch_port_util import (advance_quiet, emulate_serial_walk, emulate_walk,
+                             snr_db)
 
 CPU = "cpu"
 JCFG = jx.EngineConfig(44100, 512)
@@ -644,6 +645,229 @@ def test_serial_walk_refuses_what_its_kernel_does_not_take():
         kd.serial_walk(sc, x, torch.zeros((1, 4), dtype=torch.int32))
     with pytest.raises(ValueError, match="1 to 4"):
         kd.serial_walk(sc * 5, x, torch.zeros((5, 3), dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# the serial walk kernel's schedule (csrc/dynamics.cu), mirrored in numpy
+
+
+SCHEDULE_CASCADES = {
+    **CASCADES,
+    "cascade_of_4": ("chain8_gate", "short_attack", "chain8_compressor",
+                     "chain8_gate"),
+}
+
+
+def _scalars(cascade):
+    return [kd.op_scalars(_pt(n).params) for n in SCHEDULE_CASCADES[cascade]]
+
+
+def _schedule_input(cascade, T, entries):
+    """(x (2, T), entry (n_ops, 2)): bursts with a quiet floor, so that the
+    ops trigger, hold, release and rest inside a block; entries REST or
+    random legal states."""
+    scalars = _scalars(cascade)
+    x = _burst(2, max(T, 8), seed=T)[:, :T]
+    if entries == "rest":
+        entry = np.zeros((len(scalars), 2), np.int32)
+    else:
+        rng = np.random.default_rng(T + len(scalars))
+        entry = np.stack([rng.integers(-1, sc[7], 2) for sc in scalars]
+                         ).astype(np.int32)
+    return np.ascontiguousarray(x), entry
+
+
+@functools.lru_cache(maxsize=None)
+def _plain_serial(cascade, T, entries):
+    x, entry = _schedule_input(cascade, T, entries)
+    out, z = kd.serial_walk_plain(_scalars(cascade), torch.from_numpy(x),
+                                  torch.from_numpy(entry))
+    return out.numpy(), z.numpy()
+
+
+def _lseg_for(T, G):
+    """The smallest power-of-two segment with which G segments cover T."""
+    lseg = 0
+    while G << lseg < T:
+        lseg += 1
+    return lseg
+
+
+@pytest.mark.parametrize("entries", ["rest", "random"])
+@pytest.mark.parametrize("G", [1, 2, 16, 64])
+@pytest.mark.parametrize("T", [1, 7, 512, 1500, 4096])
+@pytest.mark.parametrize("cascade", SCHEDULE_CASCADES)
+def test_serial_schedule_mirror_equals_plain(cascade, T, G, entries):
+    """The kernel's schedule (segments, closed-form first guess, fixpoint
+    rounds with the jump over quiet segments) gives the serial trajectory:
+    samples and exit states EQUAL to ``serial_walk_plain`` whatever the
+    segmentation, within G rounds."""
+    scalars = _scalars(cascade)
+    x, entry = _schedule_input(cascade, T, entries)
+    want_out, want_z = _plain_serial(cascade, T, entries)
+    lseg = _lseg_for(T, G)
+    for c in range(x.shape[0]):
+        out, z, rounds = emulate_serial_walk(scalars, x[c], entry[:, c],
+                                             lseg, G)
+        np.testing.assert_array_equal(out, want_out[c])
+        assert z == want_z[:, c].tolist()
+        assert 1 <= rounds <= max(G, 1)
+
+
+@pytest.mark.parametrize("cascade", SCHEDULE_CASCADES)
+def test_serial_schedule_mirror_walks_tile_after_tile(cascade):
+    """A block longer than a tile (4 segments of 32 here) is walked tile
+    after tile, each from the exit of the one before; a wrong first guess
+    (off by one sample) costs rounds and nothing else."""
+    scalars = _scalars(cascade)
+    x, entry = _schedule_input(cascade, 1500, "random")
+    want_out, want_z = _plain_serial(cascade, 1500, "random")
+    tiles = -(-1500 // 128)
+    for offset in (0, 1):
+        out, z, rounds = emulate_serial_walk(scalars, x[0], entry[:, 0], 5, 4,
+                                             guess_offset=offset)
+        np.testing.assert_array_equal(out, want_out[0])
+        assert z == want_z[:, 0].tolist()
+        assert tiles <= rounds <= 4 * tiles
+
+
+def _rounds_signals(T):
+    """Entry kinds and signals whose rounds are bounded below: a carried
+    RELEASE in pure silence; a burst in an earlier block then silence (the
+    carried state is HOLD); a sound that dies away inside the block; the
+    alternating signal of the JAX package's tests/test_fusion.py."""
+    decay = np.zeros(T, np.float32)
+    decay[:T // 8] = 0.5
+    return {
+        "silence_from_release": (np.zeros(T, np.float32), "release"),
+        "silence_from_hold": (np.zeros(T, np.float32), "hold"),
+        "dies_away_inside_the_block": (decay, "rest"),
+        "alternating": (np.tile([0.9, 1e-4], T // 2).astype(np.float32),
+                        "rest"),
+    }
+
+
+@pytest.mark.parametrize("T,lseg", [(512, 4), (4096, 6)])
+@pytest.mark.parametrize("signal", list(_rounds_signals(8)))
+def test_serial_schedule_round_counts(signal, T, lseg):
+    """Rounds of the flagship cascade at the step's two geometries. In
+    silence the closed-form guess is exact: ONE round (every round walks
+    with audio, so none follows the loop), also where the gate's release
+    (8,824 samples) outlasts the block. A sound that dies away inside the
+    block settles its quiet stretch at once. The alternating signal hands
+    the attack (136 samples, mask ignored) on a segment a round: 136 / L + 2
+    rounds. Never more than one round a segment."""
+    scalars = _scalars("cascade")
+    G = T >> lseg
+    x, kind = _rounds_signals(T)[signal]
+    entry = {"rest": [0, 0],
+             "hold": [sc[6] for sc in scalars],
+             "release": [sc[6] + 5 for sc in scalars]}[kind]
+    out, z, rounds = emulate_serial_walk(scalars, x, entry, lseg, G)
+    w_out, w_z = emulate_walk(scalars, x, entry)
+    np.testing.assert_array_equal(out, w_out)
+    assert z == w_z
+    assert rounds <= G
+    if signal.startswith("silence"):
+        assert rounds == 1
+        assert z[1] > scalars[1][6]          # the gate is still releasing
+    elif signal == "dies_away_inside_the_block":
+        assert rounds <= 136 // (1 << lseg) + 4
+    else:
+        assert rounds <= 136 // (1 << lseg) + 3
+
+
+@pytest.mark.parametrize("T,lseg", [(512, 4), (4096, 5)])
+def test_serial_schedule_without_the_quiet_jump_pays_in_rounds(T, lseg):
+    """The kernel's instantiation without the jump over quiet segments gives
+    the same samples and states. Where a sound dies away inside the block it
+    hands the state on one silent segment a round, so it takes about a round
+    a segment where the jump takes a handful; in silence after a burst both
+    take one."""
+    scalars = _scalars("cascade")
+    G = T >> lseg
+    signals = _rounds_signals(T)
+    for signal, kind in (("dies_away_inside_the_block", "rest"),
+                         ("silence_from_hold", "hold")):
+        x = signals[signal][0]
+        entry = [0, 0] if kind == "rest" else [sc[6] for sc in scalars]
+        out, z, rounds = emulate_serial_walk(scalars, x, entry, lseg, G)
+        n_out, n_z, n_rounds = emulate_serial_walk(scalars, x, entry, lseg, G,
+                                                   quiet_jump=False)
+        np.testing.assert_array_equal(n_out, out)
+        assert n_z == z
+        if kind == "hold":
+            assert rounds == n_rounds == 1
+        else:
+            assert rounds <= 136 // (1 << lseg) + 4
+            assert G - G // 8 - 1 <= n_rounds <= G
+
+
+@pytest.mark.parametrize("name", OPS)
+def test_closed_form_guess_is_a_walk_over_silence(name):
+    """The first guess, for EVERY encoded entry of an op: a legal state, and
+    equal to a real walk over that many zero samples."""
+    sc = kd.op_scalars(_pt(name).params)
+    end = sc[7]
+    # ONE real walk over silence from state 1 passes through every state
+    # 1, 2, .. end-1, then skip, then REST: the automaton is deterministic,
+    # so the walk from state s is that walk from where it passes s.
+    trail, state = [1], [1]
+    for _ in range(end + 64 + sc[6] + 2):
+        _, state = emulate_walk([sc], np.zeros(1, np.float32), state)
+        trail.append(state[0])
+    assert trail[:end + 2] == list(range(1, end)) + [-1, 0, 0]
+    start = {s: s - 1 for s in range(1, end)}
+    start[-1], start[0] = end - 1, end
+    for s in range(-1, end):
+        for d in (0, 1, 2, 16, 64, sc[6], end - s, end - s - 1, end - s + 1):
+            if not 0 <= d <= 64 + sc[6]:
+                continue
+            got = advance_quiet(sc, s, d)
+            assert -1 <= got < end
+            assert got == trail[start[s] + d], (s, d)
+
+
+def test_cascade_step_state_tree_survives_a_checkpoint(tmp_path):
+    """The state's tree, leaf shapes and dtypes are what they were before
+    the step moved into the kernel: a state written leaf by leaf the way an
+    earlier checkpoint holds it (int32 mode, x, y and bool skip per op, in
+    ``state_leaves`` order) loads into today's tree, steps, saves and loads
+    again with the same leaves in the same order."""
+    from pyaudiodsptools_tpu_torch.engine.stream import (load_state_npz,
+                                                         save_state_npz,
+                                                         state_leaves,
+                                                         state_paths)
+    members = [_pt("chain8_compressor"), _pt("chain8_gate")]
+    fused = kd.fused_dynamics(members)
+    template = fused.state((3,))
+    assert [path for path, _ in state_paths(template)] == [
+        (j, k) for j in range(2) for k in ("mode", "skip", "x", "y")]
+    rng = np.random.default_rng(37)
+    legal = [_legal_states(e.params, 3, rng) for e in members]
+    old = str(tmp_path / "earlier.npz")
+    np.savez(old, *[legal[j][k] for j in range(2)
+                    for k in ("mode", "skip", "x", "y")])
+    state = load_state_npz(old, template)
+    for j in range(2):
+        for k in ("mode", "x", "y", "skip"):
+            assert state[j][k].dtype == template[j][k].dtype
+            np.testing.assert_array_equal(state[j][k].numpy(), legal[j][k])
+    x = torch.from_numpy(_burst(3, 700, seed=41))
+    new_state, out = fused.step(fused.params, state, x)
+    new = str(tmp_path / "new.npz")
+    save_state_npz(new, new_state)
+    back = load_state_npz(new, template)
+    with np.load(old) as a, np.load(new) as b:
+        assert a.files == b.files
+        for name in a.files:
+            assert a[name].shape == b[name].shape
+            assert a[name].dtype == b[name].dtype
+    for got, want in zip(state_leaves(back), state_leaves(new_state)):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    again, out2 = fused.step(fused.params, back, x)
+    again_direct, out3 = fused.step(fused.params, new_state, x)
+    assert torch.equal(out2, out3)
 
 
 @pytest.mark.cuda

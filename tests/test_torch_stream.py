@@ -149,6 +149,52 @@ def test_fir_step_mono_and_stream_window_planner():
         assert snr_db(y2[0].numpy(), y1.numpy()) >= 120.0
 
 
+@pytest.mark.parametrize("block", [64, 512])
+def test_fir_step_is_one_conv_pairs_step_and_keeps_the_old_state(block,
+                                                                 monkeypatch):
+    """``fir_step`` is ONE call of ``conv_pairs_step`` (on the card: one
+    launch; here its plain version). Over eight steps it gives, bit for bit, what the join / convolve / slice it
+    replaces gives, history included; the state it was given stays valid
+    (``StreamProcessor.warmup`` relies on that); and it holds the JAX
+    package's ``fir_step`` to the 100 dB of the test above."""
+    jeff = _filters(jx, jx.EngineConfig(44100, block), "cascade")
+    peff = _filters(pt, pt.EngineConfig(44100, block), "cascade", device=CPU)
+    p = peff.params
+    n = p.stream.n
+    calls = []
+    real_step = convpairs.conv_pairs_step
+
+    def counted(hist, blk, plan, lead, use_kernels=True):
+        calls.append((tuple(hist.shape), tuple(blk.shape), plan.n, lead))
+        return real_step(hist, blk, plan, lead, use_kernels)
+
+    monkeypatch.setattr(convpairs, "conv_pairs_step", counted)
+    x = _signal(2, 8 * block, seed=3 * block)
+    jst, pst = jeff.init_state(jeff.params, (2,)), peff.state((2,))
+    old_hist = pst["hist"]
+    got, want, old_way = [], [], []
+    for i in range(8):
+        blk = torch.from_numpy(x)[:, i * block:(i + 1) * block]
+        kept = pst["hist"].clone()
+        new_pst, py = peff.step(p, pst, blk)
+        assert torch.equal(pst["hist"], kept)        # the old state is whole
+        joined = np.concatenate([old_hist.numpy(), blk.numpy()], axis=-1)
+        win = convpairs.conv_pairs(
+            torch.from_numpy(np.ascontiguousarray(joined[:, :n])), p.stream)
+        old_way.append(win[:, n - block:].numpy())
+        old_hist = torch.from_numpy(np.ascontiguousarray(joined[:, block:]))
+        assert torch.equal(new_pst["hist"], old_hist)
+        assert new_pst["hist"].shape == (2, p.lead + n - block)
+        jst, jy = jeff.step(jeff.params, jst, jnp.asarray(blk.numpy()))
+        pst = new_pst
+        got.append(py.numpy())
+        want.append(np.asarray(jy))
+    assert calls == [((2, p.lead + n - block), (2, block), n, p.lead)] * 8
+    np.testing.assert_array_equal(np.concatenate(got, -1),
+                                  np.concatenate(old_way, -1))
+    assert snr_db(np.concatenate(want, -1), np.concatenate(got, -1)) >= 100.0
+
+
 # ---------------------------------------------------------------------------
 # Chain.step
 
@@ -401,3 +447,38 @@ def test_cuda_stream_bit_equal_across_a_checkpoint_on_card(tmp_path):
         assert torch.equal(sp3.process(x[:, i * B:(i + 1) * B]), full[i])
     off = pt.render(chain, x, cfg)
     assert snr_db(off.cpu().numpy(), torch.cat(full, -1).cpu().numpy()) >= 90.0
+
+
+@pytest.mark.cuda
+def test_cuda_step_is_two_launches_before_the_tail_on_card(monkeypatch):
+    """On the card the FIR stage of a step is ONE kernel launch with no join
+    and no copy of the output slice, and the dynamics stage ONE launch with no
+    ``encode_state`` / ``decode_state`` call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from torch.profiler import ProfilerActivity, profile
+    cfg = pt.EngineConfig(44100, B)
+    chain = pt.Chain(_chain8_effects(pt, cfg, device="cuda"), device="cuda")
+    fir_e, dyn_e, _ = chain.exec_effects
+    x = torch.from_numpy(_signal(4, 4 * B, seed=20)).cuda()
+    monkeypatch.setattr(torch, "cat", lambda *a, **k: pytest.fail(
+        "the step joined tensors"))
+    for name in ("encode_state", "decode_state"):
+        monkeypatch.setattr(kd, name, lambda *a, **k: pytest.fail(
+            "the step packed or unpacked the state in PyTorch"))
+    s_fir, s_dyn = fir_e.state((4,)), dyn_e.state((4,))
+    for i in range(2):                                   # build, warm up
+        s_fir, y = fir_e.step(fir_e.params, s_fir, x[:, i * B:(i + 1) * B])
+        s_dyn, y = dyn_e.step(dyn_e.params, s_dyn, y)
+    torch.cuda.synchronize()
+    before = (convpairs.launch_count, kd.serial_walk_launch_count)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        s_fir, y = fir_e.step(fir_e.params, s_fir, x[:, 2 * B:3 * B])
+        s_dyn, y = dyn_e.step(dyn_e.params, s_dyn, y)
+        torch.cuda.synchronize()
+    assert (convpairs.launch_count, kd.serial_walk_launch_count) \
+        == (before[0] + 1, before[1] + 1)
+    device_events = [ev for ev in prof.key_averages()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum(ev.count for ev in device_events) == 2, \
+        [(ev.key, ev.count) for ev in device_events]

@@ -16,6 +16,12 @@
   (branches instead of selects, one rounded float32 operation at a time), a
   third reading of ``dynamics_pallas._int_automaton`` beside the JAX kernel
   and the port's tensor code.
+* ``emulate_serial_walk`` / ``advance_quiet`` -- the serial walk kernel's
+  schedule for one channel: tiles, segments, the closed-form first guess, the
+  fixpoint rounds with the jump over quiet segments; returns its round count.
+* ``emulate_convpairs_step`` -- the step entry point of csrc/convpairs.cu:
+  the window gathered from history and block, the kept samples, the next
+  history.
 """
 
 from __future__ import annotations
@@ -260,6 +266,28 @@ def emulate_convpairs(flat: np.ndarray, plan) -> np.ndarray:
     return out
 
 
+def emulate_convpairs_step(hist: np.ndarray, block: np.ndarray, plan):
+    """csrc/convpairs.cu's step entry point: sample i of row r's window is
+    ``hist[r, i]`` below the history's length and ``block[r, i - H]`` from
+    there on; the pairs go through the window transform; only the last B
+    samples are kept; the next history is the source from sample B on."""
+    R, H = hist.shape
+    B = block.shape[1]
+    n = plan.n
+
+    def source(r, idx):
+        from_hist = idx < H
+        v = np.empty(len(idx), np.float32)
+        v[from_hist] = hist[r, idx[from_hist]]
+        v[~from_hist] = block[r, idx[~from_hist] - H]
+        return v
+
+    window = np.stack([source(r, np.arange(n)) for r in range(R)])
+    out = emulate_convpairs(window, plan)[:, n - B:]
+    nxt = np.stack([source(r, B + np.arange(H)) for r in range(R)])
+    return out, nxt
+
+
 # ---------------------------------------------------------------------------
 # csrc/tail.cu in numpy
 
@@ -350,12 +378,15 @@ def emulate_tail(x: np.ndarray, gains, table, S: int, threads: int = 64
 # csrc/dynamics.cu in numpy: one thread's walk
 
 
-def emulate_walk(scalars, x_lane: np.ndarray, entry, audio: bool = True):
+def emulate_walk(scalars, x_lane: np.ndarray, entry, audio: bool = True,
+                 loud: list | None = None):
     """One lane of csrc/dynamics.cu: walk ``x_lane`` (L,) float32 through
     the cascade ``scalars`` (one tuple per op, as
     ``kernels.dynamics.op_scalars`` gives them) from the per-op ``entry``
     states. Returns (out (L,) float32 or None, exit states). Without
-    ``audio`` the last op computes no gain, as in the state-walk kernel."""
+    ``audio`` the last op computes no gain, as in the state-walk kernel.
+    ``loud``, one bool per op, is set where the op saw a sample over its
+    threshold (the serial walk's kernel notes it)."""
     s = [int(v) for v in entry]
     n_ops = len(scalars)
     out = np.empty(len(x_lane), _F) if audio else None
@@ -364,6 +395,8 @@ def emulate_walk(scalars, x_lane: np.ndarray, entry, audio: bool = True):
         for j, (thr, pre, ratio, att_step, rel0, rel_step, x_max, end) \
                 in enumerate(scalars):
             over = abs(row) > thr
+            if over and loud is not None:
+                loud[j] = True
             sj = s[j]
             if audio or j + 1 < n_ops:
                 if sj <= 0:
@@ -388,3 +421,72 @@ def emulate_walk(scalars, x_lane: np.ndarray, entry, audio: bool = True):
         if audio:
             out[l] = row
     return out, s
+
+
+def advance_quiet(sc: tuple, s: int, d: int) -> int:
+    """csrc/dynamics.cu's closed form: state ``s`` of the op with scalars
+    ``sc`` after ``d`` samples none of which is over its threshold."""
+    end = sc[7]
+    if d == 0:
+        return s
+    if s <= 0:
+        return 0
+    t = s + d
+    return t if t < end else (-1 if t == end else 0)
+
+
+def emulate_serial_walk(scalars, x_chan: np.ndarray, entry, lseg: int,
+                        threads: int, guess_offset: int = 0,
+                        quiet_jump: bool = True):
+    """One channel of csrc/dynamics.cu's serial walk kernel, schedule and
+    all: tiles of ``threads`` segments of ``2**lseg`` samples, one 'thread'
+    a segment; the first guess is the carried state advanced in closed form;
+    every round walks every segment with audio (:func:`emulate_walk`), then
+    each segment compares its entry with its left neighbour's exit and takes
+    its next entry from the nearest segment to the left where the op saw a
+    loud sample, advanced in closed form over the quiet ones between; the
+    loop ends with the round in which no entry differed. Returns (out (T,),
+    exit states, rounds summed over the tiles). ``guess_offset`` shifts the
+    first guess (a wrong guess must only cost rounds). ``quiet_jump=False``
+    is the kernel's other instantiation: every next entry is the left
+    neighbour's exit."""
+    L, G = 1 << lseg, threads
+    n_ops = len(scalars)
+    carried = [int(v) for v in entry]
+    T = len(x_chan)
+    out = np.empty(T, _F)
+    rounds = 0
+    for t0 in range(0, T, G * L):
+        tile = x_chan[t0:t0 + G * L]
+        last = (len(tile) - 1) >> lseg
+        segs = [tile[g * L:(g + 1) * L] for g in range(last + 1)]
+        e = [[advance_quiet(scalars[j], carried[j],
+                            g * L + (guess_offset if g else 0))
+              for j in range(n_ops)] for g in range(last + 1)]
+        while True:
+            exits, louds, outs = [], [], []
+            for g, seg in enumerate(segs):
+                loud = [False] * n_ops
+                o, z = emulate_walk(scalars, seg, e[g], loud=loud)
+                outs.append(o)
+                exits.append(z)
+                louds.append(loud if g else [True] * n_ops)
+            rounds += 1
+            changed = False
+            new_e = [e[0]]
+            for g in range(1, last + 1):
+                changed = changed or exits[g - 1] != e[g]
+                row = []
+                for j in range(n_ops):
+                    h = g - 1
+                    while quiet_jump and not louds[h][j]:
+                        h -= 1
+                    row.append(advance_quiet(scalars[j], exits[h][j],
+                                             (g - 1 - h) * L))
+                new_e.append(row)
+            e = new_e
+            carried = exits[last]
+            if not changed:
+                break
+        out[t0:t0 + len(tile)] = np.concatenate(outs)
+    return out, carried, rounds
