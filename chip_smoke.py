@@ -13,8 +13,12 @@ failed check raises (exit code != 0, no result line):
    is in no rate below.
 3. ``kernel_cases``  each hand-written kernel against its plain PyTorch
    version (and the convs against a float64 oracle) on small cases that cover
-   the edges: odd window counts, ragged tiles, re-zeroing before the signal
-   start, a shrunk tile, a run the tail kernel refuses; pack and unpack on
+   the edges: odd window counts, ragged lengths, rows off a 16-byte boundary,
+   every version of the segmented conv a window takes (one block, a cluster
+   of two or four; the clusters bit-equal to one block); for the tail,
+   re-zeroing before the signal start, rings that wrap (small tiles) in runs
+   that walk the halo first, rings in device memory (a halo of 88,200), 65
+   taps; pack and unpack on
    ragged lengths and 1, 3 and 64 channels (exact, pad lanes zero); the two
    dynamics walks on three signals for compressor, gate, their cascade and
    the one-sample attack (exit states equal, 0 mismatching samples), and the
@@ -59,7 +63,9 @@ failed check raises (exit code != 0, no result line):
    pace does not show) beside its plain version, a library yardstick where
    there is one, and its bound (bytes over the card's memory rate,
    operations over its fp32 rate, whichever is larger). Also the whole
-   dynamics stage for a range of segment counts (the planner's sweep).
+   dynamics stage for a range of segment counts (the planner's sweep), the
+   segmented conv by window and version (``segconv_versions``: the planner's
+   rule) and the tail by runs of tiles per channel, down to one tile a run.
 7. ``throughput``  samples/s of the whole render, median of 3 chained passes.
    With ``--profile``, a ``profile`` phase follows: ``torch.profiler`` over a
    few renders and over a window of streaming steps, device time by kernel
@@ -364,8 +370,13 @@ def chain_oracle(x: np.ndarray, effects, block_size: int) -> np.ndarray:
 
 def conv_cases() -> dict:
     """(n, halo, klen, shift, C, T): the three cases of the CPU tests at
-    B=2048 through the port's planner, plus windows that exercise the
-    smallest sizes, the extra radix-2 pass and ragged last windows."""
+    B=2048 through the port's planner, windows that exercise the smallest
+    sizes, the extra radix-2 pass and ragged last windows, and the clusters'
+    own windows (odd window counts, T not a multiple of 4, so rows start off
+    a 16-byte boundary). Every case runs in each version its window takes
+    (one block, a cluster of two, of four): each is held to the plain
+    version and to the float64 oracle, and where one block takes the window
+    too, each cluster is held to it bit for bit."""
     rng = np.random.default_rng(7)
     results = []
     cases = []
@@ -380,31 +391,50 @@ def conv_cases() -> dict:
               (1024, 128, 100, 37, 5, 5000), (2048, 256, 257, 0, 3, 7001),
               (4096, 2048, 2049, 11, 2, 4096 * 3 + 5),
               (8192, 1024, 1017, 1155, 4, 20000),
-              (16384, 8192, 8185, 9219, 2, 16384 * 3 + 1)]
+              (16384, 8192, 8185, 9219, 2, 16384 * 3 + 1),
+              # the clusters' windows: 5 windows, ragged
+              (32768, 8192, 8185, 9219, 3, 24576 * 4 + 3),
+              (65536, 8192, 8185, 9219, 3, 57344 * 4 + 5),
+              (65536, 1024, 1017, 1155, 2, 64512 * 2 + 7)]
     for n, halo, klen, shift, C, T in cases:
         k = rng.standard_normal(klen) * 0.1
         plan = segconv.make_plan(k, halo, n - halo, shift, "cuda")
         x = rng.standard_normal((C, T)).astype(np.float32)
         xd = torch.from_numpy(x).cuda()
+        outs = {}
+        for blocks in segconv.versions(n):
+            before = segconv.launch_count
+            outs[blocks] = segconv.segmented_conv(xd, plan) \
+                if blocks == plan.blocks else segconv._launch(xd, plan, blocks)
+            torch.cuda.synchronize()
+            assert segconv.launch_count == before + 1
         before = segconv.launch_count
-        got = segconv.segmented_conv(xd, plan)
-        torch.cuda.synchronize()
-        assert segconv.launch_count == before + 1
         plain = segconv.segmented_conv(xd, plan, use_kernels=False)
         torch.cuda.synchronize()
-        assert segconv.launch_count == before + 1
-        db_plain = snr_db_cuda(plain, got)
-        db_oracle = snr_db(fft_conv64(x, k, shift), got.cpu().numpy())
-        assert bool(torch.isfinite(got).all())
-        assert not bool(got[:, :shift].any()), "output delay is not silence"
-        results.append({"n": n, "halo": halo, "taps": klen, "shift": shift,
-                        "C": C, "T": T, "db_plain": db_json(db_plain),
-                        "db_oracle": db_json(db_oracle)})
-        assert db_plain >= CONV_DB_PLAIN, results[-1]
-        assert db_oracle >= CONV_DB_ORACLE, results[-1]
+        assert segconv.launch_count == before
+        oracle = fft_conv64(x, k, shift)
+        r = {"n": n, "halo": halo, "taps": klen, "shift": shift, "C": C,
+             "T": T, "plan_blocks": plan.blocks, "versions": {}}
+        for blocks, got in outs.items():
+            assert bool(torch.isfinite(got).all()), (r, blocks)
+            assert not bool(got[:, :shift].any()), "output delay is not silence"
+            r["versions"][str(blocks)] = {
+                "db_plain": db_json(snr_db_cuda(plain, got)),
+                "db_oracle": db_json(snr_db(oracle, got.cpu().numpy())),
+                "bit_equal_to_one_block": (
+                    bool(torch.equal(got, outs[1])) if 1 in outs else None)}
+        dbs = [snr_db_cuda(plain, got) for got in outs.values()]
+        dbo = [snr_db(oracle, got.cpu().numpy()) for got in outs.values()]
+        r["db_plain"], r["db_oracle"] = db_json(min(dbs)), db_json(min(dbo))
+        results.append(r)
+        assert min(dbs) >= CONV_DB_PLAIN, r
+        assert min(dbo) >= CONV_DB_ORACLE, r
+        assert all(v["bit_equal_to_one_block"] is not False
+                   for v in r["versions"].values()), r
     return {"phase": "kernel_cases", "name": "segconv",
             "replaces": "pyaudiodsptools_tpu/kernels/pallas_conv.py:segmented_conv_fused",
             "cases": results,
+            "clusters_bit_equal_to_one_block": True,
             "min_snr_db": min(r["db_plain"] for r in results),
             "min_snr_db_oracle": min(r["db_oracle"] for r in results)}
 
@@ -422,9 +452,23 @@ TAIL_PLANS = {
     "soft_saturator+harddistortion+delay": [
         ("saturator", (-18.0, 1.5, "soft"), {}), ("harddistortion", (), {}),
         ("delay", (9.0, 3), {})],
-    # halo 44,100: one block per SM, the tile shrunk to fit beside the halo
+    # halo 44,100: one block an SM, its rings in shared memory
     "long_delay+softclipper": [
         ("delay", (500.0, 2), {}), ("softclipper", (0.44,), {})],
+    # halo 88,200: rings in device memory
+    "1000ms_delay+tremolo+softclipper": [
+        ("delay", (1000.0, 2), {}), ("tremolo", (0.3, 5.0), {}),
+        ("softclipper", (0.44,), {})],
+    # 65 taps, halo 28,665
+    "65_taps+softclipper": [
+        ("delay", (10.0, 65), {}), ("softclipper", (0.44,), {})],
+    # 2,100 taps: a stage table too large for shared memory, read from
+    # device memory
+    "2100_taps+softclipper": [
+        ("delay", (0.1, 2100), {}), ("softclipper", (0.44,), {})],
+    # no taps stage: one ring of two tiles
+    "tremolo+softclipper": [("tremolo", (0.3, 5.0), {}),
+                            ("softclipper", (0.44,), {})],
     # exact plans: nothing that rounds differently precedes the bitcrusher
     "bitcrusher+delay": [("bitcrusher", (), {}), ("delay", (9.0, 2), {})],
     "delay+tremolo+bitcrusher": [
@@ -444,17 +488,49 @@ def tail_members(cfg, plan: str):
 
 
 def tail_cases() -> dict:
+    """Every plan of TAIL_PLANS at 1 and 3 channels through the fused
+    effect (one launch each); at 3 channels also a tile of 256 samples so
+    that the rings wrap hundreds of times, in 7 runs a channel (runs that
+    walk the halo first), and a length that is not a multiple of 4 (rows
+    off a 16-byte boundary, a ragged last chunk). All held to the plain
+    version: TAIL_DB_PLAIN, or the bitcrusher plans' exactness rule."""
     cfg = pt.EngineConfig(SAMPLE_RATE, 512)
     rng = np.random.default_rng(11)
     results = []
+
+    def check(r, plan, want, got):
+        assert bool(torch.isfinite(got).all()), r
+        if "bitcrusher" in plan:
+            frac = float((got != want).float().mean())
+            r["mismatch_fraction"] = frac
+            results.append(r)
+            bar = 0.0 if plan in EXACT_PLANS \
+                else CRUSH_FRACTION_AFTER_ROUNDING_STAGE
+            assert frac <= bar, r
+        else:
+            r["db_plain"] = db_json(snr_db_cuda(want, got))
+            results.append(r)
+            assert snr_db_cuda(want, got) >= TAIL_DB_PLAIN, r
+
+    halos = {}
     for plan in TAIL_PLANS:
+        members = tail_members(cfg, plan)
+        fused = tail.fused_tail(members)
+        stages, _, _, D = tail._plan_stages(members)
+        kplan = tail.make_plan(stages, D, fused.params, "cuda")
+        halos[plan] = {"halo": D, "tile": kplan.tile,
+                       "rings_in_shared_memory": kplan.ring_smem,
+                       "table_in_shared_memory": kplan.table_smem,
+                       "blocks_per_sm": kplan.blocks_per_sm,
+                       "taps": sum(len(s[1]) for s in stages
+                                   if s[0] == "taps")}
+        # 140 blocks of 512 = 71,680 samples: several tiles and runs at
+        # every plan's halo, the last tile ragged; 400 past a 1 s echo's two
+        nb = 400 if D > 60000 else 140
         for C in (1, 3):
-            # 140 blocks of 512 = 71,680 samples: several tiles at every
-            # plan's halo, the last one ragged
-            x = (rng.standard_normal((C, 140, 512)) * 0.6).astype(np.float32)
+            x = (rng.standard_normal((C, nb, 512)) * 0.6).astype(np.float32)
             x[0, 0, :6] = [1.4, -1.4, 0.0, 2.2, -0.79, 0.81]
             xd = torch.from_numpy(x[0] if C == 1 else x).cuda()
-            fused = tail.fused_tail(tail_members(cfg, plan))
             before = tail.launch_count
             got = fused.offline(fused.params, xd)
             torch.cuda.synchronize()
@@ -462,39 +538,34 @@ def tail_cases() -> dict:
             want = fused.offline(fused.params, xd, use_kernels=False)
             torch.cuda.synchronize()
             assert tail.launch_count == before + 1
-            assert bool(torch.isfinite(got).all())
-            r = {"plan": plan, "C": C, "T": 140 * 512}
-            if "bitcrusher" in plan:
-                frac = float((got != want).float().mean())
-                r["mismatch_fraction"] = frac
-                results.append(r)
-                bar = 0.0 if plan in EXACT_PLANS \
-                    else CRUSH_FRACTION_AFTER_ROUNDING_STAGE
-                assert frac <= bar, r
-            else:
-                r["db_plain"] = db_json(snr_db_cuda(want, got))
-                results.append(r)
-                assert snr_db_cuda(want, got) >= TAIL_DB_PLAIN, r
-    # a halo that cannot fit shared memory at all is refused when the fused
-    # effect is built: there is no route around the kernel on the card
-    long_run = [pt.ops.delay(cfg, 700.0, 2, device="cuda"),
-                pt.ops.softclipper(cfg, device="cuda")]
-    try:
-        tail.fused_tail(long_run)
-    except ValueError as e:
-        refused = "shared memory" in str(e)
-    else:
-        refused = False
-    assert refused, "a tail run beyond the kernel's halo limit was accepted"
+            check({"plan": plan, "C": C, "T": nb * 512}, plan, want, got)
+            if C == 1:
+                continue
+            # small tiles: the rings wrap; 7 runs a channel
+            small = tail.make_plan(stages, D, fused.params, "cuda", tile=256)
+            gains = [gain_row(p, nb, 512, xd.device) for p in fused.params
+                     if isinstance(p, TremoloParams)]
+            got = tail.tail_kernel(small, xd.reshape(C, -1),
+                                   torch.stack(gains) if gains else None,
+                                   runs=7).reshape(xd.shape)
+            check({"plan": plan, "C": C, "T": nb * 512, "tile": 256,
+                   "runs": 7, "rings_in_shared_memory": small.ring_smem},
+                  plan, want, got)
+            # T % 4 == 3: rows start off a 16-byte boundary
+            T = nb * 512 - 5
+            xr = xd.reshape(C, -1)[:, :T].contiguous().reshape(C, 1, T)
+            got = fused.offline(fused.params, xr)
+            want = fused.offline(fused.params, xr, use_kernels=False)
+            check({"plan": plan, "C": C, "T": T}, plan, want, got)
     # streaming state is born on the effect's device
-    assert long_run[0].state((2,))["buffer"].is_cuda
+    assert tail_members(cfg, "long_delay+softclipper")[0].state(
+        (2,))["buffer"].is_cuda
     dbs = [r["db_plain"] for r in results if r.get("db_plain") is not None]
     return {"phase": "kernel_cases", "name": "tail",
             "replaces": "pyaudiodsptools_tpu/kernels/tail_pallas.py:tail_kernel",
-            "cases": results, "min_snr_db": min(dbs),
+            "plans": halos, "cases": results, "min_snr_db": min(dbs),
             "max_mismatch_fraction": max(
-                r.get("mismatch_fraction", 0.0) for r in results),
-            "oversized_run_refused": refused}
+                r.get("mismatch_fraction", 0.0) for r in results)}
 
 
 def relayout_cases() -> dict:
@@ -678,7 +749,7 @@ def convpairs_cases() -> dict:
     rng = np.random.default_rng(19)
     results = []
     n = segconv.MIN_WINDOW
-    while n <= segconv.MAX_WINDOW:
+    while n <= segconv.BLOCK_WINDOW:
         kernel = rng.standard_normal(min(n, 1 + n // 2)) * 0.1
         plan = convpairs.make_plan(kernel, n, "cuda")
         for R in (1, 2, 5, 64):
@@ -707,7 +778,7 @@ def convpairs_cases() -> dict:
         convpairs.conv_pairs(joined[:, :2048].contiguous(), plan))
     assert strided_equal
     step_results, step_min_db = convpairs_step_cases(rng)
-    for bad in (2 * segconv.MAX_WINDOW, 3072):
+    for bad in (2 * segconv.BLOCK_WINDOW, 3072):
         try:
             convpairs.make_plan(np.ones(3), bad, "cuda")
         except ValueError as e:
@@ -743,7 +814,7 @@ def convpairs_step_cases(rng) -> tuple[list, float]:
     gen.manual_seed(41)
     results, min_db = [], float("inf")
     n = segconv.MIN_WINDOW
-    while n <= segconv.MAX_WINDOW:
+    while n <= segconv.BLOCK_WINDOW:
         kernel = rng.standard_normal(min(n, 1 + n // 2)) * 0.1
         plan = convpairs.make_plan(kernel, n, "cuda")
         for R in (1, 5, 64):
@@ -1090,7 +1161,10 @@ def bound(nbytes: float, ops: float) -> dict:
 
 
 def time_segconv(x, fir_e, by_B: dict, B: int) -> torch.Tensor:
-    """The segmented conv at the main-path shape; returns its output."""
+    """The segmented conv at the main-path shape; returns its output. Beside
+    it ``segconv_versions``: the same convolution with every window the
+    planner could give this halo, in every version the window takes, timed
+    twice in turns (first ascending, then descending)."""
     C, T = x.shape
     plan = fir_e.params.plan
     y_kernel = segconv.segmented_conv(x, plan)
@@ -1119,11 +1193,32 @@ def time_segconv(x, fir_e, by_B: dict, B: int) -> torch.Tensor:
         torch.fft.rfft(windows, dim=-1) * plan.spectrum_rfft,
         n=plan.n, dim=-1))
     del windows
+    versions = {}
+    n = max(fft_filter.MIN_WINDOW, 2 * plan.halo)
+    cands = []
+    while n <= segconv.MAX_WINDOW:
+        p = segconv.make_plan(stripped, plan.halo, n - plan.halo, plan.shift,
+                              "cuda")
+        cands += [(p, blocks) for blocks in segconv.versions(n)]
+        n *= 2
+    for p, blocks in cands:
+        y = segconv._launch(x, p, blocks)
+        db = snr_db_cuda(y_kernel, y)
+        del y
+        assert db >= CONV_DB_PLAIN, (p.n, blocks, db)
+        versions[f"{p.n}/{blocks}"] = {
+            "n": p.n, "blocks": blocks, "seg": p.seg,
+            "chosen": (p.n, blocks) == (plan.n, plan.blocks),
+            "db_to_chosen": db_json(db), "ms": []}
+    for p, blocks in cands + cands[::-1]:
+        versions[f"{p.n}/{blocks}"]["ms"].append(
+            time_ms(lambda: segconv._launch(x, p, blocks)))
     n_pairs = C * -(-n_seg // 2)
     log2n = plan.n.bit_length() - 1
     by_B[B] = {
-        "n": plan.n, "halo": plan.halo, "seg": plan.seg,
-        "taps": plan.kernel_len, "shift": plan.shift, "C": C, "T": T,
+        "n": plan.n, "blocks": plan.blocks, "halo": plan.halo,
+        "seg": plan.seg, "taps": plan.kernel_len, "shift": plan.shift,
+        "C": C, "T": T,
         "db_plain": db_json(db_plain), "db_oracle_2ch": db_json(db_oracle),
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "library_ms": library_ms,
@@ -1132,6 +1227,7 @@ def time_segconv(x, fir_e, by_B: dict, B: int) -> torch.Tensor:
         # what this design must move: the signal n/seg times in, once out
         "bound_with_window_overlap_ms":
             4 * C * T * (plan.n / plan.seg + 1) / HBM_BYTES_PER_S * 1e3,
+        "segconv_versions": versions,
     }
     return y_kernel
 
@@ -1270,26 +1366,66 @@ def sweep_segments(x, dyn_e, want) -> list:
     return rows
 
 
+# Tiles of the tail's geometry sweep.
+TAIL_TILES = (4096, 2048, 1024)
+
+
 def time_tail(x, chain, tail_e, by_B: dict, B: int) -> None:
-    """The fused tail, fed what the dynamics stage feeds it."""
+    """The fused tail, fed what the dynamics stage feeds it. Beside it, each
+    equal to the planner's choice and timed twice in turns: the kernel by
+    tile at the runs the planner gives each; by runs of tiles per channel
+    at the planner's geometry, up to one tile a run (every block reads its
+    tile's halo: the schedule before the walk along time). Then the run's
+    stage prefixes, for what each stage adds."""
     C, T = x.shape
     members = tail_e.params
     stages, _, _, D = tail._plan_stages(chain.effects[5:])
+    plan = tail.make_plan(stages, D, members, x.device)
     nb = T // B
     gains = torch.stack([gain_row(p, nb, B, x.device) for p in members
                          if isinstance(p, TremoloParams)])
     blocks = x.reshape(C, nb, B)
-    t_kernel = tail.tail_kernel(stages, D, members, x, gains)
+    t_kernel = tail.tail_kernel(plan, x, gains)
     t_plain = tail_e.offline(members, blocks, use_kernels=False).reshape(C, T)
     torch.cuda.synchronize()
     t_err = float((t_kernel - t_plain).abs().max())
     t_db = snr_db_cuda(t_plain, t_kernel)
     assert t_db >= TAIL_DB_PLAIN, (B, t_db)
-    del t_plain, t_kernel
+    del t_plain
+    sms = tail._sm_count(x.device)
+    runs = tail.runs_for(plan, C, T, sms)
+    n_tiles = -(-T // plan.tile)
+    cases = {f"runs={r}": (plan, r) for r in
+             sorted({1, 2, runs, 2 * runs, 16, 64, n_tiles})}
+    for S in TAIL_TILES:
+        p = tail.make_plan(stages, D, members, x.device, tile=S)
+        cases[f"tile={S}"] = (p, tail.runs_for(p, C, T, sms))
+    # what the stages cost: the run's prefixes (the delay alone, then with
+    # the tremolo) at their own geometry
+    prefixes = {}
+    for k in range(1, len(stages)):
+        sub = stages[:k]
+        p = tail.make_plan(sub, sum(max(st[1], default=0) for st in sub
+                                    if st[0] == "taps"), members[:k], x.device)
+        g = gains if any(st[0] == "gain" for st in sub) else None
+        prefixes["+".join(st[1] if st[0] == "map" else st[0] for st in sub)] \
+            = time_ms(lambda: tail.tail_kernel(p, x, g))
+    for name, (p, r) in cases.items():
+        assert torch.equal(tail.tail_kernel(p, x, gains, runs=r), t_kernel), \
+            f"{name} changes the result"
+    del t_kernel
+    ms = {name: [] for name in cases}
+    for name in list(cases) + list(cases)[::-1]:
+        p, r = cases[name]
+        ms[name].append(time_ms(lambda: tail.tail_kernel(p, x, gains, runs=r)))
     by_B[B] = {
-        "halo": D, "tile": tail.tile_for(T, D), "C": C, "T": T,
+        "halo": D, "tile": plan.tile, "runs": runs,
+        "n_tiles": n_tiles, "warm_tiles": plan.warm_tiles,
+        "ring_floats": plan.ring_floats,
+        "rings_in_shared_memory": plan.ring_smem,
+        "blocks_per_sm": plan.blocks_per_sm, "C": C, "T": T,
         "db_plain": db_json(t_db), "max_abs_err": t_err,
-        "ms": time_ms(lambda: tail.tail_kernel(stages, D, members, x, gains)),
+        "ms": time_ms(lambda: tail.tail_kernel(plan, x, gains)),
         "offline_with_gain_row_ms": time_ms(
             lambda: tail_e.offline(members, blocks)),
         "plain_ms": time_ms(
@@ -1297,6 +1433,14 @@ def time_tail(x, chain, tail_e, by_B: dict, B: int) -> None:
         "library_ms": None,
         **bound(8 * C * T + 4 * gains.numel(),
                 C * T * tail_ops_per_sample(stages)),
+        "one_tile_a_run_ms": ms[f"runs={n_tiles}"],
+        "sweep_ms": {name: {"tile": p.tile, "runs": r,
+                            "blocks_per_sm": p.blocks_per_sm, "ms": ms[name]}
+                     for name, (p, r) in cases.items()},
+        "stage_prefix_ms": prefixes,
+        # what one read and one write of the signal take here: the bytes
+        # side of the bound as the card reaches it
+        "copy_ms": time_ms(lambda: x.clone()),
     }
 
 
@@ -1703,7 +1847,7 @@ def time_full_batch() -> dict:
     """Row 8 at a batch that fills the card: the offline render's window
     batch at block size 4096, beside the one-call yardstick; both versions of
     the kernel there and at the batches between the step's and that one."""
-    n, R = segconv.MAX_WINDOW, FULL_BATCH_ROWS
+    n, R = segconv.BLOCK_WINDOW, FULL_BATCH_ROWS
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
     x = torch.randn((R, n), generator=gen, device="cuda")
@@ -1747,7 +1891,7 @@ def time_cluster_by_window() -> dict:
     gen.manual_seed(31)
     table = {}
     n = CLUSTER_TAKES_FROM
-    while n <= segconv.MAX_WINDOW:
+    while n <= segconv.BLOCK_WINDOW:
         plan = convpairs.make_plan(rng.standard_normal(n // 2) * 0.05, n,
                                    "cuda")
         x = torch.randn((CHANNELS, n), generator=gen, device="cuda")

@@ -40,17 +40,12 @@
 //                       thread block's shared memory.
 //   a cluster of four   (convpairs_kernel<true>, sm_90 thread-block cluster)
 //                       block q of the cluster holds quarter q of the
-//                       window. The top two radix-4 levels combine points
-//                       n/4 and n/16 apart: each thread gathers its 16 points
-//                       from the four blocks' shared memory (distributed
-//                       shared memory), does the same register work as the
-//                       one-block pass, and scatters them back; every level
-//                       below is local to a quarter and runs the one-block
-//                       passes on it. Same operations on the same operands
-//                       in the same order: the two versions agree bit for
-//                       bit. Four times the blocks (128 for 64 rows), each
-//                       with a quarter of the butterflies, the loads and the
-//                       stores.
+//                       window, and csrc/window_fft.cuh's cluster transform
+//                       (the top pass through distributed shared memory,
+//                       the levels below on each quarter, bit-equal to the
+//                       one-block transform) runs on it. Four times the
+//                       blocks (128 for 64 rows), each with a quarter of the
+//                       butterflies, the loads and the stores.
 //
 // The next history is written by blocks of their own, which do nothing else
 // and run beside the transforming ones: the copy (11 MB of traffic at block
@@ -59,12 +54,9 @@
 // Plain C interface: the launchers enqueue on the given stream, allocate
 // nothing, and return cudaGetLastError().
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include "window_fft.cuh"
-
-namespace cg = cooperative_groups;
 
 #define CLUSTER_BLOCKS 4
 // Samples of the next history that one copying block writes.
@@ -92,34 +84,6 @@ namespace {
 __device__ __forceinline__ float source(const PairsIo& io, int r, int i) {
   return i < io.split ? io.a[(size_t)r * io.a_stride + i]
                       : io.b[(size_t)r * io.b_stride + (i - io.split)];
-}
-
-// The top pass of a window spread over a cluster: two radix-4 levels of size
-// n and n/4. Point j + c*(n/16) + a*(n/4) lives in block a at local index
-// j + c*(n/16); this block does the n/64 values of j that start at
-// rank * n/64.
-template <bool kForward>
-__device__ __forceinline__ void pass_two_levels_cluster(
-    float2* (&zq)[CLUSTER_BLOCKS], const float2* __restrict__ tw, int ln,
-    int rank) {
-  const int q2 = 1 << (ln - 4);
-  const int share = q2 / CLUSTER_BLOCKS;
-  for (int t = threadIdx.x; t < share; t += blockDim.x) {
-    const int j = rank * share + t;
-    float2 w[6];
-#pragma unroll
-    for (int p = 0; p < 6; ++p) w[p] = __ldg(tw + p * q2 + j);
-    float2 x[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) x[a][c] = zq[a][pad(j + c * q2)];
-    two_levels_on_registers<kForward>(x, w);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) zq[a][pad(j + c * q2)] = x[a][c];
-  }
 }
 
 // kCluster false: one block a pair, the first `pairs` blocks of the grid.
@@ -160,18 +124,7 @@ convpairs_kernel(const PairsIo io, const float2* __restrict__ spec,
                             has_b ? source(io, r0 + 1, base + i) : 0.0f);
 
   if (kCluster) {
-    cg::cluster_group cluster = cg::this_cluster();
-    float2* zq[CLUSTER_BLOCKS];
-#pragma unroll
-    for (int a = 0; a < CLUSTER_BLOCKS; ++a)
-      zq[a] = cluster.map_shared_rank(z, a);
-    cluster.sync();
-    pass_two_levels_cluster<true>(zq, tw, ln, rank);
-    cluster.sync();
-    convolve_levels(z, spec + base, tw + (6 << (ln - 4)), ln - 2, ln - 4);
-    cluster.sync();
-    pass_two_levels_cluster<false>(zq, tw, ln, rank);
-    cluster.sync();
+    convolve_window_cluster<CLUSTER_BLOCKS>(z, spec, tw, ln);
   } else {
     __syncthreads();
     convolve_window(z, spec, tw, ln);

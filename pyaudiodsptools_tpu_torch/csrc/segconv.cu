@@ -20,76 +20,232 @@
 // radix-4 levels per pass, no reorder pass, a fused innermost pass, padded
 // shared memory, per-pass twiddle rows), which csrc/convpairs.cu shares.
 //
-// One thread block per (channel, pair of consecutive windows). The block
-// gathers from any sample offset and masks idx < 0 and idx >= T to zero, so
-// the wrapper pads nothing.
+// One window pair per thread block, or per thread-block CLUSTER of P = 2 or
+// 4 blocks (segconv_kernel<P>): a window of up to 16,384 points fits one
+// block's shared memory, one of 65,536 a cluster of four. The wider window
+// wastes less of its transform on the halo: at a halo of 8,192 a window of
+// 16,384 transforms 2.0 points for each one it keeps, one of 65,536 1.14.
+// The host (kernels/segconv.py, ops/fft_filter.plan_segments) picks the
+// window, and with it the version, by a rule measured on an H100.
+//
+// The gather issues all of a thread's loads before its first shared-memory
+// store: chunks of four samples, 16 bytes wide from the first 16-byte
+// boundary of the window's span on, at most three samples alone at each end,
+// out-of-range samples (idx < 0, idx >= T) silence, so the wrapper pads
+// nothing. The store writes 16 bytes wide in the same way; the first
+// `shift` output samples are exact zeros (the output delay), not the
+// transform's rounding noise.
 //
 // Plain C interface: segconv_launch() enqueues on the given stream, allocates
 // nothing, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include "window_fft.cuh"
 
+// Chunks of four points a thread gathers: a block of m points has at least
+// m/16 threads (window_threads).
+#define SEGCONV_CHUNKS 4
+
 namespace {
 
+// Samples [s, s+4) of a row of T, silence outside [0, T). One 16-byte load
+// where all four lie inside (the caller has aligned s).
+__device__ __forceinline__ float4 load4(const float* __restrict__ xr,
+                                        long long s, int T) {
+  if (s >= 0 && s + 4 <= T)
+    return __ldg(reinterpret_cast<const float4*>(xr + s));
+  float v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    v[e] = (s + e >= 0 && s + e < T) ? __ldg(xr + s + e) : 0.0f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ float load1(const float* __restrict__ xr,
+                                       long long s, int T) {
+  return (s >= 0 && s < T) ? __ldg(xr + s) : 0.0f;
+}
+
+// Output samples [o, o+4) of a row: below T, and exact silence below
+// `shift`. One 16-byte store where all four are plain (the caller has
+// aligned o).
+__device__ __forceinline__ void store4(float* yr, long long o, int T,
+                                       int shift, float v0, float v1, float v2,
+                                       float v3) {
+  if (o >= shift && o + 4 <= T) {
+    *reinterpret_cast<float4*>(yr + o) = make_float4(v0, v1, v2, v3);
+    return;
+  }
+  const float v[4] = {v0, v1, v2, v3};
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    if (o + e < T) yr[o + e] = (o + e < shift) ? 0.0f : v[e];
+}
+
+// Samples from s on (s may be < 0) before the row's first 16-byte boundary
+// at or after s (0..3).
+__device__ __forceinline__ int head_points(const float* row, long long s) {
+  const uintptr_t a = (uintptr_t)row + (uintptr_t)(s * 4);
+  return (int)(((16 - (a & 15)) & 15) >> 2);
+}
+
+// P blocks a window pair (1, or a cluster of 2 or 4). Block `rank` of a
+// pair holds points [rank*m, (rank+1)*m) of both windows, m = n/P.
+template <int P>
 __global__ void __launch_bounds__(WINDOW_FFT_THREADS)
 segconv_kernel(const float* __restrict__ x, float* __restrict__ y,
                const float2* __restrict__ spec, const float2* __restrict__ tw,
                int T, int ln, int halo, int seg, int shift, int n_seg,
                int n_pairs) {
   extern __shared__ float2 z[];
-  const int n = 1 << ln;
-  const int c = blockIdx.x / n_pairs;
-  const int s0 = 2 * (blockIdx.x % n_pairs);
+  const int lm = ln - (P == 4 ? 2 : P == 2 ? 1 : 0);
+  const int m = 1 << lm;
+  const int rank = P > 1 ? (int)(blockIdx.x % P) : 0;
+  const int pair = (int)(blockIdx.x / P);
+  const int c = pair / n_pairs;
+  const int s0 = 2 * (pair % n_pairs);
   const bool has_b = s0 + 1 < n_seg;
-  const float* xc = x + (size_t)c * T;
-  float* yc = y + (size_t)c * T;
+  const float* xr = x + (size_t)c * T;
+  float* yr = y + (size_t)c * T;
+  const int base = rank * m;
 
-  // Gather: window a -> real part, window b -> imaginary part. Window s
-  // reads input [s*seg - halo - shift, +n); out-of-range reads are silence.
-  const long long base_a = (long long)s0 * seg - halo - shift;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const long long ia = base_a + i, ib = ia + seg;
-    const float a = (ia >= 0 && ia < T) ? xc[ia] : 0.0f;
-    const float b = (has_b && ib >= 0 && ib < T) ? xc[ib] : 0.0f;
-    z[pad(i)] = make_float2(a, b);
+  // Gather: window a -> real part, window b (seg samples later, the same
+  // 16-byte phase: seg % 4 == 0) -> imaginary part. Point i of this block
+  // reads sample sa + i of window a.
+  const long long sa = (long long)s0 * seg - halo - shift + base;
+  const long long sb = sa + seg;
+  const int h = head_points(xr, sa);
+  const int nb = (m - h) >> 2;
+  float4 va[SEGCONV_CHUNKS], vb[SEGCONV_CHUNKS];
+#pragma unroll
+  for (int u = 0; u < SEGCONV_CHUNKS; ++u) {
+    const int k = threadIdx.x + u * blockDim.x;
+    if (k < nb) {
+      va[u] = load4(xr, sa + h + 4 * k, T);
+      vb[u] = has_b ? load4(xr, sb + h + 4 * k, T)
+                    : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
   }
-  __syncthreads();
-
-  convolve_window(z, spec, tw, ln);
-
-  // Store the wrap-free last seg samples of each window, masked at T. The
-  // first `shift` output samples are exact silence (the output delay), not
-  // the transform's rounding noise.
-  const long long out_a = (long long)s0 * seg;
-  for (int j = threadIdx.x; j < seg; j += blockDim.x) {
-    const float2 v = z[pad(halo + j)];
-    const long long oa = out_a + j, ob = oa + seg;
-    if (oa < T) yc[oa] = (oa < shift) ? 0.0f : v.x;
-    if (has_b && ob < T) yc[ob] = (ob < shift) ? 0.0f : v.y;
+  // the h points before the first chunk and the (m - h) % 4 after the last,
+  // one a thread
+  int ep = -1;
+  if ((int)threadIdx.x < h) ep = threadIdx.x;
+  else if ((int)threadIdx.x >= 4 && (int)threadIdx.x - 4 < m - h - 4 * nb)
+    ep = h + 4 * nb + (int)threadIdx.x - 4;
+  float ea = 0.0f, eb = 0.0f;
+  if (ep >= 0) {
+    ea = load1(xr, sa + ep, T);
+    eb = has_b ? load1(xr, sb + ep, T) : 0.0f;
   }
+#pragma unroll
+  for (int u = 0; u < SEGCONV_CHUNKS; ++u) {
+    const int k = threadIdx.x + u * blockDim.x;
+    if (k < nb) {
+      const int i = h + 4 * k;
+      z[pad(i)] = make_float2(va[u].x, vb[u].x);
+      z[pad(i + 1)] = make_float2(va[u].y, vb[u].y);
+      z[pad(i + 2)] = make_float2(va[u].z, vb[u].z);
+      z[pad(i + 3)] = make_float2(va[u].w, vb[u].w);
+    }
+  }
+  if (ep >= 0) z[pad(ep)] = make_float2(ea, eb);
+
+  if constexpr (P == 1) {
+    __syncthreads();
+    convolve_window(z, spec, tw, ln);
+  } else {
+    convolve_window_cluster<P>(z, spec, tw, ln);
+  }
+
+  // Store the wrap-free points (window index >= halo) of each window, masked
+  // at T. Local point i is output sample oa + i of window a, oa + seg + i of
+  // window b.
+  const int i_lo = max(0, halo - base);
+  if (i_lo >= m) return;
+  const long long oa = (long long)s0 * seg + base - halo;
+  const int first = min(m, i_lo + head_points(yr, oa + i_lo));
+  const int nb2 = (m - first) >> 2;
+  for (int k = threadIdx.x; k < nb2; k += blockDim.x) {
+    const int i = first + 4 * k;
+    const float2 v0 = z[pad(i)], v1 = z[pad(i + 1)], v2 = z[pad(i + 2)],
+                 v3 = z[pad(i + 3)];
+    store4(yr, oa + i, T, shift, v0.x, v1.x, v2.x, v3.x);
+    if (has_b) store4(yr, oa + seg + i, T, shift, v0.y, v1.y, v2.y, v3.y);
+  }
+  // the points before the first chunk and after the last, one a thread
+  int i = -1;
+  if ((int)threadIdx.x < first - i_lo) i = i_lo + threadIdx.x;
+  else if ((int)threadIdx.x >= 4 && (int)threadIdx.x - 4 < m - first - 4 * nb2)
+    i = first + 4 * nb2 + (int)threadIdx.x - 4;
+  if (i >= 0) {
+    const float2 v = z[pad(i)];
+    const long long o = oa + i, ob = o + seg;
+    if (o < T) yr[o] = (o < shift) ? 0.0f : v.x;
+    if (has_b && ob < T) yr[ob] = (ob < shift) ? 0.0f : v.y;
+  }
+}
+
+template <int P>
+int launch(const float* x, float* y, const float2* spec, const float2* tw,
+           int C, int T, int ln, int halo, int seg, int shift,
+           cudaStream_t stream) {
+  const int n = 1 << ln, m = n / P;
+  const int n_seg = (T + seg - 1) / seg;
+  const int n_pairs = (n_seg + 1) / 2;
+  const long long blocks = (long long)C * n_pairs * P;
+  if (blocks <= 0 || blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const size_t smem = window_smem_bytes(m);
+  cudaError_t err = cudaFuncSetAttribute(
+      segconv_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if constexpr (P == 1) {
+    segconv_kernel<P><<<(unsigned)blocks, window_threads(m), smem, stream>>>(
+        x, y, spec, tw, T, ln, halo, seg, shift, n_seg, n_pairs);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3((unsigned)blocks);
+  config.blockDim = dim3(window_threads(m));
+  config.dynamicSmemBytes = smem;
+  config.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = P;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  err = cudaLaunchKernelEx(&config, segconv_kernel<P>, x, y, spec, tw, T, ln,
+                           halo, seg, shift, n_seg, n_pairs);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// x, y: (C, T) float32; spec: (n, 2) spectrum / n in the forward
+// transform's output order; tw: the per-pass twiddle rows of an n-point
+// window; blocks_per_window: 1 (n <= 16,384), or a cluster of 2 or 4 (n >=
+// 256, n / blocks <= 16,384); halo and seg multiples of 4.
 extern "C" int segconv_launch(const float* x, float* y, const float* spec,
                               const float* tw, int C, int T, int n, int halo,
-                              int seg, int shift, void* stream) {
+                              int seg, int shift, int blocks_per_window,
+                              void* stream) {
   const int ln = window_log2(n);
-  if (ln < 0) return (int)cudaErrorInvalidValue;
-  const int n_seg = (T + seg - 1) / seg;
-  const int n_pairs = (n_seg + 1) / 2;
-  const size_t smem = window_smem_bytes(n);
-  cudaError_t err = cudaFuncSetAttribute(
-      segconv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (long long)C * n_pairs;
-  if (blocks <= 0 || blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
-  segconv_kernel<<<(unsigned)blocks, window_threads(n), smem,
-                   (cudaStream_t)stream>>>(
-      x, y, reinterpret_cast<const float2*>(spec),
-      reinterpret_cast<const float2*>(tw), T, ln, halo, seg, shift, n_seg,
-      n_pairs);
-  return (int)cudaGetLastError();
+  const int P = blocks_per_window;
+  if (ln < 0 || (halo & 3) || (seg & 3) || halo + seg != n ||
+      !(P == 1 || P == 2 || P == 4) || n / P > 16384 ||
+      (P > 1 && n < 256))
+    return (int)cudaErrorInvalidValue;
+  const float2* spec2 = reinterpret_cast<const float2*>(spec);
+  const float2* tw2 = reinterpret_cast<const float2*>(tw);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (P == 4)
+    return launch<4>(x, y, spec2, tw2, C, T, ln, halo, seg, shift, st);
+  if (P == 2)
+    return launch<2>(x, y, spec2, tw2, C, T, ln, halo, seg, shift, st);
+  return launch<1>(x, y, spec2, tw2, C, T, ln, halo, seg, shift, st);
 }

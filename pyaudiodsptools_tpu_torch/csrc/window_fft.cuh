@@ -36,9 +36,22 @@
 // A kernel that includes this header fills z[pad(i)], i < n, synchronises,
 // calls convolve_window() with all its threads, and reads z[pad(i)] back (the
 // call ends in a barrier).
+//
+// A window too large for one block (or one that should be spread wider) goes
+// over a thread-block cluster of P = 2 or 4 blocks: block q holds points
+// [q*n/P, (q+1)*n/P). The top two radix-4 levels (sizes n and n/4) combine
+// points n/4 and n/16 apart, so one pass gathers each thread's 16 points
+// from the P blocks' shared memory (distributed shared memory), does the
+// same register work as the one-block pass and scatters them back; every
+// level below is local to a block's points (16/P runs of n/16) and runs
+// the one-block passes on them. Same operations on the same operands in the
+// same order: the cluster and the one-block transform agree bit for bit.
+// The kernel fills its block's z, then calls convolve_window_cluster<P>()
+// with all its threads (it synchronises the cluster first and last).
 
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 // 1,024 threads: a 16,384-point window leaves room for one block per SM, and
@@ -354,6 +367,60 @@ __device__ __forceinline__ void convolve_window(float2* z,
                                                 const float2* __restrict__ tw,
                                                 int ln) {
   convolve_levels(z, spec, tw, ln, ln);
+}
+
+// The top pass of a window spread over a cluster of P blocks: two radix-4
+// levels of size n = 2^ln and n/4. Point j + c*(n/16) + a*(n/4) lives in
+// block a*P/4 at local index (a % (4/P))*(n/4) + j + c*(n/16); this block
+// does the n/(16P) values of j that start at rank * n/(16P).
+template <int P, bool kForward>
+__device__ __forceinline__ void pass_two_levels_cluster(
+    float2* (&zq)[P], const float2* __restrict__ tw, int ln, int rank) {
+  const int q2 = 1 << (ln - 4), q1 = q2 << 2;
+  const int share = q2 / P;
+  for (int t = threadIdx.x; t < share; t += blockDim.x) {
+    const int j = rank * share + t;
+    float2 w[6];
+#pragma unroll
+    for (int p = 0; p < 6; ++p) w[p] = __ldg(tw + p * q2 + j);
+    float2 x[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        x[a][c] = zq[a * P / 4][pad((a % (4 / P)) * q1 + j + c * q2)];
+    two_levels_on_registers<kForward>(x, w);
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        zq[a * P / 4][pad((a % (4 / P)) * q1 + j + c * q2)] = x[a][c];
+  }
+}
+
+// The whole circular convolution of an n = 2^ln point window spread over a
+// cluster of P (2 or 4) blocks, n/P points in each block's z (filled, not
+// yet synchronised). Every thread of every block of the cluster calls it;
+// it ends in a cluster barrier, after which a block may read its own z.
+template <int P>
+__device__ __forceinline__ void convolve_window_cluster(
+    float2* z, const float2* __restrict__ spec, const float2* __restrict__ tw,
+    int ln) {
+  namespace cg = cooperative_groups;
+  static_assert(P == 2 || P == 4, "a cluster of 2 or 4 blocks");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int lm = ln - (P == 4 ? 2 : 1);          // log2 of a block's points
+  float2* zq[P];
+#pragma unroll
+  for (int a = 0; a < P; ++a) zq[a] = cluster.map_shared_rank(z, a);
+  cluster.sync();
+  pass_two_levels_cluster<P, true>(zq, tw, ln, rank);
+  cluster.sync();
+  convolve_levels(z, spec + (rank << lm), tw + (6 << (ln - 4)), lm, ln - 4);
+  cluster.sync();
+  pass_two_levels_cluster<P, false>(zq, tw, ln, rank);
+  cluster.sync();
 }
 
 // log2(n) for a power of two n >= 16, else -1.

@@ -99,20 +99,19 @@ def fuse_lti_runs(effects: tuple[Effect, ...]) -> tuple[Effect, ...]:
 
     * LTI effects (carry an ``lti_kernel``) -> one FIR whose impulse
       response is the cascade's (ops/fft_filter.fuse_lti). A run is cut
-      where the fused kernel, its zero prefix stripped, would outgrow the
-      one-window segmented convolution (a long delay next to a filter): the
-      members on either side of the cut fuse separately or stay as they are;
+      where the fused kernel, its zero prefix stripped, would outgrow one
+      thread block's window (a long delay next to a filter), so that every
+      cascade streams too: the members on either side of the cut fuse
+      separately or stay as they are;
     * dynamics automatons (compressor / gate, in any order) -> one cascaded
       speculative walk (kernels/dynamics.fused_dynamics). A run longer than
       one kernel walks (kernels/dynamics.MAX_OPS) is cut into consecutive
       cascades, which gives the same result. A lone compressor or gate stays
       as it is: its own ``offline`` already takes the same kernels;
     * tail runs (delay without pre-filters / tremolo / stateless
-      waveshapers) left over after the passes above -> one windowed kernel
-      pass (kernels/tail.fused_tail). A run the tail kernel cannot take
-      (delays that reach back further than a thread block's shared memory
-      holds) raises there; ``Chain(..., fuse=False)`` runs the members one
-      by one.
+      waveshapers) left over after the passes above -> one kernel pass
+      (kernels/tail.fused_tail), whatever the run's length and reach, as
+      the JAX package fuses them.
     """
     from ..ops.fft_filter import fits_one_window, fuse_lti, fused_kernel
 

@@ -83,7 +83,7 @@ def make_plan(kernel: np.ndarray, n: int, device) -> PairsPlan:
     """The plan of a real float64 ``kernel`` of at most ``n`` taps. Window
     sizes the kernel does not take raise, with the size in the message."""
     kernel = np.asarray(kernel, dtype=np.float64)
-    segconv.check_window(n)
+    segconv.check_window(n, segconv.BLOCK_WINDOW)
     if kernel.ndim != 1 or not 1 <= len(kernel) <= n:
         raise ValueError(
             f"a kernel of shape {kernel.shape} does not fit a circular "
@@ -108,7 +108,7 @@ def _uses_cluster(n: int, R: int) -> bool:
 
 
 def _check_plan(plan: PairsPlan, device) -> None:
-    segconv.check_window(plan.n)
+    segconv.check_window(plan.n, segconv.BLOCK_WINDOW)
     segconv.check_tables(plan.n, plan.spectrum_dif, plan.twiddle, device)
 
 

@@ -21,8 +21,14 @@ device-memory read and one write per window), packs two real windows into
 one complex transform, does two radix-4 levels per pass in registers, runs
 the innermost levels of both directions and the spectrum multiply as one
 pass, and stores the spectrum in the forward transform's output order so
-that no reorder pass is needed. Tensor-core DFTs are left to a later change
-(PERF.md, open questions).
+that no reorder pass is needed. A window wider than one block's shared
+memory (up to 65,536 points) is spread over a thread-block cluster of two or
+four blocks, whose top pass goes through distributed shared memory: at a
+long halo the wider window transforms fewer points for each one it keeps
+(:data:`CLUSTER_AT`, the version by window). The gather and the store move
+16 bytes a thread where the signal's offset allows, and a thread issues all
+its loads before its first shared-memory store. Tensor-core DFTs are left to
+a later change (PERF.md, open questions).
 
 The CUDA source is ``csrc/segconv.cu``; the transform itself lives in
 ``csrc/window_fft.cuh``, which the streaming windows' convolution
@@ -43,10 +49,22 @@ import torch
 
 from . import _build
 
-# One window of complex float32 must fit a thread block's shared memory:
-# 8 bytes * 16384 = 128 KB of the 227 KB a block may have on sm_90.
-MAX_WINDOW = 16384
+# One block's window of complex float32 must fit its shared memory: 8 bytes
+# * 16,384 = 128 KB of the 227 KB a block may have on sm_90. The streaming
+# windows (kernels/convpairs.py) are one block's at most.
+BLOCK_WINDOW = 16384
+# A cluster of four blocks holds four times that: the largest window of the
+# segmented convolution.
+MAX_WINDOW = 4 * BLOCK_WINDOW
 MIN_WINDOW = 16
+# The smallest window a cluster takes (each block keeps whole passes).
+CLUSTER_MIN_WINDOW = 256
+# Blocks a window pair by window size: one block up to BLOCK_WINDOW, then a
+# cluster of two (32,768) or four (65,536), each block holding 16,384 points.
+# The planner (ops/fft_filter.plan_segments) chooses the window and with it
+# the version; chip_smoke.py's `segconv_versions` times each at the main
+# path's halos (PERF.md has the table).
+CLUSTER_AT = {2 * BLOCK_WINDOW: 2, 4 * BLOCK_WINDOW: 4}
 
 # Number of kernel launches made by :func:`segmented_conv` (and by nothing
 # else) since the caller last set it to 0.
@@ -67,6 +85,7 @@ class ConvPlan:
     seg: int
     shift: int
     kernel_len: int
+    blocks: int                   # thread blocks a window pair: 1, 2 or 4
     spectrum_rfft: torch.Tensor   # (n//2+1,) complex64: plain version
     spectrum_dif: torch.Tensor    # (n, 2) f32: full spectrum / n, in the
                                   # forward DIF's output order: CUDA kernel
@@ -152,6 +171,19 @@ def pass_twiddles(n: int, device: torch.device) -> torch.Tensor:
     return tab
 
 
+def blocks_for(n: int) -> int:
+    """Thread blocks a window pair of n points takes: one where the window
+    fits one block, else the cluster of :data:`CLUSTER_AT`."""
+    return CLUSTER_AT.get(n, 1)
+
+
+def versions(n: int) -> list[int]:
+    """Every count of thread blocks (1, 2, 4) over which the kernel can
+    spread a window pair of n points."""
+    return [b for b in (1, 2, 4) if n // b <= BLOCK_WINDOW
+            and (b == 1 or n >= CLUSTER_MIN_WINDOW)]
+
+
 def make_plan(kernel: np.ndarray, halo: int, seg: int, shift: int,
               device) -> ConvPlan:
     """Build the plan of a real float64 ``kernel`` (zero prefix already
@@ -163,8 +195,8 @@ def make_plan(kernel: np.ndarray, halo: int, seg: int, shift: int,
     spectrum_rfft, spectrum_dif = spectrum_tables(kernel, n, device)
     return ConvPlan(
         n=n, halo=halo, seg=seg, shift=shift, kernel_len=len(kernel),
-        spectrum_rfft=spectrum_rfft, spectrum_dif=spectrum_dif,
-        twiddle=pass_twiddles(n, device),
+        blocks=blocks_for(n), spectrum_rfft=spectrum_rfft,
+        spectrum_dif=spectrum_dif, twiddle=pass_twiddles(n, device),
     )
 
 
@@ -183,13 +215,16 @@ def spectrum_tables(kernel: np.ndarray, n: int, device
                                       ).astype(np.float32)).to(device))
 
 
-def check_window(n: int) -> None:
-    """The window sizes ``csrc/window_fft.cuh`` transforms."""
-    if n & (n - 1) or not MIN_WINDOW <= n <= MAX_WINDOW:
+def check_window(n: int, largest: int = MAX_WINDOW) -> None:
+    """The window sizes ``csrc/window_fft.cuh`` transforms: up to
+    ``largest`` (:data:`MAX_WINDOW` over a cluster of four blocks,
+    :data:`BLOCK_WINDOW` in one block)."""
+    if n & (n - 1) or not MIN_WINDOW <= n <= largest:
         raise ValueError(
-            f"window of {n} samples: the convolution kernels take a power "
-            f"of two between {MIN_WINDOW} and {MAX_WINDOW} (one complex "
-            "window must fit a thread block's shared memory)")
+            f"window of {n} samples: the convolution kernel takes a power "
+            f"of two between {MIN_WINDOW} and {largest} (one complex window "
+            "must fit the shared memory of a thread block, or of a cluster "
+            "of four)")
 
 
 def check_tables(n: int, spectrum_dif: torch.Tensor, twiddle: torch.Tensor,
@@ -212,6 +247,10 @@ def _check_geometry(n: int, halo: int, seg: int, shift: int,
     check_window(n)
     if halo < 0 or seg < 1 or halo + seg != n:
         raise ValueError(f"bad window geometry: halo {halo} + seg {seg} != {n}")
+    if halo % 4:
+        raise ValueError(
+            f"a halo of {halo} samples: the kernel moves a window pair in "
+            "16-byte chunks, so the halo is a multiple of 4")
     if kernel_len - 1 > halo:
         raise ValueError(
             f"halo of {halo} samples does not cover a {kernel_len}-tap kernel")
@@ -238,8 +277,16 @@ def segmented_conv_plain(x: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
     return y
 
 
-def _launch(x: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
+def _launch(x: torch.Tensor, plan: ConvPlan,
+            blocks: int | None = None) -> torch.Tensor:
+    """The kernel on ``x``. ``blocks`` (thread blocks a window pair, 1, 2 or
+    4) overrides the plan's version, for measurement only."""
     global launch_count
+    blocks = plan.blocks if blocks is None else blocks
+    if blocks not in versions(plan.n):
+        raise ValueError(
+            f"a window of {plan.n} samples does not go over {blocks} thread "
+            "blocks")
     if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError(
             "segmented_conv takes a contiguous (C, T) float32 tensor, got "
@@ -252,18 +299,18 @@ def _launch(x: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
     y = torch.empty_like(x)
     if C == 0 or T == 0:
         return y
-    lib = _build.load("segconv")
-    fn = lib.segconv_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    with torch.cuda.device(x.device):
+    fn = _build.launcher("segconv", "segconv_launch",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                         + [ctypes.c_void_p])
+    with _build.on_device(x.device):
         err = fn(x.data_ptr(), y.data_ptr(), plan.spectrum_dif.data_ptr(),
                  plan.twiddle.data_ptr(), C, T, plan.n, plan.halo, plan.seg,
-                 plan.shift, torch.cuda.current_stream().cuda_stream)
+                 plan.shift, blocks, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"segconv kernel launch failed with CUDA error {err} "
-            f"(C={C}, T={T}, n={plan.n}, halo={plan.halo}, seg={plan.seg})")
+            f"(C={C}, T={T}, n={plan.n}, halo={plan.halo}, seg={plan.seg}, "
+            f"blocks={blocks})")
     launch_count += 1
     return y
 

@@ -17,31 +17,36 @@ Stage kinds (built from the member Effects by :func:`fused_tail`):
 * ``map``  -- a stateless waveshaper (saturator / softclipper /
   harddistortion / bitcrusher).
 
-Halo semantics: positions before the signal start are SILENCE after every
-stage (a delay's history starts at zeros), so the region before the start is
-re-zeroed after any stage that precedes a ``taps`` stage: HardDistortion
-maps 0 to about 0.95.
+Halo semantics: the input of every ``taps`` stage is SILENCE before the
+signal start (a delay's history starts at zeros), whatever the stages before
+it map 0 to (HardDistortion maps it to about 0.95).
 
 What bounds it on an H100: bytes. The function reads the signal once and
-writes it once; the arithmetic is a few operations per sample. The design
-loads one time tile plus a left halo of D samples (D = the sum of the
-stages' largest tap offsets) into shared memory, applies every stage there,
-and writes the tile; the halo re-reads of neighbouring blocks hit L2. The
-stage plan is DATA (a small table passed by value), so one build serves
-every chain.
+writes it once; the arithmetic is a few operations per sample. In the kernel
+(``csrc/tail.cu``) a thread block walks along time over a run of tiles of
+one channel and keeps each taps stage's input in a ring (its reach of
+history plus the tile), so a run reads its halo once and not once a tile;
+the next tile comes in by asynchronous copy while the block works on the
+current one, and stores are 16 bytes wide. The stage plan is DATA: an int32
+table built once per plan (:func:`make_plan`) and kept on the device, which
+a block reads into shared memory, so one build serves every chain, of any
+number of stages and taps. Where the rings do not fit a thread block's
+shared memory (delays that reach back further than about 26,600 samples at
+two blocks an SM, 55,300 at one) the same kernel keeps them in device memory
+that the wrapper allocates: no run the JAX package fuses is refused.
 
 The CUDA source is ``csrc/tail.cu``. The plain version is the member ops'
 plain ``offline``s in sequence; it runs for CPU tensors, or on request
-(``use_kernels=False``), and is never a fallback for a CUDA tensor. A run
-whose halo leaves no room for a tile in a block's shared memory, or whose
-plan outgrows the stage table, is refused when the fused effect is built
-(:func:`check_plan`).
+(``use_kernels=False``), and is never a fallback for a CUDA tensor.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import struct
 
+import numpy as np
 import torch
 
 from ..ops import waveshapers as ws
@@ -51,21 +56,26 @@ from ..ops.tremolo import TremoloParams, gain_row
 from . import _build
 
 # Mirrors of the constants in csrc/tail.cu.
-MAX_STAGES = 16
-MAX_TAPS = 64
 KIND_TAPS, KIND_GAIN, KIND_MAP = 0, 1, 2
 MAP_CODES = {"saturator": 0, "softclipper": 1, "harddistortion": 2,
              "bitcrusher": 3}
+TAB_HEADER = 8
+TAB_STAGE = 8
 
-# Shared memory on sm_90 (bytes): what one block may use, and what one SM
-# has for all its resident blocks (each block also costs about 1 KB of
-# bookkeeping).
+# Shared memory on sm_90 (bytes): what one block may use, what one SM has
+# for all its resident blocks, and what each resident block costs besides.
 SMEM_LIMIT = 232448
 SMEM_PER_SM = 233472
-# Tile geometry: the largest tile chosen unasked, and the smallest worth a
-# launch.
-MAX_TILE = 16384
-MIN_TILE = 1024
+SMEM_PER_BLOCK_RESERVED = 1024
+# A table larger than this is read from device memory, not shared memory.
+TABLE_SMEM_LIMIT = 16384
+# Tiles for rings in shared memory, largest first, and the tile of rings
+# kept in device memory.
+TILES = (4096, 2048, 1024)
+SCRATCH_TILE = 4096
+# Resident blocks an SM that the runs per channel aim at (two: while one
+# block waits on its next tile the other works).
+BLOCKS_PER_SM = 2
 
 # Launches of the kernel made by :func:`tail_kernel` (and nothing else) since
 # the caller last set it to 0.
@@ -78,20 +88,6 @@ _MAPS = {
     ws.HardDistortionParams: ("harddistortion", ws._harddist),
     ws.BitCrusherParams: ("bitcrusher", ws._bitcrush),
 }
-
-
-class _Stage(ctypes.Structure):
-    _fields_ = [("kind", ctypes.c_int), ("a", ctypes.c_int),
-                ("b", ctypes.c_int), ("zero_after", ctypes.c_int),
-                ("lo", ctypes.c_int),
-                ("p0", ctypes.c_float), ("p1", ctypes.c_float)]
-
-
-class _Plan(ctypes.Structure):
-    _fields_ = [("n_stages", ctypes.c_int), ("halo", ctypes.c_int),
-                ("stages", _Stage * MAX_STAGES),
-                ("offsets", ctypes.c_int * MAX_TAPS),
-                ("weights", ctypes.c_float * MAX_TAPS)]
 
 
 def tail_fusable(effect: Effect) -> bool:
@@ -138,85 +134,182 @@ def _plan_stages(effects):
     return stages, n_scal, n_gain, D
 
 
-def _stage_table(stages, D: int, params) -> _Plan:
-    """The kernel's by-value stage table for these params."""
-    plan = _Plan()
-    plan.n_stages = len(stages)
-    plan.halo = D
-    n_taps = 0
-    lo = 0
-    for k, (stage, p) in enumerate(zip(stages, params)):
-        st = plan.stages[k]
-        st.zero_after = int(any(s[0] == "taps" for s in stages[k + 1:]))
-        if stage[0] == "taps":
-            _, offsets, wet, _ = stage
-            # a taps stage reads max(offsets) below each position, so what
-            # it and every later stage must compute starts that much higher
-            lo += max(offsets, default=0)
-            st.kind, st.a, st.b = KIND_TAPS, n_taps, len(offsets)
-            st.p0 = 0.0 if wet else 1.0
-            for i, d in enumerate(offsets):
-                plan.offsets[n_taps + i] = d
-                plan.weights[n_taps + i] = float(p.ramp[i])
-            n_taps += len(offsets)
-        elif stage[0] == "gain":
-            st.kind, st.a = KIND_GAIN, stage[1]
-        else:
-            st.kind, st.a = KIND_MAP, MAP_CODES[stage[1]]
-            if isinstance(p, ws.SaturatorParams):
-                st.p0, st.p1, st.b = float(p.coeff), float(p.makeup), p.mode
-            elif isinstance(p, ws.SoftClipperParams):
-                st.p0 = float(p.drive)
-        st.lo = lo
-    assert lo == D
-    return plan
+def ring_layout(stages, S: int) -> tuple[list[tuple[int, int]], int]:
+    """The rings of a tile of S samples: (offset, length) in floats for each
+    taps stage in order, and the floats of all of them. A taps stage's ring
+    holds its reach (largest offset) of history and the tile, rounded up to
+    whole tiles; the first has room for one tile more, the next tile's
+    landing place. A plan without a taps stage has one ring of two tiles."""
+    reaches = [max(s[1], default=0) for s in stages if s[0] == "taps"]
+    if not reaches:
+        return [], 2 * S
+    layout, off = [], 0
+    for j, d in enumerate(reaches):
+        n = (-(-d // S) + (2 if j == 0 else 1)) * S
+        layout.append((off, n))
+        off += n
+    return layout, off
 
 
-def tile_for(T: int, D: int) -> int:
-    """Samples per time tile, a multiple of 32; 0 where no tile of at least
-    MIN_TILE fits beside the halo.
+def table_words(stages) -> int:
+    n_taps = sum(len(s[1]) for s in stages if s[0] == "taps")
+    return TAB_HEADER + TAB_STAGE * len(stages) + 2 * n_taps
 
-    The tile is sized so that TWO blocks are resident per SM (one loads
-    while the other computes; measured faster on an H100 than one larger
-    tile per SM), unless the halo leaves less than MIN_TILE for that: then
-    one block per SM with the largest tile that fits."""
-    room = SMEM_LIMIT // 4 - D
-    pair = (SMEM_PER_SM // 2 - 2048) // 4 - D
-    tile = min(pair, MAX_TILE) if pair >= MIN_TILE else MAX_TILE
-    S = min(tile, room) // 32 * 32
-    if S < MIN_TILE:
-        return 0
-    return max(32, min(S, -(-T // 32) * 32))
+
+def _smem_bytes(stages, S: int) -> int:
+    words = table_words(stages)
+    table = 4 * (-(-words // 4) * 4) if 4 * words <= TABLE_SMEM_LIMIT else 0
+    return table + 4 * ring_layout(stages, S)[1]
+
+
+def geometry(stages) -> tuple[int, bool, int]:
+    """(tile, rings in shared memory, resident blocks an SM) for a plan:
+    with two blocks an SM, else one, the largest tile of :data:`TILES` whose
+    rings fit. On an H100 at the flagship halo the larger tile was ahead at
+    equal blocks an SM, and more tiles in flight changed nothing: the kernel
+    is bound by its instructions (fewer tiles, fewer barriers and stage
+    decodes), not by the bytes in flight (PERF.md, ``chip_smoke.py``'s tail
+    sweep). Rings that fit neither way go to device memory, at
+    :data:`SCRATCH_TILE`."""
+    for per_sm in (BLOCKS_PER_SM, 1):
+        for S in TILES:
+            if _smem_bytes(stages, S) <= _budget(per_sm):
+                return S, True, per_sm
+    return SCRATCH_TILE, False, BLOCKS_PER_SM
+
+
+def _budget(per_sm: int) -> int:
+    """Shared memory (bytes) a block may take with per_sm blocks an SM."""
+    return min(SMEM_LIMIT, SMEM_PER_SM // per_sm - SMEM_PER_BLOCK_RESERVED)
 
 
 def check_plan(stages, D: int) -> None:
-    """Raise where the kernel cannot take this plan: more stages or taps
-    than its by-value table holds, or a halo that leaves no room for a time
-    tile in a thread block's shared memory. (Neither depends on the signal's
-    length.)"""
-    n_taps = sum(len(s[1]) for s in stages if s[0] == "taps")
-    if len(stages) > MAX_STAGES or n_taps > MAX_TAPS:
+    """Raise where the kernel's int32 indexing cannot take this plan: a halo
+    (and the rings that hold it) beyond 2**31 samples. Any number of stages
+    and taps, and any halo below that, is taken."""
+    if D + 3 * max(TILES + (SCRATCH_TILE,)) >= 2 ** 31 \
+            or table_words(stages) >= 2 ** 31:
         raise ValueError(
-            f"a tail run of {len(stages)} stages and {n_taps} taps exceeds "
-            f"the fused tail kernel's stage table ({MAX_STAGES} stages, "
-            f"{MAX_TAPS} taps). Split the run, or build the Chain with "
-            "fuse=False to run its members one by one.")
-    if tile_for(MAX_TILE, D) == 0:
-        raise ValueError(
-            f"the delays of this tail run reach back {D} samples in all; the "
-            "fused tail kernel keeps that halo and a time tile of at least "
-            f"{MIN_TILE} samples in a thread block's shared memory, "
-            f"{SMEM_LIMIT // 4 - MIN_TILE} samples at most. A tail that walks "
-            "along time with the halo kept as a ring is left to a later "
-            "change (PERF.md, open questions). Split the run, or build the "
-            "Chain with fuse=False to run its members one by one.")
+            f"the delays of this tail run reach back {D} samples in all: "
+            "beyond the fused tail kernel's int32 indexing")
 
 
-def tail_kernel(stages, D: int, params, x: torch.Tensor,
-                gains: torch.Tensor | None) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class TailPlan:
+    """A tail run's kernel plan: its stages, its halo, the tile and where
+    its rings live, and the stage table on the device."""
+
+    stages: tuple
+    halo: int              # D: the sum of the taps stages' reaches
+    tile: int              # S
+    ring_smem: bool        # rings in shared memory (else device memory)
+    blocks_per_sm: int     # what the tile was chosen for
+    ring_floats: int       # floats of rings a block
+    table: torch.Tensor    # (table_words,) int32 on the device
+    table_smem: bool       # the table is copied into shared memory
+    n_gain: int
+
+    @property
+    def warm_tiles(self) -> int:
+        """Tiles a run walks before its first output tile: the halo's."""
+        return -(-self.halo // self.tile)
+
+
+def _f32_bits(v) -> int:
+    return struct.unpack("<i", struct.pack("<f", float(v)))[0]
+
+
+def stage_table(stages, params, S: int) -> np.ndarray:
+    """The kernel's int32 stage table for these params and tile (layout in
+    ``csrc/tail.cu``)."""
+    layout, _ = ring_layout(stages, S)
+    taps_idx = [k for k, s in enumerate(stages) if s[0] == "taps"]
+    n_taps = sum(len(stages[k][1]) for k in taps_idx)
+    ns = len(stages)
+    tab = np.zeros(table_words(stages), dtype=np.int32)
+    tab[:4] = [ns, n_taps, taps_idx[0] if taps_idx else -1,
+               taps_idx[-1] if taps_idx else -1]
+    offs = TAB_HEADER + TAB_STAGE * ns
+    slot = 0
+    for k, (stage, p) in enumerate(zip(stages, params)):
+        row = [0] * TAB_STAGE
+        if stage[0] == "taps":
+            _, offsets, wet, _ = stage
+            j = taps_idx.index(k)
+            row[:5] = [KIND_TAPS, slot, len(offsets), *layout[j]]
+            row[5] = _f32_bits(0.0 if wet else 1.0)
+            row[7] = taps_idx[j + 1] if j + 1 < len(taps_idx) else ns
+            for i, d in enumerate(offsets):
+                tab[offs + slot + i] = d
+                tab[offs + n_taps + slot + i] = _f32_bits(np.float32(p.ramp[i]))
+            slot += len(offsets)
+        elif stage[0] == "gain":
+            row[:2] = [KIND_GAIN, stage[1]]
+        else:
+            row[:2] = [KIND_MAP, MAP_CODES[stage[1]]]
+            if isinstance(p, ws.SaturatorParams):
+                row[2] = p.mode
+                row[5], row[6] = _f32_bits(p.coeff), _f32_bits(p.makeup)
+            elif isinstance(p, ws.SoftClipperParams):
+                row[5] = _f32_bits(p.drive)
+        tab[TAB_HEADER + TAB_STAGE * k:TAB_HEADER + TAB_STAGE * (k + 1)] = row
+    return tab
+
+
+def make_plan(stages, D: int, params, device, tile: int | None = None
+              ) -> TailPlan:
+    """The plan of a tail run for these params, its table on ``device``.
+    ``tile`` overrides the tile :func:`geometry` picks (tests,
+    measurement); the rings then live in shared memory where they fit, else
+    in device memory."""
+    check_plan(stages, D)
+    S, ring_smem, per_sm = geometry(stages)
+    if tile is not None:
+        if tile <= 0 or tile % 4:
+            raise ValueError(f"a tile is a positive multiple of 4, got {tile}")
+        S = tile
+        per_sm = next((k for k in (BLOCKS_PER_SM, 1)
+                       if _smem_bytes(stages, S) <= _budget(k)), 0)
+        ring_smem = per_sm > 0
+        per_sm = per_sm or BLOCKS_PER_SM
+    words = table_words(stages)
+    return TailPlan(
+        stages=tuple(stages), halo=D, tile=S, ring_smem=ring_smem,
+        blocks_per_sm=per_sm, ring_floats=ring_layout(stages, S)[1],
+        table=torch.from_numpy(stage_table(stages, params, S)).to(device),
+        table_smem=4 * words <= TABLE_SMEM_LIMIT,
+        n_gain=sum(1 for s in stages if s[0] == "gain"))
+
+
+_sm_counts: dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    n = _sm_counts.get(index)
+    if n is None:
+        n = _sm_counts[index] = \
+            torch.cuda.get_device_properties(index).multi_processor_count
+    return n
+
+
+def runs_for(plan: TailPlan, C: int, T: int, sms: int) -> int:
+    """Runs of tiles per channel: enough blocks to keep ``blocks_per_sm`` on
+    every SM, but no run shorter than the halo it walks first, and none
+    empty."""
+    n_tiles = -(-T // plan.tile)
+    want = max(1, plan.blocks_per_sm * sms // max(C, 1))
+    runs = max(1, min(want, n_tiles // max(1, plan.warm_tiles), n_tiles))
+    return -(-n_tiles // -(-n_tiles // runs))
+
+
+def tail_kernel(plan: TailPlan, x: torch.Tensor, gains: torch.Tensor | None,
+                runs: int | None = None) -> torch.Tensor:
     """Launch the fused tail over ``x``: (C, T) -> (C, T) on a CUDA tensor.
     ``gains`` is (n_gain_rows, T) float32, or None for a plan without a
-    ``gain`` stage."""
+    ``gain`` stage. ``runs`` (runs of tiles per channel) overrides
+    :func:`runs_for`, for measurement only."""
     global launch_count
     if not x.is_cuda or x.dtype != torch.float32 or x.dim() != 2 \
             or not x.is_contiguous():
@@ -224,36 +317,46 @@ def tail_kernel(stages, D: int, params, x: torch.Tensor,
             "tail_kernel takes a contiguous (C, T) float32 CUDA tensor, got "
             f"{tuple(x.shape)} {x.dtype} on {x.device}")
     C, T = x.shape
-    n_gain = sum(1 for s in stages if s[0] == "gain")
-    if n_gain:
-        if gains is None or gains.shape != (n_gain, T) \
+    if plan.n_gain:
+        if gains is None or gains.shape != (plan.n_gain, T) \
                 or gains.dtype != torch.float32 or gains.device != x.device \
                 or not gains.is_contiguous():
             raise ValueError(
-                f"gains must be a contiguous ({n_gain}, {T}) float32 tensor "
-                f"on {x.device}")
-    check_plan(stages, D)
-    S = tile_for(T, D)
-    if T >= 2 ** 31 - S:
+                f"gains must be a contiguous ({plan.n_gain}, {T}) float32 "
+                f"tensor on {x.device}")
+    if plan.table.device != x.device:
+        raise ValueError(
+            f"the plan's table is on {plan.table.device}, the signal on "
+            f"{x.device}")
+    S = plan.tile
+    if T >= 2 ** 31 - 2 * S:
         raise ValueError(f"signal of {T} samples is too long for int32 indexing")
     out = torch.empty_like(x)
     if C == 0 or T == 0:
         return out
-    plan = _stage_table(stages, D, params)
-    lib = _build.load("tail")
-    fn = lib.tail_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.POINTER(_Plan), ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_void_p]
-    with torch.cuda.device(x.device):
+    n_tiles = -(-T // S)
+    if runs is None:
+        runs = runs_for(plan, C, T, _sm_count(x.device))
+    else:
+        runs = -(-n_tiles // -(-n_tiles // max(1, min(runs, n_tiles))))
+    scratch = None if plan.ring_smem else torch.empty(
+        C * runs * plan.ring_floats, dtype=torch.float32, device=x.device)
+    fn = _build.launcher("tail", "tail_launch",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                         + [ctypes.c_void_p] + [ctypes.c_int] * 6
+                         + [ctypes.c_void_p])
+    with _build.on_device(x.device):
         err = fn(x.data_ptr(), out.data_ptr(),
-                 gains.data_ptr() if n_gain else None, ctypes.byref(plan),
-                 C, T, S, torch.cuda.current_stream().cuda_stream)
+                 gains.data_ptr() if plan.n_gain else None,
+                 plan.table.data_ptr(), plan.table.numel(),
+                 int(plan.table_smem), int(plan.ring_smem),
+                 None if scratch is None else scratch.data_ptr(),
+                 plan.ring_floats, C, T, S, runs, plan.warm_tiles,
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"tail kernel launch failed with CUDA error {err} "
-            f"(C={C}, T={T}, halo={D}, tile={S})")
+            f"(C={C}, T={T}, halo={plan.halo}, tile={S}, runs={runs})")
     launch_count += 1
     return out
 
@@ -262,11 +365,21 @@ def fused_tail(effects) -> Effect:
     """ONE Effect for a tail run (delay / tremolo / waveshapers, in order).
     Offline runs the fused CUDA kernel on a CUDA tensor and the members'
     plain versions in sequence on a CPU tensor; streaming runs the members'
-    own steps with a tuple state. Raises ValueError for a run the kernel
-    cannot take (:func:`check_plan`), whatever the device."""
+    own steps with a tuple state. The kernel plan (its table on the
+    members' device) is built here, once, for the members' own params."""
     members = tuple(effects)
     stages, _n_scal, _n_gain, D_total = _plan_stages(members)
-    check_plan(stages, D_total)
+    own = tuple(e.params for e in members)
+    plans = {id(own): (own, make_plan(stages, D_total, own,
+                                      members[0].device))}
+
+    def plan_for(params, device) -> TailPlan:
+        hit = plans.get(id(params))
+        if hit is None or hit[0] is not params \
+                or hit[1].table.device != device:
+            hit = (params, make_plan(stages, D_total, params, device))
+            plans[id(params)] = hit
+        return hit[1]
 
     def _sequential(params, blocks):
         for e, p in zip(members, params):
@@ -284,7 +397,7 @@ def fused_tail(effects) -> Effect:
         rows = [gain_row(p, nb, B, x.device) for p in params
                 if isinstance(p, TremoloParams)]
         gains = torch.stack(rows) if rows else None
-        out = tail_kernel(stages, D_total, params, x, gains)
+        out = tail_kernel(plan_for(params, x.device), x, gains)
         return out.reshape(shape)
 
     def step(params, state, block: torch.Tensor):
@@ -299,6 +412,6 @@ def fused_tail(effects) -> Effect:
                      for e, p in zip(members, params))
 
     name = "tail:" + "+".join(e.name for e in members)
-    return Effect(name=name, params=tuple(e.params for e in members),
-                  init_state=init_state, step=step, offline=offline,
-                  time_parallel=False, device=members[0].device)
+    return Effect(name=name, params=own, init_state=init_state, step=step,
+                  offline=offline, time_parallel=False,
+                  device=members[0].device)

@@ -10,9 +10,10 @@ One code path serves the named filters and fused LTI cascades alike.
 The planner is this package's own. The JAX planner sizes windows for the
 TPU's matmul DFT and its (8, 128) DMA alignment; here the CUDA kernel
 (``kernels/segconv.py``) gathers a window from any sample offset, and the
-only hard limit is that one window of complex float32 fits a thread block's
-shared memory (``MAX_WINDOW``). Parity with the JAX package is judged on the
-output, not on the geometry.
+only hard limit is that one window of complex float32 fits the shared memory
+of a thread block (16,384 points) or of a cluster of four (``MAX_WINDOW``,
+65,536). Parity with the JAX package is judged on the output, not on the
+geometry.
 
 Streaming (``fir_step``) has its own window too. The JAX step keeps the full
 kernel, zero prefix included, in a window of a 7-smooth number of blocks; the
@@ -40,6 +41,17 @@ from ..kernels import convpairs, segconv
 from .base import Effect, params_dataclass
 
 MAX_WINDOW = segconv.MAX_WINDOW
+# One thread block's window: the largest streaming window, and what an LTI
+# cascade is kept to when a Chain fuses it (so that the fused FIR streams).
+BLOCK_WINDOW = segconv.BLOCK_WINDOW
+# The largest window the planner gives where the 8x-halo rule asks for more
+# (a halo above half of it still gets MAX_WINDOW). On an H100 at chain8's
+# halo of 8,192 (block size 4096), n = 32,768 over a cluster of two blocks
+# took 1.107-1.147 ms, one block at 16,384 1.203-1.247 and a cluster of four
+# at 65,536 1.437-1.452 (chip_smoke.py's `segconv_versions`, PERF.md): past
+# 32,768 the cluster's top pass through distributed shared memory costs more
+# than the window overlap it saves.
+PLANNED_WINDOW = 32768
 # The planner's floor (the kernel itself takes windows from 16 samples up):
 # below this a block is too small to be worth a launch slot.
 MIN_WINDOW = 1024
@@ -98,21 +110,24 @@ def plan_segments(kernel_len: int) -> tuple[int, int]:
     """(halo, seg) in samples for a kernel of this length.
 
     ``halo >= kernel_len - 1`` covers the kernel; the window
-    ``n = halo + seg`` is a power of two, at least 8x the halo where the cap
-    allows (wasted window fraction <= 1/8) and never more than
-    ``MAX_WINDOW``. A kernel whose halo would take more than half of the
-    largest window raises: longer kernels (reverb tap trains) need the
-    partitioned convolution that comes with the reverb slice."""
+    ``n = halo + seg`` is a power of two, at least 8x the halo where
+    ``PLANNED_WINDOW`` allows (wasted window fraction <= 1/8), at least 2x
+    the halo, and never more than ``MAX_WINDOW``. The window picks the
+    kernel's version (``segconv.blocks_for``): one thread block up to 16,384
+    points, a cluster of two at 32,768, of four at 65,536. A kernel
+    whose halo would take more than half of the largest window raises:
+    longer kernels (reverb tap trains) need the partitioned convolution that
+    comes with the reverb slice."""
     halo = _halo_for(kernel_len)
     if 2 * halo > MAX_WINDOW:
         raise ValueError(
             f"a {kernel_len}-tap kernel needs a halo of {halo} samples, "
             f"more than half of the largest window the segmented-conv CUDA "
-            f"kernel holds in shared memory ({MAX_WINDOW}). Kernels this long "
-            "(reverb tap trains, ROADMAP Queue 1 #8) come with the reverb "
-            "slice of the port.")
+            f"kernel holds in the shared memory of a cluster of thread "
+            f"blocks ({MAX_WINDOW}). Kernels this long (reverb tap trains, "
+            "ROADMAP Queue 1 #5) come with the reverb slice of the port.")
     n = MIN_WINDOW
-    while n < 8 * halo and n < MAX_WINDOW:
+    while (n < 8 * halo and n < PLANNED_WINDOW) or n < 2 * halo:
         n *= 2
     return halo, n - halo
 
@@ -120,19 +135,24 @@ def plan_segments(kernel_len: int) -> tuple[int, int]:
 def stream_window(kernel_len: int, block_size: int) -> int:
     """Samples in the streaming window of a stripped kernel of this length:
     the smallest power of two that leaves ``block_size`` wrap-free outputs
-    (0 where that would exceed ``MAX_WINDOW``: such an effect renders offline
-    only, and its ``init_state`` and ``step`` raise)."""
+    (0 where that would exceed one thread block's window, ``BLOCK_WINDOW``:
+    such an effect renders offline only, and its ``init_state`` and ``step``
+    raise)."""
     n = segconv.MIN_WINDOW
     while n < kernel_len - 1 + block_size:
         n *= 2
-    return n if n <= MAX_WINDOW else 0
+    return n if n <= BLOCK_WINDOW else 0
 
 
 def fits_one_window(kernel: np.ndarray) -> bool:
-    """Whether ``fir`` can take this kernel (its zero prefix stripped)."""
+    """Whether a kernel (its zero prefix stripped) keeps its halo within
+    half of one thread block's window: the rule by which a Chain grows an
+    LTI cascade (engine/chain.fuse_lti_runs), so that a cascade it fuses
+    also streams. ``fir`` itself takes kernels of up to 32,769 taps offline
+    (the cluster's window)."""
     nz = np.flatnonzero(kernel)
     klen = len(kernel) - int(nz[0]) if nz.size else 1
-    return 2 * _halo_for(klen) <= MAX_WINDOW
+    return 2 * _halo_for(klen) <= BLOCK_WINDOW
 
 
 def segmented_fft_conv(params: "FIRParams", blocks: torch.Tensor,
@@ -159,7 +179,7 @@ class FIRParams:
                              # geometry (n, halo, seg, kernel_len)
     stream: convpairs.PairsPlan | None   # the streaming window's tables
                              # (n, spectra, twiddles); None where that
-                             # window would exceed MAX_WINDOW
+                             # window would exceed BLOCK_WINDOW
     block_size: int          # ENGINE block size
     lead: int                # stripped zero prefix, re-applied as delay
 
@@ -195,10 +215,10 @@ def _stream_plan(params: FIRParams) -> convpairs.PairsPlan:
         raise ValueError(
             f"a {params.plan.kernel_len}-tap kernel streamed in blocks of "
             f"{params.block_size} needs a window of {need} samples, more "
-            f"than the largest window the convolution CUDA kernels hold in "
-            f"shared memory ({MAX_WINDOW}). Kernels this long (reverb tap "
-            "trains, ROADMAP Queue 1 #8) come with the reverb slice of the "
-            "port; the effect renders offline.")
+            f"than the largest window the streaming convolution kernel holds "
+            f"in a thread block's shared memory ({BLOCK_WINDOW}). Kernels "
+            "this long (reverb tap trains, ROADMAP Queue 1 #5) come with the "
+            "reverb slice of the port; the effect renders offline.")
     return params.stream
 
 

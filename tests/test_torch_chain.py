@@ -119,6 +119,34 @@ def test_chain8_render_matches_jax(B, build):
         pt.render(chain, x, pcfg, use_kernels=False).numpy(), got)
 
 
+@pytest.mark.parametrize("delay_args", [(1000.0, 2), (10.0, 65)],
+                         ids=["1000ms_x2", "10ms_x65"])
+def test_long_tail_runs_build_and_match_jax(delay_args):
+    """Tail runs the JAX package fuses and renders, which the port's fused
+    tail once refused when the Chain was built: a halo of 88,200 samples
+    (rings in device memory on the card), and 65 taps (halo 28,665)."""
+    B = 512
+    pcfg, jcfg = pt.EngineConfig(44100, B), jx.EngineConfig(44100, B)
+
+    def effects(pkg, cfg, **kw):
+        o = pkg.ops
+        return [o.delay(cfg, *delay_args, **kw), o.tremolo(cfg, 0.3, 5.0, **kw),
+                o.softclipper(cfg, 0.44, **kw)]
+
+    chain = pt.Chain(effects(pt, pcfg, device=CPU), device=CPU)
+    assert [e.name for e in chain.exec_effects] == \
+        ["tail:delay+tremolo+softclipper"]
+    n = 200 * B - 100                  # past the second echo of 1,000 ms
+    x = _signal(2, n, seed=int(delay_args[1]))
+    got = pt.render(chain, x, pcfg).numpy()
+    blocks = jx_block.make_blocks(jnp.asarray(x), B)
+    want = np.asarray(jx_block.combine_blocks(
+        jx.Chain(effects(jx, jcfg)).render_blocks(blocks)))
+    assert got.shape == want.shape
+    # the bar of the tail's own parity test: pow differs by ulps
+    assert snr_db(want, got) >= 100.0
+
+
 def _leaves(params):
     """Flatten a params object to comparable (path, value) pairs."""
     out = []

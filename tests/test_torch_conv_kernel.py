@@ -14,7 +14,8 @@ from pyaudiodsptools_tpu.ops.fft_filter import pack_spectrum
 from pyaudiodsptools_tpu_torch.kernels import segconv
 from pyaudiodsptools_tpu_torch.ops import fft_filter as pt_fir
 
-from torch_port_util import conv_oracle, emulate_segconv, snr_db
+from torch_port_util import (conv_oracle, emulate_segconv, emulate_window_fft,
+                             snr_db)
 
 
 def _port_plan(k, shift, device="cpu"):
@@ -50,25 +51,49 @@ def test_plain_conv_matches_pallas_kernel_and_oracle(C, nb, klen, shift):
         assert snr_db(oracle, got) >= 100.0
 
 
-@pytest.mark.parametrize("n,halo,klen,shift,T", [
-    (16, 4, 5, 3, 100),            # smallest window, log2 even
-    (32, 8, 9, 0, 77),             # log2 odd: the extra radix-2 pass
-    (1024, 128, 100, 37, 5000),
-    (2048, 256, 257, 0, 7001),     # odd, ragged last window, odd window count
-    (8192, 1024, 1017, 1155, 20000),   # the B=512 flagship geometry
+@pytest.mark.parametrize("n,halo,klen,shift,T,blocks", [
+    (16, 4, 5, 3, 100, 1),            # smallest window, log2 even
+    (32, 8, 9, 0, 77, 1),             # log2 odd: the extra radix-2 pass
+    (1024, 128, 100, 37, 5000, 1),
+    (2048, 256, 257, 0, 7001, 1),     # odd, ragged last window, odd count
+    (8192, 1024, 1017, 1155, 20000, 1),   # the B=512 flagship geometry
+    (256, 32, 30, 5, 3001, 4),        # the smallest cluster windows
+    (256, 64, 60, 0, 2999, 2),
+    (512, 128, 100, 77, 4003, 4),     # log2 odd over a cluster
+    (2048, 512, 500, 9, 9001, 2),
+    (32768, 4096, 4096, 1371, 60001, 2),    # the clusters' own windows
+    (65536, 8192, 8185, 9219, 130003, 4),   # the B=4096 flagship geometry
 ])
-def test_cuda_schedule_mirror_matches_plain(n, halo, klen, shift, T):
+def test_cuda_schedule_mirror_matches_plain(n, halo, klen, shift, T, blocks):
     """csrc/segconv.cu's passes, mirrored in numpy with the plan's own
-    tables: digit-reversed spectrum, twiddles, masked gather and store."""
-    rng = np.random.default_rng(n)
+    tables: digit-reversed spectrum, twiddles, masked gather and store, and
+    over a cluster of 2 or 4 blocks the top pass through the blocks' shared
+    memory."""
+    rng = np.random.default_rng(n + blocks)
     k = rng.standard_normal(klen) * 0.1
     plan = segconv.make_plan(k, halo, n - halo, shift, "cpu")
     x = rng.standard_normal((2, T)).astype(np.float32)
-    mirror = emulate_segconv(x, plan)
+    mirror = emulate_segconv(x, plan, blocks)
     assert np.isfinite(mirror).all()       # every output sample was stored
     plain = segconv.segmented_conv_plain(torch.from_numpy(x), plan).numpy()
     assert snr_db(plain, mirror) >= 120.0
     assert snr_db(conv_oracle(x, k, shift), mirror) >= 120.0
+
+
+@pytest.mark.parametrize("n", [256, 512, 2048])
+@pytest.mark.parametrize("blocks", [2, 4])
+def test_cluster_transform_mirror_is_bit_equal_to_one_block(n, blocks):
+    """The cluster transform does the one-block transform's operations on
+    the same operands in the same order: the mirrors agree bit for bit (as
+    the kernels must on the card)."""
+    rng = np.random.default_rng(n * blocks)
+    plan = segconv.make_plan(rng.standard_normal(n // 4) * 0.1, n // 4,
+                             n - n // 4, 0, "cpu")
+    z = (rng.standard_normal(n) + 1j * rng.standard_normal(n)).astype(
+        np.complex64)
+    one = emulate_window_fft(z, plan)
+    assert np.isfinite(one).all()
+    np.testing.assert_array_equal(emulate_window_fft(z, plan, blocks), one)
 
 
 @pytest.mark.parametrize("n", [16, 32, 64, 128, 8192, 16384])
@@ -88,6 +113,16 @@ def test_plan_and_launch_checks():
         segconv.make_plan(k, 128, 2 * segconv.MAX_WINDOW - 128, 0, "cpu")
     with pytest.raises(ValueError, match="does not cover"):
         segconv.make_plan(k, 64, 960, 0, "cpu")
+    with pytest.raises(ValueError, match="multiple of 4"):
+        segconv.make_plan(np.ones(3), 126, 898, 0, "cpu")
+    # the version follows the window: one block up to 16,384 points, a
+    # cluster of two at 32,768, of four at 65,536
+    assert [segconv.blocks_for(n) for n in (1024, 16384, 32768, 65536)] == \
+        [1, 1, 2, 4]
+    big = segconv.make_plan(k, 8192, 65536 - 8192, 0, "cpu")
+    assert big.blocks == 4 and big.spectrum_dif.shape == (65536, 2)
+    with pytest.raises(ValueError, match="thread blocks"):
+        segconv._launch(torch.zeros(2, 64), big, blocks=1)
     plan = segconv.make_plan(k, 128, 896, 0, "cpu")
     assert plan.spectrum_dif.shape == (1024, 2)
     assert plan.twiddle is segconv.pass_twiddles(1024, torch.device("cpu"))
@@ -123,3 +158,40 @@ def test_cuda_kernel_matches_plain_on_card(C, nb, klen, shift):
     plain = segconv.segmented_conv(x.cuda(), plan, use_kernels=False)
     assert snr_db(plain.cpu().numpy(), got.cpu().numpy()) >= 110.0
     assert snr_db(conv_oracle(x.numpy(), k, shift), got.cpu().numpy()) >= 95.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,blocks", [(256, 2), (256, 4), (2048, 2),
+                                      (2048, 4), (16384, 2), (16384, 4)])
+def test_cluster_versions_bit_equal_to_one_block_on_card(n, blocks):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    rng = np.random.default_rng(n + blocks)
+    halo = n // 4
+    k = rng.standard_normal(halo - 3) * 0.1
+    plan = segconv.make_plan(k, halo, n - halo, 7, "cuda")
+    x = torch.from_numpy(rng.standard_normal((3, 5 * n + 3)).astype(
+        np.float32)).cuda()
+    one = segconv._launch(x, plan, blocks=1)
+    cluster = segconv._launch(x, plan, blocks=blocks)
+    torch.cuda.synchronize()
+    assert torch.equal(one, cluster)
+    plain = segconv.segmented_conv(x, plan, use_kernels=False)
+    assert snr_db(plain.cpu().numpy(), cluster.cpu().numpy()) >= 110.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,halo", [(32768, 4096), (65536, 8192)])
+def test_cluster_windows_match_plain_on_card(n, halo):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    rng = np.random.default_rng(n)
+    k = rng.standard_normal(halo - 7) * 0.05
+    plan = segconv.make_plan(k, halo, n - halo, 1371, "cuda")
+    assert plan.blocks == n // segconv.BLOCK_WINDOW
+    x = rng.standard_normal((2, 3 * n + 5)).astype(np.float32)
+    got = segconv.segmented_conv(torch.from_numpy(x).cuda(), plan)
+    plain = segconv.segmented_conv(torch.from_numpy(x).cuda(), plan,
+                                   use_kernels=False)
+    assert snr_db(plain.cpu().numpy(), got.cpu().numpy()) >= 110.0
+    assert snr_db(conv_oracle(x, k, 1371), got.cpu().numpy()) >= 95.0

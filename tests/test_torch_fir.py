@@ -56,16 +56,23 @@ def test_fir_matches_jax_and_oracle(B, which):
 
 def test_cascade_geometry_of_the_flagship_chain():
     """The fused FIR of lowcut+highcut+eq3band_fft: the same lead and tap
-    counts as the JAX package builds, and the port's own window."""
-    for B, lead, taps, n in ((512, 1155, 1017, 8192), (4096, 9219, 8185, 16384)):
+    counts as the JAX package builds, and the port's own window: at block
+    size 4096 a window of 32,768 over a cluster of two thread blocks (seg
+    24,576: 1.33 transformed points a kept one, 2.0 in one block's 16,384),
+    at 512 one block's 8,192."""
+    for B, lead, taps, n, blocks in ((512, 1155, 1017, 8192, 1),
+                                     (4096, 9219, 8185, 32768, 2)):
         p = _effects(pt, pt.EngineConfig(44100, B), "cascade", device=CPU).params
         assert (p.lead, p.plan.kernel_len) == (lead, taps)
         assert p.plan.shift == lead
         assert p.plan.n == n == p.plan.halo + p.plan.seg
         assert p.plan.halo >= taps - 1
+        assert p.plan.n >= min(8 * p.plan.halo, pt_fir.PLANNED_WINDOW)
+        assert p.plan.blocks == blocks
 
 
-@pytest.mark.parametrize("klen", [1, 2, 129, 255, 1017, 4097, 8185, 8193])
+@pytest.mark.parametrize("klen", [1, 2, 129, 255, 1017, 4097, 8185, 8193,
+                                  16385, 16386, 32769])
 def test_planner_invariants(klen):
     halo, seg = pt_fir.plan_segments(klen)  # in samples
     n = halo + seg
@@ -73,14 +80,25 @@ def test_planner_invariants(klen):
     assert n & (n - 1) == 0                 # power of two
     assert n <= pt_fir.MAX_WINDOW           # the kernel path's cap
     assert seg >= halo                      # at least half a window is output
-    assert n >= min(8 * halo, pt_fir.MAX_WINDOW)
+    assert n >= min(8 * halo, pt_fir.PLANNED_WINDOW) and n >= 2 * halo
 
 
 def test_kernel_too_long_names_the_later_slice():
+    # offline the cluster's window takes up to 32,769 taps
+    assert pt_fir.plan_segments(32769) == (32768, 32768)
+    assert pt_fir.plan_segments(8194) == (8320, 32768 - 8320)
+    assert pt_fir.plan_segments(16385) == (16384, 16384)
+    assert pt_fir.plan_segments(16386) == (16512, 65536 - 16512)
     with pytest.raises(ValueError, match="reverb"):
-        pt_fir.plan_segments(8194)
+        pt_fir.plan_segments(32770)
     with pytest.raises(ValueError, match="reverb"):
-        pt_fir.fir(np.ones(9000), 512, device=CPU)
+        pt_fir.fir(np.ones(40000), 512, device=CPU)
+    long_fir = pt_fir.fir(np.ones(20000), 512, device=CPU)
+    assert long_fir.params.plan.n == 65536 and long_fir.params.stream is None
+    with pytest.raises(ValueError, match="reverb slice"):
+        long_fir.state((2,))
+    # a Chain keeps an LTI cascade to what one thread block's window holds,
+    # so that it streams too
     assert pt_fir.fits_one_window(np.ones(8193))
     assert not pt_fir.fits_one_window(np.ones(8194))
     # a long zero prefix is free: it is stripped before planning
@@ -102,7 +120,7 @@ def test_fir_streaming_raises_until_its_slice():
     with pytest.raises(ValueError, match="blocks of 512"):
         e.step(p, st, torch.zeros(2, 256))
     big = pt.ops.lowcut(pt.EngineConfig(44100, 16384), 120.0, device=CPU)
-    assert big.params.stream is None and big.params.plan.n == 16384
+    assert big.params.stream is None and big.params.plan.n == 32768
     with pytest.raises(ValueError, match="reverb slice"):
         big.state((2,))
     with pytest.raises(ValueError, match="reverb slice"):

@@ -7,10 +7,11 @@
 * ``emulate_segconv`` / ``emulate_convpairs`` / ``emulate_tail`` -- numpy
   mirrors of the CUDA kernels' schedules (csrc/segconv.cu and
   csrc/convpairs.cu with their shared csrc/window_fft.cuh, csrc/tail.cu):
-  same passes, same tables, same in-place order, float32 throughout. The CUDA sources cannot
-  run without a card; the mirrors let the CPU tests hold the kernels'
-  ALGORITHMS (twiddle and spectrum tables, digit-reversed order, the in-place
-  tap walk, the re-zeroing rule) against the plain versions.
+  same passes, same tables, same order, float32 throughout. The CUDA
+  sources cannot run without a card; the mirrors let the CPU tests hold the
+  kernels' ALGORITHMS (twiddle and spectrum tables, digit-reversed order,
+  the cluster's top pass, the tail's rings, their wrap and the runs' walk
+  over the halo) against the plain versions.
 * ``emulate_walk`` -- csrc/dynamics.cu's walk of ONE lane as a scalar numpy
   loop: the single-int automaton written the way the CUDA thread runs it
   (branches instead of selects, one rounded float32 operation at a time), a
@@ -99,21 +100,51 @@ def _dft4(a, sign):
     return [_c64(t0 + t2), _c64(t1 + t3), _c64(t0 - t2), _c64(t1 - t3)]
 
 
-def emulate_window_fft(z: np.ndarray, plan) -> np.ndarray:
-    """One complex window through csrc/window_fft.cuh's passes, with its index
-    arithmetic: padded shared memory, per-pass twiddle rows indexed by j, two
-    radix-4 levels per pass (one alone if the outer levels are odd in
-    number), constant 16th roots, and the innermost pass that runs the last
-    forward levels, the spectrum multiply and the first inverse levels on 16
-    (or 8) neighbouring points."""
-    n = plan.n
-    ln = n.bit_length() - 1
+def _two_levels_regs(x, w, forward):
+    """csrc/window_fft.cuh's two_levels_on_registers on x[a][c] (arrays)."""
+    def outer():
+        for c in range(4):
+            col = [x[a][c] for a in range(4)]
+            if forward:
+                col = _dft4(col, -1)
+                for p in (1, 2, 3):
+                    col[p] = _c64(_c64(col[p] * w[p - 1]) * _W16[(c * p) & 15])
+            else:
+                for p in (1, 2, 3):
+                    col[p] = _c64(_c64(col[p] * _W16[(16 - c * p) & 15])
+                                  * np.conj(w[p - 1]))
+                col = _dft4(col, +1)
+            for a in range(4):
+                x[a][c] = col[a]
+
+    def inner():
+        for a in range(4):
+            if forward:
+                x[a] = _dft4(x[a], -1)
+                for p in (1, 2, 3):
+                    x[a][p] = _c64(x[a][p] * w[2 + p])
+            else:
+                for p in (1, 2, 3):
+                    x[a][p] = _c64(x[a][p] * np.conj(w[2 + p]))
+                x[a] = _dft4(x[a], +1)
+
+    for level in ((outer, inner) if forward else (inner, outer)):
+        level()
+
+
+def _tables(plan):
     tw = plan.twiddle.cpu().numpy()
-    tw = _c64(tw[:, 0] + 1j * tw[:, 1])
     spec = plan.spectrum_dif.cpu().numpy()
-    spec = _c64(spec[:, 0] + 1j * spec[:, 1])
-    sm = np.full(n + (n >> 4), np.nan + 0j, dtype=np.complex64)
-    sm[_pad(np.arange(n))] = _c64(z)
+    return _c64(tw[:, 0] + 1j * tw[:, 1]), _c64(spec[:, 0] + 1j * spec[:, 1])
+
+
+def _levels(sm, ln, lm_top, tw, tw_off, spec):
+    """csrc/window_fft.cuh's convolve_levels on the 2^ln points held in the
+    padded array ``sm``: the passes of the levels of size <= 2^lm_top down,
+    the innermost pass with the spectrum multiply (``spec`` indexed by the
+    points of ``sm``), and back up; the twiddle rows of its first pass start
+    at ``tw_off``."""
+    n = 1 << ln
 
     def one_level(off, lm, forward):
         q = 1 << (lm - 2)
@@ -141,35 +172,7 @@ def emulate_window_fft(z: np.ndarray, plan) -> np.ndarray:
         w = [tw[off + p * q2 + j] for p in range(6)]
         x = [[sm[_pad(i0 + c * q2 + a * q1)] for c in range(4)]
              for a in range(4)]
-
-        def outer():
-            for c in range(4):
-                col = [x[a][c] for a in range(4)]
-                if forward:
-                    col = _dft4(col, -1)
-                    for p in (1, 2, 3):
-                        col[p] = _c64(_c64(col[p] * w[p - 1]) * _W16[(c * p) & 15])
-                else:
-                    for p in (1, 2, 3):
-                        col[p] = _c64(_c64(col[p] * _W16[(16 - c * p) & 15])
-                                      * np.conj(w[p - 1]))
-                    col = _dft4(col, +1)
-                for a in range(4):
-                    x[a][c] = col[a]
-
-        def inner():
-            for a in range(4):
-                if forward:
-                    x[a] = _dft4(x[a], -1)
-                    for p in (1, 2, 3):
-                        x[a][p] = _c64(x[a][p] * w[2 + p])
-                else:
-                    for p in (1, 2, 3):
-                        x[a][p] = _c64(x[a][p] * np.conj(w[2 + p]))
-                    x[a] = _dft4(x[a], +1)
-
-        for level in ((outer, inner) if forward else (inner, outer)):
-            level()
+        _two_levels_regs(x, w, forward)
         for a in range(4):
             for c in range(4):
                 sm[_pad(i0 + c * q2 + a * q1)] = x[a][c]
@@ -208,24 +211,80 @@ def emulate_window_fft(z: np.ndarray, plan) -> np.ndarray:
 
     from pyaudiodsptools_tpu_torch.kernels.segconv import pass_schedule
 
-    offsets, off = [], 0
-    for kind, lm in pass_schedule(n):
+    offsets, off = [], tw_off
+    for kind, lm in pass_schedule(1 << lm_top):
         offsets.append(off)
         off += (6 << (lm - 4)) if kind == "two" else (3 << (lm - 2))
-    passes = list(zip(pass_schedule(n), offsets))
+    passes = list(zip(pass_schedule(1 << lm_top), offsets))
     for (kind, lm), off in passes:
         (two_levels if kind == "two" else one_level)(off, lm, True)
-    center(2 if ln & 1 else 4)
+    center(2 if lm_top & 1 else 4)
     for (kind, lm), off in reversed(passes):
         (two_levels if kind == "two" else one_level)(off, lm, False)
-    return sm[_pad(np.arange(n))]
 
 
-def emulate_segconv(x: np.ndarray, plan) -> np.ndarray:
-    """One 'thread block' per (channel, pair of windows): masked gather,
-    transform, wrap-free store masked at T."""
+def _padded(z):
+    n = len(z)
+    sm = np.full(n + (n >> 4), np.nan + 0j, dtype=np.complex64)
+    sm[_pad(np.arange(n))] = _c64(z)
+    return sm
+
+
+def emulate_window_fft(z: np.ndarray, plan, blocks: int = 1) -> np.ndarray:
+    """One complex window through csrc/window_fft.cuh's passes, with its index
+    arithmetic: padded shared memory, per-pass twiddle rows indexed by j, two
+    radix-4 levels per pass (one alone if the outer levels are odd in
+    number), constant 16th roots, and the innermost pass that runs the last
+    forward levels, the spectrum multiply and the first inverse levels on 16
+    (or 8) neighbouring points. With ``blocks`` = 2 or 4, the cluster
+    transform: each 'block' holds n/blocks points in its own padded array,
+    the top pass gathers a thread's 16 points from the blocks by the
+    kernel's own index map (block a*P/4, local (a % (4/P))*(n/4) + j +
+    c*(n/16), j split into the ranks' shares), and each block runs the
+    levels below on its points with its slice of the spectrum."""
+    n = plan.n
+    ln = n.bit_length() - 1
+    tw, spec = _tables(plan)
+    if blocks == 1:
+        sm = _padded(z)
+        _levels(sm, ln, ln, tw, 0, spec)
+        return sm[_pad(np.arange(n))]
+    P = blocks
+    m = n // P
+    lm = m.bit_length() - 1
+    zq = [_padded(z[q * m:(q + 1) * m]) for q in range(P)]
+    q2 = 1 << (ln - 4)
+    q1 = q2 << 2
+    share = q2 // P
+
+    def top(forward):
+        for rank in range(P):
+            j = rank * share + np.arange(share)
+            w = [tw[p * q2 + j] for p in range(6)]
+            where = [[(a * P // 4, _pad((a % (4 // P)) * q1 + j + c * q2))
+                      for c in range(4)] for a in range(4)]
+            x = [[zq[b][i] for b, i in row] for row in where]
+            _two_levels_regs(x, w, forward)
+            for a in range(4):
+                for c in range(4):
+                    b, i = where[a][c]
+                    zq[b][i] = x[a][c]
+
+    top(True)
+    for q in range(P):
+        _levels(zq[q], lm, ln - 4, tw, 6 << (ln - 4), spec[q * m:(q + 1) * m])
+    top(False)
+    return np.concatenate([zq[q][_pad(np.arange(m))] for q in range(P)])
+
+
+def emulate_segconv(x: np.ndarray, plan, blocks: int | None = None
+                    ) -> np.ndarray:
+    """One 'thread block' (or cluster of ``blocks``, the plan's version by
+    default) per (channel, pair of windows): masked gather, transform,
+    wrap-free store masked at T."""
     C, T = x.shape
     n, halo, seg, shift = plan.n, plan.halo, plan.seg, plan.shift
+    blocks = plan.blocks if blocks is None else blocks
     n_seg = -(-T // seg)
     y = np.full_like(x, np.nan)
 
@@ -240,7 +299,7 @@ def emulate_segconv(x: np.ndarray, plan) -> np.ndarray:
             idx = s0 * seg - halo - shift + np.arange(n)
             a = gather(c, idx)
             b = gather(c, idx + seg) if s0 + 1 < n_seg else np.zeros(n, np.float32)
-            z = emulate_window_fft(a + 1j * b, plan)
+            z = emulate_window_fft(a + 1j * b, plan, blocks)
             for part, s in ((z.real, s0), (z.imag, s0 + 1)):
                 if s < n_seg:
                     o = s * seg
@@ -318,59 +377,133 @@ def _map_np(code: int, st, v: np.ndarray) -> np.ndarray:
         scale = _F(1.0 - 0.8)
         comp = scale * np.sin((amp - _F(0.8)) / scale).astype(_F)
         return ((_F(0.8) + comp) * sign).astype(_F)
-    q32 = (v * _F(32767.0)).astype(np.int32)           # bitcrusher
+    with np.errstate(invalid="ignore"):     # NaN: a ring slot never stored
+        q32 = (v * _F(32767.0)).astype(np.int32)       # bitcrusher
     q16 = (q32 & 0xFFFF).astype(np.uint16).view(np.int16)
     return ((q16 >> 9).astype(_F) / _F(64.0)).astype(_F)
 
 
-def emulate_tail(x: np.ndarray, gains, table, S: int, threads: int = 64
-                 ) -> np.ndarray:
-    """One 'thread block' per (channel, tile): load tile + halo, run the
-    stage table on the resident window (earlier taps stages in place,
-    top-down in chunks of ``threads`` positions: all reads of a chunk, then
-    its writes; the last taps stage straight from the window), store."""
+def _tail_table(plan):
+    """csrc/tail.cu's stage table, decoded as the kernel reads it."""
+    from types import SimpleNamespace
+
+    tab = plan.table.cpu().numpy().astype(np.int32)
+    ns, n_taps, first, last = (int(v) for v in tab[:4])
+
+    def stage(k):
+        w = tab[8 + 8 * k:16 + 8 * k]
+        f = w.view(np.float32)
+        return SimpleNamespace(kind=int(w[0]), a=int(w[1]), b=int(w[2]),
+                               off=int(w[3]), len=int(w[4]), p0=_F(f[5]),
+                               p1=_F(f[6]), next=int(w[7]))
+
+    base = 8 + 8 * ns
+    offsets = tab[base:base + n_taps]
+    weights = tab[base + n_taps:base + 2 * n_taps].view(np.float32)
+    return ns, first, last, [stage(k) for k in range(ns)], offsets, weights
+
+
+def _ring4(buf, s):
+    """csrc/tail.cu's ring4 on many slots at once: two aligned 4-float reads
+    (the second wrapped at the ring's end) and the select by s & 3."""
+    n = len(buf)
+    a = s & ~3
+    b = np.where(a + 4 == n, 0, a + 4)
+    both = np.concatenate([buf[a[:, None] + np.arange(4)],
+                           buf[b[:, None] + np.arange(4)]], axis=1)
+    return both[np.arange(len(s))[:, None], (s & 3)[:, None] + np.arange(4)]
+
+
+def emulate_tail(x: np.ndarray, gains, plan, runs: int) -> np.ndarray:
+    """csrc/tail.cu's schedule, from the plan's own table: one 'thread
+    block' per (channel, run of ``ceil(n_tiles / runs)`` tiles); rings laid
+    out and indexed (slot = time mod ring length) as the kernel does, zeroed
+    for a run from the signal start and full of NaN otherwise (the walk over
+    the halo's tiles must wash them out); the next tile landing in its slots
+    before the current one is worked on (a ring too short for it would be
+    read after it was overwritten); per tile: the pointwise run before the
+    first taps
+    stage in place, every taps stage but the last into the next one's ring,
+    and the store (last taps stage four positions at a time through ring4,
+    then the pointwise run after it)."""
     C, T = x.shape
-    D = table.halo
+    S, ring_floats = plan.tile, plan.ring_floats
+    ns, first, last, st, offsets, weights = _tail_table(plan)
+    n_tiles = -(-T // S)
+    per_run = -(-n_tiles // runs)
     out = np.full_like(x, np.nan)
-    last_taps = max((k for k in range(table.n_stages)
-                     if table.stages[k].kind == 0), default=-1)
+
+    def pointwise(k, v, t):
+        if st[k].kind == 1:
+            g = gains[st[k].a, np.minimum(t, T - 1)].astype(_F)
+            return np.where(t < T, v * g, v).astype(_F)
+        return _map_np(st[k].a, st[k], v)
+
+    def ring_back(s, d, n):
+        r = s - d
+        return np.where(r < 0, r + n, r)
+
     for c in range(C):
-        for t0 in range(0, T, S):
-            width = min(S, T - t0)
-            W = D + width
-            first = t0 - D
-            tt = first + np.arange(W)
-            w = np.where(tt >= 0, x[c, np.clip(tt, 0, T - 1)], 0).astype(_F)
-            for k in range(table.n_stages):
-                st = table.stages[k]
-                lo = st.lo      # the stage computes [lo, W) only
-                if st.kind == 0:
-                    # the last taps stage is evaluated while storing, all
-                    # reads from the untouched window: one "chunk"
-                    step = W if k == last_taps else threads
-                    hi = W
-                    while hi > lo:
-                        j = np.arange(max(hi - step, lo), hi)
-                        acc = _F(st.p0) * w[j]
-                        for i in range(st.b):
-                            jj = j - table.offsets[st.a + i]
-                            v = np.where(jj >= 0, w[np.clip(jj, 0, None)], 0)
-                            acc = (acc + _F(table.weights[st.a + i])
-                                   * v.astype(_F)).astype(_F)
-                        if st.zero_after:
-                            acc = np.where(first + j < 0, 0, acc).astype(_F)
-                        w[j] = acc          # after the chunk's barrier
-                        hi -= step
+        for r in range(runs):
+            i_out = r * per_run
+            i_end = min(n_tiles, i_out + per_run)
+            i_first = max(0, i_out - plan.warm_tiles)
+            ring = (np.zeros if i_first == 0 else
+                    lambda n: np.full(n, np.nan))(ring_floats).astype(_F)
+            off1, len1 = (st[first].off, st[first].len) if first >= 0 \
+                else (0, ring_floats)
+
+            def load(i):
+                if i < i_end:
+                    t0 = i * S
+                    w = min(S, T - t0)
+                    ring[off1 + t0 % len1 + np.arange(w)] = x[c, t0:t0 + w]
+
+            load(i_first)
+            for i in range(i_first, i_end):
+                load(i + 1)
+                t0 = i * S
+                width = min(S, T - t0)
+                p = np.arange(width)
+                ts1 = t0 % len1
+                if first > 0:
+                    v = ring[off1 + ts1 + p]
+                    for k in range(first):
+                        v = pointwise(k, v, t0 + p)
+                    ring[off1 + ts1 + p] = v
+                k = first
+                while k >= 0 and k != last:
+                    s_, nx = st[k], st[st[k].next]
+                    buf = ring[s_.off:s_.off + s_.len]
+                    slot = t0 % s_.len + p
+                    acc = (s_.p0 * buf[slot]).astype(_F)
+                    for j in range(s_.b):
+                        v = buf[ring_back(slot, offsets[s_.a + j], s_.len)]
+                        acc = (acc + weights[s_.a + j] * v).astype(_F)
+                    for j in range(k + 1, s_.next):
+                        acc = pointwise(j, acc, t0 + p)
+                    ring[nx.off + t0 % nx.len + p] = acc
+                    k = s_.next
+                if i < i_out:
+                    continue
+                p4 = np.arange(0, width, 4)
+                t4 = t0 + p4[:, None] + np.arange(4)
+                if last >= 0:
+                    lt = st[last]
+                    buf = ring[lt.off:lt.off + lt.len]
+                    slot = t0 % lt.len + p4
+                    v = _ring4(buf, slot)
+                    acc = (lt.p0 * v).astype(_F)
+                    for j in range(lt.b):
+                        v = _ring4(buf, ring_back(slot, offsets[lt.a + j],
+                                                  lt.len))
+                        acc = (acc + weights[lt.a + j] * v).astype(_F)
                 else:
-                    if st.kind == 1:
-                        g = gains[st.a, np.clip(tt, 0, T - 1)].astype(_F)
-                        v = np.where(tt >= 0, w * g, w).astype(_F)
-                    else:
-                        v = _map_np(st.a, st, w)
-                    if st.zero_after:
-                        v = np.where(tt < 0, 0, v).astype(_F)
-                    w[lo:] = v[lo:]
-            out[c, t0:t0 + width] = w[D:D + width]
+                    acc = ring[off1 + ts1 + p4[:, None] + np.arange(4)]
+                for k in range(last + 1 if last >= 0 else 0, ns):
+                    acc = pointwise(k, acc, t4)
+                keep = t4 < t0 + width
+                out[c, t4[keep]] = acc[keep]
     return out
 
 
