@@ -20,14 +20,16 @@ failed check raises (exit code != 0, no result line):
    that walk the halo first, rings in device memory (a halo of 88,200), 65
    taps; pack and unpack on
    ragged lengths and 1, 3 and 64 channels (exact, pad lanes zero); the two
-   dynamics walks on three signals for compressor, gate, their cascade and
-   the one-sample attack (exit states equal, 0 mismatching samples), and the
-   whole speculative stage against the plain one-segment (serial) walk;
-   ``convpairs_cases``: the circular convolution at every power of two from
-   16 to 16,384 and 1, 2, 5 and 64 rows, and its step entry point (window
-   gathered from history and block, the kept samples, the next history)
-   bit-equal to it on the same window in both versions of the kernel (one
-   block a pair, a cluster of four); ``serial_walk_cases``: the serial walk
+   dynamics walks, which read (C, T) as it lies, on three signals for
+   compressor, gate, their cascade and the one-sample attack (exit states
+   equal, 0 mismatching samples), at both copy widths, ragged last segments
+   and several blocks of segments, and the whole speculative stage against
+   the plain one-segment (serial) walk; ``convpairs_cases``: the circular
+   convolution at every power of two from 16 to 65,536 and 1, 2, 5 and 64
+   rows, in every version a window takes (one block a pair, a cluster of two
+   or four; bit-equal), and its step entry point (window gathered from
+   history and block, the kept samples, the next history) bit-equal to it on
+   the same window; ``serial_walk_cases``: the serial walk
    equal to its plain version and to the audio walk at one segment, also on
    the signals a stream meets at the step's two shapes, with the rounds its
    fixpoint loop took.
@@ -36,8 +38,9 @@ failed check raises (exit code != 0, no result line):
    count set to 0 just before and read just after. First the earlier path,
    chain7 (saturator in place of the compressor/gate pair) at block size
    4096 over 10 s; then the offline main path, **chain8**, the flagship
-   8-effect chain, over 30 s at block size 4096 then 512, through six
-   kernels. The outputs are held against the same render with
+   8-effect chain, over 30 s at block size 4096 then 512, through four
+   kernels (the conv, the two walks, the tail; pack and unpack are launched
+   0 times). The outputs are held against the same render with
    ``use_kernels=False`` on the card and, for two channels, against a
    float64 numpy oracle of the whole chain (chain8: over an excerpt, because
    the oracle walks the two automatons sample by sample in Python).
@@ -56,14 +59,20 @@ failed check raises (exit code != 0, no result line):
    with numpy in and out, and the old per-sample step once for the record;
    the two streaming kernels at the step's shapes beside their times before
    the redesign, both versions of the convolution by window and by batch,
-   and the serial walk's sweep over segment lengths.
+   and the serial walk's sweep over segment lengths. ``long_windows``: a
+   lowcut and chain8 streamed at block size 16,384 (windows of 32,768 and
+   65,536 over clusters of two and four blocks), and FIRs longer than one
+   window offline through their partitions (40,000 taps at 64 ch x 30 s,
+   timed; 65,000 taps at B=4096, whose step raises).
 6. ``kernel_timing``  each kernel at the main-path shapes: time (CUDA events,
    median of 5 after a warm-up; the two streaming kernels, which are over in
    tens of microseconds, as launches queued behind a spin so that the host's
    pace does not show) beside its plain version, a library yardstick where
    there is one, and its bound (bytes over the card's memory rate,
-   operations over its fp32 rate, whichever is larger). Also the whole
-   dynamics stage for a range of segment counts (the planner's sweep), the
+   operations over its fp32 rate, whichever is larger); pack and unpack,
+   which no path launches, at the geometry they had on the main path. Also
+   the whole dynamics stage for a range of segment counts (the planner's
+   sweep), the
    segmented conv by window and version (``segconv_versions``: the planner's
    rule) and the tail by runs of tiles per channel, down to one tile a run.
 7. ``throughput``  samples/s of the whole render, median of 3 chained passes.
@@ -79,6 +88,7 @@ Tolerances, with their reasons, are the constants below.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import statistics
@@ -211,6 +221,20 @@ def time_ms(fn, runs: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def once_ms(fn):
+    """(result, ms) of ONE call of ``fn``, CUDA events around it: for the
+    plain walks, Python loops over time that take seconds, whose one
+    correctness run is also their timed run."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    result = fn()
+    b.record()
+    torch.cuda.synchronize()
+    return result, a.elapsed_time(b)
 
 
 def fft_conv64(x: np.ndarray, kernel: np.ndarray, shift: int = 0) -> np.ndarray:
@@ -640,15 +664,18 @@ def gap_signal() -> np.ndarray:
 
 
 def dynamics_cases() -> dict:
-    """The two walks against their plain versions (exit states equal, 0
-    mismatching samples) from REST and from random legal entry states, and
-    the whole speculative stage (kernels, 16 segments) against the plain
-    stage: for the flagship cascade on every signal, for the one-sample
-    attack and for the short releases on the gap signal, the plain
-    ONE-segment walk, which is the serial simulation;
-    elsewhere the plain stage at the same segmentation. (The plain walks are
-    Python loops over the rows, about 0.3 ms a row and op on a card, which
-    is why the cases are no larger.)"""
+    """The two walks, which read (C, T) as it lies, against their plain
+    versions (exit states equal, 0 mismatching samples) from REST and from
+    random legal entry states, and the whole speculative stage (kernels, 16
+    segments) against the plain stage: for the flagship cascade on every
+    signal, for the one-sample attack and for the short releases on the gap
+    signal, the plain ONE-segment walk, which is the serial simulation;
+    elsewhere the plain stage at the same segmentation. Then the walks'
+    geometries (``tile_cases``): both copy widths (16 bytes where T and L
+    are multiples of 4, else 4), ragged last segments, several blocks with
+    a short last one. (The plain walks are Python loops over the rows,
+    about 0.3 ms a row and op on a card, which is why the cases are no
+    larger.)"""
     cfg = pt.EngineConfig(SAMPLE_RATE, 512)
     o = pt.ops
     comp = o.compressor(cfg, -18.0, 0.6, 3.1, 30.1, device="cuda")
@@ -673,29 +700,28 @@ def dynamics_cases() -> dict:
                     and sname in ("decay", "silence"):
                 continue
             x = torch.from_numpy(sig).cuda()
-            G, L, Rp = relayout.geometry(2, x.shape[1], 16)
-            tm = relayout.pack(x, G, L, Rp)
+            G, L, _ = relayout.geometry(2, x.shape[1], 16)
             random_entry = torch.from_numpy(np.stack([
-                rng.integers(-1, sc[7], Rp) for sc in scalars]
+                rng.integers(-1, sc[7], 2 * G) for sc in scalars]
             ).astype(np.int32)).cuda()
-            r = {"ops": cname, "signal": sname, "T": x.shape[1], "L": L,
-                 "Rp": Rp}
+            r = {"ops": cname, "signal": sname, "T": x.shape[1], "G": G,
+                 "L": L}
             for ename, entry in (("rest", torch.zeros_like(random_entry)),
                                  ("random", random_entry)):
                 before = (kdyn.state_walk_launch_count,
                           kdyn.audio_walk_launch_count)
-                z_state = kdyn.state_walk(scalars, tm, entry)
-                out, z = kdyn.audio_walk(scalars, tm, entry)
+                z_state = kdyn.state_walk(scalars, x, G, L, entry)
+                out, z = kdyn.audio_walk(scalars, x, G, L, entry)
                 torch.cuda.synchronize()
                 assert (kdyn.state_walk_launch_count,
                         kdyn.audio_walk_launch_count) == \
                     (before[0] + 1, before[1] + 1)
-                p_out, p_z = kdyn.audio_walk(scalars, tm, entry,
+                p_out, p_z = kdyn.audio_walk(scalars, x, G, L, entry,
                                              use_kernels=False)
                 equal = torch.equal(z, p_z) and torch.equal(z_state, z)
                 if ename == "rest":
                     equal = equal and torch.equal(z_state, kdyn.state_walk(
-                        scalars, tm, entry, use_kernels=False))
+                        scalars, x, G, L, entry, use_kernels=False))
                 assert (kdyn.state_walk_launch_count,
                         kdyn.audio_walk_launch_count) == \
                     (before[0] + 1, before[1] + 1)
@@ -736,20 +762,61 @@ def dynamics_cases() -> dict:
     return {"phase": "kernel_cases", "name": "dynamics (state_walk, audio_walk)",
             "replaces": "pyaudiodsptools_tpu/kernels/dynamics_pallas.py:"
                         "_spec_state_kernel, _spec_kernel",
-            "cases": results,
+            "cases": results, "tile_cases": walk_tile_cases(comp, gate),
             "max_mismatching_samples": 0, "all_exit_states_equal": True,
             "fused_effect_planner_segments_equal_plain": planner_equal}
 
 
+# (C, T, segments): the 4-byte copies (T or L not a multiple of 4) with a
+# ragged last segment and 21 rows in one block; the 16-byte copies over 128
+# blocks, L a multiple of the tile, and ragged (T = 65,532, 256 segments of
+# 256); C*G = 150 rows, a block of 128 and one of 22.
+WALK_TILE_SHAPES = ((3, 5037, 7), (64, 65536, 256), (64, 65532, 256),
+                    (3, 2999, 50))
+
+
+def walk_tile_cases(comp, gate) -> list:
+    """The two walks against their plain versions at WALK_TILE_SHAPES, the
+    cascade from random legal entry states: 0 mismatching samples (a sample
+    stored into another segment's place would show), exit states equal."""
+    scalars = [kdyn.op_scalars(e.params) for e in (comp, gate)]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(37)
+    rng = np.random.default_rng(37)
+    results = []
+    for C, T, segments in WALK_TILE_SHAPES:
+        G, L, _ = relayout.geometry(C, T, segments)
+        x = 0.3 * torch.randn((C, T), generator=gen, device="cuda") \
+            * (torch.rand((C, T), generator=gen, device="cuda") > 0.5)
+        entry = torch.from_numpy(np.stack([
+            rng.integers(-1, sc[7], C * G) for sc in scalars]
+        ).astype(np.int32)).cuda()
+        out, z = kdyn.audio_walk(scalars, x, G, L, entry)
+        z_state = kdyn.state_walk(scalars, x, G, L, entry)
+        p_out, p_z = kdyn.audio_walk(scalars, x, G, L, entry,
+                                     use_kernels=False)
+        r = {"C": C, "T": T, "G": G, "L": L, "rows": C * G,
+             "copy_bytes": 16 if T % 4 == 0 and L % 4 == 0 else 4,
+             "mismatching_samples": int((out != p_out).sum()),
+             "exit_states_equal": torch.equal(z, p_z)
+             and torch.equal(z_state, p_z)}
+        results.append(r)
+        assert r["mismatching_samples"] == 0 and r["exit_states_equal"], r
+    return results
+
+
 def convpairs_cases() -> dict:
     """The circular convolution against its plain version and a float64
-    oracle: every power of two from 16 to 16,384 (every pass schedule), 1, 2,
-    5 and 64 rows (a lone row, a pair, an odd last row, the step's batch),
-    and rows passed as a strided view of a longer history."""
+    oracle: every power of two from 16 to 65,536 (every pass schedule, and
+    the windows no thread block holds), 1, 2, 5 and 64 rows (a lone row, a
+    pair, an odd last row, the step's batch), in every version the window
+    takes (one block, a cluster of two or of four), the versions bit-equal
+    where more than one takes the window; and rows passed as a strided view
+    of a longer history."""
     rng = np.random.default_rng(19)
     results = []
     n = segconv.MIN_WINDOW
-    while n <= segconv.BLOCK_WINDOW:
+    while n <= convpairs.MAX_WINDOW:
         kernel = rng.standard_normal(min(n, 1 + n // 2)) * 0.1
         plan = convpairs.make_plan(kernel, n, "cuda")
         for R in (1, 2, 5, 64):
@@ -763,13 +830,20 @@ def convpairs_cases() -> dict:
             assert convpairs.launch_count == before + 1
             oracle = np.fft.irfft(np.fft.rfft(x.astype(np.float64), axis=-1)
                                   * np.fft.rfft(kernel, n), n, axis=-1)
+            others = [b for b in convpairs.versions(n)
+                      if b != convpairs.blocks_for(n, R)]
             r = {"n": n, "R": R, "taps": len(kernel),
+                 "blocks": convpairs.blocks_for(n, R),
                  "db_plain": db_json(snr_db_cuda(plain, got)),
-                 "db_oracle": db_json(snr_db(oracle, got.cpu().numpy()))}
+                 "db_oracle": db_json(snr_db(oracle, got.cpu().numpy())),
+                 "versions_bit_equal": {
+                     str(b): torch.equal(convpairs._launch(xd, plan, b), got)
+                     for b in others}}
             results.append(r)
             assert bool(torch.isfinite(got).all())
             assert snr_db_cuda(plain, got) >= CONV_DB_PLAIN, r
             assert snr_db(oracle, got.cpu().numpy()) >= CONV_DB_ORACLE, r
+            assert all(r["versions_bit_equal"].values()), r
         n *= 2
     joined = torch.randn((5, 1155 + 2048), device="cuda")
     plan = convpairs.make_plan(rng.standard_normal(1017) * 0.1, 2048, "cuda")
@@ -778,7 +852,7 @@ def convpairs_cases() -> dict:
         convpairs.conv_pairs(joined[:, :2048].contiguous(), plan))
     assert strided_equal
     step_results, step_min_db = convpairs_step_cases(rng)
-    for bad in (2 * segconv.BLOCK_WINDOW, 3072):
+    for bad in (2 * convpairs.MAX_WINDOW, 3072):
         try:
             convpairs.make_plan(np.ones(3), bad, "cuda")
         except ValueError as e:
@@ -796,25 +870,21 @@ def convpairs_cases() -> dict:
             "min_snr_db_oracle": min(r["db_oracle"] for r in results)}
 
 
-# The smallest window csrc/convpairs.cu's cluster version takes.
-CLUSTER_TAKES_FROM = 1024
-
-
 def convpairs_step_cases(rng) -> tuple[list, float]:
     """The step entry point at every power of two the kernel takes, 1, 5 and
     64 rows (a lone row, an odd last row, the step's batch), with the window
     wholly in the history (the flagship geometries: n = 4 B, lead > 2 B),
     across history and block, and with no lead: the output BIT-EQUAL to
-    ``conv_pairs`` on the same window (both versions of the kernel, one block
-    and the cluster of four, where the window allows a cluster), the next
-    history equal to the shifted concatenation, the old history untouched,
-    the block a slice of a longer signal; and CONV_DB_PLAIN to the step's
-    plain version. Returns the cases and the least dB to the plain version."""
+    ``conv_pairs`` on the same window (every version of the kernel the
+    window takes: one block, a cluster of two or of four), the next history
+    equal to the shifted concatenation, the old history untouched, the block
+    a slice of a longer signal; and CONV_DB_PLAIN to the step's plain
+    version. Returns the cases and the least dB to the plain version."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(41)
     results, min_db = [], float("inf")
     n = segconv.MIN_WINDOW
-    while n <= segconv.BLOCK_WINDOW:
+    while n <= convpairs.MAX_WINDOW:
         kernel = rng.standard_normal(min(n, 1 + n // 2)) * 0.1
         plan = convpairs.make_plan(kernel, n, "cuda")
         for R in (1, 5, 64):
@@ -838,16 +908,12 @@ def convpairs_step_cases(rng) -> tuple[list, float]:
                          out, convpairs.conv_pairs(window, plan)[:, n - B:]),
                      "next_history_equal": torch.equal(new_hist, cat[:, B:]),
                      "old_history_untouched": torch.equal(hist, kept)}
-                versions = [convpairs._launch(window, plan, cluster=False)]
-                if n >= CLUSTER_TAKES_FROM:
-                    versions.append(convpairs._launch(window, plan,
-                                                      cluster=True))
-                    for cluster in (False, True):
-                        o2, h2 = convpairs._launch_step(hist, block, plan,
-                                                        cluster=cluster)
-                        versions.append(torch.nn.functional.pad(
-                            o2, (n - B, 0)))
-                        r["next_history_equal"] &= torch.equal(h2, cat[:, B:])
+                versions = []
+                for blocks in convpairs.versions(n):
+                    versions.append(convpairs._launch(window, plan, blocks))
+                    o2, h2 = convpairs._launch_step(hist, block, plan, blocks)
+                    versions.append(torch.nn.functional.pad(o2, (n - B, 0)))
+                    r["next_history_equal"] &= torch.equal(h2, cat[:, B:])
                 r["versions_equal"] = all(
                     torch.equal(v[:, n - B:], out) for v in versions)
                 plain, plain_hist = convpairs.conv_pairs_step(
@@ -931,7 +997,7 @@ def serial_walk_signal_cases(members) -> list:
             x = x2[:, -T:].contiguous()
             out, z, rounds = kdyn._launch_serial(scalars, x, entry,
                                                  want_rounds=True)
-            a_out, a_z = kdyn.audio_walk(scalars, x.t().contiguous(), entry)
+            a_out, a_z = kdyn.audio_walk(scalars, x, 1, T, entry)
             # the plain version is a Python loop over the T rows (seconds at
             # 4,096): there it is run on the three signals named first, and
             # the other two are held to the audio walk alone
@@ -939,7 +1005,7 @@ def serial_walk_signal_cases(members) -> list:
                 p_out, p_z = kdyn.serial_walk(scalars, x, entry,
                                               use_kernels=False)
             else:
-                p_out, p_z = a_out.t(), a_z
+                p_out, p_z = a_out, a_z
             lseg, segments, threads = kdyn.serial_geometry(T)
             r = {"signal": name, "C": CHANNELS, "T": T,
                  "segment": 1 << lseg, "segments": segments,
@@ -952,7 +1018,7 @@ def serial_walk_signal_cases(members) -> list:
                  "mismatching_samples": int((out != p_out).sum()),
                  "exit_states_equal": torch.equal(z, p_z),
                  "equal_audio_walk_one_segment":
-                     torch.equal(out, a_out.t()) and torch.equal(z, a_z),
+                     torch.equal(out, a_out) and torch.equal(z, a_z),
                  "queued_ms": queued_ms(
                      lambda: kdyn.serial_walk(scalars, x, entry),
                      runs=30)["ms"]}
@@ -1009,12 +1075,12 @@ def serial_walk_cases() -> dict:
         assert kdyn.serial_walk_launch_count == before + 1
         p_out, p_z = kdyn.serial_walk(scalars, xd, ed, use_kernels=False)
         assert kdyn.serial_walk_launch_count == before + 1
-        a_out, a_z = kdyn.audio_walk(scalars, xd.t().contiguous(), ed)
+        a_out, a_z = kdyn.audio_walk(scalars, xd, 1, T, ed)
         r = {"ops": cname, "T": T, "C": C,
              "entries_rest": int((entry[0] == 0).sum()),
              "mismatching_samples": int((out != p_out).sum()),
              "exit_states_equal": torch.equal(z, p_z),
-             "mismatching_samples_vs_audio_walk": int((out != a_out.t()).sum()),
+             "mismatching_samples_vs_audio_walk": int((out != a_out).sum()),
              "exit_states_equal_audio_walk": torch.equal(z, a_z)}
         results.append(r)
         assert bool(torch.isfinite(out).all())
@@ -1067,6 +1133,8 @@ def tail_ops_per_sample(stages) -> int:
     return ops
 
 
+VERSION_NAMES = {1: "one_block", 2: "cluster_of_two", 4: "cluster_of_four"}
+
 # name -> (source under csrc/, "file:line" of the TPU kernel it replaces)
 KERNELS = {
     "segconv": ("segconv.cu", "pallas_conv.py:926"),
@@ -1078,8 +1146,12 @@ KERNELS = {
     "serial_walk": ("dynamics.cu", "dynamics_pallas.py:162"),
     "conv_pairs": ("convpairs.cu", "pallas_conv.py:448"),
 }
-# the kernels of the streaming path; the others are the offline render's
+# the kernels of the streaming path; the others are the offline render's,
+# but for pack and unpack, which no main path launches since the offline
+# walks read (C, T) as it lies (they stay, held by relayout_cases and timed
+# in kernel_timing)
 STREAM_KERNELS = ("serial_walk", "conv_pairs")
+OFF_PATH_KERNELS = ("pack", "unpack")
 
 
 def launch_counts() -> dict:
@@ -1166,7 +1238,7 @@ def time_segconv(x, fir_e, by_B: dict, B: int) -> torch.Tensor:
     planner could give this halo, in every version the window takes, timed
     twice in turns (first ascending, then descending)."""
     C, T = x.shape
-    plan = fir_e.params.plan
+    (plan,) = fir_e.params.plans          # one window takes the kernel
     y_kernel = segconv.segmented_conv(x, plan)
     y_plain = segconv.segmented_conv(x, plan, use_kernels=False)
     torch.cuda.synchronize()
@@ -1233,15 +1305,20 @@ def time_segconv(x, fir_e, by_B: dict, B: int) -> torch.Tensor:
 
 
 def time_dynamics(x, dyn_e, timing: dict, B: int) -> torch.Tensor:
-    """pack, the two walks and unpack at the shapes and on the data the main
-    path gives them (the conv stage's output, the planner's segments, the
-    entries the loop passes); returns the stage's output."""
+    """The two walks at the shapes and on the data the main path gives them
+    (the conv stage's output as it lies, the planner's segments, the entries
+    the loop passes); beside them pack and unpack, which the main path no
+    longer launches, at the geometry they had on it. Returns the stage's
+    output."""
     C, T = x.shape
     scalars = [kdyn.op_scalars(p) for p in dyn_e.params]
     n_ops = len(scalars)
     G, L, Rp = relayout.geometry(C, T, kdyn.plan_segments(C, T))
-    geom = {"C": C, "T": T, "G": G, "L": L, "Rp": Rp}
-    sig_bytes, tm_bytes, st_bytes = 4 * C * T, 4 * L * Rp, 4 * n_ops * Rp
+    R = C * G
+    geom = {"C": C, "T": T, "G": G, "L": L, "lanes": R}
+    sig_bytes, tm_bytes, st_bytes = 4 * C * T, 4 * L * Rp, 4 * n_ops * R
+    not_on_path = "not launched by the main path since the walks read " \
+                  "(C, T); timed at the geometry it had there"
 
     tm = relayout.pack(x, G, L, Rp)
     tm_plain = relayout.pack(x, G, L, Rp, use_kernels=False)
@@ -1250,7 +1327,7 @@ def time_dynamics(x, dyn_e, timing: dict, B: int) -> torch.Tensor:
     del tm_plain
     lib_in = x if G * L == T else torch.nn.functional.pad(x, (0, G * L - T))
     timing["pack"][B] = {
-        **geom, "max_abs_err": err,
+        **geom, "Rp": Rp, "max_abs_err": err, "note": not_on_path,
         "ms": time_ms(lambda: relayout.pack(x, G, L, Rp)),
         "plain_ms": time_ms(
             lambda: relayout.pack(x, G, L, Rp, use_kernels=False)),
@@ -1260,61 +1337,62 @@ def time_dynamics(x, dyn_e, timing: dict, B: int) -> torch.Tensor:
             lambda: lib_in.reshape(C, G, L).permute(2, 1, 0).contiguous()),
         **bound(sig_bytes + tm_bytes, 0)}
     del lib_in
+    y = relayout.unpack(tm, C, T, G, L)
+    y_plain = relayout.unpack(tm, C, T, G, L, use_kernels=False)
+    assert torch.equal(y, y_plain), "unpack differs from its plain version"
+    assert torch.equal(y, x)
+    err = float((y - y_plain).abs().max())
+    del y, y_plain
+    timing["unpack"][B] = {
+        **geom, "Rp": Rp, "max_abs_err": err, "note": not_on_path,
+        "ms": time_ms(lambda: relayout.unpack(tm, C, T, G, L)),
+        "plain_ms": time_ms(
+            lambda: relayout.unpack(tm, C, T, G, L, use_kernels=False)),
+        "library_ms": time_ms(
+            lambda: tm[:, :C * G].reshape(L, G, C).permute(2, 1, 0)
+            .contiguous()),
+        **bound(sig_bytes + tm_bytes, 0)}
+    del tm
 
     # the loop's first two walks: the state walk from REST, then the audio
     # walk from its shifted exits
-    e0 = torch.zeros((n_ops, Rp), dtype=torch.int32, device=x.device)
-    z1 = kdyn.state_walk(scalars, tm, e0)
-    z1_plain = kdyn.state_walk(scalars, tm, e0, use_kernels=False)
+    e0 = torch.zeros((n_ops, R), dtype=torch.int32, device=x.device)
+    z1 = kdyn.state_walk(scalars, x, G, L, e0)
+    z1_plain, state_plain_ms = once_ms(
+        lambda: kdyn.state_walk(scalars, x, G, L, e0, use_kernels=False))
     assert torch.equal(z1, z1_plain), "state walk: exit states differ"
-    ops_state = L * Rp * (WALK_OPS_WITH_GAIN * (n_ops - 1)
-                          + WALK_OPS_STATE_ONLY)
+    ops_state = L * R * (WALK_OPS_WITH_GAIN * (n_ops - 1)
+                         + WALK_OPS_STATE_ONLY)
     timing["state_walk"][B] = {
         **geom, "n_ops": n_ops, "exit_states_equal": True,
         "max_abs_err": float((z1 - z1_plain).abs().max()),
-        "ms": time_ms(lambda: kdyn.state_walk(scalars, tm, e0)),
-        "plain_ms": time_ms(
-            lambda: kdyn.state_walk(scalars, tm, e0, use_kernels=False),
-            runs=1),
-        "plain_ran_with": f"G={G}, a Python loop over L={L} rows, 1 timed run",
+        "ms": time_ms(lambda: kdyn.state_walk(scalars, x, G, L, e0)),
+        "plain_ms": state_plain_ms,
+        "plain_ran_with": f"G={G}, a Python loop over L={L} rows, its one "
+                          "correctness run timed",
         "library_ms": None,
-        **bound(tm_bytes + 2 * st_bytes, ops_state)}
+        **bound(sig_bytes + 2 * st_bytes, ops_state)}
     e1 = torch.zeros_like(z1)
-    e1[:, C:C * G] = z1[:, :C * G - C]
+    e1[:, C:R] = z1[:, :R - C]
     del z1, z1_plain
-    out, z2 = kdyn.audio_walk(scalars, tm, e1)
-    out_plain, z2_plain = kdyn.audio_walk(scalars, tm, e1, use_kernels=False)
+    out, z2 = kdyn.audio_walk(scalars, x, G, L, e1)
+    (out_plain, z2_plain), audio_plain_ms = once_ms(
+        lambda: kdyn.audio_walk(scalars, x, G, L, e1, use_kernels=False))
     mismatching = int((out != out_plain).sum())
     assert torch.equal(z2, z2_plain), "audio walk: exit states differ"
     assert mismatching == 0, f"audio walk: {mismatching} samples differ"
     err = float((out - out_plain).abs().max())
-    del out_plain, z2_plain
+    del out_plain, z2_plain, out
     timing["audio_walk"][B] = {
         **geom, "n_ops": n_ops, "exit_states_equal": True,
         "mismatching_samples": mismatching, "max_abs_err": err,
-        "ms": time_ms(lambda: kdyn.audio_walk(scalars, tm, e1)),
-        "plain_ms": time_ms(
-            lambda: kdyn.audio_walk(scalars, tm, e1, use_kernels=False),
-            runs=1),
-        "plain_ran_with": f"G={G}, a Python loop over L={L} rows, 1 timed run",
+        "ms": time_ms(lambda: kdyn.audio_walk(scalars, x, G, L, e1)),
+        "plain_ms": audio_plain_ms,
+        "plain_ran_with": f"G={G}, a Python loop over L={L} rows, its one "
+                          "correctness run timed",
         "library_ms": None,
-        **bound(2 * tm_bytes + 2 * st_bytes,
-                L * Rp * WALK_OPS_WITH_GAIN * n_ops)}
-
-    y = relayout.unpack(out, C, T, G, L)
-    y_plain = relayout.unpack(out, C, T, G, L, use_kernels=False)
-    assert torch.equal(y, y_plain), "unpack differs from its plain version"
-    err = float((y - y_plain).abs().max())
-    del y_plain
-    timing["unpack"][B] = {
-        **geom, "max_abs_err": err,
-        "ms": time_ms(lambda: relayout.unpack(out, C, T, G, L)),
-        "plain_ms": time_ms(
-            lambda: relayout.unpack(out, C, T, G, L, use_kernels=False)),
-        "library_ms": time_ms(
-            lambda: out[:, :C * G].reshape(L, G, C).permute(2, 1, 0)
-            .contiguous()),
-        **bound(sig_bytes + tm_bytes, 0)}
+        **bound(2 * sig_bytes + 2 * st_bytes,
+                L * R * WALK_OPS_WITH_GAIN * n_ops)}
     # what the loop returns, whether or not it needed a third walk
     return kdyn.dynamics_offline(list(dyn_e.params), x)
 
@@ -1329,22 +1407,22 @@ def stage_walks(fn):
 
 
 def time_dynamics_stage(x, dyn_e, y_dyn) -> dict:
-    """The fused effect's whole ``offline`` (pack, walks to the fixpoint with
-    one read-back each, unpack) on the conv stage's output."""
+    """The fused effect's whole ``offline`` (the walks to the fixpoint on
+    (C, T) as it lies, with one read-back each) on the conv stage's
+    output."""
     C, T = x.shape
     blocks = x.reshape(C, 1, T)
     got, walks = stage_walks(lambda: dyn_e.offline(dyn_e.params, blocks))
     assert torch.equal(got.reshape(C, T), y_dyn)
-    plain = dyn_e.offline(dyn_e.params, blocks, use_kernels=False)
+    plain, plain_ms = once_ms(
+        lambda: dyn_e.offline(dyn_e.params, blocks, use_kernels=False))
     mismatching = int((got != plain).sum())
     assert mismatching == 0, f"dynamics stage: {mismatching} samples differ"
     del plain, got
     return {"segments": kdyn.plan_segments(C, T), "walks": walks,
             "mismatching_samples_vs_plain": mismatching,
             "ms": time_ms(lambda: dyn_e.offline(dyn_e.params, blocks)),
-            "plain_ms": time_ms(
-                lambda: dyn_e.offline(dyn_e.params, blocks,
-                                      use_kernels=False), runs=1)}
+            "plain_ms": plain_ms}
 
 
 def sweep_segments(x, dyn_e, want) -> list:
@@ -1359,8 +1437,8 @@ def sweep_segments(x, dyn_e, want) -> list:
             want = got
         assert torch.equal(got, want), f"segments={segments} changes the result"
         del got
-        G, L, Rp = relayout.geometry(x.shape[0], x.shape[1], segments)
-        rows.append({"G": G, "L": L, "lanes": Rp, "walks": walks,
+        G, L, _ = relayout.geometry(x.shape[0], x.shape[1], segments)
+        rows.append({"G": G, "L": L, "lanes": x.shape[0] * G, "walks": walks,
                      "ms": time_ms(lambda: kdyn.dynamics_offline(
                          params, x, segments=segments), runs=3)})
     return rows
@@ -1505,12 +1583,14 @@ def plain_chain_step(chain, scalars, state, block):
     return (s_fir, s_dyn, s_tail), block
 
 
-def fold_steps(effect, x: torch.Tensor, B: int) -> torch.Tensor:
-    """One effect's step folded over the blocks of x (C, T)."""
+def fold_steps(effect, x: torch.Tensor, B: int, step=None) -> torch.Tensor:
+    """One effect's step (or ``step``, another function of the same
+    arguments) folded over the blocks of x (C, T)."""
+    step = effect.step if step is None else step
     state = effect.state((x.shape[0],))
     outs = []
     for i in range(x.shape[1] // B):
-        state, y = effect.step(effect.params, state, x[:, i * B:(i + 1) * B])
+        state, y = step(effect.params, state, x[:, i * B:(i + 1) * B])
         outs.append(y)
     return torch.cat(outs, dim=-1)
 
@@ -1640,6 +1720,171 @@ def stream_path(chain, cfg, signal, n: int, offline_out: torch.Tensor,
     return r, timing, counts
 
 
+# ---------------------------------------------------------------------------
+# phase 5b: windows no thread block holds, kernels longer than a window
+
+# A block size whose filters need a streaming window past one block's 16,384
+# points, and the blocks streamed at it (3 s at 44.1 kHz).
+LONG_BLOCK = 16384
+LONG_STEPS = 8
+# A FIR longer than one window of the segmented conv takes (32,769 taps):
+# three partitions; and one too long to stream at B=4096 (four partitions).
+LONG_FIR_TAPS = 40000
+LONGER_FIR_TAPS = 65000
+
+
+def long_kernel(taps: int, seed: int) -> np.ndarray:
+    """A decaying noise tail behind a zero prefix of 37 samples: the shape
+    of a reverb line's response."""
+    rng = np.random.default_rng(seed)
+    k = rng.standard_normal(taps) * np.exp(-np.arange(taps) / (taps / 4.0))
+    return np.r_[np.zeros(37), k * 0.05]
+
+
+def long_windows(signal: torch.Tensor, n: int) -> dict:
+    """What the windows past one thread block buy, on the main path's
+    signal: (1) a lowcut and (2) chain8 streamed at B=16,384 (windows of
+    32,768 and 65,536 over clusters of two and four blocks), one
+    ``conv_pairs_step`` launch a step, held to the offline kernel render,
+    the plain-version stream and a float64 oracle; (3) a 40,000-tap FIR
+    offline at 64 ch x 30 s through its three partitions (one launch each,
+    the later ones adding into the output), held to the plain version and
+    the oracle, timed against one partition's window of 32,768 and against
+    partitions summed by ``torch.add`` instead of the accumulate mode; (4) a
+    65,000-tap FIR at B=4096: four partitions offline, and a step that
+    raises."""
+    C, B = signal.shape[0], LONG_BLOCK
+    T = LONG_STEPS * B
+    x = signal[:, :T].contiguous()
+    cfg = pt.EngineConfig(SAMPLE_RATE, B)
+    r = {}
+
+    # (1) the lowcut
+    lowcut = pt.ops.lowcut(cfg, 120.0, device="cuda")
+    p = lowcut.params
+    outs, _, _, counts = stream_run(pt.Chain([lowcut], device="cuda"), cfg, x)
+    streamed = torch.cat(outs, dim=-1)
+    assert counts["conv_pairs"] == LONG_STEPS and sum(counts.values()) \
+        == LONG_STEPS, counts
+    offline = lowcut.offline(p, x.reshape(C, LONG_STEPS, B)).reshape(C, T)
+    plain = fold_steps(lowcut, x, B, functools.partial(
+        fft_filter.fir_step, use_kernels=False))
+    oracle = fft_conv64(x[[0, C - 1]].cpu().numpy(), lowcut.lti_kernel)
+    H = fft_filter.history_len(p)
+    hist = torch.randn((C, H), device="cuda")
+    dbs = (snr_db_cuda(offline, streamed), snr_db_cuda(plain, streamed),
+           snr_db(oracle, streamed[[0, C - 1]].cpu().numpy()))
+    r["lowcut"] = {
+        "B": B, "taps": p.kernel_len, "window": p.stream.n,
+        "blocks": convpairs.blocks_for(p.stream.n, C), "launches": counts,
+        "db_offline": db_json(dbs[0]), "db_plain_stream": db_json(dbs[1]),
+        "db_oracle_2ch": db_json(dbs[2]),
+        "step_ms": {VERSION_NAMES[b]: queued_ms(
+            lambda: convpairs._launch_step(hist, x[:, :B], p.stream, b))["ms"]
+            for b in convpairs.versions(p.stream.n)},
+        "versions_bit_equal": all(torch.equal(
+            convpairs._launch_step(hist, x[:, :B], p.stream, b)[0],
+            convpairs.conv_pairs_step(hist, x[:, :B], p.stream, p.lead)[0])
+            for b in convpairs.versions(p.stream.n))}
+    assert dbs[0] >= STREAM_FIR_DB and dbs[1] >= CONV_DB_PLAIN \
+        and dbs[2] >= CONV_DB_ORACLE, r
+    assert r["lowcut"]["versions_bit_equal"], r
+    del streamed, offline, plain, outs
+
+    # (2) chain8
+    chain = pt.Chain(chain8_effects(cfg, "cuda"), device="cuda")
+    assert [e.name for e in chain.exec_effects] == CHAIN8_NAMES
+    fir_e, dyn_e, _ = chain.exec_effects
+    outs, _, _, counts = stream_run(chain, cfg, x)
+    streamed = torch.cat(outs, dim=-1)
+    assert counts["conv_pairs"] == counts["serial_walk"] == LONG_STEPS \
+        and sum(counts.values()) == 2 * LONG_STEPS, counts
+    offline = pt.render(chain, x, cfg)
+    blocks = x.reshape(C, LONG_STEPS, B)
+    y_conv = fir_e.offline(fir_e.params, blocks).reshape(C, T)
+    fir_stream = fold_steps(fir_e, x, B)
+    dyn_off = dyn_e.offline(dyn_e.params, y_conv.reshape(C, LONG_STEPS, B))
+    dbs = (snr_db_cuda(offline, streamed), snr_db_cuda(y_conv, fir_stream))
+    r["chain8"] = {
+        "B": B, "fir_taps": fir_e.params.kernel_len,
+        "window": fir_e.params.stream.n,
+        "blocks": convpairs.blocks_for(fir_e.params.stream.n, C),
+        "launches": counts,
+        "db_offline": db_json(dbs[0]), "db_fir_stage": db_json(dbs[1]),
+        "dynamics_stage_mismatching_samples": int(
+            (fold_steps(dyn_e, y_conv, B) != dyn_off.reshape(C, T)).sum()),
+        "peak": float(streamed.abs().max())}
+    assert dbs[0] >= CHAIN8_DB_PLAIN and dbs[1] >= STREAM_FIR_DB, r
+    assert r["chain8"]["dynamics_stage_mismatching_samples"] == 0, r
+    assert 0.0 < r["chain8"]["peak"] <= 1.0, r
+    del streamed, outs, offline, y_conv, fir_stream, dyn_off, blocks, x
+
+    # (3) a 40,000-tap FIR through its partitions, at the main path's size
+    Tm = -(-n // 4096) * 4096
+    xm = torch.nn.functional.pad(signal, (0, Tm - n)).contiguous()
+    kernel = long_kernel(LONG_FIR_TAPS, 1)
+    fir = fft_filter.fir(kernel, 4096, device="cuda")
+    plans = fir.params.plans
+    assert len(plans) == 3
+    zero_launch_counts()
+    got = segconv.partitioned_conv(xm, plans)
+    torch.cuda.synchronize()
+    assert launch_counts()["segconv"] == len(plans)
+    plain = segconv.partitioned_conv(xm, plans, use_kernels=False)
+    oracle = fft_conv64(xm[[0, C - 1], :ORACLE_EXCERPT].cpu().numpy(),
+                        kernel)
+    db_plain, db_oracle = snr_db_cuda(plain, got), snr_db(
+        oracle, got[[0, C - 1], :ORACLE_EXCERPT].cpu().numpy())
+    del plain
+
+    def summed_by_add():
+        y = segconv._launch(xm, plans[0])
+        for q in plans[1:]:
+            y = y + segconv._launch(xm, q)
+        return y
+
+    assert snr_db_cuda(got, summed_by_add()) >= CONV_DB_PLAIN
+    r["partitioned_fir"] = {
+        "taps": LONG_FIR_TAPS, "C": C, "T": Tm,
+        "partitions": [{"shift": q.shift, "taps": q.kernel_len, "n": q.n,
+                        "halo": q.halo, "seg": q.seg, "blocks": q.blocks}
+                       for q in plans],
+        "db_plain": db_json(db_plain), "db_oracle_2ch": db_json(db_oracle),
+        "oracle_samples": ORACLE_EXCERPT,
+        "max_abs_err": float((got - segconv.partitioned_conv(
+            xm, plans, use_kernels=False)).abs().max()),
+        "ms": time_ms(lambda: segconv.partitioned_conv(xm, plans)),
+        "one_partition_ms": time_ms(lambda: segconv._launch(xm, plans[0])),
+        "summed_by_torch_add_ms": time_ms(summed_by_add),
+        "plain_ms": time_ms(lambda: segconv.partitioned_conv(
+            xm, plans, use_kernels=False), runs=1),
+        **bound(8 * C * Tm, sum(
+            C * -(-Tm // q.seg) // 2 * (2 * 5 * q.n * (q.n.bit_length() - 1)
+                                        + 6 * q.n) for q in plans))}
+    assert db_plain >= CONV_DB_PLAIN and db_oracle >= CONV_DB_ORACLE, r
+    del got, xm
+
+    # (4) 65,000 taps at B=4096: offline in four partitions; no stream
+    longer = fft_filter.fir(long_kernel(LONGER_FIR_TAPS, 2), 4096,
+                            device="cuda")
+    assert len(longer.params.plans) == 4 and longer.params.stream is None
+    xs = signal[:, :40 * 4096].reshape(C, 40, 4096)
+    got = longer.offline(longer.params, xs)
+    want = longer.offline(longer.params, xs, use_kernels=False)
+    try:
+        longer.state((C,))
+    except ValueError as e:
+        assert str(fft_filter.MAX_WINDOW) in str(e), e
+    else:
+        raise AssertionError("a 65,000-tap FIR streamed at B=4096")
+    db = snr_db_cuda(want, got)
+    r["longer_fir"] = {"taps": LONGER_FIR_TAPS, "B": 4096,
+                       "partitions": len(longer.params.plans),
+                       "db_plain": db_json(db), "step_raises": True}
+    assert db >= CONV_DB_PLAIN, r
+    return {"phase": "long_windows", **r}
+
+
 # Cycles of the spin that holds the device while launches queue behind it
 # (about 20 ms at the H100's clock).
 SPIN_CYCLES = 40_000_000
@@ -1699,20 +1944,20 @@ def time_stream_kernels(chain, cfg, streamed_in: torch.Tensor,
     q = queued_ms(lambda: convpairs.conv_pairs(rows, plan))
     dense = rows.contiguous()
     # both versions of the kernel, in turns, for the rule in
-    # kernels/convpairs._uses_cluster
+    # kernels/convpairs.blocks_for
     versions = {}
-    for cluster in (False, True, True, False):
-        name = "cluster_of_four" if cluster else "one_block"
+    for blocks in (1, 4, 4, 1):
+        name = VERSION_NAMES[blocks]
         v = versions.setdefault(name, {"conv_pairs_ms": [], "step_ms": []})
         v["conv_pairs_ms"].append(queued_ms(lambda: convpairs._launch(
-            rows, plan, cluster=cluster))["ms"])
+            rows, plan, blocks))["ms"])
         v["step_ms"].append(queued_ms(lambda: convpairs._launch_step(
-            hist, block, plan, cluster=cluster))["ms"])
+            hist, block, plan, blocks))["ms"])
 
     def join_convolve_slice():
         # the FIR stage of a step before the step entry point: three launches
         j = torch.cat([hist, block], dim=-1)
-        o = convpairs._launch(j[:, :n], plan, cluster=False)
+        o = convpairs._launch(j[:, :n], plan, 1)
         return o[:, n - B:].contiguous(), j[:, B:]
 
     q_step = queued_ms(lambda: convpairs.conv_pairs_step(hist, block, plan,
@@ -1725,8 +1970,7 @@ def time_stream_kernels(chain, cfg, streamed_in: torch.Tensor,
     timing["conv_pairs"][B] = {
         "R": C, "n": n, "taps": plan.kernel_len, "history": H, "B": B,
         "headline_is": "conv_pairs_step(hist, block, plan, lead)",
-        "version": "cluster_of_four" if convpairs._uses_cluster(n, C)
-                   else "one_block",
+        "version": VERSION_NAMES[convpairs.blocks_for(n, C)],
         "db_plain": db_json(snr_db_cuda(plain, got)),
         "max_abs_err": float((out - plain[:, n - B:]).abs().max()),
         "ms": q_step["ms"], "host_ms_per_call": q_step["host_ms"],
@@ -1774,11 +2018,10 @@ def time_stream_kernels(chain, cfg, streamed_in: torch.Tensor,
                    and new_state[j][f].dtype == want[f].dtype
                    for f in kdyn.FIELDS), j
     q_step = queued_ms(lambda: dyn_e.step(dyn_e.params, state, x), runs=20)
-    # the same block time-major through the audio walk at one segment: one
-    # thread a channel, the design before the redesign with coalesced rows
-    xt = x.t().contiguous()
-    a_out, a_z = kdyn.audio_walk(scalars, xt, entry)
-    assert torch.equal(a_out.t(), out) and torch.equal(a_z, z)
+    # the same block through the offline audio walk at one segment: one
+    # thread a channel, the design before the serial walk's
+    a_out, a_z = kdyn.audio_walk(scalars, x, 1, B, entry)
+    assert torch.equal(a_out, out) and torch.equal(a_z, z)
     # one sample of the dependent chain: two one-round walks of silence that
     # differ only in the segment's length
     silence = torch.zeros_like(x)
@@ -1800,8 +2043,8 @@ def time_stream_kernels(chain, cfg, streamed_in: torch.Tensor,
         "serial_walk_ms": q["ms"],
         "serial_walk_host_ms_per_call": q["host_ms"],
         "cascade_step_equal_walk_and_decoded_states": True,
-        "audio_walk_one_segment_time_major_ms": queued_ms(
-            lambda: kdyn.audio_walk(scalars, xt, entry), runs=20)["ms"],
+        "audio_walk_one_segment_ms": queued_ms(
+            lambda: kdyn.audio_walk(scalars, x, 1, B, entry), runs=20)["ms"],
         "dependent_chain_ns_per_sample": sample_ns,
         # rounds x segment x one sample's dependent chain: what this design
         # cannot go below on this data, launch aside
@@ -1854,12 +2097,12 @@ def time_full_batch() -> dict:
     kernel = np.random.default_rng(5).standard_normal(8185) * 0.02
     plan = convpairs.make_plan(kernel, n, "cuda")
     got = convpairs.conv_pairs(x, plan)
-    assert not convpairs._uses_cluster(n, R)
+    assert convpairs.blocks_for(n, R) == 1
     lib = lambda: torch.fft.irfft(
         torch.fft.rfft(x, dim=-1) * plan.spectrum_rfft, n=n, dim=-1)
     db = snr_db_cuda(lib()[:64], got[:64])
     assert db >= CONV_DB_PLAIN, db
-    assert torch.equal(got[:64], convpairs._launch(x[:64], plan, cluster=True))
+    assert torch.equal(got[:64], convpairs._launch(x[:64], plan, 4))
     del got
     by_rows = {}
     for rows in (64, 80, 96, 112, 128, 256, 1024, R):
@@ -1867,13 +2110,10 @@ def time_full_batch() -> dict:
         timer = time_ms if rows >= 1024 else \
             (lambda fn: queued_ms(fn)["ms"])
         by_rows[str(rows)] = {
-            "chosen": "cluster_of_four" if convpairs._uses_cluster(n, rows)
-                      else "one_block",
-            **{name: [timer(lambda: convpairs._launch(xr, plan,
-                                                      cluster=cluster))
-                      for _ in range(2)]
-               for name, cluster in (("one_block", False),
-                                     ("cluster_of_four", True))}}
+            "chosen": VERSION_NAMES[convpairs.blocks_for(n, rows)],
+            **{VERSION_NAMES[b]: [timer(lambda: convpairs._launch(xr, plan, b))
+                                  for _ in range(2)]
+               for b in (1, 4)}}
     log2n = n.bit_length() - 1
     return {"R": R, "n": n, "bytes": 8 * R * n, "db_plain_64_rows": db_json(db),
             "ms": time_ms(lambda: convpairs.conv_pairs(x, plan)),
@@ -1884,24 +2124,29 @@ def time_full_batch() -> dict:
 
 
 def time_cluster_by_window() -> dict:
-    """Both versions of the circular convolution at the step's batch (64
-    rows) for every window a cluster takes: n -> version -> ms."""
+    """Every version of the circular convolution at the step's batch (64
+    rows) for every window a cluster takes, up to the 65,536 of a cluster of
+    four: n -> version -> ms, and the step entry point in the version the
+    rule picks (its history as at a block of n/4)."""
     rng = np.random.default_rng(31)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(31)
     table = {}
-    n = CLUSTER_TAKES_FROM
-    while n <= segconv.BLOCK_WINDOW:
+    n = convpairs.CLUSTER_MIN_WINDOW
+    while n <= convpairs.MAX_WINDOW:
         plan = convpairs.make_plan(rng.standard_normal(n // 2) * 0.05, n,
                                    "cuda")
         x = torch.randn((CHANNELS, n), generator=gen, device="cuda")
+        hist = torch.randn((CHANNELS, n - n // 4), generator=gen,
+                           device="cuda")
+        blk = torch.randn((CHANNELS, n // 4), generator=gen, device="cuda")
         table[str(n)] = {
-            "chosen": "cluster_of_four" if convpairs._uses_cluster(
-                n, CHANNELS) else "one_block",
-            **{name: [queued_ms(lambda: convpairs._launch(
-                x, plan, cluster=cluster))["ms"] for _ in range(2)]
-               for name, cluster in (("one_block", False),
-                                     ("cluster_of_four", True))}}
+            "chosen": VERSION_NAMES[convpairs.blocks_for(n, CHANNELS)],
+            "step_ms": queued_ms(lambda: convpairs.conv_pairs_step(
+                hist, blk, plan, 0))["ms"],
+            **{VERSION_NAMES[b]: [queued_ms(lambda: convpairs._launch(
+                x, plan, b))["ms"] for _ in range(2)]
+               for b in convpairs.versions(n)}}
         n *= 2
     return table
 
@@ -2072,7 +2317,7 @@ def main() -> None:
             + kdyn.audio_walk_launch_count - w0
     launches = launch_counts()
     for name, count in launches.items():
-        if name in STREAM_KERNELS:          # the offline render has no step
+        if name in STREAM_KERNELS + OFF_PATH_KERNELS:
             assert count == 0, (name, launches)
         else:
             assert count >= len(BLOCK_SIZES), (name, launches)
@@ -2137,6 +2382,9 @@ def main() -> None:
           "conv_pairs_cluster_by_window": time_cluster_by_window(),
           "conv_pairs_full_card_batch": time_full_batch(),
           "nvidia_smi": smi})
+    t0 = time.perf_counter()
+    emit({**long_windows(signal, n), "nvidia_smi": smi,
+          "seconds": round(time.perf_counter() - t0, 1)})
 
     # ---- 6. the offline kernels at the main-path shapes
     stage_by_B, sweep = {}, {}

@@ -5,7 +5,7 @@
 // conv_pairs_fused (body _kernel). For R real rows of n samples and a real
 // filter's spectrum it computes, per row,
 //
-//     out[r] = irfft(rfft(row[r]) * H)         (n a power of two, 16..16,384)
+//     out[r] = irfft(rfft(row[r]) * H)         (n a power of two, 16..65,536)
 //
 // It has two entry points over one kernel body:
 //
@@ -30,22 +30,27 @@
 // shared memory from load to store, and the transform of
 // csrc/window_fft.cuh.
 //
-// Two ways to spread a pair over the card, chosen by the host per window
+// Three ways to spread a pair over the card, chosen by the host per window
 // size and batch (kernels/convpairs.py has the rule, PERF.md the
-// measurements: the cluster is ahead by a quarter to a fifth at 64 to 112
-// rows of 16,384, by 1-3 us at the smaller windows, and behind from 128 rows
-// on, so it takes the largest window of a step's batch only):
+// measurements: up to 16,384 points the cluster of four is ahead by a
+// quarter to a fifth at 64 to 112 rows of 16,384, by 1-3 us at the smaller
+// windows, and behind from 128 rows on, so it takes the largest one-block
+// window of a step's batch only):
 //
-//   one block a pair    (convpairs_kernel<false>) the whole window in one
-//                       thread block's shared memory.
-//   a cluster of four   (convpairs_kernel<true>, sm_90 thread-block cluster)
-//                       block q of the cluster holds quarter q of the
+//   one block a pair    (convpairs_kernel<1>) the whole window in one thread
+//                       block's shared memory, up to 16,384 points.
+//   a cluster of P      (convpairs_kernel<P>, P = 2 or 4, sm_90 thread-block
+//                       cluster) block q of the cluster holds part q of the
 //                       window, and csrc/window_fft.cuh's cluster transform
 //                       (the top pass through distributed shared memory,
-//                       the levels below on each quarter, bit-equal to the
-//                       one-block transform) runs on it. Four times the
-//                       blocks (128 for 64 rows), each with a quarter of the
-//                       butterflies, the loads and the stores.
+//                       the levels below on each part, bit-equal to the
+//                       one-block transform) runs on it. P times the blocks,
+//                       each with 1/P of the butterflies, the loads and the
+//                       stores. The only way to the windows no block holds:
+//                       32,768 points over 2 (or 4) blocks, 65,536 over 4
+//                       blocks of 16,384, which a stream at a block size of
+//                       16,384 or a filter of tens of thousands of taps
+//                       needs.
 //
 // The next history is written by blocks of their own, which do nothing else
 // and run beside the transforming ones: the copy (11 MB of traffic at block
@@ -58,7 +63,8 @@
 
 #include "window_fft.cuh"
 
-#define CLUSTER_BLOCKS 4
+// Points of a window one block holds at most.
+#define BLOCK_POINTS 16384
 // Samples of the next history that one copying block writes.
 #define COPY_CHUNK 4096
 
@@ -86,23 +92,22 @@ __device__ __forceinline__ float source(const PairsIo& io, int r, int i) {
                       : io.b[(size_t)r * io.b_stride + (i - io.split)];
 }
 
-// kCluster false: one block a pair, the first `pairs` blocks of the grid.
-// kCluster true: clusters of CLUSTER_BLOCKS blocks, the first
-// CLUSTER_BLOCKS * pairs blocks, each holding n / CLUSTER_BLOCKS points (the
-// launcher sets the cluster's size). The blocks after those (whole clusters
-// of them) only copy: block k of them writes chunk k of the next history,
-// COPY_CHUNK samples of one row, straight from the source to its place
-// (nothing of it passes through the transform), while the others transform.
-template <bool kCluster>
+// P == 1: one block a pair, the first `pairs` blocks of the grid. P == 2 or
+// 4: clusters of P blocks, the first P * pairs blocks, each holding n / P
+// points (the launcher sets the cluster's size). The blocks after those
+// (whole clusters of them) only copy: block k of them writes chunk k of the
+// next history, COPY_CHUNK samples of one row, straight from the source to
+// its place (nothing of it passes through the transform), while the others
+// transform.
+template <int P>
 __global__ void __launch_bounds__(WINDOW_FFT_THREADS)
 convpairs_kernel(const PairsIo io, const float2* __restrict__ spec,
                  const float2* __restrict__ tw, int R, int ln) {
   extern __shared__ float2 z[];
   const int n = 1 << ln;
-  const int parts = kCluster ? CLUSTER_BLOCKS : 1;
   const int pairs = (R + 1) / 2;
-  if ((int)blockIdx.x >= pairs * parts) {
-    const int chunk = (int)blockIdx.x - pairs * parts;
+  if ((int)blockIdx.x >= pairs * P) {
+    const int chunk = (int)blockIdx.x - pairs * P;
     const int per_row = (io.next_len + COPY_CHUNK - 1) / COPY_CHUNK;
     const int r = chunk / per_row;
     if (r >= R) return;            // the grid is rounded up to whole clusters
@@ -113,18 +118,18 @@ convpairs_kernel(const PairsIo io, const float2* __restrict__ spec,
       dst[k] = source(io, r, io.shift + k);
     return;
   }
-  const int rank = kCluster ? (int)(blockIdx.x % CLUSTER_BLOCKS) : 0;
-  const int r0 = 2 * (int)(blockIdx.x / parts);
+  const int rank = P > 1 ? (int)(blockIdx.x % P) : 0;
+  const int r0 = 2 * (int)(blockIdx.x / P);
   const bool has_b = r0 + 1 < R;
-  const int m = n / parts;          // points this block holds
+  const int m = n / P;              // points this block holds
   const int base = rank * m;        // the window index of its first point
 
   for (int i = threadIdx.x; i < m; i += blockDim.x)
     z[pad(i)] = make_float2(source(io, r0, base + i),
                             has_b ? source(io, r0 + 1, base + i) : 0.0f);
 
-  if (kCluster) {
-    convolve_window_cluster<CLUSTER_BLOCKS>(z, spec, tw, ln);
+  if constexpr (P > 1) {
+    convolve_window_cluster<P>(z, spec, tw, ln);
   } else {
     __syncthreads();
     convolve_window(z, spec, tw, ln);
@@ -154,56 +159,62 @@ int cluster_threads(int m) {
 }
 
 // Blocks that copy the next history (0 where there is none), in whole
-// clusters.
-unsigned copy_blocks(const PairsIo& io, int R) {
+// clusters of P.
+unsigned copy_blocks(const PairsIo& io, int R, int P) {
   if (io.next == nullptr || io.next_len == 0) return 0;
   const unsigned chunks =
       (unsigned)R * (unsigned)((io.next_len + COPY_CHUNK - 1) / COPY_CHUNK);
-  return (chunks + CLUSTER_BLOCKS - 1) / CLUSTER_BLOCKS * CLUSTER_BLOCKS;
+  return (chunks + P - 1) / P * P;
 }
 
-int launch(const PairsIo& io, const float* spec, const float* tw, int R, int n,
-           int cluster, void* stream) {
-  const int ln = window_log2(n);
-  if (ln < 0 || R <= 0) return (int)cudaErrorInvalidValue;
-  const float2* spec2 = reinterpret_cast<const float2*>(spec);
-  const float2* tw2 = reinterpret_cast<const float2*>(tw);
+template <int P>
+int launch_cluster(const PairsIo& io, const float2* spec, const float2* tw,
+                   int R, int ln, cudaStream_t st) {
+  const int m = (1 << ln) / P;
   const unsigned pairs = (unsigned)((R + 1) / 2);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (!cluster) {
-    const size_t smem = window_smem_bytes(n);
-    cudaError_t err = cudaFuncSetAttribute(
-        convpairs_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    convpairs_kernel<false>
-        <<<pairs + copy_blocks(io, R), window_threads(n), smem, st>>>(
-            io, spec2, tw2, R, ln);
-    return (int)cudaGetLastError();
-  }
-  // a quarter must keep a whole two-level pass above it and a whole
-  // innermost pass below: n >= 1,024
-  if (ln < 10) return (int)cudaErrorInvalidValue;
-  const int m = n / CLUSTER_BLOCKS;
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(pairs * CLUSTER_BLOCKS + copy_blocks(io, R));
+  config.gridDim = dim3(pairs * P + copy_blocks(io, R, P));
   config.blockDim = dim3(cluster_threads(m));
   config.dynamicSmemBytes = window_smem_bytes(m);
   config.stream = st;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CLUSTER_BLOCKS;
+  attr[0].val.clusterDim.x = P;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
   cudaError_t err = cudaFuncSetAttribute(
-      convpairs_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      convpairs_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)config.dynamicSmemBytes);
   if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&config, convpairs_kernel<true>, io, spec2, tw2, R,
-                           ln);
+  err = cudaLaunchKernelEx(&config, convpairs_kernel<P>, io, spec, tw, R, ln);
   if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+int launch(const PairsIo& io, const float* spec, const float* tw, int R, int n,
+           int blocks, void* stream) {
+  const int ln = window_log2(n);
+  if (ln < 0 || R <= 0 || !(blocks == 1 || blocks == 2 || blocks == 4) ||
+      n / blocks > BLOCK_POINTS)
+    return (int)cudaErrorInvalidValue;
+  // a part must keep a whole two-level pass above it and a whole innermost
+  // pass below: n >= 1,024 for a cluster
+  if (blocks > 1 && ln < 10) return (int)cudaErrorInvalidValue;
+  const float2* spec2 = reinterpret_cast<const float2*>(spec);
+  const float2* tw2 = reinterpret_cast<const float2*>(tw);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (blocks == 2) return launch_cluster<2>(io, spec2, tw2, R, ln, st);
+  if (blocks == 4) return launch_cluster<4>(io, spec2, tw2, R, ln, st);
+  const unsigned pairs = (unsigned)((R + 1) / 2);
+  const size_t smem = window_smem_bytes(n);
+  cudaError_t err = cudaFuncSetAttribute(
+      convpairs_kernel<1>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  convpairs_kernel<1><<<pairs + copy_blocks(io, R, 1), window_threads(n), smem,
+                        st>>>(io, spec2, tw2, R, ln);
   return (int)cudaGetLastError();
 }
 
@@ -211,11 +222,11 @@ int launch(const PairsIo& io, const float* spec, const float* tw, int R, int n,
 
 // in: R rows of n floats, row r at in + r*in_stride; out: (R, n) contiguous;
 // spec: (n, 2) spectrum / n in the forward transform's output order; tw: the
-// per-pass twiddle rows of an n-point window; cluster: 0 for one block a
-// pair, 1 for a cluster of four.
+// per-pass twiddle rows of an n-point window; blocks: thread blocks a pair,
+// 1 (n <= 16,384) or a cluster of 2 or 4 (n >= 1,024, n / blocks <= 16,384).
 extern "C" int convpairs_launch(const float* in, float* out, const float* spec,
                                 const float* tw, int R, int n,
-                                long long in_stride, int cluster,
+                                long long in_stride, int blocks,
                                 void* stream) {
   if (in_stride < n) return (int)cudaErrorInvalidValue;
   PairsIo io = {};
@@ -223,7 +234,7 @@ extern "C" int convpairs_launch(const float* in, float* out, const float* spec,
   io.a_stride = in_stride;
   io.split = n;
   io.out = out;
-  return launch(io, spec, tw, R, n, cluster, stream);
+  return launch(io, spec, tw, R, n, blocks, stream);
 }
 
 // The streaming step. hist: (R, hist_len) contiguous; block: R rows of B
@@ -235,7 +246,7 @@ extern "C" int convpairs_step_launch(const float* hist, const float* block,
                                      float* out, float* next,
                                      const float* spec, const float* tw, int R,
                                      int n, int hist_len, int B,
-                                     long long block_stride, int cluster,
+                                     long long block_stride, int blocks,
                                      void* stream) {
   if (hist_len < 0 || B < 1 || B > n || n > hist_len + B || block_stride < B)
     return (int)cudaErrorInvalidValue;
@@ -250,5 +261,5 @@ extern "C" int convpairs_step_launch(const float* hist, const float* block,
   io.next = next;
   io.next_len = hist_len;
   io.shift = B;
-  return launch(io, spec, tw, R, n, cluster, stream);
+  return launch(io, spec, tw, R, n, blocks, stream);
 }

@@ -5,11 +5,16 @@
 // Replaces the TPU kernels of pyaudiodsptools_tpu/kernels/dynamics_pallas.py
 // that dynamics_pallas_offline launches: _spec_kernel (the audio sweep; here
 // dynamics_audio_walk) and _spec_state_kernel (the states-only sweep; here
-// dynamics_state_walk). Both read a time-major (L, Rp) float32 signal (lane
-// r = g*C + c, see csrc/relayout.cu) and the entry state of every lane and
-// op, (n_ops, Rp) int32, walk the L rows, and write the exit states. The
-// audio walk also writes the (L, Rp) output; the state walk writes no audio
-// and leaves out the last op's gain, which nothing reads.
+// dynamics_state_walk). Both read the signal (C, T) float32 AS IT LIES,
+// cut into G segments of L samples a channel (segment g of channel c is
+// x[c, g*L : min((g+1)*L, T)], the last one ragged and walked on zeros past
+// T), and the entry state of every lane and op, (n_ops, C*G) int32 with lane
+// r = g*C + c; each lane walks its segment and the exit states are written.
+// The audio walk also writes the output, (C, T) as the input lies; the state
+// walk writes no audio and leaves out the last op's gain, which nothing
+// reads. (The TPU kernels read a time-major copy of the signal, made and
+// undone by the relayout kernels, csrc/relayout.cu: here no such copy is
+// made.)
 //
 // One state int per lane and op (dynamics_pallas.py: the encoding comment):
 //   s = -1           skip (one sample after a completed release)
@@ -32,16 +37,25 @@
 // (8 bytes a sample) and the state walk reads it once (4 bytes a sample).
 // But a lane's walk is SERIAL: each sample's state depends on the one
 // before, about a dozen dependent instructions per op, so a thread's time is
-// L times that latency and the card is full only when there are a few
-// hundred thousand lanes. The design: one thread per lane, its n_ops states
-// in registers for the whole walk (n_ops is a template parameter, so the op
-// loop unrolls and no state is ever spilled or indexed); neighbouring
-// threads are neighbouring lanes, so every row's loads and stores are
-// coalesced without shared memory; and since the input never depends on the
-// state, each thread loads a chunk of WALK_CHUNK rows into registers before
-// it walks them, which keeps that many loads in flight per thread and takes
-// the memory latency out of the dependent chain. How many lanes there are
-// (the number of segments) is the planner's choice in kernels/dynamics.py.
+// L times that latency, and with a few tens of thousands of lanes the card
+// has only a few warps an SM to hide it with; the loads have to be in flight
+// long before the walk needs them. The design: one thread a segment, its
+// n_ops states in registers for the whole walk (n_ops is a template
+// parameter, so the op loop unrolls and no state is ever spilled or
+// indexed). A block takes TILE_ROWS consecutive rows of the (C*G, L) view of
+// the signal (row c*G + g is segment g of channel c). It stages tiles of
+// TILE_ROWS rows x TILE_K samples through shared memory: each row's TILE_K
+// samples are contiguous in device memory, so the copies (cp.async, 16 bytes
+// a thread where the signal's shape allows) are coalesced along time, and a
+// ring of TILE_STAGES tiles keeps two of them in flight while the threads
+// walk the third. Rows lie TILE_PITCH floats apart (TILE_PITCH / 4 odd), so
+// the copies into a tile and each thread's 16-byte reads of its own row are
+// free of bank conflicts. The audio walk writes its outputs into one of two
+// output tiles and the block stores that tile, coalesced along time, after
+// the next barrier, while it walks the next tile into the other one. Rows
+// past T (the ragged last segment) are filled with zeros by the copy and
+// walked; none of their outputs is stored. How many lanes there are (the
+// number of segments) is the planner's choice in kernels/dynamics.py.
 //
 // The two ramps and the output product use __fmul_rn / __fadd_rn / __fsub_rn
 // so that nvcc contracts nothing into an FMA: each product and sum rounds on
@@ -106,10 +120,19 @@
 // nothing, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #define DYN_MAX_OPS 4
+// The serial walk: samples a thread loads into registers before it walks
+// them.
 #define WALK_CHUNK 8
-#define WALK_THREADS 128
+// The offline walks: rows (segments, one thread each) a block, samples a row
+// of a tile, floats between rows in shared memory, tiles in the input ring.
+#define TILE_ROWS 128
+#define TILE_K 32
+#define TILE_PITCH (TILE_K + 4)
+#define TILE_STAGES 3
+#define TILE_FLOATS (TILE_ROWS * TILE_PITCH)
 // The serial walk: at most this many segments (threads) a tile.
 #define SERIAL_MAX_THREADS 1024
 
@@ -193,65 +216,186 @@ __device__ __forceinline__ float cascade(const DynOps& ops, int (&s)[N_OPS],
   return row;
 }
 
+// cp.async of 16 bytes (src_bytes of them read, the rest zeros) and of 4.
+__device__ __forceinline__ void copy16(float* dst, const float* src,
+                                       int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void copy4(float* dst, const float* src,
+                                      int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void copy_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// One thread's row of a tile, `len` samples: the cascade over each sample in
+// order, four at a time out of shared memory; with AUDIO the outputs go to
+// the same place in the output tile.
 template <int N_OPS, bool AUDIO>
-__global__ void __launch_bounds__(WALK_THREADS)
+__device__ __forceinline__ void walk_row(const DynOps& ops, int (&s)[N_OPS],
+                                         const float* in, float* out,
+                                         int len) {
+  int k = 0;
+  for (; k + 4 <= len; k += 4) {
+    const float4 q = *reinterpret_cast<const float4*>(in + k);
+    float4 y;
+    y.x = cascade<N_OPS, AUDIO>(ops, s, q.x);
+    y.y = cascade<N_OPS, AUDIO>(ops, s, q.y);
+    y.z = cascade<N_OPS, AUDIO>(ops, s, q.z);
+    y.w = cascade<N_OPS, AUDIO>(ops, s, q.w);
+    if (AUDIO) *reinterpret_cast<float4*>(out + k) = y;
+  }
+  for (; k < len; ++k) {
+    const float y = cascade<N_OPS, AUDIO>(ops, s, in[k]);
+    if (AUDIO) out[k] = y;
+  }
+}
+
+// The offline walks. Block b takes rows b*TILE_ROWS ... of the (C*G, L)
+// view, thread i walks row b*TILE_ROWS + i (threads past the last row only
+// copy and store). kVec: the signal's rows start on 16-byte boundaries (T,
+// L multiples of 4, aligned pointers) and move 16 bytes a copy; else 4.
+// Dynamic shared memory: the ring of TILE_STAGES input tiles, with AUDIO two
+// output tiles, then each row's offset in x and its length (L, or what is
+// left of T in the ragged last segment).
+template <int N_OPS, bool AUDIO, bool kVec>
+__global__ void __launch_bounds__(TILE_ROWS, 2)
 walk_kernel(const float* __restrict__ x, float* __restrict__ out,
             const int* __restrict__ entry, int* __restrict__ exit_state,
-            const DynOps ops, int L, int Rp) {
-  const int r = blockIdx.x * WALK_THREADS + threadIdx.x;
-  if (r >= Rp) return;
+            const DynOps ops, int C, int T, int G, int L) {
+  extern __shared__ float4 smem4[];
+  float* ring = reinterpret_cast<float*>(smem4);
+  float* otile = ring + TILE_STAGES * TILE_FLOATS;
+  long long* row_off = reinterpret_cast<long long*>(
+      otile + (AUDIO ? 2 * TILE_FLOATS : 0));
+  int* row_len = reinterpret_cast<int*>(row_off + TILE_ROWS);
+  constexpr int W = kVec ? 4 : 1;           // floats a copy
+  constexpr int CH = TILE_K / W;            // copies a row of a tile
+  const int R = C * G;
+  const int v0 = (int)blockIdx.x * TILE_ROWS;
+  const int rows = min(TILE_ROWS, R - v0);
+  const int tid = threadIdx.x;
+
   int s[N_OPS];
+  int lane = 0;
+  if (tid < rows) {
+    const int c = (v0 + tid) / G, g = v0 + tid - c * G;
+    lane = g * C + c;
+    row_off[tid] = (long long)c * T + (long long)g * L;
+    row_len[tid] = g == G - 1 ? T - g * L : L;
 #pragma unroll
-  for (int j = 0; j < N_OPS; ++j) s[j] = entry[(size_t)j * Rp + r];
+    for (int j = 0; j < N_OPS; ++j) s[j] = entry[(size_t)j * R + lane];
+  }
+  __syncthreads();
 
-  const float* xr = x + r;
-  float* outr = AUDIO ? out + r : nullptr;
-  int l = 0;
-  for (; l + WALK_CHUNK <= L; l += WALK_CHUNK) {
-    float v[WALK_CHUNK];
-#pragma unroll
-    for (int k = 0; k < WALK_CHUNK; ++k) v[k] = xr[(size_t)(l + k) * Rp];
-#pragma unroll
-    for (int k = 0; k < WALK_CHUNK; ++k) {
-      const float y = cascade<N_OPS, AUDIO>(ops, s, v[k]);
-      if (AUDIO) outr[(size_t)(l + k) * Rp] = y;
+  // tile t: samples [t*TILE_K, t*TILE_K + TILE_K) of every row, zeros where
+  // a row has none (past its length)
+  auto load_tile = [&](int t, float* dst) {
+    const int k0 = t * TILE_K;
+    for (int i = tid; i < rows * CH; i += TILE_ROWS) {
+      const int r = i / CH, k = k0 + (i - r * CH) * W;
+      const int valid = max(0, min(W, row_len[r] - k));
+      const float* src = x + row_off[r] + (valid > 0 ? k : 0);
+      float* d = dst + r * TILE_PITCH + (k - k0);
+      if (kVec) copy16(d, src, 4 * valid);
+      else copy4(d, src, 4 * valid);
     }
+  };
+  auto store_tile = [&](int t, const float* src) {
+    const int k0 = t * TILE_K;
+    for (int i = tid; i < rows * CH; i += TILE_ROWS) {
+      const int r = i / CH, k = k0 + (i - r * CH) * W;
+      const int valid = max(0, min(W, row_len[r] - k));
+      if (valid == 0) continue;
+      const float* p = src + r * TILE_PITCH + (k - k0);
+      float* d = out + row_off[r] + k;
+      if (kVec) {
+        *reinterpret_cast<float4*>(d) = *reinterpret_cast<const float4*>(p);
+      } else {
+        *d = *p;
+      }
+    }
+  };
+
+  const int ntiles = (L + TILE_K - 1) / TILE_K;
+#pragma unroll
+  for (int p = 0; p < TILE_STAGES - 1; ++p) {
+    if (p < ntiles) load_tile(p, ring + p * TILE_FLOATS);
+    copy_commit();
   }
-  for (; l < L; ++l) {
-    const float y = cascade<N_OPS, AUDIO>(ops, s, xr[(size_t)l * Rp]);
-    if (AUDIO) outr[(size_t)l * Rp] = y;
+  for (int t = 0; t <= ntiles; ++t) {
+    copy_wait<TILE_STAGES - 2>();          // this thread's copies of tile t
+    __syncthreads();                       // everyone's; tile t-1 walked
+    if (AUDIO && t > 0) store_tile(t - 1, otile + ((t - 1) & 1) * TILE_FLOATS);
+    if (t == ntiles) break;
+    const int tn = t + TILE_STAGES - 1;    // into the slot tile t-1 left
+    if (tn < ntiles) load_tile(tn, ring + (tn % TILE_STAGES) * TILE_FLOATS);
+    copy_commit();
+    if (tid < rows)
+      walk_row<N_OPS, AUDIO>(
+          ops, s, ring + (t % TILE_STAGES) * TILE_FLOATS + tid * TILE_PITCH,
+          otile + (t & 1) * TILE_FLOATS + tid * TILE_PITCH,
+          min(TILE_K, L - t * TILE_K));
   }
 
+  if (tid < rows) {
 #pragma unroll
-  for (int j = 0; j < N_OPS; ++j) exit_state[(size_t)j * Rp + r] = s[j];
+    for (int j = 0; j < N_OPS; ++j) exit_state[(size_t)j * R + lane] = s[j];
+  }
+}
+
+size_t walk_smem_bytes(bool audio) {
+  return sizeof(float) * (size_t)TILE_FLOATS * (TILE_STAGES + (audio ? 2 : 0)) +
+         (sizeof(long long) + sizeof(int)) * TILE_ROWS;
+}
+
+template <int N_OPS, bool AUDIO, bool kVec>
+int launch_walk(const float* x, float* out, const int* entry, int* exit_state,
+                const DynOps* ops, int C, int T, int G, int L,
+                cudaStream_t st) {
+  const size_t smem = walk_smem_bytes(AUDIO);
+  cudaError_t err = cudaFuncSetAttribute(
+      walk_kernel<N_OPS, AUDIO, kVec>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const unsigned blocks = (unsigned)((C * G + TILE_ROWS - 1) / TILE_ROWS);
+  walk_kernel<N_OPS, AUDIO, kVec><<<blocks, TILE_ROWS, smem, st>>>(
+      x, out, entry, exit_state, *ops, C, T, G, L);
+  return (int)cudaGetLastError();
 }
 
 template <bool AUDIO>
 int launch(const float* x, float* out, const int* entry, int* exit_state,
-           const DynOps* ops, int L, int Rp, void* stream) {
-  if (ops->n_ops < 1 || ops->n_ops > DYN_MAX_OPS || L < 0 || Rp <= 0)
+           const DynOps* ops, int C, int T, int G, int L, void* stream) {
+  if (ops->n_ops < 1 || ops->n_ops > DYN_MAX_OPS || C < 1 || T < 1 ||
+      G < 1 || L < 1 || (long long)(G - 1) * L >= T ||
+      (long long)G * L < T || (long long)C * G > 2147483647LL)
     return (int)cudaErrorInvalidValue;
-  const unsigned blocks = (unsigned)((Rp + WALK_THREADS - 1) / WALK_THREADS);
+  const bool vec = T % 4 == 0 && L % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   (!AUDIO || reinterpret_cast<uintptr_t>(out) % 16 == 0);
   cudaStream_t st = (cudaStream_t)stream;
+#define WALK_CASE(N)                                                          \
+  return vec ? launch_walk<N, AUDIO, true>(x, out, entry, exit_state, ops, C, \
+                                           T, G, L, st)                       \
+             : launch_walk<N, AUDIO, false>(x, out, entry, exit_state, ops,   \
+                                            C, T, G, L, st)
   switch (ops->n_ops) {
-    case 1:
-      walk_kernel<1, AUDIO><<<blocks, WALK_THREADS, 0, st>>>(
-          x, out, entry, exit_state, *ops, L, Rp);
-      break;
-    case 2:
-      walk_kernel<2, AUDIO><<<blocks, WALK_THREADS, 0, st>>>(
-          x, out, entry, exit_state, *ops, L, Rp);
-      break;
-    case 3:
-      walk_kernel<3, AUDIO><<<blocks, WALK_THREADS, 0, st>>>(
-          x, out, entry, exit_state, *ops, L, Rp);
-      break;
-    default:
-      walk_kernel<4, AUDIO><<<blocks, WALK_THREADS, 0, st>>>(
-          x, out, entry, exit_state, *ops, L, Rp);
-      break;
+    case 1: WALK_CASE(1);
+    case 2: WALK_CASE(2);
+    case 3: WALK_CASE(3);
+    default: WALK_CASE(4);
   }
-  return (int)cudaGetLastError();
+#undef WALK_CASE
 }
 
 // State s after d >= 0 samples none of which is over the threshold: from
@@ -514,18 +658,21 @@ extern "C" int dynamics_serial_step_launch(const float* x, float* out,
                        true, nullptr, stream);
 }
 
-// Audio walk: out (L, Rp) and exit states (n_ops, Rp) from x (L, Rp) and
-// entry states (n_ops, Rp).
+// Audio walk: out (C, T) and exit states (n_ops, C*G) from x (C, T), cut
+// into G segments of L samples a channel ((G-1)*L < T <= G*L), and entry
+// states (n_ops, C*G), lane g*C + c.
 extern "C" int dynamics_audio_walk_launch(const float* x, float* out,
                                           const int* entry, int* exit_state,
-                                          const DynOps* ops, int L, int Rp,
-                                          void* stream) {
-  return launch<true>(x, out, entry, exit_state, ops, L, Rp, stream);
+                                          const DynOps* ops, int C, int T,
+                                          int G, int L, void* stream) {
+  return launch<true>(x, out, entry, exit_state, ops, C, T, G, L, stream);
 }
 
 // State walk: exit states only.
 extern "C" int dynamics_state_walk_launch(const float* x, const int* entry,
                                           int* exit_state, const DynOps* ops,
-                                          int L, int Rp, void* stream) {
-  return launch<false>(x, nullptr, entry, exit_state, ops, L, Rp, stream);
+                                          int C, int T, int G, int L,
+                                          void* stream) {
+  return launch<false>(x, nullptr, entry, exit_state, ops, C, T, G, L,
+                       stream);
 }

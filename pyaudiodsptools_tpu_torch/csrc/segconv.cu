@@ -8,7 +8,13 @@
 //     y[c, m] = sum_k h[k] * x[c, m - shift - k],   0 <= m < T
 //
 // by overlap-save: windows of n = halo + seg samples start seg samples apart,
-// and each yields its last seg (wrap-free) output samples.
+// and each yields its last seg (wrap-free) output samples. In accumulate mode
+// it adds that sum into y instead (y[c, m] += ..., m >= shift; y[c, m <
+// shift] is left as it is): a kernel longer than a window is cut into
+// consecutive partitions, each with its own output delay, and the launch of
+// partition p > 0 adds into the output of the ones before
+// (ops/fft_filter.plan_partitions), so the partitions' sum costs no pass of
+// its own.
 //
 // What bounds it: device memory has to deliver the signal n/seg times and
 // take it once, but the transform itself moves each window through shared
@@ -68,20 +74,39 @@ __device__ __forceinline__ float load1(const float* __restrict__ xr,
   return (s >= 0 && s < T) ? __ldg(xr + s) : 0.0f;
 }
 
-// Output samples [o, o+4) of a row: below T, and exact silence below
-// `shift`. One 16-byte store where all four are plain (the caller has
-// aligned o).
+// Output sample o of a row, below T: exact silence below `shift`, or with
+// kAcc added to what is there (and left as it is below `shift`).
+template <bool kAcc>
+__device__ __forceinline__ void store1(float* yr, long long o, int T,
+                                       int shift, float v) {
+  if (o >= T) return;
+  if (o < shift) {
+    if (!kAcc) yr[o] = 0.0f;
+  } else {
+    yr[o] = kAcc ? yr[o] + v : v;
+  }
+}
+
+// Output samples [o, o+4) of a row, as store1 does them. One 16-byte access
+// where all four lie at or past `shift` and below T (the caller has aligned
+// o).
+template <bool kAcc>
 __device__ __forceinline__ void store4(float* yr, long long o, int T,
                                        int shift, float v0, float v1, float v2,
                                        float v3) {
   if (o >= shift && o + 4 <= T) {
-    *reinterpret_cast<float4*>(yr + o) = make_float4(v0, v1, v2, v3);
+    float4* p = reinterpret_cast<float4*>(yr + o);
+    if (kAcc) {
+      const float4 a = *p;
+      *p = make_float4(a.x + v0, a.y + v1, a.z + v2, a.w + v3);
+    } else {
+      *p = make_float4(v0, v1, v2, v3);
+    }
     return;
   }
   const float v[4] = {v0, v1, v2, v3};
 #pragma unroll
-  for (int e = 0; e < 4; ++e)
-    if (o + e < T) yr[o + e] = (o + e < shift) ? 0.0f : v[e];
+  for (int e = 0; e < 4; ++e) store1<kAcc>(yr, o + e, T, shift, v[e]);
 }
 
 // Samples from s on (s may be < 0) before the row's first 16-byte boundary
@@ -92,8 +117,9 @@ __device__ __forceinline__ int head_points(const float* row, long long s) {
 }
 
 // P blocks a window pair (1, or a cluster of 2 or 4). Block `rank` of a
-// pair holds points [rank*m, (rank+1)*m) of both windows, m = n/P.
-template <int P>
+// pair holds points [rank*m, (rank+1)*m) of both windows, m = n/P. kAcc: add
+// into y (accumulate mode).
+template <int P, bool kAcc>
 __global__ void __launch_bounds__(WINDOW_FFT_THREADS)
 segconv_kernel(const float* __restrict__ x, float* __restrict__ y,
                const float2* __restrict__ spec, const float2* __restrict__ tw,
@@ -171,8 +197,9 @@ segconv_kernel(const float* __restrict__ x, float* __restrict__ y,
     const int i = first + 4 * k;
     const float2 v0 = z[pad(i)], v1 = z[pad(i + 1)], v2 = z[pad(i + 2)],
                  v3 = z[pad(i + 3)];
-    store4(yr, oa + i, T, shift, v0.x, v1.x, v2.x, v3.x);
-    if (has_b) store4(yr, oa + seg + i, T, shift, v0.y, v1.y, v2.y, v3.y);
+    store4<kAcc>(yr, oa + i, T, shift, v0.x, v1.x, v2.x, v3.x);
+    if (has_b)
+      store4<kAcc>(yr, oa + seg + i, T, shift, v0.y, v1.y, v2.y, v3.y);
   }
   // the points before the first chunk and after the last, one a thread
   int i = -1;
@@ -181,13 +208,12 @@ segconv_kernel(const float* __restrict__ x, float* __restrict__ y,
     i = first + 4 * nb2 + (int)threadIdx.x - 4;
   if (i >= 0) {
     const float2 v = z[pad(i)];
-    const long long o = oa + i, ob = o + seg;
-    if (o < T) yr[o] = (o < shift) ? 0.0f : v.x;
-    if (has_b && ob < T) yr[ob] = (ob < shift) ? 0.0f : v.y;
+    store1<kAcc>(yr, oa + i, T, shift, v.x);
+    if (has_b) store1<kAcc>(yr, oa + seg + i, T, shift, v.y);
   }
 }
 
-template <int P>
+template <int P, bool kAcc>
 int launch(const float* x, float* y, const float2* spec, const float2* tw,
            int C, int T, int ln, int halo, int seg, int shift,
            cudaStream_t stream) {
@@ -198,11 +224,12 @@ int launch(const float* x, float* y, const float2* spec, const float2* tw,
   if (blocks <= 0 || blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   const size_t smem = window_smem_bytes(m);
   cudaError_t err = cudaFuncSetAttribute(
-      segconv_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      segconv_kernel<P, kAcc>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
   if constexpr (P == 1) {
-    segconv_kernel<P><<<(unsigned)blocks, window_threads(m), smem, stream>>>(
+    segconv_kernel<P, kAcc><<<(unsigned)blocks, window_threads(m), smem,
+                              stream>>>(
         x, y, spec, tw, T, ln, halo, seg, shift, n_seg, n_pairs);
     return (int)cudaGetLastError();
   }
@@ -218,8 +245,8 @@ int launch(const float* x, float* y, const float2* spec, const float2* tw,
   attr[0].val.clusterDim.z = 1;
   config.attrs = attr;
   config.numAttrs = 1;
-  err = cudaLaunchKernelEx(&config, segconv_kernel<P>, x, y, spec, tw, T, ln,
-                           halo, seg, shift, n_seg, n_pairs);
+  err = cudaLaunchKernelEx(&config, segconv_kernel<P, kAcc>, x, y, spec, tw,
+                           T, ln, halo, seg, shift, n_seg, n_pairs);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -229,11 +256,12 @@ int launch(const float* x, float* y, const float2* spec, const float2* tw,
 // x, y: (C, T) float32; spec: (n, 2) spectrum / n in the forward
 // transform's output order; tw: the per-pass twiddle rows of an n-point
 // window; blocks_per_window: 1 (n <= 16,384), or a cluster of 2 or 4 (n >=
-// 256, n / blocks <= 16,384); halo and seg multiples of 4.
+// 256, n / blocks <= 16,384); halo and seg multiples of 4; accumulate: 0
+// writes y, 1 adds into it.
 extern "C" int segconv_launch(const float* x, float* y, const float* spec,
                               const float* tw, int C, int T, int n, int halo,
                               int seg, int shift, int blocks_per_window,
-                              void* stream) {
+                              int accumulate, void* stream) {
   const int ln = window_log2(n);
   const int P = blocks_per_window;
   if (ln < 0 || (halo & 3) || (seg & 3) || halo + seg != n ||
@@ -243,9 +271,15 @@ extern "C" int segconv_launch(const float* x, float* y, const float* spec,
   const float2* spec2 = reinterpret_cast<const float2*>(spec);
   const float2* tw2 = reinterpret_cast<const float2*>(tw);
   cudaStream_t st = (cudaStream_t)stream;
-  if (P == 4)
-    return launch<4>(x, y, spec2, tw2, C, T, ln, halo, seg, shift, st);
-  if (P == 2)
-    return launch<2>(x, y, spec2, tw2, C, T, ln, halo, seg, shift, st);
-  return launch<1>(x, y, spec2, tw2, C, T, ln, halo, seg, shift, st);
+#define SEGCONV_LAUNCH(P_, ACC)                                               \
+  return launch<P_, ACC>(x, y, spec2, tw2, C, T, ln, halo, seg, shift, st)
+  if (accumulate) {
+    if (P == 4) SEGCONV_LAUNCH(4, true);
+    if (P == 2) SEGCONV_LAUNCH(2, true);
+    SEGCONV_LAUNCH(1, true);
+  }
+  if (P == 4) SEGCONV_LAUNCH(4, false);
+  if (P == 2) SEGCONV_LAUNCH(2, false);
+  SEGCONV_LAUNCH(1, false);
+#undef SEGCONV_LAUNCH
 }

@@ -99,10 +99,11 @@ def fuse_lti_runs(effects: tuple[Effect, ...]) -> tuple[Effect, ...]:
 
     * LTI effects (carry an ``lti_kernel``) -> one FIR whose impulse
       response is the cascade's (ops/fft_filter.fuse_lti). A run is cut
-      where the fused kernel, its zero prefix stripped, would outgrow one
-      thread block's window (a long delay next to a filter), so that every
-      cascade streams too: the members on either side of the cut fuse
-      separately or stay as they are;
+      where the fused kernel, its zero prefix stripped, would no longer
+      stream at the block size (ops/fft_filter.fits_one_window: the
+      streaming window outgrows the largest the kernel holds, 65,536), so
+      that every cascade streams too: the members on either side of the cut
+      fuse separately or stay as they are;
     * dynamics automatons (compressor / gate, in any order) -> one cascaded
       speculative walk (kernels/dynamics.fused_dynamics). A run longer than
       one kernel walks (kernels/dynamics.MAX_OPS) is cut into consecutive
@@ -130,7 +131,8 @@ def fuse_lti_runs(effects: tuple[Effect, ...]) -> tuple[Effect, ...]:
             flush()
             out.append(e)
             continue
-        if run and not fits_one_window(fused_kernel(run + [e])):
+        if run and not fits_one_window(fused_kernel(run + [e]),
+                                       e.params.block_size):
             flush()
         run.append(e)
     flush()

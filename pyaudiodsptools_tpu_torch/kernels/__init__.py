@@ -5,7 +5,8 @@ plain PyTorch versions.
 ``convpairs`` circular convolution of real rows, the streaming window
              (csrc/convpairs.cu; both share csrc/window_fft.cuh)
 ``tail``     fused delay/tremolo/waveshaper tail (csrc/tail.cu)
-``relayout`` natural <-> time-major pack / unpack (csrc/relayout.cu)
+``relayout`` natural <-> time-major pack / unpack (csrc/relayout.cu; the
+             walks' plain version uses them, no path launches them)
 ``dynamics`` speculative compressor/gate walks and the serial walk of the
              streaming step                      (csrc/dynamics.cu)
 ``_build``   compiles csrc/*.cu with nvcc at first use and loads them with

@@ -20,12 +20,15 @@ convolution is. The design shares that kernel's transform
 (``csrc/window_fft.cuh``: window resident in shared memory from load to
 store, two radix-4 levels per pass, the spectrum in the forward transform's
 output order, no reorder pass) and its host tables
-(``segconv.pass_twiddles``, ``segconv.spectrum_tables``). Against the latency
-the largest window at a step's batch is spread over a thread-block cluster
-of four (``_uses_cluster``), each block holding a quarter of the window and the
-top pass exchanging through distributed shared memory; the two versions
-agree bit for bit. Rows may be a strided view (``flat.stride(0) >= n``, unit
-stride along a row).
+(``segconv.pass_twiddles``, ``segconv.spectrum_tables``). A window pair goes
+over a thread-block cluster of 2 or 4 blocks (:func:`blocks_for`), each
+holding its part of the window and the top pass exchanging through
+distributed shared memory: against the latency, the largest one-block window
+at a step's batch; and every window no block holds, 32,768 and 65,536
+points (``MAX_WINDOW``), which a stream at a block size of 16,384 or a
+filter of tens of thousands of taps needs. All versions agree bit for bit.
+Rows may be a strided view (``flat.stride(0) >= n``, unit stride along a
+row).
 
 :func:`conv_pairs_step` is a streaming FIR's whole step in ONE launch of the
 same kernel: the window is gathered from the history and the block as they
@@ -54,17 +57,24 @@ from . import _build, segconv
 # to 0.
 launch_count = 0
 
-# csrc/convpairs.cu has two versions of the kernel, bit-equal to each other:
-# one thread block a pair of rows, and a cluster of four blocks a pair. The
-# cluster goes where it was measured ahead by more than a launch's noise: the
-# largest window at a streaming step's batch. On an H100 at 16,384 samples it
-# is ahead by a quarter at 64 rows and by a fifth at 80, 96 and 112, behind by
-# a fifth at 128 and by more than a third at the batch that fills the card; at
-# the smaller windows it gains 1-3 us at 64 rows. chip_smoke.py times both
-# (`conv_pairs_cluster_by_window`, `versions_ms_by_rows`; PERF.md has the
-# tables).
+# csrc/convpairs.cu spreads a pair of rows over 1, 2 or 4 thread blocks, all
+# bit-equal to each other. Up to one block's 16,384 points the cluster of four
+# goes where it was measured ahead by more than a launch's noise: the largest
+# window at a streaming step's batch. On an H100 at 16,384 samples it is ahead
+# by a quarter at 64 rows and by a fifth at 80, 96 and 112, behind by a fifth
+# at 128 and by more than a third at the batch that fills the card; at the
+# smaller windows it gains 1-3 us at 64 rows. chip_smoke.py times the
+# versions (`conv_pairs_cluster_by_window`, `versions_ms_by_rows`; PERF.md has
+# the tables). The windows no block holds go over a cluster of four at that
+# batch too (at 64 rows of 32,768 four blocks of 8,192 took 0.038 ms, two of
+# 16,384 0.042 on an H100), else over the clusters of the segmented
+# convolution, 32,768 over two and 65,536 over four blocks of 16,384
+# (segconv.CLUSTER_AT).
 CLUSTER_WINDOW = 16384
 CLUSTER_MAX_ROWS = 112
+MAX_WINDOW = segconv.MAX_WINDOW
+# The smallest window a cluster takes (each block keeps whole passes).
+CLUSTER_MIN_WINDOW = 1024
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,7 +93,7 @@ def make_plan(kernel: np.ndarray, n: int, device) -> PairsPlan:
     """The plan of a real float64 ``kernel`` of at most ``n`` taps. Window
     sizes the kernel does not take raise, with the size in the message."""
     kernel = np.asarray(kernel, dtype=np.float64)
-    segconv.check_window(n, segconv.BLOCK_WINDOW)
+    segconv.check_window(n, MAX_WINDOW)
     if kernel.ndim != 1 or not 1 <= len(kernel) <= n:
         raise ValueError(
             f"a kernel of shape {kernel.shape} does not fit a circular "
@@ -102,14 +112,33 @@ def conv_pairs_plain(flat: torch.Tensor, plan: PairsPlan) -> torch.Tensor:
     return out.to(torch.float32)
 
 
-def _uses_cluster(n: int, R: int) -> bool:
-    """Whether (R, n) rows go to the cluster version."""
-    return n == CLUSTER_WINDOW and R <= CLUSTER_MAX_ROWS
+def blocks_for(n: int, R: int) -> int:
+    """Thread blocks a pair of (R, n) rows takes: a cluster of four from
+    CLUSTER_WINDOW on up to CLUSTER_MAX_ROWS rows, else the cluster of the
+    segmented convolution where one block does not hold the window, else
+    one."""
+    if n >= CLUSTER_WINDOW and R <= CLUSTER_MAX_ROWS:
+        return 4
+    return segconv.CLUSTER_AT.get(n, 1)
+
+
+def versions(n: int) -> list[int]:
+    """Every count of thread blocks (1, 2, 4) over which the kernel can
+    spread a pair of rows of n samples."""
+    return [b for b in (1, 2, 4) if n // b <= segconv.BLOCK_WINDOW
+            and (b == 1 or n >= CLUSTER_MIN_WINDOW)]
 
 
 def _check_plan(plan: PairsPlan, device) -> None:
-    segconv.check_window(plan.n, segconv.BLOCK_WINDOW)
+    segconv.check_window(plan.n, MAX_WINDOW)
     segconv.check_tables(plan.n, plan.spectrum_dif, plan.twiddle, device)
+
+
+def _check_blocks(n: int, blocks: int) -> None:
+    if blocks not in versions(n):
+        raise ValueError(
+            f"a window of {n} samples does not go over {blocks} thread "
+            "blocks")
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -119,10 +148,10 @@ def _raise_on(err: int, what: str) -> None:
 
 
 def _launch(flat: torch.Tensor, plan: PairsPlan,
-            cluster: bool | None = None) -> torch.Tensor:
-    """The kernel on checked rows. ``cluster`` forces one version of it
-    (windows from 1,024 samples take the cluster): for measurement only
-    (chip_smoke.py times the two side by side); no wrapper passes it."""
+            blocks: int | None = None) -> torch.Tensor:
+    """The kernel on checked rows. ``blocks`` (thread blocks a pair, one of
+    :func:`versions`) forces one version of it: for measurement only
+    (chip_smoke.py times them side by side); no wrapper passes it."""
     global launch_count
     _check_plan(plan, flat.device)
     R = flat.shape[0]
@@ -131,8 +160,8 @@ def _launch(flat: torch.Tensor, plan: PairsPlan,
         raise ValueError(
             "conv_pairs takes rows with unit stride, at least n apart, got "
             f"strides {flat.stride()} for n={plan.n}")
-    if cluster is None:
-        cluster = _uses_cluster(plan.n, R)
+    blocks = blocks_for(plan.n, R) if blocks is None else blocks
+    _check_blocks(plan.n, blocks)
     fn = _build.launcher("convpairs", "convpairs_launch",
                    [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int,
                                             ctypes.c_longlong, ctypes.c_int,
@@ -140,9 +169,9 @@ def _launch(flat: torch.Tensor, plan: PairsPlan,
     with _build.on_device(flat.device):
         err = fn(flat.data_ptr(), out.data_ptr(), plan.spectrum_dif.data_ptr(),
                  plan.twiddle.data_ptr(), R, plan.n,
-                 flat.stride(0) if R > 1 else plan.n, int(cluster),
+                 flat.stride(0) if R > 1 else plan.n, blocks,
                  torch.cuda.current_stream(flat.device).cuda_stream)
-    _raise_on(err, f"R={R}, n={plan.n}, cluster={int(cluster)}")
+    _raise_on(err, f"R={R}, n={plan.n}, blocks={blocks}")
     launch_count += 1
     return out
 
@@ -182,8 +211,8 @@ def conv_pairs_step_plain(hist: torch.Tensor, block: torch.Tensor,
 
 
 def _launch_step(hist: torch.Tensor, block: torch.Tensor, plan: PairsPlan,
-                 cluster: bool | None = None):
-    """The step's kernel on checked tensors; ``cluster`` as in
+                 blocks: int | None = None):
+    """The step's kernel on checked tensors; ``blocks`` as in
     :func:`_launch`, for measurement only."""
     global launch_count
     _check_plan(plan, hist.device)
@@ -191,8 +220,8 @@ def _launch_step(hist: torch.Tensor, block: torch.Tensor, plan: PairsPlan,
     B = block.shape[1]
     out = torch.empty((R, B), dtype=torch.float32, device=hist.device)
     new_hist = torch.empty_like(hist)
-    if cluster is None:
-        cluster = _uses_cluster(plan.n, R)
+    blocks = blocks_for(plan.n, R) if blocks is None else blocks
+    _check_blocks(plan.n, blocks)
     fn = _build.launcher("convpairs", "convpairs_step_launch",
                    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
@@ -200,10 +229,10 @@ def _launch_step(hist: torch.Tensor, block: torch.Tensor, plan: PairsPlan,
         err = fn(hist.data_ptr(), block.data_ptr(), out.data_ptr(),
                  new_hist.data_ptr(), plan.spectrum_dif.data_ptr(),
                  plan.twiddle.data_ptr(), R, plan.n, H, B,
-                 block.stride(0) if R > 1 else B, int(cluster),
+                 block.stride(0) if R > 1 else B, blocks,
                  torch.cuda.current_stream(hist.device).cuda_stream)
     _raise_on(err, f"step: R={R}, n={plan.n}, history={H}, B={B}, "
-                   f"cluster={int(cluster)}")
+                   f"blocks={blocks}")
     launch_count += 1
     return out, new_hist
 

@@ -35,15 +35,22 @@ differs from the faithful step's float32 ``linspace`` tables by <= 2 ulp.
 The loop ("hybrid", the JAX package's default): one states-only walk from
 REST, then audio walks until the shifted exits equal the entries, at most
 G+2 walks in all (unreachable: entries settle at least one segment per
-walk). The shift and the comparison are a few PyTorch calls on (n_ops, Rp)
-ints; the comparison is the one device read-back per walk. The audio always
-comes from converged entries.
+walk). The shift and the comparison are a few PyTorch calls on (n_ops, C*G)
+ints (lane ``r = g*C + c``); the comparison is the one device read-back per
+walk. The audio always comes from converged entries.
+
+The walks read the signal (C, T) as it lies and the audio walk writes its
+output (C, T): segment g of channel c is ``x[c, g*L : (g+1)*L]``, the last
+one ragged. The TPU kernels read a time-major copy made by
+``kernels/relayout.pack`` and undone by ``unpack``; the kernels here stage
+tiles of segments through shared memory instead, so the offline stage
+launches no relayout kernel.
 
 What bounds the walks on an H100: a lane's walk is serial, about a dozen
 dependent instructions per op and sample, so what matters is how many lanes
 there are. :func:`plan_segments` chooses G for this card (the sweep is in
 PERF.md); it is free to, because the result does not depend on G. The CUDA
-source is ``csrc/dynamics.cu``; the layout kernels are ``kernels/relayout``.
+source is ``csrc/dynamics.cu``.
 
 Streaming: :func:`serial_walk` walks one (C, T) block, channel-major as it
 lies, from the carried states, a whole cascade in one launch, and returns the
@@ -61,9 +68,11 @@ offline stage and the tests.
 
 The plain versions (:func:`walk_plain`: the same single-int automaton as
 tensor code over all lanes with a Python loop over the rows, separate ``mul``
-and ``add`` calls in the kernel's order) run for CPU tensors, or on request
-(``use_kernels=False``), and are never a fallback for a CUDA tensor. Kernel
-and plain version agree bit for bit.
+and ``add`` calls in the kernel's order; for the offline walks,
+:func:`segments_plain`, on the time-major copy ``relayout.pack_plain`` makes,
+the output put back by ``relayout.unpack_plain``) run for CPU tensors, or on
+request (``use_kernels=False``), and are never a fallback for a CUDA tensor.
+Kernel and plain version agree bit for bit.
 """
 
 from __future__ import annotations
@@ -86,9 +95,10 @@ MAX_OPS = 4
 # 131,072 lanes), but a segment shorter than a release hands its state on
 # one segment per walk: on audio with silences the walks grow as
 # 2 + release / L (the flagship gate's release is 8,824 samples), on audio
-# that never falls silent they stay at 2. 32,768 lanes (G = 512 at 64
-# channels, L = 2,584) had the smallest sum of the two cases' times.
-TARGET_LANES = 32768
+# that never falls silent they stay at 2. 16,384 lanes (G = 256 at 64
+# channels, L = 5,168) had the smallest sum of the two cases' times in four
+# sweeps of five; 32,768 is faster on the never-silent input alone.
+TARGET_LANES = 16384
 MIN_SEGMENT = 2048
 
 # The serial walk's kernel (the streaming step) cuts a block of T samples into
@@ -109,6 +119,13 @@ SERIAL_MAX_TILE = 16384
 # one thread a segment the tile's load and store would take as long as a
 # round (same sweep: 512 threads took 0.003 ms off every walk at T = 4,096).
 SERIAL_MIN_THREADS = 512
+
+# Mirrors of csrc/dynamics.cu's offline walks: rows (segments) a thread
+# block, samples a row of a tile, tiles in the ring (the numpy mirror of the
+# schedule, tests/torch_port_util.emulate_tile_walk, takes them).
+TILE_ROWS = 128
+TILE_K = 32
+TILE_STAGES = 3
 
 # Launches of the two kernels made by :func:`state_walk` / :func:`audio_walk`
 # (and by nothing else) since the caller last set them to 0.
@@ -234,9 +251,9 @@ def _int_automaton(sc: tuple, s: torch.Tensor, row: torch.Tensor,
 
 def walk_plain(scalars: list[tuple], x: torch.Tensor, entry: torch.Tensor,
                audio: bool):
-    """The plain version of both walks: x (L, Rp), entry (n_ops, Rp) int32
-    -> (out (L, Rp) or None, exit (n_ops, Rp) int32). Without ``audio`` the
-    last op's gain is left out, as in the state-walk kernel."""
+    """The walk on a time-major signal: x (L, R), entry (n_ops, R) int32 ->
+    (out (L, R) or None, exit (n_ops, R) int32), every lane at once. Without
+    ``audio`` the last op's gain is left out, as in the state-walk kernel."""
     n_ops = len(scalars)
     states = [entry[j] for j in range(n_ops)]
     rows = []
@@ -253,12 +270,35 @@ def walk_plain(scalars: list[tuple], x: torch.Tensor, entry: torch.Tensor,
     return out, torch.stack(states).to(torch.int32)
 
 
-def _check_walk(scalars, x: torch.Tensor, entry: torch.Tensor) -> None:
+def segments_plain(scalars: list[tuple], x: torch.Tensor, G: int, L: int,
+                   entry: torch.Tensor, audio: bool):
+    """The plain version of both offline walks: x (C, T) cut into G segments
+    of L samples a channel, entry (n_ops, C*G) int32 (lane g*C + c) -> (out
+    (C, T) or None, exit (n_ops, C*G) int32). The time-major copy of
+    ``relayout.pack_plain`` (zeros past T), :func:`walk_plain`, and the
+    output put back by ``relayout.unpack_plain``."""
+    C, T = x.shape
+    tm = relayout.pack_plain(x, G, L, C * G)
+    out, exit_state = walk_plain(scalars, tm, entry, audio=audio)
+    if audio:
+        out = relayout.unpack_plain(out, C, T, G, L)
+    return out, exit_state
+
+
+def _check_walk(scalars, x: torch.Tensor, G: int, L: int,
+                entry: torch.Tensor) -> None:
     if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
         raise ValueError(
-            "a walk takes a contiguous (L, Rp) float32 tensor, got "
+            "a walk takes a contiguous (C, T) float32 tensor, got "
             f"{tuple(x.shape)} {x.dtype} contiguous={x.is_contiguous()}")
-    _check_entry(scalars, x.shape[1], entry, x.device)
+    C, T = x.shape
+    if min(C, T, G, L) < 1 or (G - 1) * L >= T or G * L < T:
+        raise ValueError(
+            f"segments do not tile the signal: C={C}, T={T}, G={G}, L={L} "
+            "(need (G-1)*L < T <= G*L)")
+    if C * G >= 2 ** 31:
+        raise ValueError(f"{C * G} lanes: the walks index lanes with int32")
+    _check_entry(scalars, C * G, entry, x.device)
 
 
 def _check_entry(scalars, lanes: int, entry: torch.Tensor, device) -> None:
@@ -302,65 +342,68 @@ def _build_table(scalars) -> _Ops:
     return table
 
 
-def _launch_walk(scalars, x, entry, audio: bool):
-    L, Rp = x.shape
+def _launch_walk(scalars, x, G: int, L: int, entry, audio: bool):
+    C, T = x.shape
     out = torch.empty_like(x) if audio else None
     exit_state = torch.empty_like(entry)
     table = _ops_table(scalars)
-    lib = _build.load("dynamics")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    ops = ctypes.POINTER(_Ops)
+    if audio:
+        fn = _build.launcher("dynamics", "dynamics_audio_walk_launch",
+                             [ctypes.c_void_p] * 4 + [ops]
+                             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    else:
+        fn = _build.launcher("dynamics", "dynamics_state_walk_launch",
+                             [ctypes.c_void_p] * 3 + [ops]
+                             + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    with _build.on_device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
         if audio:
-            fn = lib.dynamics_audio_walk_launch
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.POINTER(_Ops),
-                                                   ctypes.c_int, ctypes.c_int,
-                                                   ctypes.c_void_p]
             err = fn(x.data_ptr(), out.data_ptr(), entry.data_ptr(),
-                     exit_state.data_ptr(), ctypes.byref(table), L, Rp, stream)
+                     exit_state.data_ptr(), ctypes.byref(table), C, T, G, L,
+                     stream)
         else:
-            fn = lib.dynamics_state_walk_launch
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.POINTER(_Ops),
-                                                   ctypes.c_int, ctypes.c_int,
-                                                   ctypes.c_void_p]
             err = fn(x.data_ptr(), entry.data_ptr(), exit_state.data_ptr(),
-                     ctypes.byref(table), L, Rp, stream)
+                     ctypes.byref(table), C, T, G, L, stream)
     if err != 0:
         raise RuntimeError(
             f"dynamics {'audio' if audio else 'state'} walk launch failed "
-            f"with CUDA error {err} (n_ops={len(scalars)}, L={L}, Rp={Rp})")
+            f"with CUDA error {err} (n_ops={len(scalars)}, C={C}, T={T}, "
+            f"G={G}, L={L})")
     return out, exit_state
 
 
-def state_walk(scalars, x: torch.Tensor, entry: torch.Tensor,
+def state_walk(scalars, x: torch.Tensor, G: int, L: int, entry: torch.Tensor,
                use_kernels: bool = True) -> torch.Tensor:
-    """Exit states (n_ops, Rp) of walking x (L, Rp) from ``entry``. A CUDA
-    tensor goes through the hand-written kernel, or the call raises."""
+    """Exit states (n_ops, C*G) of walking the G segments of L samples of
+    every channel of x (C, T) from ``entry`` (lane g*C + c). A CUDA tensor
+    goes through the hand-written kernel, or the call raises."""
     global state_walk_launch_count
-    _check_walk(scalars, x, entry)
+    _check_walk(scalars, x, G, L, entry)
     if not (x.is_cuda and use_kernels):
-        return walk_plain(scalars, x, entry, audio=False)[1]
-    _, exit_state = _launch_walk(scalars, x, entry, audio=False)
+        return segments_plain(scalars, x, G, L, entry, audio=False)[1]
+    _, exit_state = _launch_walk(scalars, x, G, L, entry, audio=False)
     state_walk_launch_count += 1
     return exit_state
 
 
-def audio_walk(scalars, x: torch.Tensor, entry: torch.Tensor,
+def audio_walk(scalars, x: torch.Tensor, G: int, L: int, entry: torch.Tensor,
                use_kernels: bool = True):
-    """(out (L, Rp), exit states (n_ops, Rp)) of walking x from ``entry``."""
+    """(out (C, T), exit states (n_ops, C*G)) of the same walk with audio:
+    the output lies as x does."""
     global audio_walk_launch_count
-    _check_walk(scalars, x, entry)
+    _check_walk(scalars, x, G, L, entry)
     if not (x.is_cuda and use_kernels):
-        return walk_plain(scalars, x, entry, audio=True)
-    out, exit_state = _launch_walk(scalars, x, entry, audio=True)
+        return segments_plain(scalars, x, G, L, entry, audio=True)
+    out, exit_state = _launch_walk(scalars, x, G, L, entry, audio=True)
     audio_walk_launch_count += 1
     return out, exit_state
 
 
 def serial_walk_plain(scalars, x: torch.Tensor, entry: torch.Tensor):
     """The plain version of :func:`serial_walk`: :func:`walk_plain` on the
-    transposed block, i.e. the audio walk's plain version at one segment."""
+    transposed block, i.e. the audio walk's plain version at one segment
+    (G = 1, L = T)."""
     out, exit_state = walk_plain(scalars, x.t(), entry, audio=True)
     return out.t().contiguous(), exit_state
 
@@ -555,29 +598,27 @@ def dynamics_offline(params, x: torch.Tensor, segments: int | None = None,
     scalars = [op_scalars(p) for p in plist]
     if segments is None:
         segments = plan_segments(C, T)
-    G, L, Rp = relayout.geometry(C, T, segments)
+    G, L, _ = relayout.geometry(C, T, segments)
     R = C * G
-    tm = relayout.pack(x.contiguous(), G, L, Rp, use_kernels)
+    x = x.to(torch.float32).contiguous()
 
     def next_entries(z: torch.Tensor) -> torch.Tensor:
         # lane r = g*C + c: segment g+1 takes segment g's exit, i.e. a shift
-        # by C lanes; segment 0 keeps REST, and so do the pad lanes.
+        # by C lanes; segment 0 keeps REST.
         e = torch.zeros_like(z)
         e[:, C:R] = z[:, :R - C]
         return e
 
-    e0 = torch.zeros((len(plist), Rp), dtype=torch.int32, device=x.device)
-    e = next_entries(state_walk(scalars, tm, e0, use_kernels))
+    e0 = torch.zeros((len(plist), R), dtype=torch.int32, device=x.device)
+    e = next_entries(state_walk(scalars, x, G, L, e0, use_kernels))
     for _ in range(G + 1):
-        out, z = audio_walk(scalars, tm, e, use_kernels)
+        out, z = audio_walk(scalars, x, G, L, e, use_kernels)
         e_next = next_entries(z)
         if torch.equal(e_next, e):      # the one read-back per walk
-            break
+            return out
         e = e_next
-    else:
-        raise RuntimeError(
-            f"the dynamics entries did not settle within {G + 2} walks")
-    return relayout.unpack(out, C, T, G, L, use_kernels)
+    raise RuntimeError(
+        f"the dynamics entries did not settle within {G + 2} walks")
 
 
 def offline_blocks(params, blocks: torch.Tensor,

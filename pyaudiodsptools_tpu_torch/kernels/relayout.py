@@ -5,7 +5,7 @@ time_major_pack`` and ``time_major_unpack``. The speculative dynamics walks
 (``kernels/dynamics.py``) cut time into G segments of L samples (only the
 last may be shorter) and give every (segment, channel) pair a lane
 ``r = g*C + c``; row ``l`` of the time-major array holds sample ``l`` of every
-lane, so that neighbouring threads of a walk read neighbouring addresses:
+lane, so that neighbouring lanes lie at neighbouring addresses:
 
     pack    tm[l, r] = x[c, g*L + l]   where g*L + l < T and r < C*G, else 0
     unpack  y[c, g*L + l] = tm[l, r]   for exactly the T valid samples
@@ -17,6 +17,11 @@ rounded to 128, the zero-extended side buffer, the closing chunk and the
 128-wide patch) are not carried over. One thing differs on purpose: the TPU
 pack leaves its pad lanes uninitialised; this pack writes zeros into every
 pad lane and every row past the last segment's valid length.
+
+On the TPU the walks read that copy. Here their kernels read (C, T) as it
+lies and launch neither pack nor unpack; the walks' plain version
+(``dynamics.segments_plain``) is built on :func:`pack_plain` and
+:func:`unpack_plain`.
 
 What bounds them on an H100: bytes (one read and one write of the signal, no
 arithmetic). The CUDA source, ``csrc/relayout.cu``, moves 32 x 32 tiles

@@ -33,10 +33,15 @@ a later change (PERF.md, open questions).
 The CUDA source is ``csrc/segconv.cu``; the transform itself lives in
 ``csrc/window_fft.cuh``, which the streaming windows' convolution
 (``kernels/convpairs.py``) shares, together with this module's twiddle and
-spectrum tables. The plain version,
-:func:`segmented_conv_plain`, is the same windowed overlap-save on
-``torch.fft``; it runs for CPU tensors, or on request
-(``use_kernels=False``), and is never a fallback for a CUDA tensor.
+spectrum tables. A kernel longer than one window takes is cut into
+partitions by the caller (``ops/fft_filter.plan_partitions``):
+:func:`partitioned_conv` launches the kernel once a partition, the first
+writing the output and each later one adding into it (the kernel's
+accumulate mode), so the sum costs no pass of its own. The plain versions,
+:func:`segmented_conv_plain` and :func:`partitioned_conv_plain`, are the
+same windowed overlap-save on ``torch.fft`` and the same sum in the same
+order; they run for CPU tensors, or on request (``use_kernels=False``), and
+are never a fallback for a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -66,8 +71,9 @@ CLUSTER_MIN_WINDOW = 256
 # path's halos (PERF.md has the table).
 CLUSTER_AT = {2 * BLOCK_WINDOW: 2, 4 * BLOCK_WINDOW: 4}
 
-# Number of kernel launches made by :func:`segmented_conv` (and by nothing
-# else) since the caller last set it to 0.
+# Number of kernel launches made by :func:`segmented_conv` and
+# :func:`partitioned_conv` (one a partition; and by nothing else) since the
+# caller last set it to 0.
 launch_count = 0
 
 
@@ -277,10 +283,12 @@ def segmented_conv_plain(x: torch.Tensor, plan: ConvPlan) -> torch.Tensor:
     return y
 
 
-def _launch(x: torch.Tensor, plan: ConvPlan,
-            blocks: int | None = None) -> torch.Tensor:
-    """The kernel on ``x``. ``blocks`` (thread blocks a window pair, 1, 2 or
-    4) overrides the plan's version, for measurement only."""
+def _launch(x: torch.Tensor, plan: ConvPlan, blocks: int | None = None,
+            into: torch.Tensor | None = None) -> torch.Tensor:
+    """The kernel on ``x``: a new output, or with ``into`` (C, T) float32
+    contiguous, added into that one (the accumulate mode), which is
+    returned. ``blocks`` (thread blocks a window pair, 1, 2 or 4) overrides
+    the plan's version, for measurement only."""
     global launch_count
     blocks = plan.blocks if blocks is None else blocks
     if blocks not in versions(plan.n):
@@ -296,16 +304,27 @@ def _launch(x: torch.Tensor, plan: ConvPlan,
     C, T = x.shape
     if T >= 2 ** 31 - plan.n - plan.shift:
         raise ValueError(f"signal of {T} samples is too long for int32 indexing")
-    y = torch.empty_like(x)
+    if into is None:
+        y = torch.empty_like(x)
+    elif into.shape != x.shape or into.dtype != torch.float32 \
+            or not into.is_contiguous() or into.device != x.device \
+            or into.data_ptr() == x.data_ptr():
+        raise ValueError(
+            "segmented_conv adds into a contiguous float32 tensor of the "
+            f"input's shape on its device, not the input itself, got "
+            f"{tuple(into.shape)} {into.dtype} on {into.device}")
+    else:
+        y = into
     if C == 0 or T == 0:
         return y
     fn = _build.launcher("segconv", "segconv_launch",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
                          + [ctypes.c_void_p])
     with _build.on_device(x.device):
         err = fn(x.data_ptr(), y.data_ptr(), plan.spectrum_dif.data_ptr(),
                  plan.twiddle.data_ptr(), C, T, plan.n, plan.halo, plan.seg,
-                 plan.shift, blocks, torch.cuda.current_stream().cuda_stream)
+                 plan.shift, blocks, int(into is not None),
+                 torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(
             f"segconv kernel launch failed with CUDA error {err} "
@@ -325,3 +344,27 @@ def segmented_conv(x: torch.Tensor, plan: ConvPlan,
     if x.is_cuda and use_kernels:
         return _launch(x, plan)
     return segmented_conv_plain(x, plan)
+
+
+def partitioned_conv_plain(x: torch.Tensor, plans) -> torch.Tensor:
+    """The plain version of :func:`partitioned_conv`: each partition's
+    :func:`segmented_conv_plain`, added in order in float32."""
+    y = segmented_conv_plain(x, plans[0])
+    for plan in plans[1:]:
+        y = y + segmented_conv_plain(x, plan)
+    return y
+
+
+def partitioned_conv(x: torch.Tensor, plans,
+                     use_kernels: bool = True) -> torch.Tensor:
+    """The sum of :func:`segmented_conv` over the partitions' plans (each
+    with its own kernel slice and output delay): the first writes the
+    output, each later one adds into it, in order. One partition is
+    :func:`segmented_conv` itself. A CUDA tensor goes through the
+    hand-written kernel, one launch a partition, or the call raises."""
+    if not (x.is_cuda and use_kernels):
+        return partitioned_conv_plain(x, plans)
+    y = _launch(x, plans[0])
+    for plan in plans[1:]:
+        _launch(x, plan, into=y)
+    return y

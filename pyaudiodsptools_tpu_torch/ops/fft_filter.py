@@ -12,17 +12,20 @@ TPU's matmul DFT and its (8, 128) DMA alignment; here the CUDA kernel
 (``kernels/segconv.py``) gathers a window from any sample offset, and the
 only hard limit is that one window of complex float32 fits the shared memory
 of a thread block (16,384 points) or of a cluster of four (``MAX_WINDOW``,
-65,536). Parity with the JAX package is judged on the output, not on the
-geometry.
+65,536). A kernel too long for that window is cut into consecutive
+partitions (:func:`plan_partitions`), each its own segmented convolution
+with its own output delay, whose launches add into one output: a ``fir`` of
+any length renders offline. Parity with the JAX package is judged on the
+output, not on the geometry.
 
 Streaming (``fir_step``) has its own window too. The JAX step keeps the full
 kernel, zero prefix included, in a window of a 7-smooth number of blocks; the
 port strips the prefix in streaming as it does offline and pays it back as a
 delay held in the history. For the output block ``t0 .. t0+B-1`` the window
 is ``x[t0+B-lead-n .. t0+B-lead-1]`` with ``n`` the smallest power of two
-``>= stripped kernel length - 1 + B``: its last ``B`` outputs are wrap-free
-and are the block. The state is a flat per-channel history of the last
-``lead + n - B`` input samples. A step is
+``>= stripped kernel length - 1 + B``, up to ``MAX_WINDOW``: its last ``B``
+outputs are wrap-free and are the block. The state is a flat per-channel
+history of the last ``lead + n - B`` input samples. A step is
 ``kernels/convpairs.conv_pairs_step``: on a CUDA tensor ONE launch of the
 hand-written kernel, which gathers the window from the history and the
 block, stores only the block's output and writes the next history to a new
@@ -40,10 +43,10 @@ from ..core.config import DEFAULT_DEVICE, EngineConfig, resolve_device
 from ..kernels import convpairs, segconv
 from .base import Effect, params_dataclass
 
+# The largest window of both convolution kernels (a cluster of four thread
+# blocks): the offline window of a kernel that needs no partitions, and the
+# largest streaming window.
 MAX_WINDOW = segconv.MAX_WINDOW
-# One thread block's window: the largest streaming window, and what an LTI
-# cascade is kept to when a Chain fuses it (so that the fused FIR streams).
-BLOCK_WINDOW = segconv.BLOCK_WINDOW
 # The largest window the planner gives where the 8x-halo rule asks for more
 # (a halo above half of it still gets MAX_WINDOW). On an H100 at chain8's
 # halo of 8,192 (block size 4096), n = 32,768 over a cluster of two blocks
@@ -107,64 +110,89 @@ def _halo_for(kernel_len: int) -> int:
 
 
 def plan_segments(kernel_len: int) -> tuple[int, int]:
-    """(halo, seg) in samples for a kernel of this length.
+    """(halo, seg) in samples for a kernel of this length, which must fit
+    one window (:func:`fits_window`; longer kernels are cut by
+    :func:`plan_partitions`).
 
     ``halo >= kernel_len - 1`` covers the kernel; the window
     ``n = halo + seg`` is a power of two, at least 8x the halo where
     ``PLANNED_WINDOW`` allows (wasted window fraction <= 1/8), at least 2x
     the halo, and never more than ``MAX_WINDOW``. The window picks the
     kernel's version (``segconv.blocks_for``): one thread block up to 16,384
-    points, a cluster of two at 32,768, of four at 65,536. A kernel
-    whose halo would take more than half of the largest window raises:
-    longer kernels (reverb tap trains) need the partitioned convolution that
-    comes with the reverb slice."""
+    points, a cluster of two at 32,768, of four at 65,536."""
     halo = _halo_for(kernel_len)
     if 2 * halo > MAX_WINDOW:
         raise ValueError(
-            f"a {kernel_len}-tap kernel needs a halo of {halo} samples, "
-            f"more than half of the largest window the segmented-conv CUDA "
-            f"kernel holds in the shared memory of a cluster of thread "
-            f"blocks ({MAX_WINDOW}). Kernels this long (reverb tap trains, "
-            "ROADMAP Queue 1 #5) come with the reverb slice of the port.")
+            f"a {kernel_len}-tap kernel needs a halo of {halo} samples, more "
+            f"than half of the largest window ({MAX_WINDOW}): it is cut into "
+            "partitions (plan_partitions)")
     n = MIN_WINDOW
     while (n < 8 * halo and n < PLANNED_WINDOW) or n < 2 * halo:
         n *= 2
     return halo, n - halo
 
 
+def fits_window(kernel_len: int) -> bool:
+    """Whether a stripped kernel of this length keeps its halo within half
+    of ``MAX_WINDOW``: one segmented convolution takes it whole."""
+    return 2 * _halo_for(kernel_len) <= MAX_WINDOW
+
+
+# The taps of one partition of a kernel too long for one window: the halo of
+# PLANNED_WINDOW / 2 that a window of PLANNED_WINDOW (the fastest on an H100,
+# see above) keeps. For a fixed window the cost of a kernel of K taps goes as
+# (K / taps a partition) x (windows a partition), i.e. as
+# 1 / (halo * (n - halo)), least at halo = n / 2.
+PARTITION_TAPS = PLANNED_WINDOW // 2 + 1
+
+
+def plan_partitions(kernel_len: int) -> list[tuple[int, int, int, int]]:
+    """(offset, taps, halo, seg) of each partition of a stripped kernel of
+    this length: one partition, the whole kernel at :func:`plan_segments`'s
+    window, where it fits one window; else consecutive slices of
+    ``PARTITION_TAPS`` taps (the last one shorter), each at the window
+    :func:`plan_segments` gives its length. Partition p convolves with
+    ``kernel[offset : offset + taps]`` and delays its output by ``offset``
+    more samples; the outputs are summed in order."""
+    if fits_window(kernel_len):
+        return [(0, kernel_len, *plan_segments(kernel_len))]
+    return [(o, min(PARTITION_TAPS, kernel_len - o),
+             *plan_segments(min(PARTITION_TAPS, kernel_len - o)))
+            for o in range(0, kernel_len, PARTITION_TAPS)]
+
+
 def stream_window(kernel_len: int, block_size: int) -> int:
     """Samples in the streaming window of a stripped kernel of this length:
     the smallest power of two that leaves ``block_size`` wrap-free outputs
-    (0 where that would exceed one thread block's window, ``BLOCK_WINDOW``:
-    such an effect renders offline only, and its ``init_state`` and ``step``
-    raise)."""
+    (0 where that would exceed ``MAX_WINDOW``: such an effect renders
+    offline only, and its ``init_state`` and ``step`` raise)."""
     n = segconv.MIN_WINDOW
     while n < kernel_len - 1 + block_size:
         n *= 2
-    return n if n <= BLOCK_WINDOW else 0
+    return n if n <= MAX_WINDOW else 0
 
 
-def fits_one_window(kernel: np.ndarray) -> bool:
-    """Whether a kernel (its zero prefix stripped) keeps its halo within
-    half of one thread block's window: the rule by which a Chain grows an
+def fits_one_window(kernel: np.ndarray, block_size: int) -> bool:
+    """Whether a kernel (its zero prefix stripped) still streams at this
+    block size (:func:`stream_window`): the rule by which a Chain grows an
     LTI cascade (engine/chain.fuse_lti_runs), so that a cascade it fuses
-    also streams. ``fir`` itself takes kernels of up to 32,769 taps offline
-    (the cluster's window)."""
+    also streams. ``fir`` itself takes kernels of any length offline."""
     nz = np.flatnonzero(kernel)
     klen = len(kernel) - int(nz[0]) if nz.size else 1
-    return 2 * _halo_for(klen) <= BLOCK_WINDOW
+    return stream_window(klen, block_size) > 0
 
 
 def segmented_fft_conv(params: "FIRParams", blocks: torch.Tensor,
                        use_kernels: bool = True) -> torch.Tensor:
     """Linear convolution + output delay via large-segment overlap-save:
     ``out[m] = conv(x, h)[m - lead]`` per channel, on the flattened
-    ``(..., nb*B)`` signal. Both block sizes flatten to the same (C, T) for
-    the kernel; only the filter design depends on B."""
+    ``(..., nb*B)`` signal, one segmented convolution per partition of the
+    kernel. Both block sizes flatten to the same (C, T) for the kernel; only
+    the filter design depends on B."""
     shape = blocks.shape
     T = shape[-2] * shape[-1]
-    x = blocks.reshape(-1, T)
-    y = segconv.segmented_conv(x, params.plan, use_kernels=use_kernels)
+    x = blocks.reshape(-1, T).contiguous()
+    y = segconv.partitioned_conv(x, params.plans, use_kernels=use_kernels)
     return y.reshape(shape)
 
 
@@ -173,37 +201,44 @@ def segmented_fft_conv(params: "FIRParams", blocks: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-@params_dataclass(meta_fields=("block_size", "lead"))
+@params_dataclass(meta_fields=("block_size", "lead", "kernel_len"))
 class FIRParams:
-    plan: segconv.ConvPlan   # spectra and twiddles on device + the window's
-                             # geometry (n, halo, seg, kernel_len)
+    plans: tuple[segconv.ConvPlan, ...]   # one per partition of the kernel
+                             # (plan_partitions; one where it fits a
+                             # window): spectra and twiddles on device + the
+                             # window's geometry (n, halo, seg, shift,
+                             # kernel_len)
     stream: convpairs.PairsPlan | None   # the streaming window's tables
                              # (n, spectra, twiddles); None where that
-                             # window would exceed BLOCK_WINDOW
+                             # window would exceed MAX_WINDOW
     block_size: int          # ENGINE block size
     lead: int                # stripped zero prefix, re-applied as delay
+    kernel_len: int          # taps of the stripped kernel
 
 
 def fir(kernel: np.ndarray, block_size: int, name: str = "fir",
         device=DEFAULT_DEVICE) -> Effect:
     """An Effect computing ``y = conv(x, kernel)`` (causal, zero-latency
     beyond what the kernel itself encodes): offline through the segmented
-    overlap-save path, streaming through one circular convolution of a
-    power-of-two window per block. Fused cascades carry a long EXACT-ZERO
-    prefix (each member's latency shift): it is stripped and re-applied as a
-    free output delay, which shrinks the halo by the prefix length."""
+    overlap-save path (in partitions where the kernel is longer than one
+    window takes), streaming through one circular convolution of a
+    power-of-two window per block (up to ``MAX_WINDOW``). Fused cascades
+    carry a long EXACT-ZERO prefix (each member's latency shift): it is
+    stripped and re-applied as a free output delay, which shrinks the halo
+    by the prefix length."""
     dev = resolve_device(device)
     kernel = np.asarray(kernel, dtype=np.float64)
     nz = np.flatnonzero(kernel)
     lead = int(nz[0]) if nz.size else 0
     stripped = kernel[lead:] if nz.size else kernel[:1]
-    halo, seg = plan_segments(len(stripped))
-    plan = segconv.make_plan(stripped, halo, seg, lead, dev)
+    plans = tuple(
+        segconv.make_plan(stripped[o:o + taps], halo, seg, lead + o, dev)
+        for o, taps, halo, seg in plan_partitions(len(stripped)))
     n_stream = stream_window(len(stripped), block_size)
     stream = convpairs.make_plan(stripped, n_stream, dev) if n_stream \
         else None
-    params = FIRParams(plan=plan, stream=stream, block_size=block_size,
-                       lead=lead)
+    params = FIRParams(plans=plans, stream=stream, block_size=block_size,
+                       lead=lead, kernel_len=len(stripped))
     return Effect(name=name, params=params, init_state=fir_init_state,
                   step=fir_step, offline=fir_offline,
                   lti_kernel=kernel, device=dev)
@@ -211,14 +246,13 @@ def fir(kernel: np.ndarray, block_size: int, name: str = "fir",
 
 def _stream_plan(params: FIRParams) -> convpairs.PairsPlan:
     if params.stream is None:
-        need = params.plan.kernel_len - 1 + params.block_size
+        need = params.kernel_len - 1 + params.block_size
         raise ValueError(
-            f"a {params.plan.kernel_len}-tap kernel streamed in blocks of "
+            f"a {params.kernel_len}-tap kernel streamed in blocks of "
             f"{params.block_size} needs a window of {need} samples, more "
             f"than the largest window the streaming convolution kernel holds "
-            f"in a thread block's shared memory ({BLOCK_WINDOW}). Kernels "
-            "this long (reverb tap trains, ROADMAP Queue 1 #5) come with the "
-            "reverb slice of the port; the effect renders offline.")
+            f"in the shared memory of a cluster of thread blocks "
+            f"({MAX_WINDOW}); the effect renders offline only.")
     return params.stream
 
 
@@ -231,7 +265,7 @@ def fir_init_state(params: FIRParams, batch_shape: tuple[int, ...] = ()):
     """Silence: ``{"hist": (..., lead + n - B)}`` on the plan's device."""
     return {"hist": torch.zeros(
         tuple(batch_shape) + (history_len(params),), dtype=torch.float32,
-        device=params.plan.twiddle.device)}
+        device=params.plans[0].twiddle.device)}
 
 
 def fir_step(params: FIRParams, state, block: torch.Tensor,

@@ -257,11 +257,18 @@ def test_fusion_structure():
     assert names([o.lowcut(cfg, 120.0, device=CPU),
                   o.delay(cfg, 10.0, 2, device=CPU)]) == \
         ["fir_cascade:lowcut+delay"]
-    # ... a long one would outgrow the one-window convolution, so the run is
-    # cut there and the delay goes to the tail
+    # ... and so does one of 150 ms, whose fused FIR (13,739 stripped taps)
+    # still streams at B=512 (a window of 16,384) ...
     assert names([o.lowcut(cfg, 120.0, device=CPU),
                   o.highcut(cfg, 9000.0, device=CPU),
                   o.delay(cfg, 150.0, 2, device=CPU),
+                  o.softclipper(cfg, device=CPU)]) == \
+        ["fir_cascade:lowcut+highcut+delay", "softclipper"]
+    # ... a long one would outgrow the largest streaming window (65,536), so
+    # the run is cut there and the delay goes to the tail
+    assert names([o.lowcut(cfg, 120.0, device=CPU),
+                  o.highcut(cfg, 9000.0, device=CPU),
+                  o.delay(cfg, 1000.0, 2, device=CPU),
                   o.softclipper(cfg, device=CPU)]) == \
         ["fir_cascade:lowcut+highcut", "tail:delay+softclipper"]
     # the flagship chain: three fused stages

@@ -332,15 +332,15 @@ def test_scalar_mirror_of_the_cuda_walk_is_bit_equal(signal):
     and from a mid-release entry."""
     scalars = [kd.op_scalars(_pt(n).params) for n in CASCADES["cascade"]]
     x = SIGNALS[signal][:1, :4000]
-    tm = torch.from_numpy(np.ascontiguousarray(x.T))          # (L, 1)
+    xt = torch.from_numpy(np.ascontiguousarray(x))      # one segment of 4000
     for entry in ([0, 0], [scalars[0][6] + 40, scalars[1][6] + 3000],
                   [5, -1]):
         e = torch.tensor(entry, dtype=torch.int32).reshape(2, 1)
-        out, z = kd.audio_walk(scalars, tm, e)
+        out, z = kd.audio_walk(scalars, xt, 1, 4000, e)
         m_out, m_z = emulate_walk(scalars, x[0], entry, audio=True)
-        np.testing.assert_array_equal(out[:, 0].numpy(), m_out)
+        np.testing.assert_array_equal(out[0].numpy(), m_out)
         assert z[:, 0].tolist() == m_z
-        zs = kd.state_walk(scalars, tm, e)
+        zs = kd.state_walk(scalars, xt, 1, 4000, e)
         assert zs[:, 0].tolist() == emulate_walk(scalars, x[0], entry,
                                                  audio=False)[1] == m_z
 
@@ -368,13 +368,20 @@ def test_loop_walks_until_the_entries_settle(monkeypatch):
 
 def test_state_walk_equals_audio_walks_exit_states():
     scalars = [kd.op_scalars(_pt(n).params) for n in CASCADES["cascade"]]
-    G, L, Rp = rl.geometry(2, N, 5)
-    tm = rl.pack(torch.from_numpy(SIGNALS["bursty"]), G, L, Rp)
-    e = torch.zeros((2, Rp), dtype=torch.int32)
-    out, z = kd.audio_walk(scalars, tm, e)
-    assert torch.equal(kd.state_walk(scalars, tm, e), z)
-    # pad lanes walk zeros from REST and stay at REST
-    assert not bool(z[:, 2 * G:].any()) and not bool(out[:, 2 * G:].any())
+    T = N - 3
+    x = torch.from_numpy(np.ascontiguousarray(SIGNALS["bursty"][:, :T]))
+    G, L, _ = rl.geometry(2, T, 5)
+    assert G * L > T
+    e = torch.zeros((2, 2 * G), dtype=torch.int32)
+    out, z = kd.audio_walk(scalars, x, G, L, e)
+    assert out.shape == (2, T)
+    assert torch.equal(kd.state_walk(scalars, x, G, L, e), z)
+    # the ragged last segment walks zeros past T, as the time-major copy's
+    # zero pad does
+    tm = rl.pack(x, G, L, 2 * G)
+    want_out, want_z = kd.walk_plain(scalars, tm, e, audio=True)
+    assert torch.equal(z, want_z)
+    assert torch.equal(out, rl.unpack(want_out, 2, T, G, L))
 
 
 # ---------------------------------------------------------------------------
@@ -420,16 +427,18 @@ def test_planner_and_geometry():
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     sc = [kd.op_scalars(_pt("chain8_gate").params)]
-    tm = torch.zeros((10, 32))
-    e = torch.zeros((1, 32), dtype=torch.int32)
+    x = torch.zeros((2, 10))
+    e = torch.zeros((1, 4), dtype=torch.int32)            # G = 2, L = 5
     with pytest.raises(ValueError, match="float32"):
-        kd.audio_walk(sc, tm.double(), e)
+        kd.audio_walk(sc, x.double(), 2, 5, e)
     with pytest.raises(ValueError, match="contiguous"):
-        kd.state_walk(sc, torch.zeros((32, 10)).T, e)
+        kd.state_walk(sc, torch.zeros((10, 2)).T, 2, 5, e)
     with pytest.raises(ValueError, match="int32"):
-        kd.state_walk(sc, tm, e.long())
+        kd.state_walk(sc, x, 2, 5, e.long())
     with pytest.raises(ValueError, match="entry states"):
-        kd.audio_walk(sc * 2, tm, e)
+        kd.audio_walk(sc * 2, x, 2, 5, e)
+    with pytest.raises(ValueError, match="do not tile"):
+        kd.audio_walk(sc, x, 2, 4, e)
     with pytest.raises(ValueError, match="1 to 4"):
         kd.dynamics_offline([_pt("chain8_gate").params] * 5,
                             torch.zeros((1, 100)))

@@ -63,12 +63,13 @@ def test_cascade_geometry_of_the_flagship_chain():
     for B, lead, taps, n, blocks in ((512, 1155, 1017, 8192, 1),
                                      (4096, 9219, 8185, 32768, 2)):
         p = _effects(pt, pt.EngineConfig(44100, B), "cascade", device=CPU).params
-        assert (p.lead, p.plan.kernel_len) == (lead, taps)
-        assert p.plan.shift == lead
-        assert p.plan.n == n == p.plan.halo + p.plan.seg
-        assert p.plan.halo >= taps - 1
-        assert p.plan.n >= min(8 * p.plan.halo, pt_fir.PLANNED_WINDOW)
-        assert p.plan.blocks == blocks
+        (plan,) = p.plans                   # it fits one window: no partitions
+        assert (p.lead, p.kernel_len, plan.kernel_len) == (lead, taps, taps)
+        assert plan.shift == lead
+        assert plan.n == n == plan.halo + plan.seg
+        assert plan.halo >= taps - 1
+        assert plan.n >= min(8 * plan.halo, pt_fir.PLANNED_WINDOW)
+        assert plan.blocks == blocks
 
 
 @pytest.mark.parametrize("klen", [1, 2, 129, 255, 1017, 4097, 8185, 8193,
@@ -84,25 +85,35 @@ def test_planner_invariants(klen):
 
 
 def test_kernel_too_long_names_the_later_slice():
-    # offline the cluster's window takes up to 32,769 taps
+    # one window of the cluster takes up to 32,769 taps ...
     assert pt_fir.plan_segments(32769) == (32768, 32768)
     assert pt_fir.plan_segments(8194) == (8320, 32768 - 8320)
     assert pt_fir.plan_segments(16385) == (16384, 16384)
     assert pt_fir.plan_segments(16386) == (16512, 65536 - 16512)
-    with pytest.raises(ValueError, match="reverb"):
+    with pytest.raises(ValueError, match="partitions"):
         pt_fir.plan_segments(32770)
-    with pytest.raises(ValueError, match="reverb"):
-        pt_fir.fir(np.ones(40000), 512, device=CPU)
+    # ... and a longer kernel is cut into partitions of 16,385 taps, each at
+    # the planner's window of 32,768
+    assert pt_fir.plan_partitions(32769) == [(0, 32769, 32768, 32768)]
+    assert pt_fir.plan_partitions(40000) == [
+        (0, 16385, 16384, 16384), (16385, 16385, 16384, 16384),
+        (32770, 7230, 7296, 32768 - 7296)]
     long_fir = pt_fir.fir(np.ones(20000), 512, device=CPU)
-    assert long_fir.params.plan.n == 65536 and long_fir.params.stream is None
-    with pytest.raises(ValueError, match="reverb slice"):
-        long_fir.state((2,))
-    # a Chain keeps an LTI cascade to what one thread block's window holds,
-    # so that it streams too
-    assert pt_fir.fits_one_window(np.ones(8193))
-    assert not pt_fir.fits_one_window(np.ones(8194))
+    assert [p.n for p in long_fir.params.plans] == [65536]
+    assert long_fir.params.stream.n == 32768
+    longer = pt_fir.fir(np.r_[np.zeros(7), np.ones(65000)], 4096, device=CPU)
+    assert [(p.shift, p.kernel_len) for p in longer.params.plans] == [
+        (7, 16385), (7 + 16385, 16385), (7 + 32770, 16385),
+        (7 + 49155, 15845)]
+    with pytest.raises(ValueError, match="offline only"):
+        longer.state((2,))
+    # a Chain keeps an LTI cascade to what streams at its block size
+    assert pt_fir.fits_one_window(np.ones(65536 - 512 + 1), 512)
+    assert not pt_fir.fits_one_window(np.ones(65536 - 512 + 2), 512)
+    assert pt_fir.fits_one_window(np.ones(1), 65536)
+    assert not pt_fir.fits_one_window(np.ones(2), 65536)
     # a long zero prefix is free: it is stripped before planning
-    assert pt_fir.fits_one_window(np.r_[np.zeros(50000), np.ones(100)])
+    assert pt_fir.fits_one_window(np.r_[np.zeros(70000), np.ones(100)], 512)
 
 
 def test_fir_streaming_raises_until_its_slice():
@@ -112,21 +123,24 @@ def test_fir_streaming_raises_until_its_slice():
     (the effect still renders offline)."""
     e = pt.ops.lowcut(pt.EngineConfig(44100, 512), 120.0, device=CPU)
     p = e.params
-    assert (p.lead, p.plan.kernel_len, p.stream.n) == (385, 255, 1024)
+    assert (p.lead, p.kernel_len, p.stream.n) == (385, 255, 1024)
     st = e.state((2,))
     assert st["hist"].shape == (2, 385 + 1024 - 512)
     st, y = e.step(p, st, torch.zeros(2, 512))
     assert y.shape == (2, 512) and st["hist"].shape == (2, 897)
     with pytest.raises(ValueError, match="blocks of 512"):
         e.step(p, st, torch.zeros(2, 256))
-    big = pt.ops.lowcut(pt.EngineConfig(44100, 16384), 120.0, device=CPU)
-    assert big.params.stream is None and big.params.plan.n == 32768
-    with pytest.raises(ValueError, match="reverb slice"):
+    # at a block size of 65,536 no filter streams: 32,767 taps need a window
+    # of 98,302 samples
+    big = pt.ops.lowcut(pt.EngineConfig(44100, 65536), 120.0, device=CPU)
+    assert big.params.stream is None
+    assert [p.n for p in big.params.plans] == [65536]
+    with pytest.raises(ValueError, match="98302 samples.*offline only"):
         big.state((2,))
-    with pytest.raises(ValueError, match="reverb slice"):
-        big.step(big.params, None, torch.zeros(2, 16384))
-    assert big.offline(big.params, torch.zeros(1, 2, 16384)).shape \
-        == (1, 2, 16384)
+    with pytest.raises(ValueError, match="65536"):
+        big.step(big.params, None, torch.zeros(2, 65536))
+    assert big.offline(big.params, torch.zeros(1, 1, 65536)).shape \
+        == (1, 1, 65536)
 
 
 def test_all_zero_and_identity_kernels():

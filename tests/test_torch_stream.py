@@ -106,7 +106,7 @@ def test_fir_step_matches_jax_fir_step(which, block):
     peff = _filters(pt, pt.EngineConfig(44100, block), which, device=CPU)
     p = peff.params
     n = p.stream.n
-    assert n & (n - 1) == 0 and n >= p.plan.kernel_len - 1 + block > n // 2
+    assert n & (n - 1) == 0 and n >= p.kernel_len - 1 + block > n // 2
     assert pt_fir.history_len(p) == p.lead + n - block
     x = _signal(2, 12 * block, seed=block)
     jst, pst = jeff.init_state(jeff.params, (2,)), peff.state((2,))
@@ -131,13 +131,16 @@ def test_fir_step_matches_jax_fir_step(which, block):
 def test_fir_step_mono_and_stream_window_planner():
     peff = _filters(pt, pt.EngineConfig(44100, B), "cascade", device=CPU)
     assert (peff.params.stream.n, peff.params.lead,
-            peff.params.plan.kernel_len) == (2048, 1155, 1017)
+            peff.params.kernel_len) == (2048, 1155, 1017)
     big = _filters(pt, pt.EngineConfig(44100, 4096), "cascade", device=CPU)
     assert (big.params.stream.n, big.params.lead,
-            big.params.plan.kernel_len) == (16384, 9219, 8185)
+            big.params.kernel_len) == (16384, 9219, 8185)
     assert pt_fir.stream_window(1, 1) == 16
     assert pt_fir.stream_window(8193, 8192) == 16384
-    assert pt_fir.stream_window(8194, 8192) == 0
+    # past one thread block's window, the clusters' 32,768 and 65,536
+    assert pt_fir.stream_window(8194, 8192) == 32768
+    assert pt_fir.stream_window(32769, 32768) == 65536
+    assert pt_fir.stream_window(32770, 32768) == 0
     x = _signal(2, 6 * B, seed=2)
     st2, st1 = peff.state((2,)), peff.state(())
     assert st1["hist"].shape == (1155 + 2048 - B,)

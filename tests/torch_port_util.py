@@ -17,6 +17,12 @@
   (branches instead of selects, one rounded float32 operation at a time), a
   third reading of ``dynamics_pallas._int_automaton`` beside the JAX kernel
   and the port's tensor code.
+* ``emulate_tile_walk`` -- the offline walks' schedule (csrc/dynamics.cu,
+  ``walk_kernel``): blocks of rows of the (C*G, L) view of a (C, T) signal,
+  tiles of samples through a ring of shared-memory slots (NaN until a copy
+  lands), zeros past a row's length, an output tile stored back masked, the
+  lanes' states in the order g*C + c; every row of a block walked at once
+  with numpy float32 arithmetic in the kernel's order.
 * ``emulate_serial_walk`` / ``advance_quiet`` -- the serial walk kernel's
   schedule for one channel: tiles, segments, the closed-form first guess, the
   fixpoint rounds with the jump over quiet segments; returns its round count.
@@ -623,3 +629,100 @@ def emulate_serial_walk(scalars, x_chan: np.ndarray, entry, lseg: int,
                 break
         out[t0:t0 + len(tile)] = np.concatenate(outs)
     return out, carried, rounds
+
+
+def _automaton_rows(sc: tuple, s: np.ndarray, row: np.ndarray,
+                    with_gain: bool):
+    """One sample of one op on every row at once: csrc/dynamics.cu's
+    automaton<> as numpy selects, each product and sum rounded to float32
+    on its own. Returns (output, next states)."""
+    thr, pre, ratio, att_step, rel0, rel_step, x_max, end = sc
+    over = np.abs(row) > thr
+    pos = s > 0
+    in_att = pos & (s < x_max)
+    out = row
+    if with_gain:
+        s_f = s.astype(_F)
+        att_g = _F(1.0) + s_f * att_step
+        rel_g = rel0 + (s_f - _F(x_max)) * rel_step
+        hi_g = np.where(over, ratio, rel_g)
+        gain = np.where(pos, np.where(in_att, att_g, hi_g), _F(1.0))
+        out = ((row * pre) * gain).astype(_F)
+    sp1 = s + 1
+    rel_next = np.where(sp1 == end, -1, sp1)
+    hi_next = np.where(over, x_max, rel_next)
+    n = np.where(in_att, sp1, hi_next)
+    n = np.where(s == 0, over.astype(np.int64), n)
+    n = np.where(s < 0, 0, n)
+    return out, n
+
+
+def emulate_tile_walk(scalars, x: np.ndarray, G: int, L: int, entry,
+                      audio: bool = True, tile_rows: int = 128,
+                      tile_k: int = 32, stages: int = 3):
+    """csrc/dynamics.cu's offline walk on x (C, T) float32, cut into G
+    segments of L samples a channel, from ``entry`` (n_ops, C*G), lane
+    g*C + c: block b takes rows b*tile_rows ... of the (C*G, L) view (row
+    c*G + g), tiles of ``tile_k`` samples come through a ring of ``stages``
+    slots (a copy lands ``stages - 1`` tiles ahead of the walk, into the slot
+    the tile before left; a slot holds NaN until its first copy), each row
+    zero-filled past its length (L, or what is left of T in the last
+    segment); the walk goes sample by sample over every row of the block at
+    once, with audio into one of two output tiles, which the block stores
+    at the next tile's barrier, masked to the row's length. Returns (out
+    (C, T) float32 or None; NaN where nothing was stored, exit states
+    (n_ops, C*G) int32)."""
+    C, T = x.shape
+    R = C * G
+    n_ops = len(scalars)
+    flat = np.ascontiguousarray(x, dtype=_F).reshape(-1)
+    out = np.full(C * T, np.nan, _F) if audio else None
+    exits = np.zeros((n_ops, R), np.int32)
+    ntiles = -(-L // tile_k)
+    for v0 in range(0, R, tile_rows):
+        v = np.arange(v0, min(R, v0 + tile_rows))
+        c, g = v // G, v % G
+        lanes = g * C + c
+        off = c * T + g * L
+        length = np.where(g == G - 1, T - g * L, L)
+        s = [np.asarray(entry[j], np.int64)[lanes] for j in range(n_ops)]
+        ring = np.full((stages, len(v), tile_k), np.nan, _F)
+        otile = np.full((2, len(v), tile_k), np.nan, _F)
+
+        def load(t, slot):
+            k0 = t * tile_k
+            for r in range(len(v)):
+                n = max(0, min(tile_k, int(length[r]) - k0))
+                ring[slot, r, :n] = flat[off[r] + k0:off[r] + k0 + n]
+                ring[slot, r, n:] = 0.0
+
+        def store(t, src):
+            k0 = t * tile_k
+            for r in range(len(v)):
+                n = max(0, min(tile_k, int(length[r]) - k0))
+                out[off[r] + k0:off[r] + k0 + n] = src[r, :n]
+
+        for p in range(stages - 1):
+            if p < ntiles:
+                load(p, p)
+        for t in range(ntiles + 1):
+            if audio and t > 0:
+                store(t - 1, otile[(t - 1) & 1])
+                otile[(t - 1) & 1] = np.nan       # free for tile t + 1
+            if t == ntiles:
+                break
+            tn = t + stages - 1
+            if tn < ntiles:
+                load(tn, tn % stages)
+            tile = ring[t % stages]
+            for k in range(min(tile_k, L - t * tile_k)):
+                row = tile[:, k]
+                for j, sc in enumerate(scalars):
+                    row, s[j] = _automaton_rows(
+                        sc, s[j], row, audio or j + 1 < n_ops)
+                if audio:
+                    otile[t & 1][:, k] = row
+            ring[t % stages] = np.nan             # the next copy's slot
+        for j in range(n_ops):
+            exits[j, lanes] = s[j]
+    return (out.reshape(C, T) if audio else None), exits
