@@ -61,9 +61,30 @@ failed check raises (exit code != 0, no result line):
    the redesign, both versions of the convolution by window and by batch,
    and the serial walk's sweep over segment lengths. ``long_windows``: a
    lowcut and chain8 streamed at block size 16,384 (windows of 32,768 and
-   65,536 over clusters of two and four blocks), and FIRs longer than one
+   65,536 over clusters of two and four blocks), FIRs longer than one
    window offline through their partitions (40,000 taps at 64 ch x 30 s,
-   timed; 65,000 taps at B=4096, whose step raises).
+   timed; 65,000 taps at B=4096), and streams past the largest window: the
+   65,000-tap FIR at B=4096 in two partitions, a lowcut at B=65,536 in two
+   sub-blocks, chain8 at B=32,768 with its three filters fused (two
+   partitions), each held to its offline render with its launches a step
+   counted, and one step of each held to its plain version on the same
+   history and block (110 dB, next history equal).
+5b. the later slices' paths, each with the counts set to 0 just before it
+   and read just after, at 64 ch x 30 s (the main path's signal):
+   ``reverb``: reverb(1500) offline at B=4096 and 512 through ``render``
+   (route (a), the combined kernel in 4-5 segconv partitions) and through
+   route (b) (each line's high-cut through segconv, its taps through the
+   tail kernel), both timed and held to the plain version (110 dB) and a
+   float64 oracle (100 dB), then streamed at B=512 for 1,000 blocks (two
+   ``conv_pairs_step`` launches a step), step times beside 11.61 ms, held to
+   its offline render (90 dB); ``eq3band``: the FIR-ised offline (segconv)
+   and the float64 recurrence, streamed at B=512 (no kernel: plain PyTorch
+   in float64), all held to a float64 per-sample recursion (100 dB);
+   ``compat``: the reference's own chunk loop through ``compat`` on one
+   mono channel (lowcut, the three EQ bands, compressor, gate, delay,
+   tremolo, soft clipper, reverb; numpy in and out), each chunk's time
+   beside 11.61 ms, held to the same effects' ``Chain`` render (90 dB), and
+   the CLI once on a 2-channel wav.
 6. ``kernel_timing``  each kernel at the main-path shapes: time (CUDA events,
    median of 5 after a warm-up; the two streaming kernels, which are over in
    tens of microseconds, as launches queued behind a spin so that the host's
@@ -104,7 +125,12 @@ import pyaudiodsptools_tpu_torch as pt
 from pyaudiodsptools_tpu_torch.kernels import (_build, convpairs,
                                                dynamics as kdyn, relayout,
                                                segconv, tail)
+from pyaudiodsptools_tpu_torch import compat
+from pyaudiodsptools_tpu_torch.__main__ import main as cli_main
 from pyaudiodsptools_tpu_torch.ops import dynamics as ops_dynamics, fft_filter
+from pyaudiodsptools_tpu_torch.ops.eq3band import offline as eq_recurrence
+from pyaudiodsptools_tpu_torch.ops.reverb import (
+    offline_fir, offline_lines, tail_plan as reverb_lines_tail_plan)
 from pyaudiodsptools_tpu_torch.ops.tremolo import TremoloParams, gain_row
 
 SAMPLE_RATE = 44100
@@ -1731,6 +1757,10 @@ LONG_STEPS = 8
 # three partitions; and one too long to stream at B=4096 (four partitions).
 LONG_FIR_TAPS = 40000
 LONGER_FIR_TAPS = 65000
+# Blocks the 65,000-tap FIR streams at B=4096 (past its length), and the
+# blocks of 65,536 a lowcut streams (chain8 at 32,768: twice as many).
+LONGER_STEPS = 20
+WIDE_STEPS = 4
 
 
 def long_kernel(taps: int, seed: int) -> np.ndarray:
@@ -1739,6 +1769,27 @@ def long_kernel(taps: int, seed: int) -> np.ndarray:
     rng = np.random.default_rng(seed)
     k = rng.standard_normal(taps) * np.exp(-np.arange(taps) / (taps / 4.0))
     return np.r_[np.zeros(37), k * 0.05]
+
+
+def step_vs_plain(fir_e, block: torch.Tensor) -> dict:
+    """One step of a streaming FIR's kernels (``convpairs.stream_step``: its
+    parts' launches, the accumulate mode, the history read as it lies) on a
+    seeded random history and ``block`` (a slice of a longer signal, taken
+    as it lies), against the same step's plain version: dB of the output,
+    which must reach CONV_DB_PLAIN, and the next histories, which must be
+    equal."""
+    gen = torch.Generator(device="cuda").manual_seed(fir_e.params.history)
+    hist = torch.randn((block.shape[0], fir_e.params.history),
+                       generator=gen, device="cuda")
+    st, y = fir_e.step(fir_e.params, {"hist": hist}, block)
+    pst, py = fir_e.step(fir_e.params, {"hist": hist}, block,
+                         use_kernels=False)
+    r = {"db_step_plain": db_json(snr_db_cuda(py, y)),
+         "step_max_abs_err": float((py - y).abs().max()),
+         "next_history_equal": bool(torch.equal(st["hist"], pst["hist"]))}
+    assert snr_db_cuda(py, y) >= CONV_DB_PLAIN \
+        and r["next_history_equal"], r
+    return r
 
 
 def long_windows(signal: torch.Tensor, n: int) -> dict:
@@ -1751,8 +1802,12 @@ def long_windows(signal: torch.Tensor, n: int) -> dict:
     the later ones adding into the output), held to the plain version and
     the oracle, timed against one partition's window of 32,768 and against
     partitions summed by ``torch.add`` instead of the accumulate mode; (4) a
-    65,000-tap FIR at B=4096: four partitions offline, and a step that
-    raises."""
+    65,000-tap FIR at B=4096: four partitions offline, and streamed in two
+    (its window would be 69,099 samples), held to its offline render; (5) a
+    lowcut at B=65,536 streamed in two sub-blocks; (6) chain8 at B=32,768,
+    its three filters fused into one FIR that streams in two partitions. In
+    (4), (5) and (6) one step of the partitioned FIR is also held to its
+    plain version on the same history and block (``step_vs_plain``)."""
     C, B = signal.shape[0], LONG_BLOCK
     T = LONG_STEPS * B
     x = signal[:, :T].contiguous()
@@ -1864,24 +1919,78 @@ def long_windows(signal: torch.Tensor, n: int) -> dict:
     assert db_plain >= CONV_DB_PLAIN and db_oracle >= CONV_DB_ORACLE, r
     del got, xm
 
-    # (4) 65,000 taps at B=4096: offline in four partitions; no stream
+    # (4) 65,000 taps at B=4096: offline in four partitions; streamed in two
     longer = fft_filter.fir(long_kernel(LONGER_FIR_TAPS, 2), 4096,
                             device="cuda")
-    assert len(longer.params.plans) == 4 and longer.params.stream is None
-    xs = signal[:, :40 * 4096].reshape(C, 40, 4096)
-    got = longer.offline(longer.params, xs)
-    want = longer.offline(longer.params, xs, use_kernels=False)
-    try:
-        longer.state((C,))
-    except ValueError as e:
-        assert str(fft_filter.MAX_WINDOW) in str(e), e
-    else:
-        raise AssertionError("a 65,000-tap FIR streamed at B=4096")
+    assert len(longer.params.plans) == 4 and len(longer.params.parts) == 2
+    xs = signal[:, :LONGER_STEPS * 4096].contiguous()
+    got = longer.offline(longer.params, xs.reshape(C, LONGER_STEPS, 4096))
+    want = longer.offline(longer.params, xs.reshape(C, LONGER_STEPS, 4096),
+                          use_kernels=False)
     db = snr_db_cuda(want, got)
-    r["longer_fir"] = {"taps": LONGER_FIR_TAPS, "B": 4096,
-                       "partitions": len(longer.params.plans),
-                       "db_plain": db_json(db), "step_raises": True}
-    assert db >= CONV_DB_PLAIN, r
+    cfg4 = pt.EngineConfig(SAMPLE_RATE, 4096)
+    outs, _, _, counts = stream_run(pt.Chain([longer], device="cuda"), cfg4,
+                                    xs)
+    streamed = torch.cat(outs, dim=-1)
+    assert counts["conv_pairs"] == 2 * LONGER_STEPS \
+        and sum(counts.values()) == 2 * LONGER_STEPS, counts
+    db_stream = snr_db_cuda(got.reshape(C, -1), streamed)
+    hist = torch.randn((C, longer.params.history), device="cuda")
+    r["longer_fir"] = {
+        "taps": LONGER_FIR_TAPS, "B": 4096,
+        "partitions": len(longer.params.plans), "db_plain": db_json(db),
+        "stream_parts": [{"n": q.plan.n, "taps": q.plan.kernel_len,
+                          "start": q.start, "add": q.add}
+                         for q in longer.params.parts],
+        "history_samples": longer.params.history,
+        "steps": LONGER_STEPS, "launches": counts,
+        "launches_a_step": counts["conv_pairs"] // LONGER_STEPS,
+        "db_stream_to_offline": db_json(db_stream),
+        "step_queued": queued_ms(lambda: longer.step(
+            longer.params, {"hist": hist}, xs[:, :4096])),
+        **step_vs_plain(longer, xs[:, :4096])}
+    assert db >= CONV_DB_PLAIN and db_stream >= STREAM_FIR_DB, r
+    del got, want, streamed, outs, xs
+
+    # (5) lowcut(120) at B=65,536: two sub-blocks, each a window of 65,536
+    Bw = 65536
+    cfgw = pt.EngineConfig(SAMPLE_RATE, Bw)
+    wide = pt.ops.lowcut(cfgw, 120.0, device="cuda")
+    xw = signal[:, :WIDE_STEPS * Bw].contiguous()
+    outs, _, _, counts = stream_run(pt.Chain([wide], device="cuda"), cfgw, xw)
+    n_parts = len(wide.params.parts)
+    assert n_parts == 2 and counts["conv_pairs"] == n_parts * WIDE_STEPS \
+        and sum(counts.values()) == n_parts * WIDE_STEPS, counts
+    off = wide.offline(wide.params, xw.reshape(C, WIDE_STEPS, Bw))
+    db = snr_db_cuda(off.reshape(C, -1), torch.cat(outs, dim=-1))
+    r["lowcut_65536"] = {"B": Bw, "taps": wide.params.kernel_len,
+                         "parts": [(q.plan.n, q.out0, q.keep)
+                                   for q in wide.params.parts],
+                         "steps": WIDE_STEPS, "launches": counts,
+                         "db_offline": db_json(db),
+                         **step_vs_plain(wide, xw[:, :Bw])}
+    assert db >= STREAM_FIR_DB, r
+    del outs, off, xw
+
+    # (6) chain8 at B=32,768: the three filters fuse (two partitions)
+    Bc = 32768
+    cfgc = pt.EngineConfig(SAMPLE_RATE, Bc)
+    chain = pt.Chain(chain8_effects(cfgc, "cuda"), device="cuda")
+    assert [e.name for e in chain.exec_effects] == CHAIN8_NAMES
+    fir_e = chain.exec_effects[0]
+    xc = signal[:, :WIDE_STEPS * 2 * Bc].contiguous()
+    outs, _, _, counts = stream_run(chain, cfgc, xc)
+    steps = WIDE_STEPS * 2
+    assert counts["conv_pairs"] == len(fir_e.params.parts) * steps \
+        and counts["serial_walk"] == steps, counts
+    db = snr_db_cuda(pt.render(chain, xc, cfgc), torch.cat(outs, dim=-1))
+    r["chain8_32768"] = {"B": Bc, "fused": fir_e.name,
+                         "fir_taps": fir_e.params.kernel_len,
+                         "stream_parts": len(fir_e.params.parts),
+                         "steps": steps, "launches": counts,
+                         "db_offline": db_json(db),
+                         **step_vs_plain(fir_e, xc[:, :Bc])}
+    assert db >= CHAIN8_DB_PLAIN, r
     return {"phase": "long_windows", **r}
 
 
@@ -2224,6 +2333,321 @@ def profile_renders(chain, signal, cfg, render_ms: float, passes: int = 3
             "device_ms_per_render_by_name": top}
 
 
+# ---------------------------------------------------------------------------
+# phases 5c-5e: the reverb, the biquad EQ, the drop-in compat API and the CLI
+
+REVERB_MS = 1500.0
+# Blocks the reverb streams at B=512 (11.6 s of audio, past its 1.5 s).
+REVERB_STREAM_BLOCKS = 1000
+# The reverb's bars: its two routes are the conv kernel's (and the tail's)
+# rounding away from their plain versions, like row 1's (CONV_DB_PLAIN); the
+# oracle holds a 65,000-tap response, whose float32 sum of products sits a
+# little further from float64 than a short filter's: 100 dB. The stream runs
+# other windows than the offline render: the chain bar, 90 dB.
+REVERB_DB_ORACLE = 100.0
+STREAM_DB = 90.0
+# The EQ of the JAX package's parity tests (tests/test_ops_parity.py).
+EQ_ARGS = (200.0, 3.5, 1000.0, -2.5, 8000.0, 4.0)
+EQ_STREAM_BLOCKS = 300
+# The float64 recurrence and the FIR-ised response (truncated at 1e-9 of its
+# peak) against a float64 per-sample recursion: 100 dB, the JAX package's
+# bar for its double-float scan.
+EQ_DB_ORACLE = 100.0
+COMPAT_CHUNK = 512
+
+
+def chained_ms(fn, x, passes: int = 3) -> float:
+    """Host-clock median of ``passes`` chained calls ``o = fn(o)``, each
+    ended by a synchronisation, after a warm-up call."""
+    fn(x)
+    torch.cuda.synchronize()
+    times, o = [], x
+    for _ in range(passes):
+        t0 = time.perf_counter()
+        o = fn(o)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    assert bool(torch.isfinite(o).all())
+    return statistics.median(times) * 1e3
+
+
+def counted(fn):
+    """(result, launch counts): ``fn`` with every count set to 0 just
+    before it and read just after."""
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def reverb_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
+    """reverb(1500) at 64 ch x 30 s: offline at both block sizes through
+    ``render`` (route (a), the effect's own: the combined kernel in 4 / 5
+    partitions) and through route (b) (each line's high-cut through the
+    conv, its taps through the tail kernel), both timed (host clock, median
+    of 3 chained passes) and held to the plain version and a float64
+    oracle; then streamed at B=512 through StreamProcessor for 1,000 blocks
+    (two ``conv_pairs_step`` launches a step: the lines' high-cuts), its step
+    times beside the 11.61 ms block and its output held to the offline
+    render."""
+    C = signal.shape[0]
+    pick = [0, C - 1]
+    runs = {}
+    r = {"phase": "reverb", "time_in_ms": REVERB_MS, "channels": C,
+         "samples_per_channel": n, "by_block_size": {}, "launch_counts": runs,
+         "nvidia_smi": smi}
+    for B in BLOCK_SIZES:
+        cfg = pt.EngineConfig(SAMPLE_RATE, B)
+        eff = pt.ops.reverb(cfg, REVERB_MS, device="cuda")
+        chain = pt.Chain([eff], device="cuda")
+        T = -(-n // B) * B
+        x = torch.nn.functional.pad(signal, (0, T - n)).contiguous()
+        blocks = x.reshape(C, T // B, B)
+        out, counts_a = counted(lambda: pt.render(chain, signal, cfg))
+        parts = len(eff.params.full.plans)
+        assert counts_a["segconv"] == parts \
+            and sum(counts_a.values()) == parts, counts_a
+        out_b, counts_b = counted(lambda: offline_lines(eff.params, blocks))
+        assert counts_b["segconv"] == 2 and counts_b["tail"] == 2 \
+            and sum(counts_b.values()) == 4, counts_b
+        plain = eff.offline(eff.params, blocks, use_kernels=False
+                            ).reshape(C, T)
+        oracle = fft_conv64(x[pick, :ORACLE_EXCERPT].cpu().numpy(),
+                            eff.lti_kernel)
+        dbs = {"a_db_plain": snr_db_cuda(plain, out),
+               "b_db_plain": snr_db_cuda(plain, out_b.reshape(C, T)),
+               "a_db_oracle_2ch": snr_db(
+                   oracle, out[pick, :ORACLE_EXCERPT].cpu().numpy()),
+               "b_db_oracle_2ch": snr_db(oracle, out_b.reshape(C, T)[
+                   pick, :ORACLE_EXCERPT].cpu().numpy())}
+        del plain, out_b
+        line = eff.params.line1
+        y1 = fft_filter.fir_offline(line.highcut, blocks).reshape(C, T)
+        tplan = reverb_lines_tail_plan(line, y1.device)
+        rb = {"partitions": parts, "stripped_taps": eff.params.full.kernel_len,
+              "launches_a": counts_a, "launches_b": counts_b,
+              **{k: db_json(v) for k, v in dbs.items()},
+              "a_render_ms": chained_ms(
+                  lambda o: pt.render(chain, o, cfg), signal),
+              "a_ms": chained_ms(lambda o: offline_fir(eff.params, o),
+                                 blocks),
+              "b_ms": chained_ms(lambda o: offline_lines(eff.params, o),
+                                 blocks),
+              "a_events_ms": time_ms(lambda: offline_fir(eff.params, blocks)),
+              "b_events_ms": time_ms(lambda: offline_lines(eff.params,
+                                                           blocks)),
+              "b_line1_highcut_segconv_ms": time_ms(
+                  lambda: fft_filter.fir_offline(line.highcut, blocks)),
+              "b_line1_taps_tail_ms": time_ms(
+                  lambda: tail.tail_kernel(tplan, y1, None)),
+              "b_line1_tail_geometry": {"tile": tplan.tile,
+                                        "rings_in_shared_memory":
+                                            tplan.ring_smem,
+                                        "halo": tplan.halo},
+              "partition_ms": time_ms(lambda: segconv._launch(
+                  x, eff.params.full.plans[0])),
+              "plain_ms": time_ms(lambda: eff.offline(
+                  eff.params, blocks, use_kernels=False), runs=1)}
+        rb["faster_route"] = "a" if rb["a_ms"] <= rb["b_ms"] else "b"
+        del y1
+        assert dbs["a_db_plain"] >= CONV_DB_PLAIN \
+            and dbs["b_db_plain"] >= CONV_DB_PLAIN, rb
+        assert dbs["a_db_oracle_2ch"] >= REVERB_DB_ORACLE \
+            and dbs["b_db_oracle_2ch"] >= REVERB_DB_ORACLE, rb
+        r["by_block_size"][str(B)] = rb
+        runs[f"offline_a_{B}"], runs[f"offline_b_{B}"] = counts_a, counts_b
+        del out, x, blocks
+    r["route_of_offline"] = "a" if eff.offline is offline_fir else "b"
+
+    # streamed at B=512
+    B = 512
+    cfg = pt.EngineConfig(SAMPLE_RATE, B)
+    eff = pt.ops.reverb(cfg, REVERB_MS, device="cuda")
+    chain = pt.Chain([eff], device="cuda")
+    xs = signal[:, :REVERB_STREAM_BLOCKS * B].contiguous()
+    outs, step_s, wall_s, counts = stream_run(chain, cfg, xs)
+    assert counts["conv_pairs"] == 2 * REVERB_STREAM_BLOCKS \
+        and sum(counts.values()) == 2 * REVERB_STREAM_BLOCKS, counts
+    runs["stream_512"] = counts
+    streamed = torch.cat(outs, dim=-1)
+    db = snr_db_cuda(pt.render(chain, xs, cfg), streamed)
+    hist = torch.zeros((C, eff.params.line1.highcut.history), device="cuda")
+    r["stream"] = {"B": B, "launches": counts,
+                   "db_offline": db_json(db),
+                   "line_step_window": eff.params.line1.highcut.stream.n,
+                   "line_highcut_step_queued": queued_ms(
+                       lambda: fft_filter.fir_step(
+                           eff.params.line1.highcut, {"hist": hist},
+                           xs[:, :B])),
+                   **step_stats(step_s, wall_s, cfg.block_duration_ms)}
+    assert db >= STREAM_DB, r
+    return r
+
+
+def recursion64(rows, x: np.ndarray) -> np.ndarray:
+    """The reference's biquad cascade per sample in float64, each band fed
+    the previous band's float64 output, with its one-sample input delay:
+    y[n] = b0 x[n-1] + b1 x[n-2] + b2 x[n-3] - a1 y[n-1] - a2 y[n-2]."""
+    y = x.astype(np.float64)
+    for b0, b1, b2, a1, a2 in rows:
+        out = np.zeros_like(y)
+        for c in range(y.shape[0]):
+            x1 = x2 = x3 = y1 = y2 = 0.0
+            for i, v in enumerate(y[c].tolist()):
+                o = b0 * x1 + b1 * x2 + b2 * x3 - a1 * y1 - a2 * y2
+                x3, x2, x1 = x2, x1, v
+                y2, y1 = y1, o
+                out[c, i] = o
+        y = out
+    return y
+
+
+def eq3band_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
+    """eq3band at 64 ch: offline through the FIR-ised route (64 ch x 30 s,
+    one segconv launch a partition) and the float64 recurrence, streamed at
+    B=512 through the float64 recurrence (no kernel launch: plain PyTorch,
+    as the JAX package's scan is plain XLA), both held to a float64
+    per-sample recursion with the one-sample delay on 2 channels."""
+    C = signal.shape[0]
+    pick = [0, C - 1]
+    B = 512
+    cfg = pt.EngineConfig(SAMPLE_RATE, B)
+    eff = pt.ops.eq3band(cfg, *EQ_ARGS, device="cuda")
+    assert eff.params.use_fir
+    chain = pt.Chain([eff], device="cuda")
+    T = -(-n // B) * B
+    x = torch.nn.functional.pad(signal, (0, T - n)).contiguous()
+    blocks = x.reshape(C, T // B, B)
+    out, counts = counted(lambda: pt.render(chain, signal, cfg))
+    parts = len(eff.params.fir.plans)
+    assert counts["segconv"] == parts and sum(counts.values()) == parts, \
+        counts
+    m = EQ_STREAM_BLOCKS * B
+    oracle = recursion64(eff.params.coeffs.numpy(),
+                         x[pick, :m].cpu().numpy())
+    rec = eq_recurrence(eff.params, blocks).reshape(C, T)
+    xs = x[:, :m].contiguous()
+    outs, step_s, wall_s, scounts = stream_run(chain, cfg, xs)
+    assert sum(scounts.values()) == 0, scounts
+    streamed = torch.cat(outs, dim=-1)
+    dbs = {"fir_db_oracle_2ch": snr_db(oracle, out[pick, :m].cpu().numpy()),
+           "recurrence_db_oracle_2ch": snr_db(oracle,
+                                              rec[pick, :m].cpu().numpy()),
+           "stream_db_oracle_2ch": snr_db(oracle,
+                                          streamed[pick].cpu().numpy()),
+           "fir_db_plain": snr_db_cuda(eff.offline(
+               eff.params, blocks, use_kernels=False).reshape(C, T), out),
+           "stream_db_recurrence": snr_db_cuda(rec[:, :m], streamed)}
+    r = {"phase": "eq3band", "args": EQ_ARGS, "channels": C, "B": B,
+         "samples_per_channel": n, "fir_taps": eff.params.fir.kernel_len,
+         "fir_lead": eff.params.fir.lead, "partitions": parts,
+         "launch_counts": {"offline_fir_512": counts,
+                           "stream_512": scounts},
+         **{k: db_json(v) for k, v in dbs.items()},
+         "oracle_samples": m,
+         "fir_render_ms": chained_ms(lambda o: pt.render(chain, o, cfg),
+                                     signal),
+         "fir_segconv_ms": time_ms(lambda: eff.offline(eff.params, blocks)),
+         "recurrence_offline_ms": time_ms(
+             lambda: eq_recurrence(eff.params, blocks), runs=1),
+         "stream": step_stats(step_s, wall_s, cfg.block_duration_ms),
+         "nvidia_smi": smi}
+    assert all(v >= EQ_DB_ORACLE for k, v in dbs.items() if "oracle" in k), r
+    assert dbs["fir_db_plain"] >= CONV_DB_PLAIN, r
+    assert dbs["stream_db_recurrence"] >= EQ_DB_ORACLE, r
+    return r
+
+
+def compat_phase(signal: torch.Tensor, n: int, workdir: str,
+                 smi: str) -> dict:
+    """The reference's own usage through the drop-in API on one mono
+    channel of 30 s: ``config.initialize(44100, 512)``, a chain of devices
+    applied chunk by chunk with numpy in and out, each chunk's time beside
+    the 11.61 ms chunk, the output held to the same effects' ``Chain``
+    render on the card; then the CLI once on a 2-channel wav."""
+    compat.config.initialize(SAMPLE_RATE, COMPAT_CHUNK)
+    low = compat.CreateLowCutFilter(800)
+    eq = compat.CreateEQ3Band(*EQ_ARGS)
+    comp = compat.CreateCompressor(-18, 0.6, 3.1, 30.1)
+    gate = compat.CreateGate(-45, 0.1, 3.1, 200.1)
+    delay = compat.CreateDelay(150, 2)
+    trem = compat.CreateTremolo(0.3, 5.0)
+    clip = compat.CreateSoftClipper(0.44)
+    rev = compat.CreateReverb(REVERB_MS)
+    assert low._effect.device.type == "cuda"
+    x = signal[0, :n].cpu().numpy()
+    chunks = compat.MakeChunks(x)
+    times, outs = [], []
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    for c in chunks:
+        t0 = time.perf_counter()
+        y = low.apply(c)
+        y = eq.applyhighband(eq.applymidband(eq.applylowband(y)))
+        y = clip.apply(trem.apply(delay.apply(gate.apply(comp.apply(y)))))
+        y = rev.applyreverb(y)
+        times.append(time.perf_counter() - t0)
+        outs.append(y)
+    counts = launch_counts()
+    k = len(chunks)
+    # the lowcut's and the reverb lines' steps, the compressor's and the
+    # gate's: nothing else launches (the EQ, the delay, the tremolo and the
+    # soft clipper step in plain PyTorch)
+    assert counts["conv_pairs"] == 3 * k and counts["serial_walk"] == 2 * k \
+        and sum(counts.values()) == 5 * k, counts
+    got = compat.CombineChunks(outs)
+    assert got.shape == (k * COMPAT_CHUNK,) and np.isfinite(got).all()
+    effects = [low._effect, eq._low._effect, eq._mid._effect,
+               eq._high._effect, comp._effect, gate._effect, delay._effect,
+               trem._effect, clip._effect, rev._effect]
+    cfg = pt.EngineConfig(SAMPLE_RATE, COMPAT_CHUNK)
+    chain = pt.Chain(effects, device="cuda")
+    want = pt.render(chain, torch.from_numpy(x)[None].cuda(), cfg)[0]
+    db = snr_db(want.cpu().numpy()[:len(got)], got)
+    ms = [t * 1e3 for t in times]
+    r = {"phase": "compat", "chunks": k, "chunk": COMPAT_CHUNK,
+         "devices": [type(d).__name__ for d in
+                     (low, eq, comp, gate, delay, trem, clip, rev)],
+         "launch_counts": {"chunk_loop": counts},
+         "offline_chain": [e.name for e in
+                                               chain.exec_effects],
+         "db_offline_chain": db_json(db),
+         "apply_median_ms": statistics.median(ms),
+         "apply_p99_ms": percentile(ms, 99), "apply_max_ms": max(ms),
+         "apply_first_ms": ms[0], "apply_max_after_first_ms": max(ms[1:]),
+         "chunks_over_budget": sum(t > cfg.block_duration_ms for t in ms),
+         "chunk_budget_ms": cfg.block_duration_ms,
+         "compressor_step_queued_1ch": queued_ms(
+             lambda: comp._effect.step(comp._effect.params,
+                                       comp._state,
+                                       torch.zeros((COMPAT_CHUNK,),
+                                                   device="cuda"))),
+         "nvidia_smi": smi}
+    assert db >= STREAM_DB, r
+    # the CLI, once, on a 2-channel wav written here
+    src = os.path.join(workdir, "cli_in.wav")
+    dst = os.path.join(workdir, "cli_out.wav")
+    pt.wavio.write_wav(src, signal[:2, :5 * SAMPLE_RATE].cpu().numpy(),
+                       SAMPLE_RATE)
+    spec = [{"op": "lowcut", "cutoff_hz": 120.0},
+            {"op": "eq3band", "low_shelf_hz": 200.0, "low_shelf_db": 3.5,
+             "mid_hz": 1000.0, "mid_db": -2.5, "high_shelf_hz": 8000.0,
+             "high_shelf_db": 4.0},
+            {"op": "compressor", "threshold_db": -18.0},
+            {"op": "reverb", "time_in_ms": 300.0}, {"op": "softclipper"}]
+    t0 = time.perf_counter()
+    rc = cli_main([src, dst, "--chain", json.dumps(spec), "--block-size",
+                   "4096", "--trim"])
+    assert rc == 0, rc
+    audio, rate = pt.wavio.read_wav(dst)
+    assert rate == SAMPLE_RATE and audio.shape == (2, 5 * SAMPLE_RATE)
+    assert np.isfinite(audio).all() and np.abs(audio).max() > 0.01
+    r["cli"] = {"seconds": round(time.perf_counter() - t0, 2),
+                "shape": list(audio.shape), "chain": [e["op"] for e in spec]}
+    return r
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2341,6 +2765,9 @@ def main() -> None:
           "by_block_size": {str(B): main_checks[B] for B in BLOCK_SIZES},
           "nvidia_smi": smi})
 
+    # launches by path beside the main path's (the later slices' phases)
+    path_launches = {}
+
     # ---- 5. the streaming main path: counts to 0, stream, read counts
     timing = {name: {} for name in KERNELS}
     stream_checks, stream_times, stream_launches = {}, {}, {}
@@ -2385,6 +2812,14 @@ def main() -> None:
     t0 = time.perf_counter()
     emit({**long_windows(signal, n), "nvidia_smi": smi,
           "seconds": round(time.perf_counter() - t0, 1)})
+    with tempfile.TemporaryDirectory() as workdir:
+        for phase in (lambda: reverb_phase(signal, n, smi),
+                      lambda: eq3band_phase(signal, n, smi),
+                      lambda: compat_phase(signal, n, workdir, smi)):
+            t0 = time.perf_counter()
+            out = phase()
+            path_launches[out["phase"]] = out["launch_counts"]
+            emit({**out, "seconds": round(time.perf_counter() - t0, 1)})
 
     # ---- 6. the offline kernels at the main-path shapes
     stage_by_B, sweep = {}, {}
@@ -2457,6 +2892,9 @@ def main() -> None:
             "source": f"pyaudiodsptools_tpu_torch/csrc/{source}",
             "replaces": f"pyaudiodsptools_tpu/kernels/{replaces}",
             "launches": launches[name],
+            "launches_on_other_paths": {
+                path: {run: counts[name] for run, counts in runs.items()}
+                for path, runs in path_launches.items()},
             "max_abs_err": max(v["max_abs_err"] for v in by_B.values()),
             "ms": h["ms"], "plain_ms": h["plain_ms"],
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],

@@ -14,25 +14,31 @@ Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``; on
 a CPU tensor every kernel-backed effect runs its plain PyTorch version.
 
 Layers:
-  core      config and device resolution, blocking, wav I/O
-  ops       the effect library of the port's slices so far
+  core      config and device resolution, blocking, wav I/O, generators,
+            gain / dBV / dither utilities, meters
+  ops       the effect library: every effect of the JAX package
   kernels   CUDA kernel wrappers, plain versions, and the nvcc build
   engine    Chain composition and fusion, offline render, StreamProcessor,
             segmented and resumable render
   convert   build a chain from a plain numpy description of its params
+  compat    drop-in ``pyAudioDspTools`` API (``Create*().apply(chunk)``)
+
+``python -m pyaudiodsptools_tpu_torch in.wav out.wav --chain '<json>'``
+renders a wav file through a chain.
 """
 
 from .core.config import EngineConfig, resolve_device
-from .core import block, wavio
+from .core import block, generators, metering, utility, wavio
 from . import ops
 from .engine import (Chain, StreamProcessor, render, render_file,
                      render_resumable, render_segmented)
-from . import convert
+from . import compat, convert
 
 __version__ = "0.1.0"
 
 __all__ = [
-    "EngineConfig", "resolve_device", "block", "wavio", "ops", "Chain",
+    "EngineConfig", "resolve_device", "block", "generators", "metering",
+    "utility", "wavio", "ops", "Chain",
     "render", "render_file", "render_segmented", "render_resumable",
-    "StreamProcessor", "convert",
+    "StreamProcessor", "compat", "convert",
 ]

@@ -22,7 +22,20 @@ What is carried across, per effect:
   ``block_size``;
 * waveshapers: their scalars (``coeff``, ``makeup``, ``mode``; ``drive``);
 * ``compressor`` / ``gate``: ``threshold``, ``pre_gain``, ``attack_env``,
-  ``release_env``, and ``x_max``, ``y_max``.
+  ``release_env``, and ``x_max``, ``y_max``;
+* ``eq3band`` / ``eq_band_low`` / ``_mid`` / ``_high``: ``coeffs`` and
+  ``coeffs_lo`` (the JAX package's float64 coefficients as f32 head and
+  tail), summed in float64, and ``block_size``;
+* ``reverb``: ``lti_kernel`` (the combined kernel, route (a) offline), and
+  per line (``meta["line1"]``, ``meta["line2"]``) ``time_in_samples`` and
+  ``n_taps``, its ``ramp`` (``params["line1"]["ramp"]``, ...), with
+  ``meta["sample_rate"]``, which the JAX params do not carry and the
+  lines' high-cuts are designed for. The lines' kernels at that rate must
+  sum to ``lti_kernel``, or the conversion raises: a description at another
+  rate does not convert with the wrong high-cuts. It is handled before the
+  FIR branch:
+  built as a plain ``fir`` it would stream through another structure than
+  the JAX reverb's two lines.
 
 The port's own factories give the same params; ``tests/test_torch_chain.py``
 holds them to that.
@@ -30,12 +43,15 @@ holds them to that.
 ``state_from_numpy(chain, leaves)`` carries a STREAMING state across: the
 leaves of a JAX chain state as numpy arrays, in ``jax.tree.flatten`` order
 (which is the order of the port's ``engine.stream.state_leaves``, whatever
-runs either chain fused). Dynamics fields, delay buffers and the tremolo's
-position are the same on both sides. A FIR history is not: the JAX step keeps
-``halo_stream`` whole blocks for its own window, the port keeps the last
-``lead + n - B`` samples, so the history is cut from the end of the JAX one
-and padded with silence in front where the JAX one is shorter (those samples
-meet no tap that reaches an output still to come).
+runs either chain fused). Dynamics fields, delay and reverb buffers and the
+tremolo's position are the same on both sides. A FIR history is not (also a
+reverb line's high-cut's): the JAX step keeps ``halo_stream`` whole blocks
+for its own window, the port keeps the samples its windows reach back
+(``fft_filter.history_len``), so the history is cut from the end of the JAX
+one and padded with silence in front where the JAX one is shorter (those
+samples meet no tap that reaches an output still to come). An EQ's state
+words are (hi, lo) float32 pairs on the JAX side (``x1``, ``x1l``, ...) and
+one float64 here: each pair is summed in float64.
 """
 
 from __future__ import annotations
@@ -43,13 +59,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .core.config import DEFAULT_DEVICE, resolve_device
+from .core.config import DEFAULT_DEVICE, EngineConfig, resolve_device
 from .engine.chain import Chain
 from .engine.stream import state_from_leaves, state_paths
 from .ops import dynamics, fft_filter, waveshapers as ws
 from .ops.base import Effect, host_scalar
 # ``ops.delay`` / ``ops.tremolo`` name the factories; the modules behind them:
 from .ops.delay import DelayParams, make_effect as make_delay, tap_kernel
+from .ops.eq3band import EQ3BandParams, from_rows as eq_from_rows
+from .ops.reverb import (LINES as REVERB_LINES, ReverbLineParams,
+                         ReverbParams, lines_kernel as reverb_lines_kernel,
+                         make_effect as make_reverb)
 from .ops.tremolo import (TremoloParams, init_state as tremolo_init_state,
                           offline as tremolo_offline, step as tremolo_step)
 
@@ -78,6 +98,36 @@ def effect_from_numpy(entry: dict, device=DEFAULT_DEVICE) -> Effect:
             use_lowcut=False, use_highcut=False)
         kernel = tap_kernel(ramp, p.time_in_samples, p.wet)
         return make_delay(p, kernel, dev)
+    if op == "reverb":
+        kernel = np.asarray(entry["lti_kernel"], np.float64)
+        B = int(meta["block_size"])
+        cfg = EngineConfig(sample_rate=int(meta["sample_rate"]), block_size=B)
+        lines, described = [], []
+        for key, (_loops, hz) in zip(("line1", "line2"), REVERB_LINES):
+            ramp = np.asarray(params[key]["ramp"], dtype=np.float32)
+            n_taps = int(meta[key]["n_taps"])
+            time = int(meta[key]["time_in_samples"])
+            described.append((time, ramp, n_taps, hz))
+            lines.append(ReverbLineParams(
+                ramp=torch.from_numpy(ramp.copy()),
+                gains=torch.from_numpy(ramp[:n_taps].copy()).to(dev),
+                highcut=fft_filter.highcut(cfg, hz, device=dev).params,
+                time_in_samples=time, n_taps=n_taps, block_size=B))
+        mine = reverb_lines_kernel(cfg, described)
+        if mine.shape != kernel.shape or not np.allclose(
+                mine, kernel, rtol=0.0, atol=1e-9 * np.abs(kernel).max()):
+            raise ValueError(
+                f"the reverb's lines at {cfg.sample_rate} Hz do not sum to "
+                "its lti_kernel: its high-cuts were designed for another "
+                "sample rate")
+        p = ReverbParams(
+            line1=lines[0], line2=lines[1],
+            full=fft_filter.fir(kernel, B, device=dev).params, block_size=B)
+        return make_reverb(p, kernel, dev)
+    if op == "eq3band" or op.startswith("eq_band_"):
+        rows = (np.asarray(params["coeffs"], np.float64)
+                + np.asarray(params["coeffs_lo"], np.float64))
+        return eq_from_rows(rows, int(meta["block_size"]), op, dev)
     if entry.get("lti_kernel") is not None:
         return fft_filter.fir(np.asarray(entry["lti_kernel"], np.float64),
                               int(meta["block_size"]), name=op, device=dev)
@@ -114,9 +164,7 @@ def effect_from_numpy(entry: dict, device=DEFAULT_DEVICE) -> Effect:
         return ws.harddistortion(None, device=dev)
     if op == "bitcrusher":
         return ws.bitcrusher(None, device=dev)
-    raise ValueError(
-        f"effect {op!r} is not part of the port yet (see ROADMAP.md for the "
-        "slices still to come)")
+    raise ValueError(f"effect {op!r} is not part of the port")
 
 
 def chain_from_numpy(spec, device=DEFAULT_DEVICE, fuse: bool = True) -> Chain:
@@ -129,18 +177,34 @@ def chain_from_numpy(spec, device=DEFAULT_DEVICE, fuse: bool = True) -> Chain:
 def state_from_numpy(chain: Chain, jax_state_leaves):
     """The port's streaming state of ``chain`` from the numpy leaves of the
     JAX chain's state for the same effects (see the module docstring)."""
-    leaves = [np.asarray(leaf) for leaf in jax_state_leaves]
     bare = state_paths(chain.init_state(()))
-    if len(leaves) != len(bare):
-        raise ValueError(
-            f"{len(leaves)} state leaves for a chain that keeps {len(bare)}")
-    # The batch shape is whatever a tensor leaf carries in front of its own
-    # axes (a JAX FIR history has two of its own: blocks and samples).
+    eq = {i for i, e in enumerate(chain.exec_effects)
+          if isinstance(e.params, EQ3BandParams)}
+    # an EQ's (hi, lo) words, adjacent in the JAX order (x1, x1l, x2, ...),
+    # become one float64
+    it = iter(np.asarray(leaf) for leaf in jax_state_leaves)
+    leaves = []
+    try:
+        for path, _ in bare:
+            leaf = next(it)
+            if path[0] in eq:
+                leaf = leaf.astype(np.float64) + next(it).astype(np.float64)
+            leaves.append(leaf)
+    except StopIteration:
+        raise ValueError("too few state leaves for this chain") from None
+    if next(it, None) is not None:
+        raise ValueError("too many state leaves for this chain")
+    # The batch shape is whatever a tensor leaf carries besides its own axes
+    # (a JAX FIR history has two of its own, blocks and samples, behind it;
+    # an EQ word has the bands in front of it).
     batch_shape = ()
     for (path, own), leaf in zip(bare, leaves):
         if isinstance(own, torch.Tensor):
-            own_axes = 2 if path[-1] == "hist" else own.dim()
-            batch_shape = tuple(leaf.shape[:leaf.ndim - own_axes])
+            if path[0] in eq:
+                batch_shape = tuple(leaf.shape[1:])
+            else:
+                own_axes = 2 if path[-1] == "hist" else own.dim()
+                batch_shape = tuple(leaf.shape[:leaf.ndim - own_axes])
             break
     template = state_paths(chain.init_state(batch_shape))
     converted = []

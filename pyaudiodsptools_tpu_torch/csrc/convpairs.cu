@@ -11,13 +11,18 @@
 //
 //   convpairs_launch       rows given as an array (possibly strided); all n
 //                          samples of every row are stored.
-//   convpairs_step_launch  the streaming step of a FIR in ONE launch. Row r
-//                          is the first n samples of concat(hist[r], block[r])
-//                          gathered from the TWO arrays; only the last B
-//                          (wrap-free) samples of the result are stored,
-//                          contiguous (R, B); and the next history,
-//                          concat(hist[r], block[r])[B:], is written to a
-//                          third array. The old history is only read, so the
+//   convpairs_step_launch  one window of a FIR's streaming step. Row r's
+//                          window is n consecutive samples of
+//                          concat(hist[r], block[r]) gathered from the TWO
+//                          arrays as they lie (the history row may be a slice
+//                          of a longer one); only the last `keep` (wrap-free)
+//                          samples of the result are stored, or ADDED into
+//                          the output (the accumulate mode: a kernel too long
+//                          for one window streams in partitions, one launch
+//                          each, summed in partition order); and the next
+//                          history, concat(hist[r], block[r])[B:], is written
+//                          to a third array by one launch of the step, or by
+//                          none. The old history is only read, so the
 //                          caller's previous state stays valid, and each
 //                          thread block touches its own two rows only.
 //
@@ -75,9 +80,12 @@ struct PairsIo {
   const float* b;
   long long a_stride, b_stride;
   int split;
-  // samples [keep0, n) of row r's result go to out[r*(n - keep0) + i - keep0]
+  // samples [keep0, n) of row r's result go to out[r*out_stride + i - keep0]
+  // (added to what is there where acc is set)
   float* out;
+  long long out_stride;
   int keep0;
+  int acc;
   // next[r*next_len + k] = sample (shift + k) of row r's source, k < next_len
   // (past the window too: the source is split + block samples long); null:
   // nothing is written
@@ -135,15 +143,19 @@ convpairs_kernel(const PairsIo io, const float2* __restrict__ spec,
     convolve_window(z, spec, tw, ln);
   }
 
-  const int keep = n - io.keep0;
-  float* a_out = io.out + (size_t)r0 * keep;
-  float* b_out = a_out + keep;
+  float* a_out = io.out + (size_t)r0 * io.out_stride;
+  float* b_out = a_out + io.out_stride;
   for (int i = threadIdx.x; i < m; i += blockDim.x) {
     const int o = base + i - io.keep0;
     if (o < 0) continue;
     const float2 v = z[pad(i)];
-    a_out[o] = v.x;
-    if (has_b) b_out[o] = v.y;
+    if (io.acc) {
+      a_out[o] += v.x;
+      if (has_b) b_out[o] += v.y;
+    } else {
+      a_out[o] = v.x;
+      if (has_b) b_out[o] = v.y;
+    }
   }
 }
 
@@ -234,32 +246,42 @@ extern "C" int convpairs_launch(const float* in, float* out, const float* spec,
   io.a_stride = in_stride;
   io.split = n;
   io.out = out;
+  io.out_stride = n;
   return launch(io, spec, tw, R, n, blocks, stream);
 }
 
-// The streaming step. hist: (R, hist_len) contiguous; block: R rows of B
-// floats, row r at block + r*block_stride (a slice of a longer signal is
-// taken as it lies); the window of row r is the first n samples of
-// concat(hist[r], block[r]) (n <= hist_len + B); out: (R, B), the window's
-// last B output samples; next: (R, hist_len), concat(hist[r], block[r])[B:].
-extern "C" int convpairs_step_launch(const float* hist, const float* block,
-                                     float* out, float* next,
-                                     const float* spec, const float* tw, int R,
-                                     int n, int hist_len, int B,
-                                     long long block_stride, int blocks,
+// One window of the streaming step. Sample i of row r's window is
+// hist[r*hist_stride + i] below `split` and block[r*block_stride + i - split]
+// from there on (hist points at the window's first sample; split may be 0,
+// or >= n where the window lies in the history). The window's last `keep`
+// output samples go to out[r*out_stride + k], k < keep, or are added there
+// (accumulate != 0). next: null, or (R, next_len) contiguous, written with
+// sample shift + k of row r's source (the caller passes the whole history
+// with split = its length and shift = B: next = concat(hist, block)[B:]).
+extern "C" int convpairs_step_launch(const float* hist, long long hist_stride,
+                                     int split, const float* block,
+                                     long long block_stride, float* out,
+                                     long long out_stride, int keep,
+                                     int accumulate, float* next, int next_len,
+                                     int shift, const float* spec,
+                                     const float* tw, int R, int n, int blocks,
                                      void* stream) {
-  if (hist_len < 0 || B < 1 || B > n || n > hist_len + B || block_stride < B)
+  if (split < 0 || keep < 1 || keep > n || out_stride < keep ||
+      (R > 1 && (hist_stride < split || block_stride < 1)) ||
+      (next != nullptr && next_len > 0 && (shift < 0 || next_len > split)))
     return (int)cudaErrorInvalidValue;
   PairsIo io = {};
   io.a = hist;
   io.b = block;
-  io.a_stride = hist_len;
+  io.a_stride = hist_stride;
   io.b_stride = block_stride;
-  io.split = hist_len;
+  io.split = split;
   io.out = out;
-  io.keep0 = n - B;
+  io.out_stride = out_stride;
+  io.keep0 = n - keep;
+  io.acc = accumulate != 0;
   io.next = next;
-  io.next_len = hist_len;
-  io.shift = B;
+  io.next_len = next != nullptr ? next_len : 0;
+  io.shift = shift;
   return launch(io, spec, tw, R, n, blocks, stream);
 }

@@ -98,12 +98,10 @@ def fuse_lti_runs(effects: tuple[Effect, ...]) -> tuple[Effect, ...]:
     """Fuse runs of >= 2 consecutive fusable effects:
 
     * LTI effects (carry an ``lti_kernel``) -> one FIR whose impulse
-      response is the cascade's (ops/fft_filter.fuse_lti). A run is cut
-      where the fused kernel, its zero prefix stripped, would no longer
-      stream at the block size (ops/fft_filter.fits_one_window: the
-      streaming window outgrows the largest the kernel holds, 65,536), so
-      that every cascade streams too: the members on either side of the cut
-      fuse separately or stay as they are;
+      response is the cascade's (ops/fft_filter.fuse_lti), whatever its
+      length and the block size, as the JAX package fuses them: a FIR of any
+      length renders and streams (in partitions where one window does not
+      take it);
     * dynamics automatons (compressor / gate, in any order) -> one cascaded
       speculative walk (kernels/dynamics.fused_dynamics). A run longer than
       one kernel walks (kernels/dynamics.MAX_OPS) is cut into consecutive
@@ -114,7 +112,7 @@ def fuse_lti_runs(effects: tuple[Effect, ...]) -> tuple[Effect, ...]:
       (kernels/tail.fused_tail), whatever the run's length and reach, as
       the JAX package fuses them.
     """
-    from ..ops.fft_filter import fits_one_window, fuse_lti, fused_kernel
+    from ..ops.fft_filter import fuse_lti
 
     out: list[Effect] = []
     run: list[Effect] = []
@@ -131,9 +129,6 @@ def fuse_lti_runs(effects: tuple[Effect, ...]) -> tuple[Effect, ...]:
             flush()
             out.append(e)
             continue
-        if run and not fits_one_window(fused_kernel(run + [e]),
-                                       e.params.block_size):
-            flush()
         run.append(e)
     flush()
     return fuse_tail_runs(fuse_dynamics_runs(tuple(out)))

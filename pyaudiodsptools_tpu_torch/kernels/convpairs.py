@@ -30,14 +30,19 @@ filter of tens of thousands of taps needs. All versions agree bit for bit.
 Rows may be a strided view (``flat.stride(0) >= n``, unit stride along a
 row).
 
-:func:`conv_pairs_step` is a streaming FIR's whole step in ONE launch of the
-same kernel: the window is gathered from the history and the block as they
-lie, only the block's (wrap-free) output is stored, and the next history is
-written to a new tensor by blocks that run beside the transforming ones.
+:func:`stream_step` is a streaming FIR's step: one launch of the same kernel
+a part (:class:`StreamPart`), each window gathered from the shared history
+and the block as they lie, only the block's (wrap-free) output stored, the
+later partitions of a long kernel adding into it (the kernel's accumulate
+mode), and the next history written to a new tensor by the blocks that run
+beside the transforming ones of the part whose window starts at the
+history's first sample. :func:`conv_pairs_step` is its one-part case: a FIR
+that fits one window, ONE launch a step.
 
 The CUDA source is ``csrc/convpairs.cu``. The plain versions,
-:func:`conv_pairs_plain` (the same function on ``torch.fft``) and
-:func:`conv_pairs_step_plain` (join, convolve, slice), run for CPU tensors,
+:func:`conv_pairs_plain` (the same function on ``torch.fft``),
+:func:`stream_step_plain` (join, convolve, slice, and add in order), run for
+CPU tensors,
 or on request (``use_kernels=False``), and are never a fallback for a CUDA
 tensor.
 """
@@ -52,9 +57,9 @@ import torch
 
 from . import _build, segconv
 
-# Number of kernel launches made by :func:`conv_pairs` and
-# :func:`conv_pairs_step` (and by nothing else) since the caller last set it
-# to 0.
+# Number of kernel launches made by :func:`conv_pairs`,
+# :func:`conv_pairs_step` and :func:`stream_step` (and by nothing else) since
+# the caller last set it to 0.
 launch_count = 0
 
 # csrc/convpairs.cu spreads a pair of rows over 1, 2 or 4 thread blocks, all
@@ -200,41 +205,94 @@ def conv_pairs(flat: torch.Tensor, plan: PairsPlan,
 # the streaming step
 
 
-def conv_pairs_step_plain(hist: torch.Tensor, block: torch.Tensor,
-                          plan: PairsPlan):
-    """The plain PyTorch version of :func:`conv_pairs_step`: join, convolve
-    the first n samples, keep the last B."""
-    B = block.shape[-1]
-    joined = torch.cat([hist, block], dim=-1)
-    out = conv_pairs_plain(joined[:, :plan.n], plan)
-    return out[:, plan.n - B:].contiguous(), joined[:, B:].contiguous()
+@dataclasses.dataclass(frozen=True)
+class StreamPart:
+    """One launch of a streaming step: the window of ``plan.n`` samples of
+    ``concat(history, block)`` from sample ``start`` on yields its last
+    ``keep`` (wrap-free) samples as the block's outputs ``out0 ..
+    out0 + keep - 1``, written there, or added to what an earlier part wrote
+    (``add``: the partitions of a kernel longer than one window takes, summed
+    in order)."""
+
+    plan: PairsPlan
+    start: int
+    out0: int
+    keep: int
+    add: bool
+
+
+def _launch_part(hist: torch.Tensor, block: torch.Tensor, out: torch.Tensor,
+                 part: StreamPart, new_hist: torch.Tensor | None,
+                 blocks: int | None = None) -> None:
+    """One part's launch on checked tensors: ``hist`` (R, H) contiguous,
+    ``block`` (R, B) with unit stride along a row, ``out`` (R, B)
+    contiguous; ``new_hist`` (R, H), written as ``concat(hist, block)[B:]``
+    by this launch (its window must start at 0), or None. ``blocks`` as in
+    :func:`_launch`, for measurement only."""
+    global launch_count
+    plan = part.plan
+    _check_plan(plan, hist.device)
+    R, H = hist.shape
+    B = block.shape[1]
+    blocks = blocks_for(plan.n, R) if blocks is None else blocks
+    _check_blocks(plan.n, blocks)
+    st = part.start
+    if st < H:
+        a_ptr, split, b_ptr = hist.data_ptr() + 4 * st, H - st, \
+            block.data_ptr()
+    else:
+        a_ptr = b_ptr = block.data_ptr() + 4 * (st - H)
+        split = 0
+    fn = _build.launcher("convpairs", "convpairs_step_launch",
+                   [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                    ctypes.c_longlong] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
+    with _build.on_device(hist.device):
+        err = fn(a_ptr, H, split, b_ptr, block.stride(0) if R > 1 else B,
+                 out.data_ptr() + 4 * part.out0, B, part.keep, int(part.add),
+                 None if new_hist is None else new_hist.data_ptr(), H, B,
+                 plan.spectrum_dif.data_ptr(), plan.twiddle.data_ptr(), R,
+                 plan.n, blocks,
+                 torch.cuda.current_stream(hist.device).cuda_stream)
+    _raise_on(err, f"step: R={R}, n={plan.n}, history={H}, B={B}, "
+                   f"start={st}, keep={part.keep}, blocks={blocks}")
+    launch_count += 1
 
 
 def _launch_step(hist: torch.Tensor, block: torch.Tensor, plan: PairsPlan,
                  blocks: int | None = None):
-    """The step's kernel on checked tensors; ``blocks`` as in
+    """The one-window step's kernel on checked tensors; ``blocks`` as in
     :func:`_launch`, for measurement only."""
-    global launch_count
-    _check_plan(plan, hist.device)
-    R, H = hist.shape
-    B = block.shape[1]
+    R, B = block.shape
     out = torch.empty((R, B), dtype=torch.float32, device=hist.device)
     new_hist = torch.empty_like(hist)
-    blocks = blocks_for(plan.n, R) if blocks is None else blocks
-    _check_blocks(plan.n, blocks)
-    fn = _build.launcher("convpairs", "convpairs_step_launch",
-                   [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                   + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
-    with _build.on_device(hist.device):
-        err = fn(hist.data_ptr(), block.data_ptr(), out.data_ptr(),
-                 new_hist.data_ptr(), plan.spectrum_dif.data_ptr(),
-                 plan.twiddle.data_ptr(), R, plan.n, H, B,
-                 block.stride(0) if R > 1 else B, blocks,
-                 torch.cuda.current_stream(hist.device).cuda_stream)
-    _raise_on(err, f"step: R={R}, n={plan.n}, history={H}, B={B}, "
-                   f"blocks={blocks}")
-    launch_count += 1
+    _launch_part(hist, block, out, StreamPart(plan, 0, 0, B, False),
+                 new_hist, blocks)
     return out, new_hist
+
+
+def _check_step_tensors(hist: torch.Tensor, block: torch.Tensor, H: int,
+                        n: int) -> None:
+    if block.dim() != 2 or not 1 <= block.shape[1] <= n:
+        raise ValueError(
+            f"conv_pairs_step takes a (R, B) block with 1 <= B <= {n}, got "
+            f"{tuple(block.shape)}")
+    R, B = block.shape
+    if block.dtype != torch.float32 or block.stride(1) != 1 \
+            or (R > 1 and block.stride(0) < B):
+        raise ValueError(
+            "conv_pairs_step takes a float32 block whose rows have unit "
+            f"stride and do not overlap, got {block.dtype} with strides "
+            f"{block.stride()}")
+    if hist.dtype != torch.float32 or tuple(hist.shape) != (R, H) \
+            or not hist.is_contiguous() or hist.device != block.device:
+        raise ValueError(
+            f"conv_pairs_step takes a contiguous ({R}, {H}) float32 history "
+            f"on {block.device}, got {tuple(hist.shape)} {hist.dtype} on "
+            f"{hist.device} contiguous={hist.is_contiguous()}")
 
 
 def conv_pairs_step(hist: torch.Tensor, block: torch.Tensor, plan: PairsPlan,
@@ -252,31 +310,66 @@ def conv_pairs_step(hist: torch.Tensor, block: torch.Tensor, plan: PairsPlan,
     left as it was. On a CUDA tensor all of that is ONE launch of the
     hand-written kernel (window gathered from the two tensors, only the kept
     samples stored), bit-equal to :func:`conv_pairs` on the same window, or
-    the call raises."""
+    the call raises (:func:`stream_step` with one part)."""
     n = plan.n
-    if block.dim() != 2 or not 1 <= block.shape[1] <= n:
-        raise ValueError(
-            f"conv_pairs_step takes a (R, B) block with 1 <= B <= {n}, got "
-            f"{tuple(block.shape)}")
-    R, B = block.shape
-    H = lead + n - B
-    if block.dtype != torch.float32 or block.stride(1) != 1 \
-            or (R > 1 and block.stride(0) < B):
-        raise ValueError(
-            "conv_pairs_step takes a float32 block whose rows have unit "
-            f"stride and do not overlap, got {block.dtype} with strides "
-            f"{block.stride()}")
-    if hist.dtype != torch.float32 or tuple(hist.shape) != (R, H) \
-            or not hist.is_contiguous() or hist.device != block.device:
-        raise ValueError(
-            f"conv_pairs_step takes a contiguous ({R}, {H}) float32 history "
-            f"on {block.device} (lead + n - B samples a row), got "
-            f"{tuple(hist.shape)} {hist.dtype} on {hist.device} "
-            f"contiguous={hist.is_contiguous()}")
     if lead < 0:
         raise ValueError(f"lead must not be negative, got {lead}")
+    _check_step_tensors(hist, block, lead + n - block.shape[-1], n)
+    return stream_step(hist, block,
+                       (StreamPart(plan, 0, 0, block.shape[-1], False),),
+                       use_kernels)
+
+
+def stream_step_plain(hist: torch.Tensor, block: torch.Tensor, parts):
+    """The plain PyTorch version of :func:`stream_step`: join, convolve each
+    part's window, write or add its kept samples in order."""
+    R, B = block.shape
+    joined = torch.cat([hist, block], dim=-1)
+    out = torch.empty((R, B), dtype=torch.float32, device=block.device)
+    for part in parts:
+        n = part.plan.n
+        y = conv_pairs_plain(joined[:, part.start:part.start + n],
+                             part.plan)[:, n - part.keep:]
+        dst = out[:, part.out0:part.out0 + part.keep]
+        if part.add:
+            dst += y
+        else:
+            dst.copy_(y)
+    return out, joined[:, B:].contiguous()
+
+
+def stream_step(hist: torch.Tensor, block: torch.Tensor, parts,
+                use_kernels: bool = True):
+    """One streaming step of a FIR cut into several windows (``parts``, a
+    sequence of :class:`StreamPart`, ``ops/fft_filter.plan_stream`` builds
+    them): ``hist`` (R, H) contiguous and ``block`` (R, B), both float32 ->
+    (the block's output (R, B), the next history ``concat(hist, block)[B:]``
+    (R, H)), both contiguous, the old history left as it was. On a CUDA
+    tensor each part is ONE launch of the hand-written kernel, in order (the
+    later partitions in its accumulate mode), and the first part whose window
+    starts at sample 0 also writes the next history; or the call raises."""
+    H = hist.shape[-1]
+    n = max(p.plan.n for p in parts)
+    _check_step_tensors(hist, block, H, n)
+    R, B = block.shape
+    for p in parts:
+        if p.start < 0 or p.start + p.plan.n > H + B or not \
+                1 <= p.keep <= p.plan.n or p.out0 < 0 or p.out0 + p.keep > B:
+            raise ValueError(
+                f"a part of {p.plan.n} samples from {p.start}, keeping "
+                f"{p.keep} at {p.out0}, does not fit a history of {H} and "
+                f"a block of {B}")
+    writer = next((k for k, p in enumerate(parts) if p.start == 0), None)
+    if writer is None:
+        raise ValueError("no part's window starts at the history's first "
+                         "sample: none can write the next history")
     if R == 0:
         return block.new_empty((0, B)), torch.empty_like(hist)
-    if block.is_cuda and use_kernels:
-        return _launch_step(hist, block, plan)
-    return conv_pairs_step_plain(hist, block, plan)
+    if not (block.is_cuda and use_kernels):
+        return stream_step_plain(hist, block, parts)
+    out = torch.empty((R, B), dtype=torch.float32, device=hist.device)
+    new_hist = torch.empty_like(hist)
+    for k, part in enumerate(parts):
+        _launch_part(hist, block, out, part,
+                     new_hist if k == writer else None)
+    return out, new_hist

@@ -23,13 +23,22 @@ kernel, zero prefix included, in a window of a 7-smooth number of blocks; the
 port strips the prefix in streaming as it does offline and pays it back as a
 delay held in the history. For the output block ``t0 .. t0+B-1`` the window
 is ``x[t0+B-lead-n .. t0+B-lead-1]`` with ``n`` the smallest power of two
-``>= stripped kernel length - 1 + B``, up to ``MAX_WINDOW``: its last ``B``
-outputs are wrap-free and are the block. The state is a flat per-channel
-history of the last ``lead + n - B`` input samples. A step is
-``kernels/convpairs.conv_pairs_step``: on a CUDA tensor ONE launch of the
-hand-written kernel, which gathers the window from the history and the
-block, stores only the block's output and writes the next history to a new
-tensor; nothing is read back to the host.
+``>= stripped kernel length - 1 + B``: its last ``B`` outputs are wrap-free
+and are the block. The state is a flat per-channel history of the last
+``lead + n - B`` input samples. A step is ``kernels/convpairs.stream_step``
+with one part: on a CUDA tensor ONE launch of the hand-written kernel, which
+gathers the window from the history and the block, stores only the block's
+output and writes the next history to a new tensor; nothing is read back to
+the host.
+
+Where that window would exceed ``STREAM_WINDOW`` (65,536), the stripped kernel
+streams in consecutive partitions (:func:`plan_stream`), as it renders
+offline: each its own power-of-two window and its own delay
+``lead + offset``, one launch each, the later ones adding into the output in
+order (``kernels/convpairs.stream_step``), all reading one shared history;
+and where even one tap and the block would outgrow that window (B > 32,768),
+the block is also cut into sub-blocks, one window each. Any kernel streams at
+any block size.
 """
 
 from __future__ import annotations
@@ -47,6 +56,9 @@ from .base import Effect, params_dataclass
 # blocks): the offline window of a kernel that needs no partitions, and the
 # largest streaming window.
 MAX_WINDOW = segconv.MAX_WINDOW
+# The largest streaming window (the circular convolution kernel's, over a
+# cluster of four): a kernel and block that need more stream in partitions.
+STREAM_WINDOW = convpairs.MAX_WINDOW
 # The largest window the planner gives where the 8x-halo rule asks for more
 # (a halo above half of it still gets MAX_WINDOW). On an H100 at chain8's
 # halo of 8,192 (block size 4096), n = 32,768 over a cluster of two blocks
@@ -164,22 +176,41 @@ def plan_partitions(kernel_len: int) -> list[tuple[int, int, int, int]]:
 def stream_window(kernel_len: int, block_size: int) -> int:
     """Samples in the streaming window of a stripped kernel of this length:
     the smallest power of two that leaves ``block_size`` wrap-free outputs
-    (0 where that would exceed ``MAX_WINDOW``: such an effect renders
-    offline only, and its ``init_state`` and ``step`` raise)."""
+    (0 where that would exceed ``STREAM_WINDOW``: such a kernel streams in
+    partitions, :func:`plan_stream`)."""
     n = segconv.MIN_WINDOW
     while n < kernel_len - 1 + block_size:
         n *= 2
-    return n if n <= MAX_WINDOW else 0
+    return n if n <= STREAM_WINDOW else 0
 
 
-def fits_one_window(kernel: np.ndarray, block_size: int) -> bool:
-    """Whether a kernel (its zero prefix stripped) still streams at this
-    block size (:func:`stream_window`): the rule by which a Chain grows an
-    LTI cascade (engine/chain.fuse_lti_runs), so that a cascade it fuses
-    also streams. ``fir`` itself takes kernels of any length offline."""
-    nz = np.flatnonzero(kernel)
-    klen = len(kernel) - int(nz[0]) if nz.size else 1
-    return stream_window(klen, block_size) > 0
+def plan_stream(kernel_len: int, block_size: int
+                ) -> tuple[int, list[tuple[int, int, int]]]:
+    """(sub-block, [(offset, taps, n), ...]) of the streaming step of a
+    stripped kernel of this length: the block is cut into sub-blocks of at
+    most ``sub`` samples and the kernel into consecutive partitions of at
+    most ``STREAM_WINDOW - sub + 1`` taps, so that each partition's window of
+    ``n`` (the smallest power of two >= taps - 1 + sub) is at most
+    ``STREAM_WINDOW``, with as few launches (partitions x sub-blocks) as that
+    allows, the fewest sub-blocks among equals. One partition and the whole
+    block where the kernel fits one window: :func:`stream_window`'s window,
+    one launch. The partitions take the most taps each in order; the last
+    has what is left, at its own smaller window."""
+    # S sub-blocks cost at least S launches, so the search ends at the
+    # first S that cannot beat the best count so far.
+    S = -(-block_size // STREAM_WINDOW)
+    best = None
+    while best is None or S < best[0]:
+        sub = -(-block_size // S)
+        per = STREAM_WINDOW - sub + 1
+        launches = -(-kernel_len // per) * S
+        if best is None or launches < best[0]:
+            best = (launches, sub, per)
+        S += 1
+    _, sub, per = best
+    return sub, [(o, min(per, kernel_len - o),
+                  stream_window(min(per, kernel_len - o), sub))
+                 for o in range(0, kernel_len, per)]
 
 
 def segmented_fft_conv(params: "FIRParams", blocks: torch.Tensor,
@@ -201,19 +232,27 @@ def segmented_fft_conv(params: "FIRParams", blocks: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-@params_dataclass(meta_fields=("block_size", "lead", "kernel_len"))
+@params_dataclass(meta_fields=("block_size", "lead", "kernel_len",
+                               "history"))
 class FIRParams:
     plans: tuple[segconv.ConvPlan, ...]   # one per partition of the kernel
                              # (plan_partitions; one where it fits a
                              # window): spectra and twiddles on device + the
                              # window's geometry (n, halo, seg, shift,
                              # kernel_len)
-    stream: convpairs.PairsPlan | None   # the streaming window's tables
-                             # (n, spectra, twiddles); None where that
-                             # window would exceed MAX_WINDOW
+    parts: tuple[convpairs.StreamPart, ...]   # the step's launches
+                             # (plan_stream): one, or partitions x
+                             # sub-blocks, the first partition first
     block_size: int          # ENGINE block size
     lead: int                # stripped zero prefix, re-applied as delay
     kernel_len: int          # taps of the stripped kernel
+    history: int             # samples of input a stream keeps per channel
+
+    @property
+    def stream(self) -> convpairs.PairsPlan:
+        """The first streaming window's tables (n, spectra, twiddles): the
+        only one where the kernel streams in one window."""
+        return self.parts[0].plan
 
 
 def fir(kernel: np.ndarray, block_size: int, name: str = "fir",
@@ -222,10 +261,10 @@ def fir(kernel: np.ndarray, block_size: int, name: str = "fir",
     beyond what the kernel itself encodes): offline through the segmented
     overlap-save path (in partitions where the kernel is longer than one
     window takes), streaming through one circular convolution of a
-    power-of-two window per block (up to ``MAX_WINDOW``). Fused cascades
-    carry a long EXACT-ZERO prefix (each member's latency shift): it is
-    stripped and re-applied as a free output delay, which shrinks the halo
-    by the prefix length."""
+    power-of-two window per block (in partitions where the kernel and the
+    block outgrow ``STREAM_WINDOW``). Fused cascades carry a long EXACT-ZERO
+    prefix (each member's latency shift): it is stripped and re-applied as a
+    free output delay, which shrinks the halo by the prefix length."""
     dev = resolve_device(device)
     kernel = np.asarray(kernel, dtype=np.float64)
     nz = np.flatnonzero(kernel)
@@ -234,37 +273,34 @@ def fir(kernel: np.ndarray, block_size: int, name: str = "fir",
     plans = tuple(
         segconv.make_plan(stripped[o:o + taps], halo, seg, lead + o, dev)
         for o, taps, halo, seg in plan_partitions(len(stripped)))
-    n_stream = stream_window(len(stripped), block_size)
-    stream = convpairs.make_plan(stripped, n_stream, dev) if n_stream \
-        else None
-    params = FIRParams(plans=plans, stream=stream, block_size=block_size,
-                       lead=lead, kernel_len=len(stripped))
+    sub, pieces = plan_stream(len(stripped), block_size)
+    # the history reaches back to the oldest sample of the first
+    # sub-block's windows
+    history = max(lead + o + n for o, _, n in pieces) - sub
+    parts = []
+    for p, (o, taps, n) in enumerate(pieces):
+        plan = convpairs.make_plan(stripped[o:o + taps], n, dev)
+        for s0 in range(0, block_size, sub):
+            keep = min(sub, block_size - s0)
+            parts.append(convpairs.StreamPart(
+                plan, history + s0 + keep - (lead + o) - n, s0, keep, p > 0))
+    params = FIRParams(plans=plans, parts=tuple(parts),
+                       block_size=block_size, lead=lead,
+                       kernel_len=len(stripped), history=history)
     return Effect(name=name, params=params, init_state=fir_init_state,
                   step=fir_step, offline=fir_offline,
                   lti_kernel=kernel, device=dev)
 
 
-def _stream_plan(params: FIRParams) -> convpairs.PairsPlan:
-    if params.stream is None:
-        need = params.kernel_len - 1 + params.block_size
-        raise ValueError(
-            f"a {params.kernel_len}-tap kernel streamed in blocks of "
-            f"{params.block_size} needs a window of {need} samples, more "
-            f"than the largest window the streaming convolution kernel holds "
-            f"in the shared memory of a cluster of thread blocks "
-            f"({MAX_WINDOW}); the effect renders offline only.")
-    return params.stream
-
-
 def history_len(params: FIRParams) -> int:
     """Samples of input a streaming FIR keeps per channel."""
-    return params.lead + _stream_plan(params).n - params.block_size
+    return params.history
 
 
 def fir_init_state(params: FIRParams, batch_shape: tuple[int, ...] = ()):
-    """Silence: ``{"hist": (..., lead + n - B)}`` on the plan's device."""
+    """Silence: ``{"hist": (..., history)}`` on the plan's device."""
     return {"hist": torch.zeros(
-        tuple(batch_shape) + (history_len(params),), dtype=torch.float32,
+        tuple(batch_shape) + (params.history,), dtype=torch.float32,
         device=params.plans[0].twiddle.device)}
 
 
@@ -274,18 +310,18 @@ def fir_step(params: FIRParams, state, block: torch.Tensor,
     (the last ``lead`` samples wait in the history: the output delay), the
     block's output is the window's last ``B`` (wrap-free) samples, and the
     next history is a new tensor (the old state stays valid). All of it is
-    ``kernels/convpairs.conv_pairs_step``: one launch on a CUDA tensor."""
-    stream = _stream_plan(params)
+    ``kernels/convpairs.stream_step`` on the plan's parts: one launch a part
+    on a CUDA tensor, so one launch where the kernel fits one window."""
     B = block.shape[-1]
     if B != params.block_size:
         raise ValueError(
             f"this FIR streams blocks of {params.block_size} samples, got "
             f"{B}")
     hist = state["hist"]
-    out, new_hist = convpairs.conv_pairs_step(
-        hist.reshape(-1, hist.shape[-1]).contiguous(),
-        block.to(torch.float32).reshape(-1, B), stream, params.lead,
-        use_kernels)
+    flat_hist = hist.reshape(-1, hist.shape[-1]).contiguous()
+    flat = block.to(torch.float32).reshape(-1, B)
+    out, new_hist = convpairs.stream_step(flat_hist, flat, params.parts,
+                                          use_kernels)
     return {"hist": new_hist.reshape(hist.shape)}, out.reshape(block.shape)
 
 

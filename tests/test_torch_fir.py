@@ -105,22 +105,35 @@ def test_kernel_too_long_names_the_later_slice():
     assert [(p.shift, p.kernel_len) for p in longer.params.plans] == [
         (7, 16385), (7 + 16385, 16385), (7 + 32770, 16385),
         (7 + 49155, 15845)]
-    with pytest.raises(ValueError, match="offline only"):
-        longer.state((2,))
-    # a Chain keeps an LTI cascade to what streams at its block size
-    assert pt_fir.fits_one_window(np.ones(65536 - 512 + 1), 512)
-    assert not pt_fir.fits_one_window(np.ones(65536 - 512 + 2), 512)
-    assert pt_fir.fits_one_window(np.ones(1), 65536)
-    assert not pt_fir.fits_one_window(np.ones(2), 65536)
+    # ... and it streams in partitions too: two windows at B=4096, the
+    # history shared (the second partition's window reaches furthest back)
+    assert longer.state((2,))["hist"].shape == (2, 7 + 61441 + 8192 - 4096)
+    assert [(q.plan.n, q.plan.kernel_len, q.start, q.keep, q.add)
+            for q in longer.params.parts] == [
+        (65536, 61441, 4097, 4096, False), (8192, 3559, 0, 4096, True)]
+    # the stream's planner: one window where the kernel and the block fit
+    # 65,536, else partitions of 65,537 - B taps, and sub-blocks past
+    # B = 32,768
+    assert pt_fir.plan_stream(65536 - 512 + 1, 512) == (
+        512, [(0, 65025, 65536)])
+    assert pt_fir.plan_stream(65536 - 512 + 2, 512) == (
+        512, [(0, 65025, 65536), (65025, 1, 512)])
+    assert pt_fir.plan_stream(1, 65536) == (65536, [(0, 1, 65536)])
+    assert pt_fir.plan_stream(2, 65536) == (
+        65536, [(0, 1, 65536), (1, 1, 65536)])
+    assert pt_fir.plan_stream(32767, 65536) == (32768, [(0, 32767, 65536)])
     # a long zero prefix is free: it is stripped before planning
-    assert pt_fir.fits_one_window(np.r_[np.zeros(70000), np.ones(100)], 512)
+    prefixed = pt_fir.fir(np.r_[np.zeros(70000), np.ones(100)], 512,
+                          device=CPU)
+    assert len(prefixed.params.parts) == 1
+    assert prefixed.params.history == 70000 + 1024 - 512
 
 
 def test_fir_streaming_raises_until_its_slice():
     """Streaming is ported: a filter keeps ``lead + n - B`` samples of
-    history and steps. What still raises, naming the reverb slice, is a
-    kernel whose streaming window would outgrow the CUDA kernels' largest
-    (the effect still renders offline)."""
+    history and steps. What raises is a block of another size. A kernel
+    whose streaming window would outgrow the CUDA kernels' largest no longer
+    raises: it streams in partitions and sub-blocks."""
     e = pt.ops.lowcut(pt.EngineConfig(44100, 512), 120.0, device=CPU)
     p = e.params
     assert (p.lead, p.kernel_len, p.stream.n) == (385, 255, 1024)
@@ -130,15 +143,17 @@ def test_fir_streaming_raises_until_its_slice():
     assert y.shape == (2, 512) and st["hist"].shape == (2, 897)
     with pytest.raises(ValueError, match="blocks of 512"):
         e.step(p, st, torch.zeros(2, 256))
-    # at a block size of 65,536 no filter streams: 32,767 taps need a window
-    # of 98,302 samples
+    # at a block size of 65,536 a filter streams too: 32,767 taps and the
+    # block would need a window of 98,302 samples, so the block goes as two
+    # sub-blocks of 32,768, each through a window of 65,536
     big = pt.ops.lowcut(pt.EngineConfig(44100, 65536), 120.0, device=CPU)
-    assert big.params.stream is None
+    assert [(q.plan.n, q.out0, q.keep, q.add) for q in big.params.parts] \
+        == [(65536, 0, 32768, False), (65536, 32768, 32768, False)]
     assert [p.n for p in big.params.plans] == [65536]
-    with pytest.raises(ValueError, match="98302 samples.*offline only"):
-        big.state((2,))
-    with pytest.raises(ValueError, match="65536"):
-        big.step(big.params, None, torch.zeros(2, 65536))
+    st = big.state((2,))
+    assert st["hist"].shape == (2, big.params.lead + 65536 - 32768)
+    st, y = big.step(big.params, st, torch.zeros(2, 65536))
+    assert y.shape == (2, 65536) and not y.any()
     assert big.offline(big.params, torch.zeros(1, 1, 65536)).shape \
         == (1, 1, 65536)
 

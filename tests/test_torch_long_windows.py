@@ -70,11 +70,13 @@ def test_chain8_fuses_its_filters_at_long_blocks_like_jax(B):
     taps = {8192: 16377, 16384: 32761}[B]
     assert fir_e.params.kernel_len == taps
     assert fir_e.params.stream.n == {8192: 32768, 16384: 65536}[B]
-    # at B=32,768 the three would need 98,296 samples: two fuse, one stays
+    # at B=32,768 the three would need 98,296 samples: they fuse all the
+    # same (the JAX Chain fuses every LTI run), and stream in two partitions
     wide = pt.Chain(_chain8_effects(pt, pt.EngineConfig(44100, 32768),
                                     device=CPU), device=CPU)
-    assert [e.name for e in wide.exec_effects][:2] == \
-        ["fir_cascade:lowcut+highcut", "eq3band_fft"]
+    assert [e.name for e in wide.exec_effects] == \
+        [FIR_NAME, DYN_NAME, TAIL8_NAME]
+    assert len(wide.exec_effects[0].params.parts) == 2
 
 
 
@@ -205,3 +207,70 @@ def test_one_window_kernel_keeps_one_plan():
             (2, 40000)).astype(np.float32))
         assert torch.equal(segconv.partitioned_conv(x, eff.params.plans),
                            segconv.segmented_conv(x, plan))
+
+
+# ---------------------------------------------------------------------------
+# streams past the largest window: partitions
+
+
+@pytest.mark.parametrize("taps,nb", [(40000, 12), (65000, 18)])
+def test_long_fir_streams_at_4096_like_jax_fir_step(taps, nb):
+    """A 40,000-tap FIR at B=4096 streams through one window of 65,536; a
+    65,000-tap one needs 69,099 samples, more than the largest window, and
+    streams in two partitions (windows of 65,536 and 8,192, one shared
+    history): block by block past the kernel's length >= 100 dB to the JAX
+    ``fir_step``, and > 95 dB to float64."""
+    B = 4096
+    kernel = _long_kernel(taps, seed=taps)
+    peff = pt_fir.fir(kernel, B, device=CPU)
+    jeff = jx_fir.fir(kernel, B)
+    assert len(peff.params.parts) == {40000: 1, 65000: 2}[taps]
+    x = (np.random.default_rng(taps).standard_normal((1, nb * B)) * 0.4
+         ).astype(np.float32)
+    pst, jst = peff.state((1,)), jeff.init_state(jeff.params, (1,))
+    got, want = [], []
+    for i in range(nb):
+        blk = x[:, i * B:(i + 1) * B]
+        pst, py = peff.step(peff.params, pst, torch.from_numpy(blk))
+        jst, jy = jeff.step(jeff.params, jst, jnp.asarray(blk))
+        got.append(py.numpy())
+        want.append(np.asarray(jy))
+    got, want = np.concatenate(got, -1), np.concatenate(want, -1)
+    assert snr_db(want, got) >= 100.0
+    assert snr_db(conv_oracle(x, kernel), got) > 95.0
+
+
+def test_chain8_streams_at_32768_fused_like_jax_chain_step():
+    """chain8 at B=32,768: its three filters fuse into ONE FIR as in the JAX
+    Chain (65,529 stripped taps), which streams in two partitions of the
+    largest window, 65,536. The fused stage streamed block by block against
+    the JAX chain's fused FIR step >= 100 dB (the whole chain streams at
+    this block size on the card, chip_smoke.py's ``long_windows``: the
+    port's plain dynamics step walks 32,768 samples a block in Python,
+    some 13 s a block here)."""
+    Bb, nb = 32768, 4
+    jchain = jx.Chain(_chain8_effects(jx, jx.EngineConfig(44100, Bb)))
+    pchain = pt.Chain(_chain8_effects(pt, pt.EngineConfig(44100, Bb),
+                                      device=CPU), device=CPU)
+    assert [e.name for e in pchain.exec_effects] == \
+        [FIR_NAME, DYN_NAME, TAIL8_NAME]
+    fir_e, jfir = pchain.exec_effects[0], jchain.exec_effects[0]
+    assert jfir.name == FIR_NAME
+    np.testing.assert_array_equal(fir_e.lti_kernel, jfir.lti_kernel)
+    assert fir_e.params.kernel_len == 65529
+    assert [(q.plan.n, q.add) for q in fir_e.params.parts] == \
+        [(65536, False), (65536, True)]
+    x = _signal(2, nb * Bb, seed=18)
+    jst = jfir.init_state(jfir.params, (2,))
+    pst = fir_e.state((2,))
+    got, want = [], []
+    for i in range(nb):
+        blk = x[:, i * Bb:(i + 1) * Bb]
+        jst, jy = jfir.step(jfir.params, jst, jnp.asarray(blk))
+        pst, py = fir_e.step(fir_e.params, pst, torch.from_numpy(blk))
+        want.append(np.asarray(jy))
+        got.append(py.numpy())
+    got, want = np.concatenate(got, -1), np.concatenate(want, -1)
+    assert np.abs(got).max() > 0.1
+    assert snr_db(want, got) >= 100.0
+    assert snr_db(conv_oracle(x, fir_e.lti_kernel), got) > 95.0

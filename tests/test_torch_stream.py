@@ -155,9 +155,11 @@ def test_fir_step_mono_and_stream_window_planner():
 @pytest.mark.parametrize("block", [64, 512])
 def test_fir_step_is_one_conv_pairs_step_and_keeps_the_old_state(block,
                                                                  monkeypatch):
-    """``fir_step`` is ONE call of ``conv_pairs_step`` (on the card: one
-    launch; here its plain version). Over eight steps it gives, bit for bit, what the join / convolve / slice it
-    replaces gives, history included; the state it was given stays valid
+    """``fir_step`` is ONE call of ``stream_step`` with the one part that
+    ``conv_pairs_step`` makes, its window from the history's first sample and
+    all of the block kept (on the card: one launch; here its plain version).
+    Over eight steps it gives, bit for bit, what the join / convolve / slice
+    it replaces gives, history included; the state it was given stays valid
     (``StreamProcessor.warmup`` relies on that); and it holds the JAX
     package's ``fir_step`` to the 100 dB of the test above."""
     jeff = _filters(jx, jx.EngineConfig(44100, block), "cascade")
@@ -165,13 +167,15 @@ def test_fir_step_is_one_conv_pairs_step_and_keeps_the_old_state(block,
     p = peff.params
     n = p.stream.n
     calls = []
-    real_step = convpairs.conv_pairs_step
+    real_step = convpairs.stream_step
 
-    def counted(hist, blk, plan, lead, use_kernels=True):
-        calls.append((tuple(hist.shape), tuple(blk.shape), plan.n, lead))
-        return real_step(hist, blk, plan, lead, use_kernels)
+    def counted(hist, blk, parts, use_kernels=True):
+        calls.append((tuple(hist.shape), tuple(blk.shape),
+                      [(q.plan.n, q.start, q.out0, q.keep, q.add)
+                       for q in parts]))
+        return real_step(hist, blk, parts, use_kernels)
 
-    monkeypatch.setattr(convpairs, "conv_pairs_step", counted)
+    monkeypatch.setattr(convpairs, "stream_step", counted)
     x = _signal(2, 8 * block, seed=3 * block)
     jst, pst = jeff.init_state(jeff.params, (2,)), peff.state((2,))
     old_hist = pst["hist"]
@@ -192,7 +196,8 @@ def test_fir_step_is_one_conv_pairs_step_and_keeps_the_old_state(block,
         pst = new_pst
         got.append(py.numpy())
         want.append(np.asarray(jy))
-    assert calls == [((2, p.lead + n - block), (2, block), n, p.lead)] * 8
+    assert calls == [((2, p.lead + n - block), (2, block),
+                      [(n, 0, 0, block, False)])] * 8
     np.testing.assert_array_equal(np.concatenate(got, -1),
                                   np.concatenate(old_way, -1))
     assert snr_db(np.concatenate(want, -1), np.concatenate(got, -1)) >= 100.0

@@ -29,6 +29,11 @@
 * ``emulate_convpairs_step`` -- the step entry point of csrc/convpairs.cu:
   the window gathered from history and block, the kept samples, the next
   history.
+* ``emulate_stream_step`` -- the schedule of a FIR's step in partitions
+  (``kernels/convpairs.stream_step``): each part's window gathered from the
+  shared history and the block, its kept samples written or added in order
+  in float32, the next history written by the first part whose window
+  starts at 0.
 """
 
 from __future__ import annotations
@@ -36,6 +41,21 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the limit below is an optimisation of the test run
+    threadpool_limits = None
+
+# numpy's np.convolve (the host-side fusion of LTI kernels, in both packages)
+# calls OpenBLAS's threaded dot product once an output sample. Where several
+# test processes share the machine (xdist workers), their OpenBLAS threads
+# spin against each other: a convolution of 40,000 by 16,000 samples took
+# 0.18 s alone and 430 s each with three processes at once. The test
+# processes keep OpenBLAS to one thread (the same 0.18 s alone, and with
+# three processes); every module of the port's tests imports this one.
+if threadpool_limits is not None:
+    threadpool_limits(1, user_api="blas")
 
 
 def snr_db(golden, ours) -> float:
@@ -49,20 +69,40 @@ def snr_db(golden, ours) -> float:
 
 
 def conv_oracle(x: np.ndarray, kernel: np.ndarray, shift: int = 0) -> np.ndarray:
-    """float64 ``y[c, m] = conv(x[c], kernel)[m - shift]``, length T."""
+    """float64 ``y[c, m] = conv(x[c], kernel)[m - shift]``, length T, through
+    one float64 FFT of the whole signal (a direct convolution with a kernel
+    of tens of thousands of taps costs seconds; the FFT's rounding, ~1e-15
+    relative, is far below every bar it is held to)."""
     C, T = x.shape
-    ref = np.stack([np.convolve(x[c].astype(np.float64), kernel)[:T]
-                    for c in range(C)])
+    kernel = np.asarray(kernel, dtype=np.float64)
+    n = 1 << int(np.ceil(np.log2(T + len(kernel))))
+    ref = np.fft.irfft(np.fft.rfft(x.astype(np.float64), n, axis=-1)
+                       * np.fft.rfft(kernel, n), n, axis=-1)[:, :T]
     if shift:
         ref = np.concatenate([np.zeros((C, shift)), ref[:, :T - shift]], axis=1)
     return ref
 
 
-def spec_from_jax(effects) -> list[dict]:
+def spec_from_jax(effects, sample_rate: int = 44100) -> list[dict]:
     """One plain dict per JAX effect: array leaves as numpy, static fields
-    as they are, ``lti_kernel`` as float64."""
+    as they are, ``lti_kernel`` as float64. A reverb also carries its two
+    lines (ramp, tap spacing and count) and the sample rate its lines'
+    high-cuts were designed for, which its params do not hold."""
     spec = []
     for e in effects:
+        if e.name == "reverb":
+            lines = {k: getattr(e.params, k) for k in ("line1", "line2")}
+            spec.append({
+                "op": "reverb",
+                "meta": {"block_size": e.params.block_size,
+                         "sample_rate": sample_rate,
+                         **{k: {"time_in_samples": p.time_in_samples,
+                                "n_taps": p.n_taps}
+                            for k, p in lines.items()}},
+                "params": {k: {"ramp": np.asarray(p.ramp)}
+                           for k, p in lines.items()},
+                "lti_kernel": np.asarray(e.lti_kernel, dtype=np.float64)})
+            continue
         params, meta = {}, {}
         for f in dataclasses.fields(e.params):
             v = getattr(e.params, f.name)
@@ -350,6 +390,40 @@ def emulate_convpairs_step(hist: np.ndarray, block: np.ndarray, plan):
     window = np.stack([source(r, np.arange(n)) for r in range(R)])
     out = emulate_convpairs(window, plan)[:, n - B:]
     nxt = np.stack([source(r, B + np.arange(H)) for r in range(R)])
+    return out, nxt
+
+
+def emulate_stream_step(hist: np.ndarray, block: np.ndarray, parts,
+                        convolve=None):
+    """The launches of ``kernels/convpairs.stream_step`` in order: part p's
+    window is ``concat(hist, block)[:, start : start + n]``, gathered from
+    the two arrays by the sample index as the kernel does; its last ``keep``
+    samples go to the output at ``out0``, or are added there in float32
+    (``add``); the first part whose window starts at 0 writes the next
+    history. ``convolve(window, plan)`` is the window's circular convolution,
+    (R, n) float32 -> (R, n) float32: the numpy mirror of the transform by
+    default; the card's own kernel where a test holds the kernel's schedule
+    bit for bit. Output samples no part has written yet are NaN, so a part
+    that adds before any wrote shows."""
+    convolve = convolve or emulate_convpairs
+    R, H = hist.shape
+    B = block.shape[1]
+    out = np.full((R, B), np.nan, np.float32)
+    nxt = None
+    for part in parts:
+        n = part.plan.n
+        idx = part.start + np.arange(n)
+        window = np.ascontiguousarray(np.where(
+            idx < H, hist[:, np.clip(idx, 0, H - 1)],
+            block[:, np.clip(idx - H, 0, B - 1)]), dtype=np.float32)
+        y = convolve(window, part.plan)[:, n - part.keep:]
+        dst = slice(part.out0, part.out0 + part.keep)
+        out[:, dst] = out[:, dst] + y if part.add else y
+        if nxt is None and part.start == 0:
+            src = B + np.arange(H)
+            nxt = np.ascontiguousarray(np.where(
+                src < H, hist[:, np.clip(src, 0, H - 1)],
+                block[:, np.clip(src - H, 0, B - 1)]))
     return out, nxt
 
 
