@@ -84,7 +84,24 @@ failed check raises (exit code != 0, no result line):
    mono channel (lowcut, the three EQ bands, compressor, gate, delay,
    tremolo, soft clipper, reverb; numpy in and out), each chunk's time
    beside 11.61 ms, held to the same effects' ``Chain`` render (90 dB), and
-   the CLI once on a 2-channel wav.
+   the CLI once on a 2-channel wav;
+   ``runtime``: chain8, mono, B=512 through ``RealtimeEngine``: (a) a
+   producer thread pushes the main path's 30 s (2,584 blocks) as fast as
+   the ring takes it, the output bit-equal to the StreamProcessor fold, one
+   ``conv_pairs`` and one ``serial_walk`` launch a block; (b) 5 s (431
+   blocks) through ``DuplexAudioStream`` with a fake ``sounddevice`` whose
+   clock thread calls back every 11.61 ms, bit-equal to the fold after the
+   ring's whole-block lag; the pump's stats and the under- and overruns
+   reported, not asserted (the host's cores are shared);
+   ``parallel``: chain8 and a chain with an undecayed EQ (timescan) at
+   64 ch x 30 s, B=4096 through ``ShardedRenderer``: (i) one rank on NCCL,
+   a 1x1 mesh, bit-equal to ``Chain.render``; (ii) two ranks sharing the
+   card over gloo, meshes (1, 2) and (2, 1); (iii) four ranks, mesh
+   (2, 2); the ranks are spawned after the build and build nothing; each
+   mesh held to the single-card render (chain8 90 dB, the EQ chain 100 dB),
+   ``render_local_channels`` equal to the global render's channels,
+   ``sharded_meters`` to the global output's peak and RMS; the launches of
+   every rank summed; times per render labelled as ranks sharing one card.
 6. ``kernel_timing``  each kernel at the main-path shapes: time (CUDA events,
    median of 5 after a warm-up; the two streaming kernels, which are over in
    tens of microseconds, as launches queued behind a spin so that the host's
@@ -112,14 +129,18 @@ import argparse
 import functools
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import types
 
 import numpy as np
 import torch
+import torch.multiprocessing as mp
 
 import pyaudiodsptools_tpu_torch as pt
 from pyaudiodsptools_tpu_torch.kernels import (_build, convpairs,
@@ -132,6 +153,11 @@ from pyaudiodsptools_tpu_torch.ops.eq3band import offline as eq_recurrence
 from pyaudiodsptools_tpu_torch.ops.reverb import (
     offline_fir, offline_lines, tail_plan as reverb_lines_tail_plan)
 from pyaudiodsptools_tpu_torch.ops.tremolo import TremoloParams, gain_row
+from pyaudiodsptools_tpu_torch.parallel import (ShardedRenderer,
+                                                dist as pdist, make_mesh)
+from pyaudiodsptools_tpu_torch.runtime import (DuplexAudioStream,
+                                               RealtimeEngine,
+                                               native_lib as runtime_native)
 
 SAMPLE_RATE = 44100
 BLOCK_SIZES = (4096, 512)
@@ -2648,6 +2674,471 @@ def compat_phase(signal: torch.Tensor, n: int, workdir: str,
     return r
 
 
+# ---------------------------------------------------------------------------
+# runtime: the realtime engine's pump, unpaced and paced at the audio clock
+
+RUNTIME_B = 512
+PACED_SECONDS = 5.0
+
+
+def runtime_fold(chain, cfg, x: np.ndarray) -> np.ndarray:
+    """StreamProcessor folded over x (mono, whole blocks) on a fresh state,
+    numpy in and out as the engine's pump steps it."""
+    sp = pt.StreamProcessor(chain, cfg)
+    B = cfg.block_size
+    return np.concatenate([sp.process(x[i:i + B])
+                           for i in range(0, x.size, B)])
+
+
+def runtime_unpaced(chain, cfg, x: np.ndarray) -> dict:
+    """A producer thread pushes x through a RealtimeEngine as fast as the
+    ring takes it, while this thread pulls; counts zeroed after the engine's
+    warm-up, read when every block is out."""
+    eng = RealtimeEngine(chain, cfg)
+    eng.start()
+    B = cfg.block_size
+    done = threading.Event()
+
+    def produce():
+        i = 0
+        while i < x.size:
+            took = eng.push(x[i:i + B])
+            i += took
+            if not took:
+                time.sleep(0.0002)
+        done.set()
+
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    producer = threading.Thread(target=produce, daemon=True)
+    t0 = time.perf_counter()
+    producer.start()
+    outs, got = [], 0
+    deadline = time.monotonic() + 120.0
+    while got < x.size and time.monotonic() < deadline:
+        o = eng.pull(x.size - got)
+        if o.size:
+            outs.append(o)
+            got += o.size
+        else:
+            time.sleep(0.0002)
+    wall = time.perf_counter() - t0
+    producer.join(timeout=10.0)
+    eng.stop()
+    counts = launch_counts()
+    assert done.is_set() and got == x.size, (got, x.size)
+    return {"out": np.concatenate(outs), "counts": counts,
+            "stats": eng.stats(), "wall_s": wall}
+
+
+class _PacedStream:
+    """A fake ``sounddevice.Stream`` whose clock thread calls the duplex
+    callback every block duration (11.61 ms at 512 / 44.1 kHz), on absolute
+    deadlines, with the next input block; it waits for ``go`` before the
+    first call. It records each callback's output and how many of its
+    samples the adapter padded with silence."""
+
+    adapter = None
+    signal = None
+    go = None
+
+    def __init__(self, samplerate, blocksize, channels, dtype, device,
+                 callback):
+        assert channels == 1 and dtype == "float32"
+        self.period = blocksize / samplerate
+        self.blocksize = blocksize
+        self.callback = callback
+        self.captured, self.padded, self.late_s = [], [], []
+        self._stop = threading.Event()
+
+    def _run(self):
+        self.go.wait()
+        B, x = self.blocksize, self.signal
+        t_next = time.perf_counter()
+        for i in range(x.size // B):
+            if self._stop.is_set():
+                break
+            delay = t_next - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            else:
+                self.late_s.append(-delay)
+            before = self.adapter.underrun_samples
+            out = np.zeros((B, 1), np.float32)
+            self.callback(x[i * B:(i + 1) * B, None], out, B, None, None)
+            self.captured.append(out[:, 0].copy())
+            self.padded.append(self.adapter.underrun_samples - before)
+            t_next += self.period
+
+    def start(self):
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=10.0)
+        assert not self._thread.is_alive()
+
+    def close(self):
+        pass
+
+
+def runtime_paced(chain, cfg, x: np.ndarray) -> dict:
+    """x through DuplexAudioStream with a fake sounddevice clocked at the
+    audio rate; counts zeroed after the warm-up, before the first callback,
+    read after the engine drained."""
+    eng = RealtimeEngine(chain, cfg)
+    fake = types.ModuleType("sounddevice")
+    fake.Stream = _PacedStream
+    saved = sys.modules.get("sounddevice")
+    sys.modules["sounddevice"] = fake
+    try:
+        stream = DuplexAudioStream(eng, backend="sounddevice")
+        _PacedStream.adapter, _PacedStream.signal = stream, x
+        _PacedStream.go = threading.Event()
+        stream.start()                    # the engine's warm-up, then the clock
+        clock = stream._stream
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        _PacedStream.go.set()
+        clock._thread.join(timeout=x.size / cfg.sample_rate + 60.0)
+        eng.drain()
+        counts = launch_counts()
+        stream.stop()
+    finally:
+        if saved is None:
+            sys.modules.pop("sounddevice", None)
+        else:
+            sys.modules["sounddevice"] = saved
+    B = cfg.block_size
+    # the padding is appended to a callback's block, so the samples that
+    # came from the ring are, in order, the engine's output stream
+    real = np.concatenate([c[:B - p] for c, p in
+                           zip(clock.captured, clock.padded)])
+    return {"real": real, "padded": clock.padded,
+            "counts": counts, "stats": eng.stats(), "late_s": clock.late_s,
+            "underrun_samples": stream.underrun_samples,
+            "overrun_samples": stream.overrun_samples}
+
+
+def runtime_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
+    """chain8, mono, B=512 (the reference's realtime chunk, Example3) through
+    the RealtimeEngine: (a) unpaced over the main path's 30 s (2,584 blocks),
+    bit-equal to the StreamProcessor fold, one conv_pairs and one
+    serial_walk launch a block; (b) paced at the audio clock through
+    DuplexAudioStream over 5 s (431 blocks), bit-equal to the fold after
+    the ring's whole-block lag. The xruns are reported, not asserted: the
+    host's cores are shared."""
+    cfg = pt.EngineConfig(SAMPLE_RATE, RUNTIME_B)
+    B = RUNTIME_B
+    chain = pt.Chain(chain8_effects(cfg, "cuda"), device="cuda")
+    assert [e.name for e in chain.exec_effects] == CHAIN8_NAMES
+    nb = -(-n // B)
+    x = np.zeros(nb * B, np.float32)
+    x[:n] = signal[0, :n].cpu().numpy()
+    runtime_native.load()                 # built before any pump runs
+    a = runtime_unpaced(chain, cfg, x)
+    want = runtime_fold(chain, cfg, x)
+    expect = {name: (nb if name in STREAM_KERNELS else 0) for name in KERNELS}
+    assert a["counts"] == expect, a["counts"]
+    assert np.array_equal(a["out"], want), \
+        int((a["out"] != want).sum())
+    deadline_ms = cfg.block_duration_ms
+    unpaced = {"blocks": nb, "launches": a["counts"],
+               "bit_equal_to_fold": True, "pump": a["stats"],
+               "wall_s": a["wall_s"],
+               "ms_per_block_wall": a["wall_s"] * 1e3 / nb,
+               "deadline_ms": deadline_ms}
+
+    nb5 = int(round(PACED_SECONDS * SAMPLE_RATE / B))
+    x5 = x[:nb5 * B]
+    b = runtime_paced(chain, cfg, x5)
+    want5 = want[:b["real"].size]
+    assert b["real"].size >= B, b["real"].size   # something flowed
+    assert np.array_equal(b["real"], want5), int((b["real"] != want5).sum())
+    first = next(i for i, p in enumerate(b["padded"]) if p < B)
+    lag = sum(b["padded"][:first])
+    assert lag % B == 0 and b["padded"][first] == 0, b["padded"][:first + 1]
+    expect5 = {name: (nb5 if name in STREAM_KERNELS else 0)
+               for name in KERNELS}
+    assert b["counts"] == expect5, b["counts"]
+    # the step's two kernels at the pump's shape, (1, 512): device time a
+    # launch, queued behind a spin (measurement only: the counts are read)
+    fir_e, dyn_e, _ = chain.exec_effects
+    blk = torch.from_numpy(x[:B]).cuda()
+    scalars = [kdyn.op_scalars(p) for p in dyn_e.params]
+    kernel_ms = {
+        "conv_pairs_step": queued_ms(lambda: fft_filter.fir_step(
+            fir_e.params, fir_e.state(()), blk)),
+        "serial_walk_step": queued_ms(lambda: kdyn.cascade_step(
+            scalars, dyn_e.params, dyn_e.state(()), blk))}
+    late = b["late_s"]
+    paced = {"blocks": nb5, "launches": b["counts"],
+             "bit_equal_to_fold_after_lag": True,
+             "lag_blocks": lag // B,
+             "underrun_samples": b["underrun_samples"],
+             "underrun_samples_after_lag": b["underrun_samples"] - lag,
+             "overrun_samples": b["overrun_samples"], "pump": b["stats"],
+             "clock_callbacks_late": len(late),
+             "clock_worst_late_ms": max(late) * 1e3 if late else 0.0,
+             "deadline_ms": deadline_ms}
+    return {"phase": "runtime", "chain": "chain8", "channels": 1, "B": B,
+            "unpaced": unpaced, "paced": paced, "kernel_ms_1x512": kernel_ms,
+            "launch_counts": {"unpaced": a["counts"], "paced": b["counts"]},
+            "nvidia_smi": smi}
+
+
+# ---------------------------------------------------------------------------
+# parallel: the sharded render over ranks sharing the one card
+
+PARALLEL_B = 4096
+# The four-rank mesh (2, 2) renders this many seconds (the main path's 30 s
+# unless the phase ran past a minute at that length).
+PARALLEL4_SECONDS = 30.0
+RANK_TIMEOUT_S = 300.0
+# the undecayed EQ of the port's tests (a low shelf at 0.3 Hz, -3 dB: the
+# float64 recurrence, which a time-sharded mesh runs through timescan)
+EQ_CHAIN = "lowcut(150) -> eq_band(low, 0.3 Hz, -3 dB) -> softclipper(0.44)"
+
+
+def eq_chain_effects(cfg, device):
+    o = pt.ops
+    return [o.lowcut(cfg, 150.0, device=device),
+            o.eq_band(cfg, "low", 0.3, -3.0, device=device),
+            o.softclipper(cfg, 0.44, device=device)]
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def parallel_chains():
+    cfg = pt.EngineConfig(SAMPLE_RATE, PARALLEL_B)
+    return cfg, {"chain8": pt.Chain(chain8_effects(cfg, "cuda"),
+                                    device="cuda"),
+                 "eq_chain": pt.Chain(eq_chain_effects(cfg, "cuda"),
+                                      device="cuda")}
+
+
+def host_ms(fn, runs: int = 2):
+    """(result, host-clock median ms) of ``fn`` ended by a synchronisation,
+    after one untimed call."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, statistics.median(times)
+
+
+def parallel_rank(rank: int, world: int, port: int, shapes, seconds: float,
+                  seed: int, out_dir: str) -> None:
+    """One rank of the gloo job on the one card: every mesh shape of
+    ``shapes``, both chains, held (rank 0) to the single-card render."""
+    pdist.init_distributed(f"localhost:{port}", num_processes=world,
+                           process_id=rank, backend="gloo")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n = int(seconds * SAMPLE_RATE)
+    signal = burst_noise(CHANNELS, n, seed)
+    cfg, chains = parallel_chains()
+    single = {}
+    if rank == 0:
+        for name, chain in chains.items():
+            single[name] = host_ms(lambda: pt.render(chain, signal, cfg))
+    res = {"rank": rank, "meshes": {}}
+    for c, t in shapes:
+        mesh = make_mesh(c, t, device="cuda")
+        torch.distributed.barrier()
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        r = {}
+        for name, chain in chains.items():
+            rend = ShardedRenderer(chain, cfg, mesh)
+            first = rend.render(signal)
+            out, ms = host_ms(lambda: rend.render(signal))
+            r[name] = {"ms_per_render": ms,
+                       "repeat_bit_equal": bool(torch.equal(first, out))}
+            del first
+            if rank == 0:
+                want, ms1 = single[name]
+                got = out[:, :want.shape[-1]]
+                r[name].update({"db_single_card": db_json(
+                    snr_db_cuda(want, got)), "bit_equal": bool(
+                        torch.equal(want, got)), "single_card_ms": ms1})
+        r8 = ShardedRenderer(chains["chain8"], cfg, mesh)
+        mine = signal[pdist.host_channel_slice(CHANNELS)]
+        local = pdist.render_local_channels(r8, mine)
+        shard = r8.render_shard(r8.shard(pt.block.make_blocks(
+            torch.nn.functional.pad(signal, (0, (-n) % (t * cfg.block_size))),
+            cfg.block_size)))
+        meters = pdist.sharded_meters(shard, mesh)
+        torch.cuda.synchronize()
+        r["launches"] = launch_counts()
+        whole = r8.gather(shard).reshape(CHANNELS, -1)
+        r["local_equal_to_global"] = bool(torch.equal(
+            local, whole[pdist.host_channel_slice(CHANNELS), :n]))
+        w64 = whole.double()
+        r["meters"] = meters
+        r["meters_ok"] = bool(
+            meters["peak"] == float(whole.abs().max())
+            and abs(meters["rms"] - float(w64.square().mean().sqrt()))
+            <= 1e-9 * meters["rms"])
+        res["meshes"][f"{c}x{t}"] = r
+        del whole, w64, local, shard
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def run_ranks(world: int, shapes, seconds: float, seed: int) -> dict:
+    """Spawn ``world`` ranks (start method spawn; they load the kernels the
+    parent built and build nothing), wait with a deadline, and return each
+    mesh's results: rank 0's checks and every rank's launches summed."""
+    with tempfile.TemporaryDirectory() as out_dir:
+        ctx = mp.start_processes(
+            parallel_rank, args=(world, free_port(), shapes, seconds, seed,
+                                 out_dir),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = time.monotonic() + RANK_TIMEOUT_S
+        try:
+            while not ctx.join(timeout=5.0):
+                if time.monotonic() > deadline:
+                    raise RuntimeError(
+                        f"the {world} ranks did not finish in "
+                        f"{RANK_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join(timeout=10.0)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+    out = {}
+    for key, r0 in ranks[0]["meshes"].items():
+        launches = {name: sum(rk["meshes"][key]["launches"][name]
+                              for rk in ranks) for name in KERNELS}
+        out[key] = {**{k: v for k, v in r0.items() if k != "launches"},
+                    "launches_all_ranks": launches,
+                    "local_equal_to_global": all(
+                        rk["meshes"][key]["local_equal_to_global"]
+                        for rk in ranks),
+                    "meters_ok": all(rk["meshes"][key]["meters_ok"]
+                                     for rk in ranks),
+                    "repeat_bit_equal": {
+                        name: all(rk["meshes"][key][name]["repeat_bit_equal"]
+                                  for rk in ranks)
+                        for name in ("chain8", "eq_chain")},
+                    "ms_per_render_by_rank": {
+                        name: [rk["meshes"][key][name]["ms_per_render"]
+                               for rk in ranks] for name in ("chain8",
+                                                             "eq_chain")}}
+    return out
+
+
+def check_mesh(key: str, r: dict) -> None:
+    c, t = map(int, key.split("x"))
+    launches = r["launches_all_ranks"]
+    for name, bar in (("chain8", CHAIN8_DB_PLAIN), ("eq_chain", CHAIN_DB_PLAIN)):
+        db = r[name]["db_single_card"]           # None: bit-equal
+        assert r[name]["bit_equal"] or db >= bar, (key, name, r)
+    assert r["local_equal_to_global"] and r["meters_ok"], (key, r)
+    assert all(r["repeat_bit_equal"].values()), (key, r)
+    walks = ("serial_walk",) if t > 1 else ("state_walk", "audio_walk")
+    for name in KERNELS:
+        on_path = name in ("segconv", "tail") + walks
+        assert (launches[name] > 0) == on_path, (key, name, launches)
+
+
+def parallel_phase(signal: torch.Tensor, n: int, smi: str, seed: int
+                   ) -> dict:
+    """The sharded render at 64 ch x 30 s, B=4096, chain8 and a chain with an
+    undecayed EQ (so that timescan runs): (i) one rank on NCCL, a 1x1 mesh,
+    bit-equal to Chain.render, both timed; (ii) two ranks on the one card
+    over gloo, meshes (1, 2) and (2, 1); (iii) four ranks, mesh (2, 2).
+    The ranks share one card: their times are not scaling."""
+    cfg, chains = parallel_chains()
+    torch.distributed.init_process_group(
+        "nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
+        rank=0)
+    try:
+        mesh = make_mesh(1, 1, device="cuda")
+        one, single = {}, {}
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        for name, chain in chains.items():
+            rend = ShardedRenderer(chain, cfg, mesh)
+            out, ms = host_ms(lambda: rend.render(signal))
+            one[name] = (out, ms)
+        launches1 = launch_counts()
+        for name, chain in chains.items():
+            want, ms1 = host_ms(lambda: pt.render(chain, signal, cfg))
+            out, ms = one[name]
+            single[name] = {"bit_equal": bool(torch.equal(out, want)),
+                            "ms_per_render": ms, "chain_render_ms": ms1}
+            assert single[name]["bit_equal"], name
+            del out, want
+        one.clear()
+    finally:
+        torch.distributed.destroy_process_group()
+    r1 = {"backend": "nccl", "ranks": 1, **single, "launches": launches1}
+    for name in ("segconv", "tail", "state_walk", "audio_walk"):
+        assert launches1[name] > 0, launches1
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    two = run_ranks(2, [(1, 2), (2, 1)], SECONDS, seed)
+    two_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    four = run_ranks(4, [(2, 2)], PARALLEL4_SECONDS, seed)
+    four_s = time.perf_counter() - t0
+    for key, r in {**two, **four}.items():
+        check_mesh(key, r)
+    # the kernels at a (1, 2) time shard's shapes, in this process (CUDA
+    # events, median of 5; measurement only, after every count was read):
+    # the conv and the tail with their halos of 5 and 4 blocks, and one
+    # round of dynspec's serial walk over the shard
+    fir_e, dyn_e, tail_e = chains["chain8"].exec_effects
+    nbl = -(-n // (2 * PARALLEL_B))
+    x = pt.block.make_blocks(torch.nn.functional.pad(
+        signal, (0, 2 * nbl * PARALLEL_B - n)), PARALLEL_B)
+    rest = torch.zeros((len(dyn_e.params), CHANNELS), dtype=torch.int32,
+                       device="cuda")
+    flat = x[:, nbl:].reshape(CHANNELS, -1).contiguous()
+    scalars = [kdyn.op_scalars(p) for p in dyn_e.params]
+    shard_kernel_ms = {
+        "segconv_with_halo": time_ms(lambda: fir_e.offline(
+            fir_e.params, x[:, nbl - 5:].contiguous())),
+        "serial_walk_round": time_ms(lambda: kdyn.serial_walk(
+            scalars, flat, rest)),
+        "tail_with_halo": time_ms(lambda: tail_e.offline(
+            tail_e.params, x[:, nbl - 4:].contiguous(),
+            first_block=nbl - 4)),
+        "shard_blocks": nbl}
+    del x, flat
+    launch_counts_by_run = {"1x1": launches1,
+                            **{k: r["launches_all_ranks"]
+                               for k, r in {**two, **four}.items()}}
+    return {"phase": "parallel", "channels": CHANNELS, "B": PARALLEL_B,
+            "chains": {"chain8": CHAIN8_NAMES, "eq_chain": EQ_CHAIN},
+            "note": "ranks share one card (gloo): per-render times are "
+                    "not scaling",
+            "one_rank_nccl": r1,
+            "two_ranks_gloo": {"seconds_of_audio": SECONDS,
+                               "phase_s": two_s, **two},
+            "four_ranks_gloo": {"seconds_of_audio": PARALLEL4_SECONDS,
+                                "phase_s": four_s, **four},
+            "kernel_ms_at_a_1x2_shard": shard_kernel_ms,
+            "launch_counts": launch_counts_by_run, "nvidia_smi": smi}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2681,9 +3172,11 @@ def main() -> None:
     paths = _build.build_all()
     for name in paths:
         _build.load(name)
+    runtime_native.load()       # the realtime runtime's ring (g++)
     emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 2),
           "sources": sorted(f"pyaudiodsptools_tpu_torch/csrc/{n}.cu"
-                            for n in paths),
+                            for n in paths)
+          + ["pyaudiodsptools_tpu_torch/runtime/native/padt_runtime.cpp"],
           "ptxas": {n: [ln for ln in log.splitlines()
                         if "registers" in ln or "spill" in ln]
                     for n, log in _build.build_log.items()}})
@@ -2815,7 +3308,9 @@ def main() -> None:
     with tempfile.TemporaryDirectory() as workdir:
         for phase in (lambda: reverb_phase(signal, n, smi),
                       lambda: eq3band_phase(signal, n, smi),
-                      lambda: compat_phase(signal, n, workdir, smi)):
+                      lambda: compat_phase(signal, n, workdir, smi),
+                      lambda: runtime_phase(signal, n, smi),
+                      lambda: parallel_phase(signal, n, smi, args.seed)):
             t0 = time.perf_counter()
             out = phase()
             path_launches[out["phase"]] = out["launch_counts"]

@@ -20,8 +20,16 @@ Layers:
   kernels   CUDA kernel wrappers, plain versions, and the nvcc build
   engine    Chain composition and fusion, offline render, StreamProcessor,
             segmented and resumable render
+  runtime   realtime: native SPSC rings and a pump thread around the
+            streaming step, and a PortAudio duplex adapter
+  parallel  one process a device over ``torch.distributed``: the
+            (channel, time) mesh and the sharded render, with every halo
+            and gather an explicit exchange
   convert   build a chain from a plain numpy description of its params
   compat    drop-in ``pyAudioDspTools`` API (``Create*().apply(chunk)``)
+
+``runtime`` and ``parallel`` are imported by name
+(``pyaudiodsptools_tpu_torch.runtime``), as in the JAX package.
 
 ``python -m pyaudiodsptools_tpu_torch in.wav out.wav --chain '<json>'``
 renders a wav file through a chain.

@@ -141,7 +141,7 @@ def effect_from_numpy(entry: dict, device=DEFAULT_DEVICE) -> Effect:
         return Effect(name="tremolo", params=p,
                       init_state=tremolo_init_state,
                       step=tremolo_step, offline=tremolo_offline,
-                      device=dev)
+                      device=dev, block_indexed=True)
     if op in ("compressor", "gate"):
         p = dynamics.DynamicsParams(
             threshold=_scalar(params["threshold"]),

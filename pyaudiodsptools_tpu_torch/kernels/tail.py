@@ -381,20 +381,21 @@ def fused_tail(effects) -> Effect:
             plans[id(params)] = hit
         return hit[1]
 
-    def _sequential(params, blocks):
+    def _sequential(params, blocks, first_block):
         for e, p in zip(members, params):
-            blocks = e.offline(p, blocks, use_kernels=False)
+            kw = {"first_block": first_block} if e.block_indexed else {}
+            blocks = e.offline(p, blocks, use_kernels=False, **kw)
         return blocks
 
-    def offline(params, blocks: torch.Tensor,
-                use_kernels: bool = True) -> torch.Tensor:
+    def offline(params, blocks: torch.Tensor, use_kernels: bool = True,
+                first_block: int = 0) -> torch.Tensor:
         if not (blocks.is_cuda and use_kernels):
-            return _sequential(params, blocks)
+            return _sequential(params, blocks, first_block)
         shape = blocks.shape
         nb, B = shape[-2], shape[-1]
         T = nb * B
         x = blocks.reshape(-1, T)
-        rows = [gain_row(p, nb, B, x.device) for p in params
+        rows = [gain_row(p, nb, B, x.device, first_block) for p in params
                 if isinstance(p, TremoloParams)]
         gains = torch.stack(rows) if rows else None
         out = tail_kernel(plan_for(params, x.device), x, gains)
@@ -411,7 +412,11 @@ def fused_tail(effects) -> Effect:
         return tuple(e.init_state(p, batch_shape)
                      for e, p in zip(members, params))
 
+    # Time-parallel with a left halo of D_total samples: every taps stage's
+    # input within its reach of a shard's first output sample is then the
+    # true signal's, and a gain stage takes the shard's first block.
     name = "tail:" + "+".join(e.name for e in members)
     return Effect(name=name, params=own, init_state=init_state, step=step,
-                  offline=offline, time_parallel=False,
-                  device=members[0].device)
+                  offline=offline, time_parallel=True,
+                  device=members[0].device, reach=D_total,
+                  block_indexed=True)

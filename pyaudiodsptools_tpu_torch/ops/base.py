@@ -67,6 +67,14 @@ class Effect(NamedTuple):
     ``device`` -- where the params' large tensors and the state live and
     where the effect expects its input. Every factory sets it; there is no
     default.
+    ``reach`` -- for a time-parallel effect, how many samples before an
+    output sample its ``offline`` reads (a FIR's kernel length minus one,
+    latency included; a delay's farthest tap): a sharded render
+    (``parallel/sharding.py``) hands each time shard that much left halo.
+    ``block_indexed`` -- ``offline`` takes ``first_block=``, the index in
+    the whole signal of the first block it is given, because its output
+    depends on where a block lies (the tremolo's LFO schedule): a time shard
+    passes its own.
     """
 
     name: str
@@ -77,6 +85,8 @@ class Effect(NamedTuple):
     offline: Optional[Callable[..., torch.Tensor]] = None
     time_parallel: bool = True
     lti_kernel: Optional[Any] = None
+    reach: int = 0
+    block_indexed: bool = False
 
     def state(self, batch_shape: tuple[int, ...] = ()) -> Any:
         return self.init_state(self.params, batch_shape)

@@ -93,7 +93,7 @@ def make_effect(params: DelayParams, lti_kernel, device) -> Effect:
 
     return Effect(name="delay", params=params, init_state=init_on_device,
                   step=step, offline=offline, lti_kernel=lti_kernel,
-                  device=dev)
+                  reach=len(lti_kernel) - 1, device=dev)
 
 
 def _buffer_len(params: DelayParams) -> int:

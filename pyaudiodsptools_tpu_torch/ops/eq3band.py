@@ -16,13 +16,19 @@ Two reference quirks, handled as the JAX package handles them:
 The recurrence runs in float64 and the result is rounded once to float32.
 The JAX package carries f32 pairs (``core/dfloat.py``) only because a TPU has
 no float64; the H100 has it, so this port keeps no double-float arithmetic.
-Per band, over chunks of ``CHUNK`` samples: the forcing ``c[n] = b0 x[n-1] +
-b1 x[n-2] + b2 x[n-3]`` in parallel; then ``y = G c + Phi [y1, y2]`` per
-chunk, with ``G`` the lower-triangular Toeplitz matrix of the all-pole
-impulse response and ``Phi`` the two homogeneous responses (float64 matrix
-products); the carry ``S_k = e_k + M S_(k-1)`` across chunks (``M`` the
-2x2 map of a chunk) by a doubling scan in log2(chunks) steps. There is no
-TPU kernel behind this op, so it is plain PyTorch on either device.
+Per band: the forcing ``c[n] = b0 x[n-1] + b1 x[n-2] + b2 x[n-3]`` in
+parallel; then the all-pole part ``1 / ((1 - p1 z^-1)(1 - p2 z^-1))`` as two
+first-order sections in complex128, ``w[n] = c[n] + p1 w[n-1]`` and
+``y[n] = w[n] + p2 y[n-1]`` (``p1``, ``p2`` the poles, from the float64
+coefficients in long double). Each section runs over chunks of ``CHUNK``
+samples as one product with the Toeplitz matrix of ``p^(n-m)``, the chunks
+joined by a doubling scan of the scalar carry ``S_k = e_k + p^CHUNK
+S_(k-1)``. Every multiplier has a magnitude of at most 1, which keeps the
+result within float64 rounding of a per-sample recursion even where the
+poles sit next to z = 1 (a low shelf at 0.3 Hz: its poles are 3.3e-5 from
+it). The 2x2 companion form (chunk maps of ``(y[n], y[n-1])``) lost up to
+100 dB there, growing with the length. There is no TPU kernel behind this
+op, so it is plain PyTorch on either device.
 
 Offline, a cascade whose impulse response decays within 2**18 samples (to
 1e-9 of its peak) is FIR-ised: the truncated response goes through
@@ -40,8 +46,8 @@ from ..core.config import DEFAULT_DEVICE, EngineConfig, resolve_device
 from .base import Effect, params_dataclass
 from . import fft_filter
 
-# Samples of a chunk of the recurrence: its Toeplitz matrix is CHUNK^2
-# float64 (512 KB a band).
+# Samples of a chunk of a first-order section: its Toeplitz matrix is CHUNK^2
+# complex128 (1 MB a section, two a band).
 CHUNK = 256
 _FIR_CAP = 1 << 18          # max impulse-response length considered
 _FIR_TRUNC = 1e-9           # truncate below this fraction of the peak
@@ -90,9 +96,10 @@ def rbj_highshelf(fs: float, freq: float, gain_db: float, q: float = 1.0):
 @params_dataclass(meta_fields=("n_bands", "use_fir", "block_size"))
 class EQ3BandParams:
     coeffs: torch.Tensor     # (n_bands, 5) float64 on the host: b0 b1 b2 a1 a2
-    toeplitz: torch.Tensor   # (n_bands, CHUNK, CHUNK) float64: G per band
-    phi: torch.Tensor        # (n_bands, CHUNK, 2) float64: homogeneous
-                             # responses to y[-1] = 1 and to y[-2] = 1
+    toeplitz: torch.Tensor   # (n_bands, 2, CHUNK, CHUNK) complex128: the
+                             # Toeplitz matrix of p^(n-m) of each pole
+    powers: torch.Tensor     # (n_bands, 2, CHUNK) complex128: p^(n+1)
+    poles: torch.Tensor      # (n_bands, 2) complex128 on the host: p1, p2
     fir: fft_filter.FIRParams | None   # the FIR-ised offline path, or None
                              # where the response did not decay in the cap
     n_bands: int
@@ -134,25 +141,32 @@ def _impulse_response(rows: np.ndarray) -> np.ndarray | None:
     return None
 
 
-def _chunk_tables(a1: float, a2: float, L: int) -> tuple[np.ndarray,
-                                                         np.ndarray]:
-    """float64 (G, Phi) of one band's all-pole part over a chunk of L: G the
-    lower-triangular Toeplitz matrix of ``g`` (g[0] = 1, g[n] = -a1 g[n-1]
-    - a2 g[n-2]), Phi[:, 0] and Phi[:, 1] the responses to y[-1] = 1 and to
-    y[-2] = 1 with no input."""
-    def run(y1: float, y2: float, first: float) -> np.ndarray:
-        out = np.zeros(L)
-        for n in range(L):
-            v = (first if n == 0 else 0.0) - a1 * y1 - a2 * y2
-            y2, y1 = y1, v
-            out[n] = v
-        return out
+def poles(a1: float, a2: float) -> tuple[complex, complex]:
+    """The roots p1, p2 of ``z^2 + a1 z + a2``. The discriminant is taken in
+    long double: where the poles nearly coincide it is the difference of two
+    nearly equal numbers, and float64 would leave an error of about 1e-8 in
+    the poles."""
+    a1l, a2l = np.longdouble(a1), np.longdouble(a2)
+    disc = a1l * a1l - 4 * a2l
+    if disc < 0:
+        re, im = float(-a1l / 2), float(np.sqrt(-disc) / 2)
+        return complex(re, im), complex(re, -im)
+    root = np.sqrt(disc)
+    q = -(a1l + (root if a1l >= 0 else -root)) / 2
+    return complex(float(q)), complex(float(a2l / q) if q else 0.0)
 
-    g = run(0.0, 0.0, 1.0)
+
+def _section_tables(p: complex, L: int) -> tuple[np.ndarray, np.ndarray]:
+    """(G, P) of one first-order section over a chunk of L: G[n, m] =
+    p^(n-m) for n >= m (lower-triangular Toeplitz), P[n] = p^(n+1)."""
+    pows = np.empty(L + 1, dtype=np.complex128)
+    pows[0] = 1.0
+    for k in range(1, L + 1):
+        pows[k] = pows[k - 1] * p
     idx = np.arange(L)
     G = np.where(idx[:, None] >= idx[None, :],
-                 g[np.clip(idx[:, None] - idx[None, :], 0, L - 1)], 0.0)
-    return G, np.stack([run(1.0, 0.0, 0.0), run(0.0, 1.0, 0.0)], axis=1)
+                 pows[np.clip(idx[:, None] - idx[None, :], 0, L)], 0.0)
+    return G, pows[1:].copy()
 
 
 def from_rows(rows, block_size: int, name: str, device=DEFAULT_DEVICE
@@ -162,11 +176,15 @@ def from_rows(rows, block_size: int, name: str, device=DEFAULT_DEVICE
     dev = resolve_device(device)
     rows = np.array(rows, dtype=np.float64)
     h = _impulse_response(rows)
-    tables = [_chunk_tables(r[3], r[4], CHUNK) for r in rows]
+    pole_pairs = [poles(r[3], r[4]) for r in rows]
+    tables = [[_section_tables(p, CHUNK) for p in pair] for pair in pole_pairs]
     params = EQ3BandParams(
         coeffs=torch.from_numpy(rows.copy()),
-        toeplitz=torch.from_numpy(np.stack([t[0] for t in tables])).to(dev),
-        phi=torch.from_numpy(np.stack([t[1] for t in tables])).to(dev),
+        toeplitz=torch.from_numpy(np.stack(
+            [[g for g, _ in band] for band in tables])).to(dev),
+        powers=torch.from_numpy(np.stack(
+            [[pw for _, pw in band] for band in tables])).to(dev),
+        poles=torch.tensor(pole_pairs, dtype=torch.complex128),
         fir=(fft_filter.fir(h, block_size, device=dev).params
              if h is not None else None),
         n_bands=len(rows), use_fir=h is not None, block_size=block_size)
@@ -175,7 +193,8 @@ def from_rows(rows, block_size: int, name: str, device=DEFAULT_DEVICE
     # the exact float64 recurrence, channel-parallel only.
     return Effect(name=name, params=params, init_state=init_state,
                   step=step, offline=offline_fir if h is not None else offline,
-                  time_parallel=h is not None, device=dev)
+                  time_parallel=h is not None, device=dev,
+                  reach=len(h) - 1 if h is not None else 0)
 
 
 def _normalised(raw) -> list[float]:
@@ -220,28 +239,37 @@ def init_state(params: EQ3BandParams, batch_shape: tuple[int, ...] = ()):
     return {k: z for k in STATE_KEYS}
 
 
-def _allpole(c: torch.Tensor, y1: torch.Tensor, y2: torch.Tensor,
-             G: torch.Tensor, phi: torch.Tensor) -> torch.Tensor:
-    """float64 ``y[n] = c[n] - a1 y[n-1] - a2 y[n-2]`` over the last axis of
-    ``c`` (R, T) from the state (y1, y2) (R,), chunk by chunk (see the module
-    docstring)."""
+def _section(c: torch.Tensor, w0: torch.Tensor, G: torch.Tensor,
+             P: torch.Tensor) -> torch.Tensor:
+    """complex128 ``w[n] = c[n] + p w[n-1]`` over the last axis of ``c``
+    (R, T) from ``w[-1] = w0`` (R,), chunk by chunk (see the module
+    docstring): G and P from :func:`_section_tables`."""
     R, T = c.shape
     L = G.shape[-1]
     K = -(-T // L)
     cc = torch.nn.functional.pad(c, (0, K * L - T)).reshape(R, K, L)
-    yz = cc @ G.T                                        # zero-state part
-    M = torch.stack([phi[L - 1], phi[L - 2]])            # (2, 2): a chunk
-    s0 = torch.stack([y1, y2], dim=-1)                   # (R, 2)
-    # S_k = e_k + M S_(k-1), S_(-1) = s0: the end states of the chunks
-    e = torch.stack([yz[..., L - 1], yz[..., L - 2]], dim=-1)
-    e[:, 0] = e[:, 0] + s0 @ M.T
-    Md, d = M, 1
+    wz = cc @ G.T                                        # zero-entry part
+    # S_k = e_k + p^L S_(k-1), S_(-1) = w0: the end values of the chunks
+    e = wz[..., L - 1].clone()
+    e[:, 0] = e[:, 0] + P[L - 1] * w0
+    m, d = P[L - 1], 1
     while d < K:
-        e = torch.cat([e[:, :d], e[:, d:] + e[:, :-d] @ Md.T], dim=1)
-        Md, d = Md @ Md, 2 * d
-    entry = torch.cat([s0[:, None, :], e[:, :-1]], dim=1)   # (R, K, 2)
-    y = yz + entry @ phi.T
-    return y.reshape(R, K * L)[:, :T]
+        e = torch.cat([e[:, :d], e[:, d:] + m * e[:, :-d]], dim=1)
+        m, d = m * m, 2 * d
+    entry = torch.cat([w0[:, None], e[:, :-1]], dim=1)   # (R, K)
+    return (wz + entry[..., None] * P).reshape(R, K * L)[:, :T]
+
+
+def _allpole(c: torch.Tensor, y1: torch.Tensor, y2: torch.Tensor,
+             params: EQ3BandParams, band: int) -> torch.Tensor:
+    """float64 ``y[n] = c[n] - a1 y[n-1] - a2 y[n-2]`` over the last axis of
+    ``c`` (R, T) from the state (y1, y2) (R,): the band's two first-order
+    sections, ``w[-1] = y1 - p2 y2`` and ``y[-1] = y1``."""
+    G, P = params.toeplitz[band], params.powers[band]
+    p2 = complex(params.poles[band, 1])
+    cx = c.to(torch.complex128)
+    w = _section(cx, (y1 - p2 * y2).to(torch.complex128), G[0], P[0])
+    return _section(w, y1.to(torch.complex128), G[1], P[1]).real
 
 
 def _apply(params: EQ3BandParams, state, x: torch.Tensor):
@@ -258,8 +286,7 @@ def _apply(params: EQ3BandParams, state, x: torch.Tensor):
         xe = torch.cat([st["x3"][:, None], st["x2"][:, None],
                         st["x1"][:, None], v], dim=-1)   # x[-3] .. x[T-1]
         c = b0 * xe[:, 2:-1] + b1 * xe[:, 1:-2] + b2 * xe[:, :-3]
-        y = _allpole(c, st["y1"], st["y2"], params.toeplitz[band],
-                     params.phi[band])
+        y = _allpole(c, st["y1"], st["y2"], params, band)
         ye = torch.cat([st["y2"][:, None], st["y1"][:, None], y], dim=-1)
         for k, col in (("x1", xe[:, -1]), ("x2", xe[:, -2]),
                        ("x3", xe[:, -3]), ("y1", ye[:, -1]),

@@ -289,7 +289,7 @@ def fir(kernel: np.ndarray, block_size: int, name: str = "fir",
                        kernel_len=len(stripped), history=history)
     return Effect(name=name, params=params, init_state=fir_init_state,
                   step=fir_step, offline=fir_offline,
-                  lti_kernel=kernel, device=dev)
+                  lti_kernel=kernel, device=dev, reach=len(kernel) - 1)
 
 
 def history_len(params: FIRParams) -> int:

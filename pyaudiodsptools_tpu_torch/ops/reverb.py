@@ -138,7 +138,7 @@ def make_effect(params: ReverbParams, lti_kernel: np.ndarray,
                 device) -> Effect:
     return Effect(name="reverb", params=params, init_state=init_state,
                   step=step, offline=offline, lti_kernel=lti_kernel,
-                  device=resolve_device(device))
+                  reach=len(lti_kernel) - 1, device=resolve_device(device))
 
 
 def _line_buffer_len(p: ReverbLineParams) -> int:

@@ -46,7 +46,8 @@ def tremolo(cfg: EngineConfig, depth: float = 0.4, lfo_hz: float = 4.5,
                            lfo_length=length,
                            block_size=cfg.block_size)
     return Effect(name="tremolo", params=params, init_state=init_state,
-                  step=step, offline=offline, device=dev)
+                  step=step, offline=offline, device=dev,
+                  block_indexed=True)
 
 
 def init_state(params: TremoloParams, batch_shape: tuple[int, ...] = ()):
@@ -95,9 +96,11 @@ def _phase_schedule(L: int, num_blocks: int, n: int) -> np.ndarray:
 
 
 def gain_row(params: TremoloParams, nb: int, n: int,
-             device=None) -> torch.Tensor:
+             device=None, first_block: int = 0) -> torch.Tensor:
     """The whole render's per-sample gain as one flat (nb*n,) f32 row --
-    shared by ``offline`` and the fused tail kernel (kernels/tail.py).
+    shared by ``offline`` and the fused tail kernel (kernels/tail.py). With
+    ``first_block``, the row of blocks ``first_block .. first_block+nb-1``
+    of a longer render (a time shard's).
 
     Arithmetic LFO, as in the JAX package: f32 ``sin`` of the mod-L index
     times omega (periodicity is only exact when sr/lfo_hz is an integer,
@@ -107,7 +110,9 @@ def gain_row(params: TremoloParams, nb: int, n: int,
     only the host-side phase schedule is cached."""
     device = params.lfo.device if device is None else torch.device(device)
     L = params.lfo_length
-    phases = torch.from_numpy(_phase_schedule(L, nb, n).copy()).to(device)
+    phases = torch.from_numpy(
+        _phase_schedule(L, first_block + nb, n)[first_block:].copy()
+    ).to(device)
     idx = (phases[:, None] + torch.arange(n, device=device)[None, :]) % L
     ph = idx.to(torch.float32) * params.omega
     gains = (torch.sin(ph) * 0.5 + 0.5) * params.depth + (1.0 - params.depth)
@@ -115,7 +120,8 @@ def gain_row(params: TremoloParams, nb: int, n: int,
 
 
 def offline(params: TremoloParams, blocks: torch.Tensor,
-            use_kernels: bool = True) -> torch.Tensor:
+            use_kernels: bool = True, first_block: int = 0) -> torch.Tensor:
     nb, n = blocks.shape[-2], blocks.shape[-1]
-    gains = gain_row(params, nb, n, blocks.device).reshape(nb, n)
+    gains = gain_row(params, nb, n, blocks.device,
+                     first_block).reshape(nb, n)
     return (blocks * gains).to(torch.float32)

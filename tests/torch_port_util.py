@@ -57,6 +57,19 @@ except ImportError:  # the limit below is an optimisation of the test run
 if threadpool_limits is not None:
     threadpool_limits(1, user_api="blas")
 
+# PyTorch's own CPU threads. The plain convolutions (torch.fft, MKL's DFT
+# batched over the overlap-save windows) gave other bits for one or two
+# windows in some processes and not in others: two renders of one input in
+# one process differed in 3,038-7,386 of 61,140 samples (chain7 at B=512) in
+# 5 of 160 fresh processes that had run a JAX render first, four processes
+# at a time, with torch's default of one thread a core; in 0 of 160 with one
+# thread. The test processes keep torch to one thread, so that a plain CPU
+# render has one answer whatever runs beside it
+# (tests/test_torch_cpu_bits.py holds that).
+import torch  # noqa: E402
+
+torch.set_num_threads(1)
+
 
 def snr_db(golden, ours) -> float:
     golden = np.asarray(golden, dtype=np.float64)
