@@ -101,13 +101,24 @@ failed check raises (exit code != 0, no result line):
    mesh held to the single-card render (chain8 90 dB, the EQ chain 100 dB),
    ``render_local_channels`` equal to the global render's channels,
    ``sharded_meters`` to the global output's peak and RMS; the launches of
-   every rank summed; times per render labelled as ranks sharing one card.
+   every rank summed; times per render labelled as ranks sharing one card;
+   ``profiling``: chain8 through ``profiling.annotate_chain`` (unfused, one
+   profiler scope an effect) at B=4096 and 512, rendered under
+   ``profiling.trace``: bit-equal to the unfused chain's render, >= 90 dB to
+   the fused one, every ``effect.<name>.offline`` scope in the trace with
+   the launches of our kernels inside it equal to the launch counters' over
+   the same effect, and each scope's device ms against the roofline's cost
+   of its effect; then 64 blocks at B=512 through a ``StreamProcessor`` on
+   the annotated chain under a trace, bit-equal to the unfused chain's
+   steps, every ``effect.<name>.step`` scope with its launches.
 6. ``kernel_timing``  each kernel at the main-path shapes: time (CUDA events,
    median of 5 after a warm-up; the two streaming kernels, which are over in
    tens of microseconds, as launches queued behind a spin so that the host's
    pace does not show) beside its plain version, a library yardstick where
-   there is one, and its bound (bytes over the card's memory rate,
-   operations over its fp32 rate, whichever is larger); pack and unpack,
+   there is one, and its bound and each time's share of each roofline
+   (``pyaudiodsptools_tpu_torch/roofline.py``: the function's bytes over the
+   card's memory rate, its operations over its fp32 rate, whichever is
+   larger; ``classify`` names the binding resource); pack and unpack,
    which no path launches, at the geometry they had on the main path. Also
    the whole dynamics stage for a range of segment counts (the planner's
    sweep), the
@@ -126,9 +137,13 @@ Tolerances, with their reasons, are the constants below.
 from __future__ import annotations
 
 import argparse
+import bisect
 import functools
+import glob
+import gzip
 import json
 import os
+import re
 import socket
 import statistics
 import subprocess
@@ -146,7 +161,7 @@ import pyaudiodsptools_tpu_torch as pt
 from pyaudiodsptools_tpu_torch.kernels import (_build, convpairs,
                                                dynamics as kdyn, relayout,
                                                segconv, tail)
-from pyaudiodsptools_tpu_torch import compat
+from pyaudiodsptools_tpu_torch import compat, profiling, roofline as rl
 from pyaudiodsptools_tpu_torch.__main__ import main as cli_main
 from pyaudiodsptools_tpu_torch.ops import dynamics as ops_dynamics, fft_filter
 from pyaudiodsptools_tpu_torch.ops.eq3band import offline as eq_recurrence
@@ -181,11 +196,6 @@ FULL_BATCH_ROWS = 10368
 # the dynamics stage alone, streamed and offline on the SAME input, is held
 # to equality.
 STREAM_FIR_DB = 110.0
-
-# Published peaks of one H100 SXM (NVIDIA data sheet): device memory rate and
-# the fp32 rate outside the tensor cores. The bounds below are against these.
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
 
 # Bars. The conv kernel is an fp32 FFT with float64-built twiddles: it and
 # the cuFFT-backed plain version both sit near 130 dB of the float64 oracle,
@@ -222,12 +232,6 @@ CHAIN8_DB_PLAIN = 90.0
 # chain8's float64 oracle walks the two automatons sample by sample in Python,
 # so it covers an excerpt: the first 32 blocks of 4096 (2.97 s) of 2 channels.
 ORACLE_EXCERPT = 32 * 4096
-# Operations per sample of one automaton, for the operations side of the
-# walks' bound (counted from csrc/dynamics.cu: compares, selects, the two
-# ramps and the output product; without the gain path for the state walk's
-# last op).
-WALK_OPS_WITH_GAIN = 25
-WALK_OPS_STATE_ONLY = 12
 # Segment counts of the planner's sweep (kernel_timing).
 SWEEP_SEGMENTS = (64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
 
@@ -1168,23 +1172,6 @@ def serial_walk_cases() -> dict:
 # phases 4-7: the main paths
 
 
-def tail_ops_per_sample(stages) -> int:
-    """Rough operation count of one sample through the stage plan (for the
-    operations side of the bound): 2 per tap, 1 per gain, and per map the
-    arithmetic of its formula with a pow or a sin counted as 30."""
-    per_map = {"saturator": 12, "softclipper": 36, "harddistortion": 38,
-               "bitcrusher": 5}
-    ops = 0
-    for s in stages:
-        if s[0] == "taps":
-            ops += 1 + 2 * len(s[1])
-        elif s[0] == "gain":
-            ops += 1
-        else:
-            ops += per_map[s[1]]
-    return ops
-
-
 VERSION_NAMES = {1: "one_block", 2: "cluster_of_two", 4: "cluster_of_four"}
 
 # name -> (source under csrc/, "file:line" of the TPU kernel it replaces)
@@ -1274,14 +1261,19 @@ def check_render(chain, cfg, signal, out, n: int,
     return r
 
 
-def bound(nbytes: float, ops: float) -> dict:
-    """The least time the card could take: bytes over its memory rate or
-    operations over its fp32 rate, whichever is larger (ms)."""
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / FP32_FLOP_PER_S * 1e3
-    return {"bound_ms": max(tb, to),
-            "bound_by": "bytes" if tb >= to else "operations",
-            "bound_bytes_ms": tb, "bound_operations_ms": to}
+def bound(cost: dict) -> dict:
+    """``roofline.bound`` of a cost on this card (ms)."""
+    return rl.bound(cost, rl.peaks_for_device())
+
+
+def roofline_row(cost: dict, **times) -> dict:
+    """A kernel row's bound and, for each of its times (``ms``, ``plain_ms``,
+    ``library_ms``; None where there is none), ``roofline.classify`` against
+    the same cost: the function's work, whichever implementation ran."""
+    pk = rl.peaks_for_device()
+    return {**rl.bound(cost, pk),
+            "roofline": {k: rl.classify(t * 1e-3, cost, pk)
+                         for k, t in times.items() if t is not None}}
 
 
 def time_segconv(x, fir_e, by_B: dict, B: int) -> torch.Tensor:
@@ -1337,8 +1329,6 @@ def time_segconv(x, fir_e, by_B: dict, B: int) -> torch.Tensor:
     for p, blocks in cands + cands[::-1]:
         versions[f"{p.n}/{blocks}"]["ms"].append(
             time_ms(lambda: segconv._launch(x, p, blocks)))
-    n_pairs = C * -(-n_seg // 2)
-    log2n = plan.n.bit_length() - 1
     by_B[B] = {
         "n": plan.n, "blocks": plan.blocks, "halo": plan.halo,
         "seg": plan.seg, "taps": plan.kernel_len, "shift": plan.shift,
@@ -1346,11 +1336,11 @@ def time_segconv(x, fir_e, by_B: dict, B: int) -> torch.Tensor:
         "db_plain": db_json(db_plain), "db_oracle_2ch": db_json(db_oracle),
         "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
         "library_ms": library_ms,
-        **bound(8 * C * T + 2 * 8 * plan.n,
-                n_pairs * (2 * 5 * plan.n * log2n + 6 * plan.n)),
+        **roofline_row(rl.conv_cost_from_params(C, T, fir_e.params), ms=ms,
+                       plain_ms=plain_ms, library_ms=library_ms),
         # what this design must move: the signal n/seg times in, once out
-        "bound_with_window_overlap_ms":
-            4 * C * T * (plan.n / plan.seg + 1) / HBM_BYTES_PER_S * 1e3,
+        "bound_with_window_overlap_ms": bound(rl.simple_cost(
+            C, T, plan.n / plan.seg, 1.0))["bound_ms"],
         "segconv_versions": versions,
     }
     return y_kernel
@@ -1368,7 +1358,8 @@ def time_dynamics(x, dyn_e, timing: dict, B: int) -> torch.Tensor:
     G, L, Rp = relayout.geometry(C, T, kdyn.plan_segments(C, T))
     R = C * G
     geom = {"C": C, "T": T, "G": G, "L": L, "lanes": R}
-    sig_bytes, tm_bytes, st_bytes = 4 * C * T, 4 * L * Rp, 4 * n_ops * R
+    # the time-major layout's share of the signal's bytes (its padded lanes)
+    tm_passes = L * Rp / (C * T)
     not_on_path = "not launched by the main path since the walks read " \
                   "(C, T); timed at the geometry it had there"
 
@@ -1378,16 +1369,16 @@ def time_dynamics(x, dyn_e, timing: dict, B: int) -> torch.Tensor:
     err = float((tm - tm_plain).abs().max())
     del tm_plain
     lib_in = x if G * L == T else torch.nn.functional.pad(x, (0, G * L - T))
+    t = {"ms": time_ms(lambda: relayout.pack(x, G, L, Rp)),
+         "plain_ms": time_ms(
+             lambda: relayout.pack(x, G, L, Rp, use_kernels=False)),
+         # one PyTorch call: the strided copy (on a length padded beforehand
+         # where the last segment is ragged)
+         "library_ms": time_ms(
+             lambda: lib_in.reshape(C, G, L).permute(2, 1, 0).contiguous())}
     timing["pack"][B] = {
-        **geom, "Rp": Rp, "max_abs_err": err, "note": not_on_path,
-        "ms": time_ms(lambda: relayout.pack(x, G, L, Rp)),
-        "plain_ms": time_ms(
-            lambda: relayout.pack(x, G, L, Rp, use_kernels=False)),
-        # one PyTorch call: the strided copy (on a length padded beforehand
-        # where the last segment is ragged)
-        "library_ms": time_ms(
-            lambda: lib_in.reshape(C, G, L).permute(2, 1, 0).contiguous()),
-        **bound(sig_bytes + tm_bytes, 0)}
+        **geom, "Rp": Rp, "max_abs_err": err, "note": not_on_path, **t,
+        **roofline_row(rl.simple_cost(C, T, 1.0, tm_passes), **t)}
     del lib_in
     y = relayout.unpack(tm, C, T, G, L)
     y_plain = relayout.unpack(tm, C, T, G, L, use_kernels=False)
@@ -1395,15 +1386,15 @@ def time_dynamics(x, dyn_e, timing: dict, B: int) -> torch.Tensor:
     assert torch.equal(y, x)
     err = float((y - y_plain).abs().max())
     del y, y_plain
+    t = {"ms": time_ms(lambda: relayout.unpack(tm, C, T, G, L)),
+         "plain_ms": time_ms(
+             lambda: relayout.unpack(tm, C, T, G, L, use_kernels=False)),
+         "library_ms": time_ms(
+             lambda: tm[:, :C * G].reshape(L, G, C).permute(2, 1, 0)
+             .contiguous())}
     timing["unpack"][B] = {
-        **geom, "Rp": Rp, "max_abs_err": err, "note": not_on_path,
-        "ms": time_ms(lambda: relayout.unpack(tm, C, T, G, L)),
-        "plain_ms": time_ms(
-            lambda: relayout.unpack(tm, C, T, G, L, use_kernels=False)),
-        "library_ms": time_ms(
-            lambda: tm[:, :C * G].reshape(L, G, C).permute(2, 1, 0)
-            .contiguous()),
-        **bound(sig_bytes + tm_bytes, 0)}
+        **geom, "Rp": Rp, "max_abs_err": err, "note": not_on_path, **t,
+        **roofline_row(rl.simple_cost(C, T, tm_passes, 1.0), **t)}
     del tm
 
     # the loop's first two walks: the state walk from REST, then the audio
@@ -1413,17 +1404,16 @@ def time_dynamics(x, dyn_e, timing: dict, B: int) -> torch.Tensor:
     z1_plain, state_plain_ms = once_ms(
         lambda: kdyn.state_walk(scalars, x, G, L, e0, use_kernels=False))
     assert torch.equal(z1, z1_plain), "state walk: exit states differ"
-    ops_state = L * R * (WALK_OPS_WITH_GAIN * (n_ops - 1)
-                         + WALK_OPS_STATE_ONLY)
+    ms = time_ms(lambda: kdyn.state_walk(scalars, x, G, L, e0))
     timing["state_walk"][B] = {
         **geom, "n_ops": n_ops, "exit_states_equal": True,
         "max_abs_err": float((z1 - z1_plain).abs().max()),
-        "ms": time_ms(lambda: kdyn.state_walk(scalars, x, G, L, e0)),
-        "plain_ms": state_plain_ms,
+        "ms": ms, "plain_ms": state_plain_ms,
         "plain_ran_with": f"G={G}, a Python loop over L={L} rows, its one "
                           "correctness run timed",
         "library_ms": None,
-        **bound(sig_bytes + 2 * st_bytes, ops_state)}
+        **roofline_row(rl.dynamics_cost(C, T, n_ops, audio=False, lanes=R),
+                       ms=ms, plain_ms=state_plain_ms)}
     e1 = torch.zeros_like(z1)
     e1[:, C:R] = z1[:, :R - C]
     del z1, z1_plain
@@ -1435,16 +1425,16 @@ def time_dynamics(x, dyn_e, timing: dict, B: int) -> torch.Tensor:
     assert mismatching == 0, f"audio walk: {mismatching} samples differ"
     err = float((out - out_plain).abs().max())
     del out_plain, z2_plain, out
+    ms = time_ms(lambda: kdyn.audio_walk(scalars, x, G, L, e1))
     timing["audio_walk"][B] = {
         **geom, "n_ops": n_ops, "exit_states_equal": True,
         "mismatching_samples": mismatching, "max_abs_err": err,
-        "ms": time_ms(lambda: kdyn.audio_walk(scalars, x, G, L, e1)),
-        "plain_ms": audio_plain_ms,
+        "ms": ms, "plain_ms": audio_plain_ms,
         "plain_ran_with": f"G={G}, a Python loop over L={L} rows, its one "
                           "correctness run timed",
         "library_ms": None,
-        **bound(2 * sig_bytes + 2 * st_bytes,
-                L * R * WALK_OPS_WITH_GAIN * n_ops)}
+        **roofline_row(rl.dynamics_cost(C, T, n_ops, audio=True, lanes=R),
+                       ms=ms, plain_ms=audio_plain_ms)}
     # what the loop returns, whether or not it needed a third walk
     return kdyn.dynamics_offline(list(dyn_e.params), x)
 
@@ -1548,21 +1538,20 @@ def time_tail(x, chain, tail_e, by_B: dict, B: int) -> None:
     for name in list(cases) + list(cases)[::-1]:
         p, r = cases[name]
         ms[name].append(time_ms(lambda: tail.tail_kernel(p, x, gains, runs=r)))
+    t = {"ms": time_ms(lambda: tail.tail_kernel(plan, x, gains)),
+         "plain_ms": time_ms(
+             lambda: tail_e.offline(members, blocks, use_kernels=False))}
     by_B[B] = {
         "halo": D, "tile": plan.tile, "runs": runs,
         "n_tiles": n_tiles, "warm_tiles": plan.warm_tiles,
         "ring_floats": plan.ring_floats,
         "rings_in_shared_memory": plan.ring_smem,
         "blocks_per_sm": plan.blocks_per_sm, "C": C, "T": T,
-        "db_plain": db_json(t_db), "max_abs_err": t_err,
-        "ms": time_ms(lambda: tail.tail_kernel(plan, x, gains)),
+        "db_plain": db_json(t_db), "max_abs_err": t_err, **t,
         "offline_with_gain_row_ms": time_ms(
             lambda: tail_e.offline(members, blocks)),
-        "plain_ms": time_ms(
-            lambda: tail_e.offline(members, blocks, use_kernels=False)),
         "library_ms": None,
-        **bound(8 * C * T + 4 * gains.numel(),
-                C * T * tail_ops_per_sample(stages)),
+        **roofline_row(rl.tail_cost(C, T, stages, gains.numel()), **t),
         "one_tile_a_run_ms": ms[f"runs={n_tiles}"],
         "sweep_ms": {name: {"tile": p.tile, "runs": r,
                             "blocks_per_sm": p.blocks_per_sm, "ms": ms[name]}
@@ -1939,9 +1928,7 @@ def long_windows(signal: torch.Tensor, n: int) -> dict:
         "summed_by_torch_add_ms": time_ms(summed_by_add),
         "plain_ms": time_ms(lambda: segconv.partitioned_conv(
             xm, plans, use_kernels=False), runs=1),
-        **bound(8 * C * Tm, sum(
-            C * -(-Tm // q.seg) // 2 * (2 * 5 * q.n * (q.n.bit_length() - 1)
-                                        + 6 * q.n) for q in plans))}
+        **bound(rl.conv_cost_from_params(C, Tm, fir.params))}
     assert db_plain >= CONV_DB_PLAIN and db_oracle >= CONV_DB_ORACLE, r
     del got, xm
 
@@ -2075,7 +2062,6 @@ def time_stream_kernels(chain, cfg, streamed_in: torch.Tensor,
     assert snr_db_cuda(plain, got) >= CONV_DB_PLAIN
     assert torch.equal(out, got[:, n - B:]), "step differs from conv_pairs"
     assert torch.equal(new_hist, joined[:, B:])
-    log2n = n.bit_length() - 1
     q = queued_ms(lambda: convpairs.conv_pairs(rows, plan))
     dense = rows.contiguous()
     # both versions of the kernel, in turns, for the rule in
@@ -2097,7 +2083,13 @@ def time_stream_kernels(chain, cfg, streamed_in: torch.Tensor,
 
     q_step = queued_ms(lambda: convpairs.conv_pairs_step(hist, block, plan,
                                                          lead))
-    operations = -(-C // 2) * (2 * 5 * n * log2n + 6 * n)
+    plain_ms = queued_ms(lambda: convpairs.conv_pairs_step(
+        hist, block, plan, lead, use_kernels=False))["ms"]
+    # the one call that computes the window's convolution; it is given the
+    # window already joined and leaves the history to the caller
+    library_ms = queued_ms(lambda: torch.fft.irfft(
+        torch.fft.rfft(dense, dim=-1) * plan.spectrum_rfft, n=n,
+        dim=-1))["ms"]
     # The headline figures are those of the entry point the main path
     # launches, the step: it reads history and block once and writes the
     # block's output and the next history once. `conv_pairs` on the same
@@ -2112,20 +2104,14 @@ def time_stream_kernels(chain, cfg, streamed_in: torch.Tensor,
         "step_equal_conv_pairs": True,
         "step_as_join_convolve_slice_3_launches_ms":
             queued_ms(join_convolve_slice)["ms"],
-        "plain_ms": queued_ms(lambda: convpairs.conv_pairs_step(
-            hist, block, plan, lead, use_kernels=False))["ms"],
-        # the one call that computes the window's convolution; it is given
-        # the window already joined and leaves the history to the caller
-        "library_ms": queued_ms(lambda: torch.fft.irfft(
-            torch.fft.rfft(dense, dim=-1) * plan.spectrum_rfft, n=n,
-            dim=-1))["ms"],
-        **bound(4 * C * (2 * H + 2 * B) + 2 * 8 * n, operations),
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        **roofline_row(rl.conv_pairs_cost(C, n, H, B), ms=q_step["ms"],
+                       plain_ms=plain_ms, library_ms=library_ms),
         "conv_pairs_ms": q["ms"],
         "conv_pairs_host_ms_per_call": q["host_ms"],
         "conv_pairs_plain_ms": queued_ms(lambda: convpairs.conv_pairs(
             rows, plan, use_kernels=False))["ms"],
-        "conv_pairs_bound_ms":
-            bound(8 * C * n + 2 * 8 * n, operations)["bound_ms"],
+        "conv_pairs_bound_ms": bound(rl.conv_pairs_cost(C, n))["bound_ms"],
         "versions": versions}
     # row 7: the step's block, from REST
     scalars = [kdyn.op_scalars(p) for p in dyn_e.params]
@@ -2188,9 +2174,8 @@ def time_stream_kernels(chain, cfg, streamed_in: torch.Tensor,
         "plain_ran_with": f"a Python loop over T={B} rows, 1 timed run, "
                           "host clock",
         "library_ms": None,
-        # 13 bytes of state an op and channel, read and written
-        **bound(8 * C * B + 2 * 13 * len(scalars) * C,
-                C * B * WALK_OPS_WITH_GAIN * len(scalars))}
+        **roofline_row(rl.serial_walk_cost(C, B, len(scalars)),
+                       ms=q_step["ms"], plain_ms=plain_ms)}
 
 
 def sweep_serial_segments(chain, cfg) -> dict:
@@ -2249,13 +2234,12 @@ def time_full_batch() -> dict:
             **{VERSION_NAMES[b]: [timer(lambda: convpairs._launch(xr, plan, b))
                                   for _ in range(2)]
                for b in (1, 4)}}
-    log2n = n.bit_length() - 1
-    return {"R": R, "n": n, "bytes": 8 * R * n, "db_plain_64_rows": db_json(db),
+    cost = rl.conv_pairs_cost(R, n)
+    return {"R": R, "n": n, "bytes": cost["bytes"],
+            "db_plain_64_rows": db_json(db),
             "ms": time_ms(lambda: convpairs.conv_pairs(x, plan)),
             "library_ms": time_ms(lib),
-            "versions_ms_by_rows": by_rows,
-            **bound(8 * R * n + 2 * 8 * n,
-                    (R // 2) * (2 * 5 * n * log2n + 6 * n))}
+            "versions_ms_by_rows": by_rows, **bound(cost)}
 
 
 def time_cluster_by_window() -> dict:
@@ -3139,6 +3123,240 @@ def parallel_phase(signal: torch.Tensor, n: int, smi: str, seed: int
             "launch_counts": launch_counts_by_run, "nvidia_smi": smi}
 
 
+# ---------------------------------------------------------------------------
+# phase 5f: the profiler's scopes and the roofline by effect
+
+# chain8 unfused: one scope an effect
+CHAIN8_EFFECTS = ["lowcut", "highcut", "eq3band_fft", "compressor", "gate",
+                  "delay", "tremolo", "softclipper"]
+FIR_EFFECTS = ("lowcut", "highcut", "eq3band_fft")
+DYNAMICS_EFFECTS = ("compressor", "gate")
+PROFILE_STREAM_B = 512
+PROFILE_STREAM_BLOCKS = 64
+# what a trace calls a device event: kernels, copies and fills
+DEVICE_EVENTS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the port's kernels by symbol (preceded by no letter: unpack_kernel is not
+# pack_kernel, serial_walk_kernel is not walk_kernel) -> launch counter; the
+# offline walks are one template, walk_kernel<N_OPS, AUDIO, kVec>
+KERNEL_SYMBOLS = {"segconv_kernel": "segconv", "tail_kernel": "tail",
+                  "pack_kernel": "pack", "unpack_kernel": "unpack",
+                  "serial_walk_kernel": "serial_walk",
+                  "convpairs_kernel": "conv_pairs"}
+WALK_SYMBOL = re.compile(
+    r"(?<![A-Za-z_])walk_kernel(?:<\s*\d+\s*,\s*(true|false)|ILi\d+ELb([01]))")
+
+
+def kernel_counter(name: str) -> str | None:
+    """The launch counter of a trace's kernel, None for PyTorch's own."""
+    for symbol, counter in KERNEL_SYMBOLS.items():
+        if re.search(rf"(?<![A-Za-z_]){symbol}", name):
+            return counter
+    m = WALK_SYMBOL.search(name)
+    if m:
+        return "audio_walk" if (m.group(1) or m.group(2)) in ("true", "1") \
+            else "state_walk"
+    return None
+
+
+def read_trace(log_dir: str) -> list:
+    """The events of the one trace ``profiling.trace`` wrote there."""
+    paths = glob.glob(os.path.join(log_dir, "*.pt.trace.json*"))
+    assert len(paths) == 1, paths
+    opener = gzip.open if paths[0].endswith(".gz") else open
+    with opener(paths[0], "rt") as f:
+        return json.load(f)["traceEvents"]
+
+
+def scope_table(events: list, prefix: str = "effect.") -> dict:
+    """Device time and kernel launches by profiler scope. A device event
+    belongs to the scope whose host interval holds the runtime call that
+    launched it (matched by its correlation id): containment, which holds
+    for the ctypes launches as for PyTorch's. Beside it, the profiler's own
+    device spans of the scopes (``gpu_user_annotation``) where it makes
+    them."""
+    scopes = sorted((e for e in events if e.get("cat") == "user_annotation"
+                     and e.get("name", "").startswith(prefix)),
+                    key=lambda e: e["ts"])
+    starts = [sc["ts"] for sc in scopes]
+    launched_at = {e["args"]["correlation"]: e["ts"] for e in events
+                   if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                   and "correlation" in e.get("args", {})}
+    table = {}
+    for sc in scopes:
+        row = table.setdefault(sc["name"], {
+            "calls": 0, "host_ms": 0.0, "device_ms": 0.0, "device_events": 0,
+            "launches": {}})
+        row["calls"] += 1
+        row["host_ms"] += sc["dur"] / 1e3
+    outside = {"device_ms": 0.0, "device_events": 0, "launches": {}}
+    for e in events:
+        if e.get("cat") not in DEVICE_EVENTS:
+            continue
+        ts = launched_at.get(e.get("args", {}).get("correlation"))
+        row = outside
+        if ts is not None:
+            i = bisect.bisect_right(starts, ts) - 1
+            if i >= 0 and ts <= scopes[i]["ts"] + scopes[i]["dur"]:
+                row = table[scopes[i]["name"]]
+        row["device_ms"] += e["dur"] / 1e3
+        row["device_events"] += 1
+        counter = kernel_counter(e["name"]) if e["cat"] == "kernel" else None
+        if counter:
+            row["launches"][counter] = row["launches"].get(counter, 0) + 1
+    spans = {}
+    for e in events:
+        if e.get("cat") == "gpu_user_annotation" and \
+                e.get("name", "").startswith(prefix):
+            spans[e["name"]] = spans.get(e["name"], 0.0) + e["dur"] / 1e3
+    return {"scopes": table, "outside_scopes": outside,
+            "profiler_device_spans_ms": spans}
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def effect_cost(e, C: int, T: int) -> dict:
+    """The roofline's cost of one effect's whole-signal pass over (C, T)."""
+    cost = rl.conv_cost_from_params(C, T, e.params)
+    if cost is not None:
+        return cost
+    if isinstance(e.params, ops_dynamics.DynamicsParams):
+        return rl.dynamics_cost(C, T, 1)
+    stages = tail._plan_stages([e])[0]
+    return rl.simple_cost(C, T, 1.0, 1.0, rl.tail_ops_per_sample(stages))
+
+
+def expect_launches(name: str, launches: dict, kind: str, blocks: int = 1):
+    """What an effect of unfused chain8 launches: offline, the conv once a
+    FIR and both walks a dynamics op; a step, ``conv_pairs`` a FIR and
+    ``serial_walk`` a dynamics op; the tail's members run plain."""
+    if name in FIR_EFFECTS:
+        want = {"segconv": 1} if kind == "offline" else \
+            {"conv_pairs": blocks}
+        assert launches == want, (name, kind, launches)
+    elif name in DYNAMICS_EFFECTS:
+        if kind == "offline":
+            assert set(launches) == {"state_walk", "audio_walk"}, \
+                (name, launches)
+        else:
+            assert launches == {"serial_walk": blocks}, (name, launches)
+    else:
+        assert launches == {}, (name, kind, launches)
+
+
+def profiling_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
+    """chain8 through ``profiling.annotate_chain`` at 64 ch x 30 s, B=4096
+    and 512: (a) rendered under ``profiling.trace``, bit-equal to the
+    unfused chain's render and >= CHAIN8_DB_PLAIN to the fused one; (b)
+    every ``effect.<name>.offline`` scope in the trace; (c) each scope's
+    launches equal to the counters' over the same effect's pass; (d) each
+    scope's device ms against the roofline's cost of its effect; (e) at
+    B=512, 64 blocks through a ``StreamProcessor`` on the annotated chain
+    under a trace, bit-equal to the unfused chain's steps, every
+    ``effect.<name>.step`` scope with its launches."""
+    pk = rl.peaks_for_device()
+    C = signal.shape[0]
+    runs, launch_counts_by_run, chains = {}, {}, {}
+    for B in BLOCK_SIZES:
+        cfg = pt.EngineConfig(SAMPLE_RATE, B)
+        effects = chain8_effects(cfg, "cuda")
+        fused = pt.Chain(effects, device="cuda")
+        bare = pt.Chain(effects, fuse=False, device="cuda")
+        ann = profiling.annotate_chain(fused)
+        chains[B] = (cfg, bare, ann)
+        assert [e.name for e in ann.exec_effects] == CHAIN8_EFFECTS
+        T = -(-n // B) * B
+        want = pt.render(bare, signal, cfg)
+        # the counters' launches of each effect, effect by effect through
+        # the annotated chain's own effects (untraced)
+        x, by_effect = pt.block.make_blocks(signal, B), {}
+        for e in ann.exec_effects:
+            x, counts = counted(lambda: e.offline(e.params, x))
+            by_effect[e.name] = nonzero(counts)
+        assert torch.equal(pt.block.combine_blocks(x), want)
+        del x
+        with tempfile.TemporaryDirectory() as d:
+            with profiling.trace(d):
+                got, traced = counted(lambda: pt.render(ann, signal, cfg))
+            table = scope_table(read_trace(d))
+        bit_equal = torch.equal(got, want)
+        db_fused = snr_db_cuda(pt.render(fused, signal, cfg), got)
+        del got, want
+        scopes = table["scopes"]
+        assert sorted(scopes) == sorted(f"effect.{name}.offline"
+                                        for name in CHAIN8_EFFECTS), scopes
+        by_scope = {}
+        for e in ann.exec_effects:
+            row = scopes[f"effect.{e.name}.offline"]
+            assert row["calls"] == 1 and row["device_events"] > 0, row
+            assert row["launches"] == by_effect[e.name], \
+                (e.name, row, by_effect[e.name])
+            expect_launches(e.name, row["launches"], "offline")
+            cost = effect_cost(e, C, T)
+            by_scope[e.name] = {
+                **row, **rl.bound(cost, pk),
+                **rl.classify(row["device_ms"] * 1e-3, cost, pk)}
+        assert table["outside_scopes"]["launches"] == {}, table
+        assert nonzero(traced) == {
+            k: sum(r["launches"].get(k, 0) for r in scopes.values())
+            for k in nonzero(traced)}, (traced, scopes)
+        runs[str(B)] = {
+            "bit_equal_to_unfused": bit_equal,
+            "db_to_fused": db_json(db_fused), "launches": nonzero(traced),
+            "device_ms_in_scopes": sum(r["device_ms"]
+                                       for r in scopes.values()),
+            "device_ms_outside_scopes":
+                table["outside_scopes"]["device_ms"],
+            "profiler_device_spans_ms": table["profiler_device_spans_ms"],
+            "by_effect": by_scope}
+        launch_counts_by_run[f"B={B} traced render"] = traced
+        assert bit_equal and db_fused >= CHAIN8_DB_PLAIN, runs[str(B)]
+
+    # (e) the annotated chain streamed, its steps' scopes
+    B = PROFILE_STREAM_B
+    cfg, bare, ann = chains[B]
+    xs = signal[:, :PROFILE_STREAM_BLOCKS * B]
+    blocks = [xs[:, i * B:(i + 1) * B] for i in range(PROFILE_STREAM_BLOCKS)]
+    sp = pt.StreamProcessor(bare, cfg, (C,))
+    sp.warmup()
+    want = torch.cat([sp.process(b) for b in blocks], dim=-1)
+    sp = pt.StreamProcessor(ann, cfg, (C,))
+    sp.warmup()
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d):
+            outs, streamed = counted(lambda: [sp.process(b) for b in blocks])
+        table = scope_table(read_trace(d))
+    bit_equal = torch.equal(torch.cat(outs, dim=-1), want)
+    scopes = table["scopes"]
+    assert sorted(scopes) == sorted(f"effect.{name}.step"
+                                    for name in CHAIN8_EFFECTS), scopes
+    for name in CHAIN8_EFFECTS:
+        row = scopes[f"effect.{name}.step"]
+        assert row["calls"] == PROFILE_STREAM_BLOCKS, (name, row)
+        expect_launches(name, row["launches"], "step", PROFILE_STREAM_BLOCKS)
+    assert nonzero(streamed) == {
+        "conv_pairs": len(FIR_EFFECTS) * PROFILE_STREAM_BLOCKS,
+        "serial_walk": len(DYNAMICS_EFFECTS) * PROFILE_STREAM_BLOCKS}, \
+        streamed
+    assert bit_equal, "the annotated chain's steps differ"
+    launch_counts_by_run[f"B={B} traced stream"] = streamed
+    return {"phase": "profiling", "chain": "chain8 unfused, annotated",
+            "channels": C, "seconds_of_audio": SECONDS,
+            "effects": CHAIN8_EFFECTS,
+            "attribution": "a device event belongs to the scope whose host "
+                           "interval holds its launch (correlation id)",
+            "render_by_block_size": runs,
+            "stream": {"B": B, "blocks": PROFILE_STREAM_BLOCKS,
+                       "bit_equal_to_unfused": bit_equal,
+                       "launches": nonzero(streamed),
+                       "by_effect": {name[len("effect."):-len(".step")]: row
+                                     for name, row in scopes.items()},
+                       "profiler_device_spans_ms":
+                           table["profiler_device_spans_ms"]},
+            "launch_counts": launch_counts_by_run, "nvidia_smi": smi}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3310,7 +3528,8 @@ def main() -> None:
                       lambda: eq3band_phase(signal, n, smi),
                       lambda: compat_phase(signal, n, workdir, smi),
                       lambda: runtime_phase(signal, n, smi),
-                      lambda: parallel_phase(signal, n, smi, args.seed)):
+                      lambda: parallel_phase(signal, n, smi, args.seed),
+                      lambda: profiling_phase(signal, n, smi)):
             t0 = time.perf_counter()
             out = phase()
             path_launches[out["phase"]] = out["launch_counts"]
@@ -3394,12 +3613,16 @@ def main() -> None:
             "ms": h["ms"], "plain_ms": h["plain_ms"],
             "bound_ms": h["bound_ms"], "bound_by": h["bound_by"],
             "library_ms": h["library_ms"],
+            # roofline.classify of the kernel's time against the function's
+            # cost (the plain and library times' shares are in by_block_size)
+            **{k: h["roofline"]["ms"][k] for k in (
+                "hbm_roofline_pct", "fp32_roofline_pct", "bound")},
             # a bound the card can reach: a near-empty launch's device time
             "launch_floor_ms": near_empty["ms"],
             "by_block_size": {str(B): {k: v[k] for k in (
                 "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-                "critical_path_ms", "serial_walk_ms", "conv_pairs_ms",
-                "conv_pairs_bound_ms")
+                "roofline", "critical_path_ms", "serial_walk_ms",
+                "conv_pairs_ms", "conv_pairs_bound_ms")
                 if k in v}
                 for B, v in by_B.items()}})
     emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 1)})

@@ -27,9 +27,13 @@ Layers:
             and gather an explicit exchange
   convert   build a chain from a plain numpy description of its params
   compat    drop-in ``pyAudioDspTools`` API (``Create*().apply(chunk)``)
+  profiling per-effect profiler scopes (``annotate_chain``) and a
+            TensorBoard trace (``trace``)
+  roofline  the kernels' cost models, the H100's peaks, a call's bound and
+            its share of each roofline
 
-``runtime`` and ``parallel`` are imported by name
-(``pyaudiodsptools_tpu_torch.runtime``), as in the JAX package.
+``runtime``, ``parallel``, ``profiling`` and ``roofline`` are imported by
+name (``pyaudiodsptools_tpu_torch.runtime``), as in the JAX package.
 
 ``python -m pyaudiodsptools_tpu_torch in.wav out.wav --chain '<json>'``
 renders a wav file through a chain.

@@ -387,6 +387,8 @@ def test_importing_the_port_loads_no_jax():
         "assert not bad, bad\n"
         "assert 'pyaudiodsptools_tpu_torch.kernels.tail' in sys.modules\n"
         "assert 'pyaudiodsptools_tpu_torch.kernels.dynamics' in sys.modules\n"
+        "assert 'pyaudiodsptools_tpu_torch.profiling' in sys.modules\n"
+        "assert 'pyaudiodsptools_tpu_torch.roofline' in sys.modules\n"
         "print('clean')\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
