@@ -19,7 +19,11 @@ failed check raises (exit code != 0, no result line):
    re-zeroing before the signal start, rings that wrap (small tiles) in runs
    that walk the halo first, rings in device memory (a halo of 88,200), 65
    taps; pack and unpack on
-   ragged lengths and 1, 3 and 64 channels (exact, pad lanes zero); the two
+   ragged lengths and 1, 3, 64, 80, 96 and 128 channels, on shapes whose
+   unpack tiles take the box path (TMA), the masked path or both, and a tm
+   whose pointer is off 16 bytes (exact, pad lanes and ragged rows zero,
+   every element written into an output filled with NaN; each case reports
+   the launcher's count of an unpack's tiles on each path); the two
    dynamics walks, which read (C, T) as it lies, on three signals for
    compressor, gate, their cascade and the one-sample attack (exit states
    equal, 0 mismatching samples), at both copy widths, ragged last segments
@@ -119,7 +123,12 @@ failed check raises (exit code != 0, no result line):
    (``pyaudiodsptools_tpu_torch/roofline.py``: the function's bytes over the
    card's memory rate, its operations over its fp32 rate, whichever is
    larger; ``classify`` names the binding resource); pack and unpack,
-   which no path launches, at the geometry they had on the main path. Also
+   which no path launches, at the geometry they had on the main path, with
+   a plain copy of the same bytes (``copy_ms``, the card's practical
+   ceiling) beside them, the kernel and the copy once more as launches
+   queued behind a spin (``queued_ms``, ``copy_queued_ms``: no host time
+   between the events), and unpack's masked path at the same geometry (tm
+   one float off 16 bytes, ``masked_path_queued_ms``). Also
    the whole dynamics stage for a range of segment counts (the planner's
    sweep), the
    segmented conv by window and version (``segconv_versions``: the planner's
@@ -648,41 +657,86 @@ def tail_cases() -> dict:
                 r.get("mismatch_fraction", 0.0) for r in results)}
 
 
+# relayout_cases' shapes beside the first design's (1, 3 and 64 channels,
+# ragged and odd lengths): (C, T, segments, tm one float off a 16-byte
+# boundary, the path an unpack's tiles take: "box", "masked" or "both")
+RELAYOUT_SHAPES = [
+    (C, T, segments, False,
+     "box" if C == 64 and T == 65536 else "masked")
+    for C in (1, 3, 64)
+    for T, segments in ((50037, 7), (65536, 64), (4097, 1), (1000, 999))] + [
+    # the box path with a ragged last segment and L = 720 (no multiple of
+    # the tile's 128 rows); one segment; two tiles a segment
+    (64, 5036, 7, False, "box"), (64, 4096, 1, False, "box"),
+    (128, 2000, 4, False, "box"),
+    # lane tiles that straddle two segments beside box tiles; pad lanes
+    (96, 5036, 7, False, "both"), (80, 3000, 3, False, "both"),
+    # an aligned geometry whose tm is off 16 bytes: all masked
+    (64, 5036, 7, True, "masked")]
+
+
+def offset_view(t: torch.Tensor) -> torch.Tensor:
+    """A copy of ``t`` one float into its allocation: contiguous, its
+    pointer off 16 bytes."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return flat[1:].view(t.shape).copy_(t)
+
+
 def relayout_cases() -> dict:
     """pack and unpack against their plain versions: exact equality, pad
-    lanes and ragged rows zero, for 1, 3 and 64 channels and segment counts
-    that divide the length or leave a ragged last segment."""
+    lanes and ragged rows zero, on shapes whose unpack tiles take the box
+    path (TMA), the masked path, or both, with the launcher's count of
+    tiles on each path; then each kernel launched into an output filled with
+    NaN (not through the wrappers, so not counted): every element of tm and
+    every sample of y written."""
     gen = torch.Generator(device="cuda")
     gen.manual_seed(13)
     results = []
-    for C in (1, 3, 64):
-        for T, segments in ((50037, 7), (65536, 64), (4097, 1), (1000, 999)):
-            x = torch.randn((C, T), generator=gen, device="cuda")
-            G, L, Rp = relayout.geometry(C, T, segments)
-            before = (relayout.pack_launch_count, relayout.unpack_launch_count)
-            tm = relayout.pack(x, G, L, Rp)
-            back = relayout.unpack(tm, C, T, G, L)
-            torch.cuda.synchronize()
-            assert (relayout.pack_launch_count, relayout.unpack_launch_count) \
-                == (before[0] + 1, before[1] + 1)
-            want = relayout.pack(x, G, L, Rp, use_kernels=False)
-            r = {"C": C, "T": T, "G": G, "L": L, "Rp": Rp,
-                 "pack_equal": torch.equal(tm, want),
-                 "unpack_equal": torch.equal(
-                     back, relayout.unpack(want, C, T, G, L,
-                                           use_kernels=False)),
-                 "roundtrip_equal": torch.equal(back, x),
-                 "pad_lanes_zero": not bool(tm[:, C * G:].any()),
-                 "ragged_rows_zero": not bool(
-                     tm[T - (G - 1) * L:, (G - 1) * C:].any())}
-            assert (relayout.pack_launch_count, relayout.unpack_launch_count) \
-                == (before[0] + 1, before[1] + 1)
-            results.append(r)
-            assert all(v for k, v in r.items() if k.endswith(("equal", "zero"))), r
+    for C, T, segments, off, path in RELAYOUT_SHAPES:
+        x = torch.randn((C, T), generator=gen, device="cuda")
+        G, L, Rp = relayout.geometry(C, T, segments)
+        before = (relayout.pack_launch_count, relayout.unpack_launch_count)
+        tm = relayout.pack(x, G, L, Rp)
+        tm_in = offset_view(tm) if off else tm
+        back = relayout.unpack(tm_in, C, T, G, L)
+        torch.cuda.synchronize()
+        assert (relayout.pack_launch_count, relayout.unpack_launch_count) \
+            == (before[0] + 1, before[1] + 1)
+        want = relayout.pack(x, G, L, Rp, use_kernels=False)
+        box, masked = relayout.box_tiles(tm_in, back, C, T, G, L)
+        nan_tm = torch.full_like(tm, float("nan"))
+        relayout._launch("pack", x, nan_tm, C, T, G, L, Rp)
+        nan_y = torch.full_like(x, float("nan"))
+        relayout._launch("unpack", tm_in, nan_y, C, T, G, L, Rp)
+        torch.cuda.synchronize()
+        r = {"C": C, "T": T, "G": G, "L": L, "Rp": Rp,
+             "tm_off_16_bytes": off,
+             "unpack_tiles": {"box": box, "masked": masked},
+             "pack_equal": torch.equal(tm, want),
+             "unpack_equal": torch.equal(
+                 back, relayout.unpack(want, C, T, G, L,
+                                       use_kernels=False)),
+             "roundtrip_equal": torch.equal(back, x),
+             "pack_writes_every_element": torch.equal(nan_tm, want),
+             "unpack_writes_every_sample": torch.equal(nan_y, x),
+             "pad_lanes_zero": not bool(tm[:, C * G:].any()),
+             "ragged_rows_zero": not bool(
+                 tm[T - (G - 1) * L:, (G - 1) * C:].any())}
+        assert (relayout.pack_launch_count, relayout.unpack_launch_count) \
+            == (before[0] + 1, before[1] + 1)
+        assert {"box": masked == 0 < box, "masked": box == 0 < masked,
+                "both": box > 0 and masked > 0}[path], r
+        results.append(r)
+        assert all(v for k, v in r.items()
+                   if k.endswith(("equal", "zero", "element", "sample"))), r
+    ran = {p: sum(r["unpack_tiles"][p] > 0 for r in results)
+           for p in ("box", "masked")}
+    assert ran["box"] > 0 and ran["masked"] > 0, ran
     return {"phase": "kernel_cases", "name": "relayout (pack, unpack)",
             "replaces": "pyaudiodsptools_tpu/kernels/relayout.py:"
                         "time_major_pack, time_major_unpack",
-            "cases": results, "all_exact": True}
+            "cases": results, "all_exact": True,
+            "unpack_launches_by_path": ran}
 
 
 def dynamics_signals() -> dict:
@@ -1346,6 +1400,11 @@ def time_segconv(x, fir_e, by_B: dict, B: int) -> torch.Tensor:
     return y_kernel
 
 
+# pack's and unpack's launches queued behind one spin (each 0.25-0.3 ms on
+# the device, a few tens of microseconds of the host's)
+RELAYOUT_QUEUED_RUNS = 20
+
+
 def time_dynamics(x, dyn_e, timing: dict, B: int) -> torch.Tensor:
     """The two walks at the shapes and on the data the main path gives them
     (the conv stage's output as it lies, the planner's segments, the entries
@@ -1375,7 +1434,15 @@ def time_dynamics(x, dyn_e, timing: dict, B: int) -> torch.Tensor:
          # one PyTorch call: the strided copy (on a length padded beforehand
          # where the last segment is ragged)
          "library_ms": time_ms(
-             lambda: lib_in.reshape(C, G, L).permute(2, 1, 0).contiguous())}
+             lambda: lib_in.reshape(C, G, L).permute(2, 1, 0).contiguous()),
+         # the card's practical ceiling for the same bytes: a plain copy
+         "copy_ms": time_ms(lambda: torch.empty_like(x).copy_(x)),
+         # the kernel and the copy with their launches queued behind a spin:
+         # device time without the host's pace between the events
+         "queued_ms": queued_ms(lambda: relayout.pack(x, G, L, Rp),
+                                RELAYOUT_QUEUED_RUNS)["ms"],
+         "copy_queued_ms": queued_ms(lambda: torch.empty_like(x).copy_(x),
+                                     RELAYOUT_QUEUED_RUNS)["ms"]}
     timing["pack"][B] = {
         **geom, "Rp": Rp, "max_abs_err": err, "note": not_on_path, **t,
         **roofline_row(rl.simple_cost(C, T, 1.0, tm_passes), **t)}
@@ -1386,16 +1453,34 @@ def time_dynamics(x, dyn_e, timing: dict, B: int) -> torch.Tensor:
     assert torch.equal(y, x)
     err = float((y - y_plain).abs().max())
     del y, y_plain
+    tm_off = offset_view(tm)
     t = {"ms": time_ms(lambda: relayout.unpack(tm, C, T, G, L)),
          "plain_ms": time_ms(
              lambda: relayout.unpack(tm, C, T, G, L, use_kernels=False)),
          "library_ms": time_ms(
              lambda: tm[:, :C * G].reshape(L, G, C).permute(2, 1, 0)
-             .contiguous())}
+             .contiguous()),
+         "copy_ms": time_ms(lambda: torch.empty_like(tm).copy_(tm)),
+         "queued_ms": queued_ms(lambda: relayout.unpack(tm, C, T, G, L),
+                                RELAYOUT_QUEUED_RUNS)["ms"],
+         "copy_queued_ms": queued_ms(lambda: torch.empty_like(tm).copy_(tm),
+                                     RELAYOUT_QUEUED_RUNS)["ms"],
+         # the masked path on the same geometry (tm one float off 16 bytes),
+         # queued as the line above
+         "masked_path_queued_ms": queued_ms(
+             lambda: relayout.unpack(tm_off, C, T, G, L),
+             RELAYOUT_QUEUED_RUNS)["ms"]}
+    assert torch.equal(relayout.unpack(tm_off, C, T, G, L), x)
     timing["unpack"][B] = {
-        **geom, "Rp": Rp, "max_abs_err": err, "note": not_on_path, **t,
+        **geom, "Rp": Rp, "max_abs_err": err, "note": not_on_path,
+        "tiles": dict(zip(("box", "masked"),
+                          relayout.box_tiles(tm, x, C, T, G, L))),
+        "tiles_tm_off": dict(zip(("box", "masked"), relayout.box_tiles(
+            tm_off, x, C, T, G, L))), **t,
         **roofline_row(rl.simple_cost(C, T, tm_passes, 1.0), **t)}
-    del tm
+    assert timing["unpack"][B]["tiles"]["masked"] == 0
+    assert timing["unpack"][B]["tiles_tm_off"]["box"] == 0
+    del tm, tm_off
 
     # the loop's first two walks: the state walk from REST, then the audio
     # walk from its shifted exits
@@ -3620,7 +3705,9 @@ def main() -> None:
             # a bound the card can reach: a near-empty launch's device time
             "launch_floor_ms": near_empty["ms"],
             "by_block_size": {str(B): {k: v[k] for k in (
-                "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "ms", "plain_ms", "library_ms", "copy_ms", "queued_ms",
+                "copy_queued_ms", "masked_path_queued_ms", "bound_ms",
+                "bound_by",
                 "roofline", "critical_path_ms", "serial_walk_ms",
                 "conv_pairs_ms", "conv_pairs_bound_ms")
                 if k in v}

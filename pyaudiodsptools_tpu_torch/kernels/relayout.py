@@ -24,11 +24,23 @@ lies and launch neither pack nor unpack; the walks' plain version
 :func:`unpack_plain`.
 
 What bounds them on an H100: bytes (one read and one write of the signal, no
-arithmetic). The CUDA source, ``csrc/relayout.cu``, moves 32 x 32 tiles
-through padded shared memory so that both sides are coalesced. The plain
-versions are ``pad`` / ``reshape`` / ``permute`` / ``contiguous``; they run
-for CPU tensors, or on request (``use_kernels=False``), and are never a
-fallback for a CUDA tensor.
+arithmetic). The CUDA source, ``csrc/relayout.cu``, moves tiles of
+``TILE_ROWS`` rows x ``TILE_LANES`` lanes (32 KB), one a thread block, through
+shared memory padded against bank conflicts, with 4-byte accesses that run
+along time on the natural side and along lanes on the time-major side, and
+(g, c) computed once a lane. That is pack's one path. Unpack has a second,
+the box path, for a tile whose lanes are channels of ONE segment in a launch
+that is aligned (T, L and Rp multiples of 4 floats, both pointers on 16
+bytes, C >= ``TILE_LANES``): one thread loads the tile with the Tensor
+Memory Accelerator (two 2-D boxes of 32 lanes in the 128-byte swizzle, zeros
+past L) and every thread transposes 4 x 4 blocks in registers into 16-byte
+stores along time. At the main path's geometry every tile of an unpack takes
+it; the same path for pack measured no faster than the padded tile.
+
+:func:`box_tiles` gives an unpack's count of box-path tiles as the CUDA
+launcher computes it. The plain versions are ``pad`` / ``reshape`` /
+``permute`` / ``contiguous``; they run for CPU tensors, or on request
+(``use_kernels=False``), and are never a fallback for a CUDA tensor.
 """
 
 from __future__ import annotations
@@ -42,8 +54,14 @@ from . import _build
 # Rp is R = C*G rounded up to this many lanes: one warp's worth, so that
 # every row of the time-major array starts on a 128-byte boundary.
 LANE_MULTIPLE = 32
-# gridDim.y of the kernels counts 32-lane tiles
+# gridDim.y of the kernels counts lane tiles; the limit is the first design's
+# (32-lane tiles), kept
 MAX_LANES = 65535 * 32
+# A tile of csrc/relayout.cu (TL, TR): rows of the time-major array, lanes
+# (mirrored here for the count of tiles; the numpy mirror of the schedule is
+# tests/torch_port_util.relayout_tiles).
+TILE_ROWS = 128
+TILE_LANES = 64
 
 # Launches of the pack / unpack kernel made by :func:`pack` / :func:`unpack`
 # (and by nothing else) since the caller last set them to 0.
@@ -87,12 +105,29 @@ def unpack_plain(tm: torch.Tensor, C: int, T: int, G: int, L: int
     return y[:, :T].contiguous()
 
 
+def box_tiles(tm: torch.Tensor, y: torch.Tensor, C: int, T: int, G: int,
+              L: int) -> tuple[int, int]:
+    """(tiles on the box path, tiles on the masked path) of an unpack from
+    ``tm`` into ``y``, as the CUDA launcher decides them
+    (``relayout_unpack_box_tiles``; CUDA tensors only)."""
+    if not (tm.is_cuda and y.is_cuda):
+        raise ValueError("box_tiles counts a launch's tiles: CUDA tensors only")
+    Rp = tm.shape[1]
+    _check(C, T, G, L, Rp)
+    fn = _build.launcher("relayout", "relayout_unpack_box_tiles",
+                         [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+    box = fn(C, T, G, L, Rp, tm.data_ptr(), y.data_ptr())
+    if box < 0:
+        raise ValueError(f"relayout refuses C={C}, G={G}, L={L}, Rp={Rp}")
+    total = -(-L // TILE_ROWS) * -(-Rp // TILE_LANES)
+    return box, total - box
+
+
 def _launch(name: str, src: torch.Tensor, dst: torch.Tensor, C: int, T: int,
             G: int, L: int, Rp: int) -> None:
-    lib = _build.load("relayout")
-    fn = getattr(lib, f"relayout_{name}_launch")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn = _build.launcher("relayout", f"relayout_{name}_launch",
+                         [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p])
     with torch.cuda.device(src.device):
         err = fn(src.data_ptr(), dst.data_ptr(), C, T, G, L, Rp,
                  torch.cuda.current_stream().cuda_stream)

@@ -813,3 +813,123 @@ def emulate_tile_walk(scalars, x: np.ndarray, G: int, L: int, entry,
         for j in range(n_ops):
             exits[j, lanes] = s[j]
     return (out.reshape(C, T) if audio else None), exits
+
+
+# csrc/relayout.cu's tile (TL rows x TR lanes), the floats along a TMA box's
+# contiguous axis, and the threads of a block
+RELAYOUT_TL, RELAYOUT_TR, RELAYOUT_SUB, RELAYOUT_THREADS = 128, 64, 32, 256
+
+
+def relayout_box_launch(C: int, T: int, L: int, Rp: int,
+                        pointers_aligned: bool = True) -> bool:
+    """csrc/relayout.cu ``box_launch``: whether an unpack may send tiles down
+    the box path (the tensor map's 16-byte base and row stride, whole
+    16-byte vectors along T, L and Rp, at least one tile of channels)."""
+    return (T % 4 == 0 and L % 4 == 0 and Rp % 4 == 0 and pointers_aligned
+            and C >= RELAYOUT_TR)
+
+
+def relayout_tiles(C: int, T: int, G: int, L: int, Rp: int,
+                   pointers_aligned: bool = True) -> dict:
+    """A launch's grid on tile coordinates alone: ``grid`` (row tiles,
+    lane tiles) as gridDim (x, y), and for each lane tile ``r0`` its segment
+    ``g``, first channel ``c0`` and, for an unpack, ``box`` (True: the box
+    path, else the masked path; the same for every row tile of the
+    column)."""
+    tiles_l = -(-L // RELAYOUT_TL)
+    tiles_r = -(-Rp // RELAYOUT_TR)
+    ok = relayout_box_launch(C, T, L, Rp, pointers_aligned)
+    r0 = np.arange(tiles_r, dtype=np.int64) * RELAYOUT_TR
+    g, c0 = r0 // C, r0 % C
+    box = ok & (g < G) & (c0 + RELAYOUT_TR <= C)
+    return {"grid": (tiles_l, tiles_r), "box_launch": ok, "r0": r0, "g": g,
+            "c0": c0, "box": box}
+
+
+def _swizzled(rows: np.ndarray, cols: np.ndarray) -> np.ndarray:
+    """Float offset of element (row, col) of a box of 32-float rows in the
+    128-byte swizzle (csrc/relayout.cu ``swz``)."""
+    return (rows * RELAYOUT_SUB + (((cols // 4) ^ (rows % 8)) * 4)
+            + cols % 4)
+
+
+def emulate_relayout_pack(x: np.ndarray, G: int, L: int, Rp: int):
+    """csrc/relayout.cu's pack, tile by tile, in numpy: each tile of 128
+    rows x 64 lanes read lane by lane along time (zeros for pad lanes and
+    past a lane's valid samples) and stored row by row along lanes, rows
+    past L and lanes past Rp left out. Returns (tm (L, Rp), writes (L, Rp):
+    how often each element was stored)."""
+    C, T = x.shape
+    TL, TR = RELAYOUT_TL, RELAYOUT_TR
+    tiles_l, tiles_r = -(-L // TL), -(-Rp // TR)
+    tm = np.full((L, Rp), np.nan, np.float32)
+    writes = np.zeros((L, Rp), np.int64)
+    for lt in range(tiles_l):
+        l = lt * TL + np.arange(TL)
+        for rt in range(tiles_r):
+            r = rt * TR + np.arange(TR)
+            gr, c = r // C, r % C
+            valid = np.where(r < C * G, np.minimum(L, T - gr * L), 0)
+            t = np.minimum(gr[:, None] * L + l[None, :], T - 1)
+            tile = np.where(l[None, :] < valid[:, None],
+                            x[np.minimum(c, C - 1)[:, None], t], 0.0)
+            rm, lm = r < Rp, l < L
+            tm[np.ix_(l[lm], r[rm])] = tile[np.ix_(rm, lm)].T
+            writes[np.ix_(l[lm], r[rm])] += 1
+    return tm, writes
+
+
+def emulate_relayout_unpack(tm: np.ndarray, C: int, T: int, G: int, L: int,
+                            pointers_aligned: bool = True):
+    """csrc/relayout.cu's unpack, tile by tile, in numpy: box tiles through
+    two TMA boxes of tm seen as (L, Rp) (zeros past L), each thread's two
+    4 x 4 blocks read as four 16-byte rows and stored as four transposed
+    16-byte vectors along time where l < L and t < T; masked tiles lane by
+    lane. Returns (y (C, T), writes (C, T))."""
+    TL, TR, SUB = RELAYOUT_TL, RELAYOUT_TR, RELAYOUT_SUB
+    Rp = tm.shape[1]
+    plan = relayout_tiles(C, T, G, L, Rp, pointers_aligned)
+    y = np.full((C, T), np.nan, np.float32)
+    writes = np.zeros((C, T), np.int64)
+    tmz = np.concatenate([tm, np.zeros((TL, Rp), np.float32)], axis=0)
+    # unpack's 4 x 4 blocks: block b = threadIdx + n*THREADS (n = 0, 1)
+    # takes lane chunk b % 8 of its sub-tile, row group (b // 8) % 32,
+    # sub-tile (b // 8) // 32
+    b = np.arange(2 * RELAYOUT_THREADS)
+    qb8, kb, s = b % 8, (b // 8) % (TL // 4), (b // 8) // (TL // 4)
+    for lt in range(plan["grid"][0]):
+        l0 = lt * TL
+        for rt in range(plan["grid"][1]):
+            r0, g, c0 = (int(plan[k][rt]) for k in ("r0", "g", "c0"))
+            if plan["box"][rt]:
+                tile = np.full(TL * TR, np.nan, np.float32)
+                rows, cols = np.meshgrid(np.arange(TL), np.arange(SUB),
+                                         indexing="ij")
+                for b in range(TR // SUB):           # rows past L: zeros
+                    tile[b * SUB * TL + _swizzled(rows, cols)] = \
+                        tmz[l0 + rows, r0 + b * SUB + cols]
+                l = l0 + 4 * kb
+                m = (l < L) & (g * L + l < T)
+                for j in range(4):
+                    for i in range(4):
+                        v = tile[s * SUB * TL
+                                 + _swizzled(4 * kb + i, 4 * qb8 + j)]
+                        c = c0 + s * SUB + 4 * qb8 + j
+                        t = g * L + l + i
+                        y[c[m], t[m]] = v[m]
+                        np.add.at(writes, (c[m], t[m]), 1)
+                continue
+            r = r0 + np.arange(TR)
+            l = l0 + np.arange(TL)
+            rm = r < C * G
+            tile = np.where((l[None, :] < L) & rm[:, None],
+                            tmz[l[None, :], np.minimum(r, Rp - 1)[:, None]],
+                            0.0)
+            gr, c = r // C, r % C
+            valid = np.where(rm, np.minimum(L, T - gr * L), 0)
+            m = l[None, :] < valid[:, None]
+            cc = np.broadcast_to(c[:, None], m.shape)[m]
+            tt = (gr[:, None] * L + l[None, :])[m]
+            y[cc, tt] = tile[m]
+            np.add.at(writes, (cc, tt), 1)
+    return y, writes
