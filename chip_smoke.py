@@ -49,7 +49,9 @@ failed check raises (exit code != 0, no result line):
    float64 numpy oracle of the whole chain (chain8: over an excerpt, because
    the oracle walks the two automatons sample by sample in Python).
 5. ``stream_path``  the streaming main path: chain8, 64 channels x 30 s,
-   block by block through ``StreamProcessor`` at block size 4096 (323 steps)
+   block by block through ``StreamProcessor`` (its step captured in a CUDA
+   graph in ``warmup()`` and replayed a block) at block
+   size 4096 (323 steps)
    and 512 (2,584 steps), counts set to 0 just before and read just after
    (one launch of the circular convolution's step and one of the serial walk
    a step: the FIR stage and the dynamics stage, nothing else counted). The
@@ -57,12 +59,21 @@ failed check raises (exit code != 0, no result line):
    and whole, against the plain-version stream over a short excerpt, and
    against the float64 oracle excerpt; a checkpoint saved in mid-stream and
    loaded into a fresh processor continues bit-equal; ``render_segmented``
-   equals the streamed fold bit for bit; ``render_resumable`` with an
-   injected stop resumes to the same bits. ``stream_timing``: the step's
+   (the eager ``Chain.step`` fold) equals the streamed one bit for bit;
+   ``render_resumable`` with an injected stop resumes to the same bits.
+   ``compiled_step``: the captured step against the eager ``Chain.step``
+   fold at 64 ch x 30 s and both block sizes: bit-equal, the oracle's dB,
+   one ``conv_pairs`` and one ``serial_walk`` launch counted a step, the
+   whole replay loop under ``torch.cuda.set_sync_debug_mode("error")``, a
+   checkpoint resumed bit-equal, then both steps timed in turns (graph,
+   eager, eager, graph; tensors and numpy in and out) and their device time
+   a step queued behind a spin. ``stream_timing``: the step's
    time (median, p99, max) beside the block's duration, with tensors and
    with numpy in and out, and the old per-sample step once for the record;
    the two streaming kernels at the step's shapes beside their times before
-   the redesign, both versions of the convolution by window and by batch,
+   the redesign and inside a CUDA graph of 64 calls (``in_graph_ms``: no
+   host launch between them), both versions of the convolution by window
+   and by batch,
    and the serial walk's sweep over segment lengths. ``long_windows``: a
    lowcut and chain8 streamed at block size 16,384 (windows of 32,768 and
    65,536 over clusters of two and four blocks), FIRs longer than one
@@ -86,9 +97,12 @@ failed check raises (exit code != 0, no result line):
    in float64), all held to a float64 per-sample recursion (100 dB);
    ``compat``: the reference's own chunk loop through ``compat`` on one
    mono channel (lowcut, the three EQ bands, compressor, gate, delay,
-   tremolo, soft clipper, reverb; numpy in and out), each chunk's time
-   beside 11.61 ms, held to the same effects' ``Chain`` render (90 dB), and
-   the CLI once on a 2-channel wav;
+   tremolo, soft clipper, reverb; numpy in and out; each device warmed on
+   one silent chunk, which captures its step, and reset first), each
+   chunk's time beside 11.61 ms, held to the same effects' ``Chain`` render
+   (90 dB), and the CLI once on a 2-channel wav; the three streams go
+   through captured steps and are each held bit-equal to the same loop of
+   eager steps, whose times stand beside theirs;
    ``runtime``: chain8, mono, B=512 through ``RealtimeEngine``: (a) a
    producer thread pushes the main path's 30 s (2,584 blocks) as fast as
    the ring takes it, the output bit-equal to the StreamProcessor fold, one
@@ -96,7 +110,9 @@ failed check raises (exit code != 0, no result line):
    blocks) through ``DuplexAudioStream`` with a fake ``sounddevice`` whose
    clock thread calls back every 11.61 ms, bit-equal to the fold after the
    ring's whole-block lag; the pump's stats and the under- and overruns
-   reported, not asserted (the host's cores are shared);
+   reported, not asserted (the host's cores are shared); the pump replays
+   the captured step, and the eager step's fold (numpy in and out a
+   block) is held bit-equal to it and timed beside it;
    ``parallel``: chain8 and a chain with an undecayed EQ (timescan) at
    64 ch x 30 s, B=4096 through ``ShardedRenderer``: (i) one rank on NCCL,
    a 1x1 mesh, bit-equal to ``Chain.render``; (ii) two ranks sharing the
@@ -112,9 +128,10 @@ failed check raises (exit code != 0, no result line):
    the fused one, every ``effect.<name>.offline`` scope in the trace with
    the launches of our kernels inside it equal to the launch counters' over
    the same effect, and each scope's device ms against the roofline's cost
-   of its effect; then 64 blocks at B=512 through a ``StreamProcessor`` on
-   the annotated chain under a trace, bit-equal to the unfused chain's
-   steps, every ``effect.<name>.step`` scope with its launches.
+   of its effect; then 64 blocks at B=512 through the annotated chain's
+   eager ``Chain.step`` (a graph's replay has no host scopes) under a
+   trace, bit-equal to the unfused chain's steps, every
+   ``effect.<name>.step`` scope with its launches.
 6. ``kernel_timing``  each kernel at the main-path shapes: time (CUDA events,
    median of 5 after a warm-up; the two streaming kernels, which are over in
    tens of microseconds, as launches queued behind a spin so that the host's
@@ -135,8 +152,9 @@ failed check raises (exit code != 0, no result line):
    rule) and the tail by runs of tiles per channel, down to one tile a run.
 7. ``throughput``  samples/s of the whole render, median of 3 chained passes.
    With ``--profile``, a ``profile`` phase follows: ``torch.profiler`` over a
-   few renders and over a window of streaming steps, device time by kernel
-   name and the device's idle share.
+   few renders and over a window of streaming steps (the graph replays and
+   the eager steps), device time by kernel name and the device's idle
+   share.
 8. the ``{"kernels": [...]}`` summary line (all eight), and as the LAST line
    ``{"ok": true, "device": {...}}``.
 
@@ -171,6 +189,7 @@ from pyaudiodsptools_tpu_torch.kernels import (_build, convpairs,
                                                dynamics as kdyn, relayout,
                                                segconv, tail)
 from pyaudiodsptools_tpu_torch import compat, profiling, roofline as rl
+from pyaudiodsptools_tpu_torch.engine import graph as pt_graph
 from pyaudiodsptools_tpu_torch.__main__ import main as cli_main
 from pyaudiodsptools_tpu_torch.ops import dynamics as ops_dynamics, fft_filter
 from pyaudiodsptools_tpu_torch.ops.eq3band import offline as eq_recurrence
@@ -241,6 +260,9 @@ CHAIN8_DB_PLAIN = 90.0
 # chain8's float64 oracle walks the two automatons sample by sample in Python,
 # so it covers an excerpt: the first 32 blocks of 4096 (2.97 s) of 2 channels.
 ORACLE_EXCERPT = 32 * 4096
+# Calls captured in one CUDA graph to time rows 7 and 8 without the launch
+# rate (graph_ms).
+GRAPH_STEPS = 64
 # Segment counts of the planner's sweep (kernel_timing).
 SWEEP_SEGMENTS = (64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384)
 
@@ -1696,6 +1718,61 @@ def stream_run(chain, cfg, x: torch.Tensor, as_numpy: bool = False,
     return outs, step_s, time.perf_counter() - t_all, counts
 
 
+def eager_run(chain, cfg, x: torch.Tensor, as_numpy: bool = False):
+    """The eager ``Chain.step`` folded over x (C, T), timed as
+    :func:`stream_run` times the processor (the same returns): what a
+    ``StreamProcessor`` did before the step was captured. One step on
+    silence first, discarded, as ``warmup`` did; with ``as_numpy`` a block
+    goes to the card and its output comes back as numpy, one copy each
+    way."""
+    C, T = x.shape
+    B = cfg.block_size
+    state = chain.init_state((C,))
+    chain.step(state, torch.zeros((C, B), device="cuda"))
+    src = x.cpu().numpy() if as_numpy else x
+    outs, step_s = [], []
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t_all = time.perf_counter()
+    for i in range(T // B):
+        t0 = time.perf_counter()
+        blk = src[:, i * B:(i + 1) * B]
+        if as_numpy:
+            blk = torch.from_numpy(np.ascontiguousarray(blk)).cuda()
+        state, y = chain.step(state, blk)
+        outs.append(y.cpu().numpy() if as_numpy else y)
+        step_s.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    torch.cuda.synchronize()
+    return outs, step_s, time.perf_counter() - t_all, counts
+
+
+def graph_ms(fn, steps: int = GRAPH_STEPS, replays: int = 5) -> float:
+    """Device time of one call of ``fn`` when ``steps`` calls are captured
+    in one CUDA graph and the graph is replayed: no host launch between the
+    calls, so the launch rate does not show (measurement only: the launch
+    counters are put back after the capture)."""
+    fn()
+    torch.cuda.synchronize()
+    saved = [getattr(m, a) for m, a in pt_graph.LAUNCH_COUNTERS]
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(steps):
+            fn()
+    for (m, a), v in zip(pt_graph.LAUNCH_COUNTERS, saved):
+        setattr(m, a, v)
+    g.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(replays):
+        g.replay()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / (replays * steps)
+
+
 def plain_chain_step(chain, scalars, state, block):
     """One step of chain8 through the plain versions of the two streaming
     kernels (the tail's members have no kernel in their steps)."""
@@ -1745,7 +1822,8 @@ def stream_path(chain, cfg, signal, n: int, offline_out: torch.Tensor,
          "window": fir_e.params.stream.n, "lead": fir_e.params.lead,
          "history_samples": fft_filter.history_len(fir_e.params),
          "peak": float(streamed.abs().max())}
-    timing = {"tensors_in_and_out": step_stats(step_s, wall_s, block_ms)}
+    timing = {"through": "the captured step (StreamProcessor)",
+              "tensors_in_and_out": step_stats(step_s, wall_s, block_ms)}
 
     # against the offline kernel render, whole and stage by stage
     r["db_offline"] = db_json(snr_db_cuda(offline_out, streamed))
@@ -1844,6 +1922,114 @@ def stream_path(chain, cfg, signal, n: int, offline_out: torch.Tensor,
         timing["step_faithful_dynamics_stage_one_block_ms"] = \
             (time.perf_counter() - t0) * 1e3
     return r, timing, counts
+
+
+def interleaved_runs(chain, cfg, x: torch.Tensor, as_numpy: bool) -> dict:
+    """The whole stream through the captured step (a StreamProcessor) and
+    through the eager ``Chain.step`` in turns, graph, eager, eager, graph:
+    each run's ``step_stats``, by kind."""
+    runs = {"graph": [], "eager": []}
+    for kind in ("graph", "eager", "eager", "graph"):
+        run = stream_run if kind == "graph" else eager_run
+        outs, step_s, wall_s, _ = run(chain, cfg, x, as_numpy=as_numpy)
+        del outs
+        runs[kind].append(step_stats(step_s, wall_s, cfg.block_duration_ms))
+    return runs
+
+
+def compiled_step_phase(chains: dict, signal: torch.Tensor, n: int,
+                        oracles: dict, workdir: str, smi: str) -> dict:
+    """The captured step (``Chain.captured_step``, through
+    ``StreamProcessor``) against the eager ``Chain.step`` fold, chain8 at
+    64 ch x 30 s, B=4096 and 512: bit-equal over the whole stream; the dB
+    to the float64 oracle excerpt; one ``conv_pairs`` and one
+    ``serial_walk`` launch counted a step; the whole replay loop (tensors in
+    and out) under ``torch.cuda.set_sync_debug_mode("error")``; a checkpoint
+    in mid-stream resumed bit-equal in a fresh processor; then the two
+    steps timed in turns (median, p99, max; tensors and numpy in and out)
+    and their device time a step (launches or replays queued behind a
+    spin)."""
+    C = signal.shape[0]
+    by_B, counts_by_run = {}, {}
+    for B in BLOCK_SIZES:
+        cfg, chain = chains[B]
+        T = -(-n // B) * B
+        nb = T // B
+        x = torch.nn.functional.pad(signal, (0, T - n)).contiguous()
+        expect = {k: (nb if k in STREAM_KERNELS else 0) for k in KERNELS}
+        sp = pt.StreamProcessor(chain, cfg, (C,))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sp.warmup()
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        per_step = sp._captured.launches_per_step((C, B))
+        outs, _, _, g_counts = stream_run(chain, cfg, x)
+        graph_out = torch.cat(outs, dim=-1)
+        outs, _, _, e_counts = eager_run(chain, cfg, x)
+        bit_equal = torch.equal(graph_out, torch.cat(outs, dim=-1))
+        del outs
+        m = oracles[B].shape[1]
+        db_oracle = snr_db(oracles[B],
+                           graph_out[[0, C - 1], :m].cpu().numpy())
+
+        # the replay loop may not synchronise
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            synced = [sp.process(x[:, i * B:(i + 1) * B]) for i in range(nb)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        no_sync_equal = torch.equal(torch.cat(synced, dim=-1), graph_out)
+        del synced
+
+        # checkpoint in mid-stream, resumed in a fresh processor
+        half = nb // 2
+        sp.reset()
+        for i in range(half):
+            sp.process(x[:, i * B:(i + 1) * B])
+        ckpt = os.path.join(workdir, f"compiled_{B}.npz")
+        sp.save_state(ckpt)
+        sp2 = pt.StreamProcessor(chain, cfg, (C,))
+        sp2.load_state(ckpt)
+        resumed = torch.cat([sp2.process(x[:, i * B:(i + 1) * B])
+                             for i in range(half, nb)], dim=-1)
+        resume_equal = torch.equal(resumed, graph_out[:, half * B:])
+        del resumed, graph_out
+
+        # device time a step: graph replays, or eager steps, queued
+        blk = x[:, :B]
+        state = chain.init_state((C,))
+        device_ms = {"graph": queued_ms(lambda: sp2._captured.replay(blk)),
+                     "eager": queued_ms(lambda: chain.step(state, blk),
+                                        runs=20)}
+        timing = {"tensors_in_and_out": interleaved_runs(chain, cfg, x,
+                                                         False),
+                  "numpy_in_and_out": interleaved_runs(chain, cfg, x, True)}
+        walls = {k: statistics.mean(r["wall_ms_per_step"] for r in runs)
+                 for k, runs in timing["tensors_in_and_out"].items()}
+        r = {"steps": nb, "bit_equal_to_eager_fold": bit_equal,
+             "db_oracle_2ch": db_json(db_oracle), "oracle_samples": m,
+             "launches_graph": g_counts, "launches_eager": e_counts,
+             "captured_launches_per_step": per_step,
+             "no_sync_replay_loop_equal": no_sync_equal,
+             "checkpoint_resume_equal": resume_equal,
+             "warmup_and_capture_ms": capture_ms,
+             "device_ms_per_step_queued": device_ms,
+             "device_idle_share_tensors": {
+                 k: max(0.0, 1.0 - device_ms[k]["ms"] / walls[k])
+                 for k in walls},
+             "timing": timing}
+        assert bit_equal and no_sync_equal and resume_equal, r
+        assert g_counts == expect and e_counts == expect, r
+        assert per_step == {"convpairs.launch_count": 1,
+                            "dynamics.serial_walk_launch_count": 1}, r
+        assert db_oracle >= CHAIN_DB_ORACLE, r
+        by_B[str(B)] = r
+        counts_by_run[f"graph_{B}"] = g_counts
+        del x
+    return {"phase": "compiled_step", "chain": "chain8", "channels": C,
+            "seconds_of_audio": SECONDS, "by_block_size": by_B,
+            "launch_counts": counts_by_run, "nvidia_smi": smi}
 
 
 # ---------------------------------------------------------------------------
@@ -2186,6 +2372,9 @@ def time_stream_kernels(chain, cfg, streamed_in: torch.Tensor,
         "db_plain": db_json(snr_db_cuda(plain, got)),
         "max_abs_err": float((out - plain[:, n - B:]).abs().max()),
         "ms": q_step["ms"], "host_ms_per_call": q_step["host_ms"],
+        # the same step, GRAPH_STEPS of them captured in one CUDA graph
+        "in_graph_ms": graph_ms(lambda: convpairs.conv_pairs_step(
+            hist, block, plan, lead)),
         "step_equal_conv_pairs": True,
         "step_as_join_convolve_slice_3_launches_ms":
             queued_ms(join_convolve_slice)["ms"],
@@ -2246,6 +2435,7 @@ def time_stream_kernels(chain, cfg, streamed_in: torch.Tensor,
         # encoded states stands beside it
         "headline_is": "cascade_step(scalars, params, states, block)",
         "ms": q_step["ms"], "host_ms_per_call": q_step["host_ms"],
+        "in_graph_ms": graph_ms(lambda: dyn_e.step(dyn_e.params, state, x)),
         "serial_walk_ms": q["ms"],
         "serial_walk_host_ms_per_call": q["host_ms"],
         "cascade_step_equal_walk_and_decoded_states": True,
@@ -2356,21 +2546,31 @@ def time_cluster_by_window() -> dict:
 
 
 def profile_stream(chain, cfg, signal, wall_ms_per_step: float,
-                   steps: int) -> dict:
+                   steps: int, eager: bool = False) -> dict:
     """Device time of ``steps`` streaming steps under ``torch.profiler``, by
     kernel name, and the device's idle share of a step: 1 - busy time over
-    ``wall_ms_per_step`` (taken WITHOUT the profiler, see profile_renders)."""
+    ``wall_ms_per_step`` (taken WITHOUT the profiler, see profile_renders).
+    The steps are a StreamProcessor's (graph replays), or with ``eager``
+    the eager ``Chain.step``'s."""
     from torch.profiler import ProfilerActivity, profile
 
     C, B = signal.shape[0], cfg.block_size
-    sp = pt.StreamProcessor(chain, cfg, (C,))
-    sp.warmup()
+    if eager:
+        state = [chain.init_state((C,))]
+
+        def step(block):
+            state[0], y = chain.step(state[0], block)
+            return y
+    else:
+        sp = pt.StreamProcessor(chain, cfg, (C,))
+        sp.warmup()
+        step = sp.process
     for i in range(8):
-        sp.process(signal[:, i * B:(i + 1) * B])
+        step(signal[:, i * B:(i + 1) * B])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for i in range(8, 8 + steps):
-            sp.process(signal[:, i * B:(i + 1) * B])
+            step(signal[:, i * B:(i + 1) * B])
         torch.cuda.synchronize()
     by_name, launches = {}, 0
     for ev in prof.key_averages():
@@ -2383,7 +2583,13 @@ def profile_stream(chain, cfg, signal, wall_ms_per_step: float,
             by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3 / steps
             launches += ev.count
     if not by_name:
-        raise RuntimeError("torch.profiler recorded no device time")
+        if eager:
+            raise RuntimeError("torch.profiler recorded no device time")
+        # the profiler may not see the kernels inside a graph's replay:
+        # compiled_step's queued replays give the device time instead
+        return {"steps": steps, "device_busy_ms_per_step": None,
+                "wall_ms_per_step": wall_ms_per_step,
+                "profiler": "recorded no device time in the graph replays"}
     busy_ms = sum(by_name.values())
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
     return {"steps": steps, "device_launches_per_step": launches / steps,
@@ -2566,6 +2772,10 @@ def reverb_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
         and sum(counts.values()) == 2 * REVERB_STREAM_BLOCKS, counts
     runs["stream_512"] = counts
     streamed = torch.cat(outs, dim=-1)
+    e_outs, e_step_s, e_wall_s, e_counts = eager_run(chain, cfg, xs)
+    eager_equal = torch.equal(torch.cat(e_outs, dim=-1), streamed)
+    del e_outs
+    assert eager_equal and e_counts == counts, (eager_equal, e_counts)
     db = snr_db_cuda(pt.render(chain, xs, cfg), streamed)
     hist = torch.zeros((C, eff.params.line1.highcut.history), device="cuda")
     r["stream"] = {"B": B, "launches": counts,
@@ -2575,7 +2785,11 @@ def reverb_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
                        lambda: fft_filter.fir_step(
                            eff.params.line1.highcut, {"hist": hist},
                            xs[:, :B])),
-                   **step_stats(step_s, wall_s, cfg.block_duration_ms)}
+                   "through": "the captured step (StreamProcessor)",
+                   **step_stats(step_s, wall_s, cfg.block_duration_ms),
+                   "bit_equal_to_eager_fold": eager_equal,
+                   "eager": step_stats(e_step_s, e_wall_s,
+                                       cfg.block_duration_ms)}
     assert db >= STREAM_DB, r
     return r
 
@@ -2626,6 +2840,9 @@ def eq3band_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
     outs, step_s, wall_s, scounts = stream_run(chain, cfg, xs)
     assert sum(scounts.values()) == 0, scounts
     streamed = torch.cat(outs, dim=-1)
+    e_outs, e_step_s, e_wall_s, _ = eager_run(chain, cfg, xs)
+    eager_equal = torch.equal(torch.cat(e_outs, dim=-1), streamed)
+    del e_outs
     dbs = {"fir_db_oracle_2ch": snr_db(oracle, out[pick, :m].cpu().numpy()),
            "recurrence_db_oracle_2ch": snr_db(oracle,
                                               rec[pick, :m].cpu().numpy()),
@@ -2646,12 +2863,38 @@ def eq3band_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
          "fir_segconv_ms": time_ms(lambda: eff.offline(eff.params, blocks)),
          "recurrence_offline_ms": time_ms(
              lambda: eq_recurrence(eff.params, blocks), runs=1),
-         "stream": step_stats(step_s, wall_s, cfg.block_duration_ms),
+         "stream": {"through": "the captured step (StreamProcessor)",
+                    **step_stats(step_s, wall_s, cfg.block_duration_ms),
+                    "bit_equal_to_eager_fold": eager_equal,
+                    "eager": step_stats(e_step_s, e_wall_s,
+                                        cfg.block_duration_ms)},
          "nvidia_smi": smi}
+    assert eager_equal, r
     assert all(v >= EQ_DB_ORACLE for k, v in dbs.items() if "oracle" in k), r
     assert dbs["fir_db_plain"] >= CONV_DB_PLAIN, r
     assert dbs["stream_db_recurrence"] >= EQ_DB_ORACLE, r
     return r
+
+
+def eager_chunk_loop(effects, chunks) -> tuple[list, list]:
+    """The compat chunk loop with each effect's eager step, numpy in and
+    out of every device as ``apply`` did before the steps were captured:
+    (per-chunk seconds, outputs)."""
+    states = [e.state() for e in effects]
+    times, outs = [], []
+    torch.cuda.synchronize()
+    for c in chunks:
+        t0 = time.perf_counter()
+        y = c
+        for j, e in enumerate(effects):
+            blk = torch.from_numpy(np.ascontiguousarray(
+                y, dtype=np.float32)).cuda()
+            with torch.inference_mode():
+                states[j], out = e.step(e.params, states[j], blk)
+            y = out.cpu().numpy()
+        times.append(time.perf_counter() - t0)
+        outs.append(y)
+    return times, outs
 
 
 def compat_phase(signal: torch.Tensor, n: int, workdir: str,
@@ -2671,8 +2914,19 @@ def compat_phase(signal: torch.Tensor, n: int, workdir: str,
     clip = compat.CreateSoftClipper(0.44)
     rev = compat.CreateReverb(REVERB_MS)
     assert low._effect.device.type == "cuda"
+    in_order = [low, eq._low, eq._mid, eq._high, comp, gate, delay, trem,
+                clip, rev]
     x = signal[0, :n].cpu().numpy()
     chunks = compat.MakeChunks(x)
+    # each device's first chunk of a length captures its step (the JAX
+    # devices compile at their first apply): one silent chunk, then reset
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for d in in_order:
+        d.apply(np.zeros(COMPAT_CHUNK, np.float32))
+        d.reset()
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
     times, outs = [], []
     torch.cuda.synchronize()
     zero_launch_counts()
@@ -2693,6 +2947,12 @@ def compat_phase(signal: torch.Tensor, n: int, workdir: str,
         and sum(counts.values()) == 5 * k, counts
     got = compat.CombineChunks(outs)
     assert got.shape == (k * COMPAT_CHUNK,) and np.isfinite(got).all()
+    # the same chunk loop with each effect stepped eagerly, as ``apply`` did
+    # before the steps were captured
+    e_times, e_outs = eager_chunk_loop([d._effect for d in in_order], chunks)
+    eager_equal = np.array_equal(compat.CombineChunks(e_outs), got)
+    assert eager_equal, int((compat.CombineChunks(e_outs) != got).sum())
+    e_ms = [t * 1e3 for t in e_times]
     effects = [low._effect, eq._low._effect, eq._mid._effect,
                eq._high._effect, comp._effect, gate._effect, delay._effect,
                trem._effect, clip._effect, rev._effect]
@@ -2713,6 +2973,12 @@ def compat_phase(signal: torch.Tensor, n: int, workdir: str,
          "apply_first_ms": ms[0], "apply_max_after_first_ms": max(ms[1:]),
          "chunks_over_budget": sum(t > cfg.block_duration_ms for t in ms),
          "chunk_budget_ms": cfg.block_duration_ms,
+         "through": "each device's captured step",
+         "warm_and_capture_all_devices_ms": capture_ms,
+         "bit_equal_to_eager_loop": eager_equal,
+         "eager": {"apply_median_ms": statistics.median(e_ms),
+                   "apply_p99_ms": percentile(e_ms, 99),
+                   "apply_max_ms": max(e_ms)},
          "compressor_step_queued_1ch": queued_ms(
              lambda: comp._effect.step(comp._effect.params,
                                        comp._state,
@@ -2752,7 +3018,7 @@ PACED_SECONDS = 5.0
 
 def runtime_fold(chain, cfg, x: np.ndarray) -> np.ndarray:
     """StreamProcessor folded over x (mono, whole blocks) on a fresh state,
-    numpy in and out as the engine's pump steps it."""
+    numpy in and out as the engine's pump steps it (the captured step)."""
     sp = pt.StreamProcessor(chain, cfg)
     B = cfg.block_size
     return np.concatenate([sp.process(x[i:i + B])
@@ -2908,6 +3174,14 @@ def runtime_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
     runtime_native.load()                 # built before any pump runs
     a = runtime_unpaced(chain, cfg, x)
     want = runtime_fold(chain, cfg, x)
+    # the eager step, numpy in and out a block, as the pump ran it before
+    # the step was captured: the same bits, its time beside the pump's
+    e_outs, e_step_s, e_wall_s, _ = eager_run(
+        chain, cfg, torch.from_numpy(x)[None].cuda(), as_numpy=True)
+    eager_equal = np.array_equal(np.concatenate([o[0] for o in e_outs]),
+                                 want)
+    del e_outs
+    assert eager_equal
     expect = {name: (nb if name in STREAM_KERNELS else 0) for name in KERNELS}
     assert a["counts"] == expect, a["counts"]
     assert np.array_equal(a["out"], want), \
@@ -2917,7 +3191,12 @@ def runtime_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
                "bit_equal_to_fold": True, "pump": a["stats"],
                "wall_s": a["wall_s"],
                "ms_per_block_wall": a["wall_s"] * 1e3 / nb,
-               "deadline_ms": deadline_ms}
+               "deadline_ms": deadline_ms,
+               "through": "the captured step (StreamProcessor in the pump)",
+               "fold_bit_equal_to_eager_fold": eager_equal,
+               "eager_numpy_step": {
+                   **step_stats(e_step_s, e_wall_s, deadline_ms),
+                   "mean_ms": statistics.mean(e_step_s) * 1e3}}
 
     nb5 = int(round(PACED_SECONDS * SAMPLE_RATE / B))
     x5 = x[:nb5 * B]
@@ -3337,9 +3616,10 @@ def profiling_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
     every ``effect.<name>.offline`` scope in the trace; (c) each scope's
     launches equal to the counters' over the same effect's pass; (d) each
     scope's device ms against the roofline's cost of its effect; (e) at
-    B=512, 64 blocks through a ``StreamProcessor`` on the annotated chain
-    under a trace, bit-equal to the unfused chain's steps, every
-    ``effect.<name>.step`` scope with its launches."""
+    B=512, 64 blocks through the annotated chain's eager ``Chain.step``
+    under a trace (a captured step's replay has no host scopes), bit-equal
+    to the unfused chain's steps, every ``effect.<name>.step`` scope with
+    its launches."""
     pk = rl.peaks_for_device()
     C = signal.shape[0]
     runs, launch_counts_by_run, chains = {}, {}, {}
@@ -3403,14 +3683,19 @@ def profiling_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
     cfg, bare, ann = chains[B]
     xs = signal[:, :PROFILE_STREAM_BLOCKS * B]
     blocks = [xs[:, i * B:(i + 1) * B] for i in range(PROFILE_STREAM_BLOCKS)]
-    sp = pt.StreamProcessor(bare, cfg, (C,))
-    sp.warmup()
-    want = torch.cat([sp.process(b) for b in blocks], dim=-1)
-    sp = pt.StreamProcessor(ann, cfg, (C,))
-    sp.warmup()
+    def fold(chain):
+        state = chain.init_state((C,))
+        outs = []
+        for b in blocks:
+            state, y = chain.step(state, b)
+            outs.append(y)
+        return outs
+
+    want = torch.cat(fold(bare), dim=-1)
+    fold(ann)                                   # warm-up, untraced
     with tempfile.TemporaryDirectory() as d:
         with profiling.trace(d):
-            outs, streamed = counted(lambda: [sp.process(b) for b in blocks])
+            outs, streamed = counted(lambda: fold(ann))
         table = scope_table(read_trace(d))
     bit_equal = torch.equal(torch.cat(outs, dim=-1), want)
     scopes = table["scopes"]
@@ -3584,6 +3869,12 @@ def main() -> None:
           "launches": {name: launches[name] for name in STREAM_KERNELS},
           "by_block_size": {str(B): stream_checks[B] for B in BLOCK_SIZES},
           "nvidia_smi": smi})
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        compiled = compiled_step_phase(chains, signal, n, oracles, workdir,
+                                       smi)
+    path_launches["compiled_step"] = compiled["launch_counts"]
+    emit({**compiled, "seconds": round(time.perf_counter() - t0, 1)})
     for B in BLOCK_SIZES:
         cfg, chain = chains[B]
         T = -(-n // B) * B
@@ -3672,11 +3963,17 @@ def main() -> None:
                   str(B): profile_renders(chains[B][1], signal, chains[B][0],
                                           rates[str(B)]["render_ms"])
                   for B in BLOCK_SIZES},
+              # the graph replays and the eager steps, each idle share
+              # against its own wall time a step (compiled_step's runs)
               "stream_by_block_size": {
-                  str(B): profile_stream(
+                  str(B): {kind: profile_stream(
                       chains[B][1], chains[B][0], signal,
-                      stream_times[B]["tensors_in_and_out"]["wall_ms_per_step"],
-                      steps=min(200, n // B - 8))
+                      statistics.mean(
+                          r["wall_ms_per_step"] for r in compiled[
+                              "by_block_size"][str(B)]["timing"][
+                              "tensors_in_and_out"][kind]),
+                      steps=min(200, n // B - 8), eager=kind == "eager")
+                      for kind in ("graph", "eager")}
                   for B in BLOCK_SIZES},
               "nvidia_smi": smi})
 
@@ -3704,10 +4001,13 @@ def main() -> None:
                 "hbm_roofline_pct", "fp32_roofline_pct", "bound")},
             # a bound the card can reach: a near-empty launch's device time
             "launch_floor_ms": near_empty["ms"],
+            # rows 7-8: a call's device time inside a graph of GRAPH_STEPS
+            **({"in_graph_ms": h["in_graph_ms"]} if "in_graph_ms" in h
+               else {}),
             "by_block_size": {str(B): {k: v[k] for k in (
                 "ms", "plain_ms", "library_ms", "copy_ms", "queued_ms",
                 "copy_queued_ms", "masked_path_queued_ms", "bound_ms",
-                "bound_by",
+                "bound_by", "in_graph_ms",
                 "roofline", "critical_path_ms", "serial_walk_ms",
                 "conv_pairs_ms", "conv_pairs_bound_ms")
                 if k in v}

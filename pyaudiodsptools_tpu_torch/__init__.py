@@ -7,7 +7,9 @@ into one cascade of speculative segment-parallel walks, and delay / tremolo /
 waveshaper runs into one tail pass, and all of those run as CUDA C++ kernels
 written by hand for sm_90a (``csrc/``, built at first use). Streaming steps
 block by block through two more: the circular convolution of the FIR window
-and the serial dynamics walk. It imports
+and the serial dynamics walk, the whole step captured once in a CUDA graph
+and replayed a block (the counterpart of the JAX package's jitted step). It
+imports
 ``torch`` and ``numpy``, and nothing of JAX or of the JAX package.
 
 Entry points run on ``"cuda"`` unless the caller passes ``device="cpu"``; on
@@ -18,8 +20,9 @@ Layers:
             gain / dBV / dither utilities, meters
   ops       the effect library: every effect of the JAX package
   kernels   CUDA kernel wrappers, plain versions, and the nvcc build
-  engine    Chain composition and fusion, offline render, StreamProcessor,
-            segmented and resumable render
+  engine    Chain composition and fusion, offline render, StreamProcessor
+            and the captured step it replays, segmented and resumable
+            render
   runtime   realtime: native SPSC rings and a pump thread around the
             streaming step, and a PortAudio duplex adapter
   parallel  one process a device over ``torch.distributed``: the

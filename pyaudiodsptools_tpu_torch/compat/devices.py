@@ -5,8 +5,12 @@ effect of :mod:`pyaudiodsptools_tpu_torch.ops` with its state, reproducing
 the reference's stateful-object contract: a numpy array (or a tensor) in, a
 numpy array of the same length out, so that a pyAudioDspTools user can switch
 imports and keep their chunk loop. The effect lives on the device that
-:func:`..compat.config.initialize` named (the card unless it named the CPU),
-and ``apply`` steps it there under ``torch.inference_mode()``.
+:func:`..compat.config.initialize` named (the card unless it named the CPU).
+On the card each device replays its own captured step
+(``engine/graph.py``), as each JAX device calls its own jitted step: the
+first chunk of a length captures the step for that length, later chunks of
+it replay the graph. On the CPU ``apply`` steps the effect eagerly under
+``torch.inference_mode()``.
 
 Construction snapshots :mod:`..compat.config` like the reference snapshots
 its global config.
@@ -18,15 +22,27 @@ import numpy as np
 import torch
 
 from .. import ops
+from ..engine.graph import CapturedStep
 from . import config as _config
 
 
 class _Device:
-    """Base wrapper: owns an Effect and its state."""
+    """Base wrapper: owns an Effect and its state (on the card, in its
+    captured step's buffers)."""
 
     def __init__(self, effect):
         self._effect = effect
-        self._state = effect.state()
+        self._captured = CapturedStep((effect,), effect.device) \
+            if effect.device.type == "cuda" else None
+        self._eager_state = None if self._captured is not None \
+            else effect.state()
+
+    @property
+    def _state(self):
+        """The effect's state (on the card a copy of the buffers)."""
+        if self._captured is not None:
+            return self._captured.state[0]
+        return self._eager_state
 
     def apply(self, float_array_input):
         """Process one chunk, advancing the state (reference contract: the
@@ -34,14 +50,19 @@ class _Device:
         x = float_array_input
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32))
+        if self._captured is not None:
+            return self._captured.replay(x).cpu().numpy()
         x = x.to(device=self._effect.device, dtype=torch.float32)
         with torch.inference_mode():
-            self._state, out = self._effect.step(self._effect.params,
-                                                 self._state, x)
+            self._eager_state, out = self._effect.step(
+                self._effect.params, self._eager_state, x)
         return out.cpu().numpy()
 
     def reset(self):
-        self._state = self._effect.state()
+        if self._captured is not None:
+            self._captured.reset()
+        else:
+            self._eager_state = self._effect.state()
 
 
 def _cfg_dev():

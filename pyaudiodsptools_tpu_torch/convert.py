@@ -44,7 +44,8 @@ holds them to that.
 leaves of a JAX chain state as numpy arrays, in ``jax.tree.flatten`` order
 (which is the order of the port's ``engine.stream.state_leaves``, whatever
 runs either chain fused). Dynamics fields, delay and reverb buffers and the
-tremolo's position are the same on both sides. A FIR history is not (also a
+tremolo's position (two 0-d int32 leaves, shared by every channel) are the
+same on both sides. A FIR history is not (also a
 reverb line's high-cut's): the JAX step keeps ``halo_stream`` whole blocks
 for its own window, the port keeps the samples its windows reach back
 (``fft_filter.history_len``), so the history is cut from the end of the JAX
@@ -194,18 +195,21 @@ def state_from_numpy(chain: Chain, jax_state_leaves):
         raise ValueError("too few state leaves for this chain") from None
     if next(it, None) is not None:
         raise ValueError("too many state leaves for this chain")
-    # The batch shape is whatever a tensor leaf carries besides its own axes
-    # (a JAX FIR history has two of its own, blocks and samples, behind it;
-    # an EQ word has the bands in front of it).
+    # The batch shape is whatever a leaf that has one carries besides its own
+    # axes (a JAX FIR history has two of its own, blocks and samples, behind
+    # it; an EQ word has the bands in front of it). The tremolo's position
+    # has none: its leaves keep their shape whatever the batch.
+    probe = state_paths(chain.init_state((1,)))
     batch_shape = ()
-    for (path, own), leaf in zip(bare, leaves):
-        if isinstance(own, torch.Tensor):
-            if path[0] in eq:
-                batch_shape = tuple(leaf.shape[1:])
-            else:
-                own_axes = 2 if path[-1] == "hist" else own.dim()
-                batch_shape = tuple(leaf.shape[:leaf.ndim - own_axes])
-            break
+    for (path, own), (_, one), leaf in zip(bare, probe, leaves):
+        if one.dim() == own.dim():
+            continue
+        if path[0] in eq:
+            batch_shape = tuple(leaf.shape[1:])
+        else:
+            own_axes = 2 if path[-1] == "hist" else own.dim()
+            batch_shape = tuple(leaf.shape[:leaf.ndim - own_axes])
+        break
     template = state_paths(chain.init_state(batch_shape))
     converted = []
     for (path, own), leaf in zip(template, leaves):

@@ -8,8 +8,16 @@ streaming step over the blocks.
 Differences from the JAX package, all of them consequences of PyTorch
 running eagerly:
 
-* there is no ``jit``, so there is no structure/params split and no compiled
-  program cache;
+* what the JAX package jit-compiles, the port runs eagerly, with one
+  exception: the streaming step on the card. :meth:`Chain.captured_step`
+  captures ``chain_step`` in a CUDA graph per block shape and replays it
+  (``engine/graph.py``), as the JAX chain calls its jitted step;
+  ``StreamProcessor``, the realtime pump and the ``compat`` devices stream
+  through it. :meth:`Chain.step` stays eager: it is the captured step's
+  reference, and ``profiling.annotate_chain`` scopes it. The offline render
+  is not captured: the dynamics walks read back once per walk to reach
+  their fixpoint, which JAX keeps inside the program as a ``while_loop``;
+* there is no structure/params split: the params are the effects' own;
 * the device is an argument of the Chain (default ``"cuda"``) and not a
   process-wide backend read at build time;
 * fusion does not depend on the device: LTI runs, dynamics runs and tail runs
@@ -74,9 +82,17 @@ class Chain:
 
     def step(self, state, block: torch.Tensor):
         """Process one ``(..., block_size)`` block (on the chain's device)
-        through the whole chain: (state, block) -> (state, block). On the
-        card a step is a few dozen launches and reads nothing back."""
+        through the whole chain: (state, block) -> (state, block), eagerly.
+        On the card a step is a few dozen launches and reads nothing back."""
         return chain_step(self._exec_effects, self.params, state, block)
+
+    def captured_step(self, batch_shape: tuple[int, ...] = ()):
+        """The streaming step as CUDA graphs, the state of ``batch_shape``
+        in the step's own buffers (:class:`~.graph.CapturedStep`): bit-equal
+        to folding :meth:`step`. Only for a chain on the card."""
+        from .graph import CapturedStep
+
+        return CapturedStep(self._exec_effects, self.device, batch_shape)
 
     def render_blocks(self, blocks: torch.Tensor,
                       use_kernels: bool = True) -> torch.Tensor:

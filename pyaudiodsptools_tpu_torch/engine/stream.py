@@ -3,15 +3,19 @@
 Counterpart of ``pyaudiodsptools_tpu/engine/stream.py``. The reference's
 realtime path is an audio callback that mutates device state, with a
 deadline of one block's duration (512 samples at 44.1 kHz: 11.6 ms). Here a
-host-side processor feeds fixed-size blocks to the chain's step and carries
-the state explicitly. A step on the card is a few dozen launches and holds no
-read-back, so with tensors in and out the host runs ahead of the card; with
-numpy in and out every block costs one copy each way and a synchronisation,
-which is what a callback pays anyway.
+host-side processor feeds fixed-size blocks to a pre-compiled chain step and
+carries the state. On the card the step is the chain's captured step
+(``engine/graph.py``): ``warmup()`` captures it in a CUDA graph and every
+block replays that graph, as the JAX processor calls its jitted step; the
+state then lives in the graph's own buffers. With tensors in and out nothing
+waits for the card; with numpy in and out every block costs one copy each
+way and a synchronisation, which is what a callback pays anyway. On a CPU
+chain (the caller asked for the CPU) every block runs the eager
+``Chain.step``.
 
 The state is a tree of tuples and dicts whose leaves are tensors on the
-chain's device (filter histories, envelope counters, delay buffers) or plain
-ints (the tremolo's LFO position). :func:`state_leaves` lists the leaves in
+chain's device (filter histories, envelope counters, delay buffers, the
+tremolo's 0-d int32 LFO position). :func:`state_leaves` lists the leaves in
 the order the JAX package's ``jax.tree.flatten`` does (tuples in order, dicts
 by sorted key), and a checkpoint is an ``.npz`` of those leaves, so feeding
 it back is all resume takes.
@@ -47,9 +51,10 @@ def state_leaves(state) -> list:
 
 def state_from_leaves(template, leaves: Iterable) -> Any:
     """A state shaped like ``template`` from ``leaves`` (numpy arrays or
-    anything ``np.asarray`` takes) in :func:`state_leaves` order. A tensor
-    leaf takes the template leaf's device and dtype and must have its shape;
-    an int leaf stays a plain int."""
+    anything ``np.asarray`` takes) in :func:`state_leaves` order. Each leaf
+    takes the template leaf's device and dtype and must have its shape (a
+    checkpoint written before the tremolo's position became int32 tensors
+    holds it as int64 scalars, which load the same)."""
     it = iter(leaves)
 
     def build(node):
@@ -62,15 +67,13 @@ def state_from_leaves(template, leaves: Iterable) -> Any:
             leaf = np.asarray(next(it))
         except StopIteration:
             raise ValueError("too few leaves for this chain's state") from None
-        if isinstance(node, torch.Tensor):
-            if leaf.shape != tuple(node.shape):
-                raise ValueError(
-                    f"state leaf of shape {leaf.shape} where this chain "
-                    f"keeps {tuple(node.shape)}")
-            # a copy: the state must not share memory with the caller's
-            return torch.from_numpy(np.array(leaf)).to(
-                device=node.device, dtype=node.dtype)
-        return type(node)(leaf)
+        if leaf.shape != tuple(node.shape):
+            raise ValueError(
+                f"state leaf of shape {leaf.shape} where this chain "
+                f"keeps {tuple(node.shape)}")
+        # a copy: the state must not share memory with the caller's
+        return torch.from_numpy(np.array(leaf)).to(
+            device=node.device, dtype=node.dtype)
 
     state = build(template)
     if next(it, None) is not None:
@@ -82,7 +85,6 @@ def save_state_npz(file, state) -> None:
     """Write the state's leaves, in order, as one ``.npz`` (``file`` is a
     path or an open binary file)."""
     np.savez(file, *[leaf.detach().cpu().numpy()
-                     if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
                      for leaf in state_leaves(state)])
 
 
@@ -96,8 +98,13 @@ class StreamProcessor:
     """Carries chain state across fixed-size blocks.
 
     >>> sp = StreamProcessor(chain, cfg)
-    >>> sp.warmup()                  # build and load before the deadline
+    >>> sp.warmup()                  # build, load, capture: before the deadline
     >>> out = sp.process(block)      # inside the audio callback
+
+    On a CUDA chain every block replays the chain's captured step
+    (:meth:`Chain.captured_step`); ``state``, ``reset``, ``save_state`` and
+    ``load_state`` act on its buffers. A capture that fails raises: nothing
+    falls back to launching the step's kernels one by one.
     """
 
     def __init__(self, chain: Chain, cfg: EngineConfig,
@@ -105,30 +112,54 @@ class StreamProcessor:
         self.chain = chain
         self.cfg = cfg
         self.batch_shape = tuple(batch_shape)
-        self.state = chain.init_state(self.batch_shape)
+        self._captured = chain.captured_step(self.batch_shape) \
+            if chain.device.type == "cuda" else None
+        self._state = None if self._captured is not None \
+            else chain.init_state(self.batch_shape)
+
+    @property
+    def state(self):
+        """The carried state. On the card a copy of the captured step's
+        buffers (it does not follow later blocks); setting it copies the
+        given state in."""
+        if self._captured is not None:
+            return self._captured.state
+        return self._state
+
+    @state.setter
+    def state(self, value) -> None:
+        if self._captured is not None:
+            self._captured.load_state(value)
+        else:
+            self._state = value
 
     def warmup(self) -> None:
-        """Run one step on silence and discard it (the state is unchanged).
-        On the card the first step also compiles the CUDA kernels with
-        ``nvcc`` if this checkout has not built them yet (seconds), loads
-        them, and waits for the device, so that the first real block meets
-        none of that."""
-        silent = torch.zeros(self.batch_shape + (self.cfg.block_size,),
-                             dtype=self.cfg.dtype, device=self.chain.device)
-        self.chain.step(self.state, silent)
-        if self.chain.device.type == "cuda":
+        """Make the first real block meet no set-up, and leave the state as
+        it was. On the card: compile the CUDA kernels with ``nvcc`` if this
+        checkout has not built them yet (seconds), load them, capture the
+        step for this processor's block shape and wait for the device. On
+        the CPU: one step on silence, discarded."""
+        shape = self.batch_shape + (self.cfg.block_size,)
+        if self._captured is not None:
+            self._captured.capture(shape)
             torch.cuda.synchronize(self.chain.device)
+            return
+        silent = torch.zeros(shape, dtype=self.cfg.dtype,
+                             device=self.chain.device)
+        self.chain.step(self._state, silent)
 
     def process(self, block):
         """Process one ``(..., block_size)`` block, advancing the state. A
-        tensor (on the chain's device) gives a tensor there and waits for
-        nothing; a numpy array gives a numpy array. A shorter final block is
-        padded with silence, stepped whole, and cut back to its length."""
+        tensor (on the chain's device) gives a new tensor there and waits
+        for nothing; a numpy array gives a numpy array. A shorter final
+        block is padded with silence, stepped whole, and cut back to its
+        length."""
         as_numpy = not isinstance(block, torch.Tensor)
         if as_numpy:
             block = torch.from_numpy(
-                np.ascontiguousarray(block, dtype=np.float32)
-            ).to(self.chain.device)
+                np.ascontiguousarray(block, dtype=np.float32))
+            if self._captured is None:
+                block = block.to(self.chain.device)
         elif block.device.type != self.chain.device.type:
             raise ValueError(
                 f"the block is on {block.device} but the chain runs on "
@@ -141,7 +172,11 @@ class StreamProcessor:
                     f"{self.cfg.block_size}")
             block = torch.nn.functional.pad(block,
                                             (0, self.cfg.block_size - n))
-        self.state, out = self.chain.step(self.state, block)
+        if self._captured is not None:
+            # the graph's output buffer: the next block overwrites it
+            out = self._captured.replay(block)[..., :n]
+            return out.cpu().numpy() if as_numpy else out.clone()
+        self._state, out = self.chain.step(self._state, block)
         out = out[..., :n]
         return out.cpu().numpy() if as_numpy else out
 
@@ -150,7 +185,10 @@ class StreamProcessor:
             yield self.process(b)
 
     def reset(self) -> None:
-        self.state = self.chain.init_state(self.batch_shape)
+        if self._captured is not None:
+            self._captured.reset()
+        else:
+            self._state = self.chain.init_state(self.batch_shape)
 
     # -- checkpoint / resume -------------------------------------------------
 
@@ -158,4 +196,5 @@ class StreamProcessor:
         save_state_npz(path, self.state)
 
     def load_state(self, path: str) -> None:
-        self.state = load_state_npz(path, self.state)
+        self.state = load_state_npz(path, self.chain.init_state(
+            self.batch_shape))

@@ -93,18 +93,21 @@ def rbj_highshelf(fs: float, freq: float, gain_db: float, q: float = 1.0):
     return np.array([b0, b1, b2, a0, a1, a2])
 
 
-@params_dataclass(meta_fields=("n_bands", "use_fir", "block_size"))
+@params_dataclass(meta_fields=("n_bands", "use_fir", "block_size", "rows",
+                               "poles"))
 class EQ3BandParams:
     coeffs: torch.Tensor     # (n_bands, 5) float64 on the host: b0 b1 b2 a1 a2
     toeplitz: torch.Tensor   # (n_bands, 2, CHUNK, CHUNK) complex128: the
                              # Toeplitz matrix of p^(n-m) of each pole
     powers: torch.Tensor     # (n_bands, 2, CHUNK) complex128: p^(n+1)
-    poles: torch.Tensor      # (n_bands, 2) complex128 on the host: p1, p2
     fir: fft_filter.FIRParams | None   # the FIR-ised offline path, or None
                              # where the response did not decay in the cap
     n_bands: int
     use_fir: bool
     block_size: int
+    rows: tuple              # ``coeffs`` as Python floats, per band
+    poles: tuple             # (p1, p2) per band, Python complexes (the step
+                             # reads these and ``rows`` on every block)
 
 
 def _impulse_response(rows: np.ndarray) -> np.ndarray | None:
@@ -184,10 +187,11 @@ def from_rows(rows, block_size: int, name: str, device=DEFAULT_DEVICE
             [[g for g, _ in band] for band in tables])).to(dev),
         powers=torch.from_numpy(np.stack(
             [[pw for _, pw in band] for band in tables])).to(dev),
-        poles=torch.tensor(pole_pairs, dtype=torch.complex128),
         fir=(fft_filter.fir(h, block_size, device=dev).params
              if h is not None else None),
-        n_bands=len(rows), use_fir=h is not None, block_size=block_size)
+        n_bands=len(rows), use_fir=h is not None, block_size=block_size,
+        rows=tuple(tuple(float(v) for v in r) for r in rows),
+        poles=tuple(pole_pairs))
     # Decayed cascade: offline = one segmented convolution (parity with the
     # recursion to the 1e-9 truncation level, and time-parallel). Undecayed:
     # the exact float64 recurrence, channel-parallel only.
@@ -266,7 +270,7 @@ def _allpole(c: torch.Tensor, y1: torch.Tensor, y2: torch.Tensor,
     ``c`` (R, T) from the state (y1, y2) (R,): the band's two first-order
     sections, ``w[-1] = y1 - p2 y2`` and ``y[-1] = y1``."""
     G, P = params.toeplitz[band], params.powers[band]
-    p2 = complex(params.poles[band, 1])
+    p2 = params.poles[band][1]
     cx = c.to(torch.complex128)
     w = _section(cx, (y1 - p2 * y2).to(torch.complex128), G[0], P[0])
     return _section(w, y1.to(torch.complex128), G[1], P[1]).real
@@ -278,11 +282,10 @@ def _apply(params: EQ3BandParams, state, x: torch.Tensor):
     batch = x.shape[:-1]
     T = x.shape[-1]
     v = x.to(torch.float64).reshape(-1, T)
-    coeffs = params.coeffs.tolist()
     new = {k: [] for k in STATE_KEYS}
     for band in range(params.n_bands):
         st = {k: state[k][band].reshape(-1) for k in STATE_KEYS}
-        b0, b1, b2, _, _ = coeffs[band]
+        b0, b1, b2, _, _ = params.rows[band]
         xe = torch.cat([st["x3"][:, None], st["x2"][:, None],
                         st["x1"][:, None], v], dim=-1)   # x[-3] .. x[T-1]
         c = b0 * xe[:, 2:-1] + b1 * xe[:, 1:-2] + b2 * xe[:, :-3]

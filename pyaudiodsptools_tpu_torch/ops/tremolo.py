@@ -8,6 +8,12 @@ the rolling copy's remaining length hits exactly the chunk size, the phase
 freezes and that LFO segment repeats for all later chunks. The
 ``phase``/``avail`` carry replicates this; the offline path precomputes the
 per-block phase schedule on the host.
+
+As in the JAX package, the carry is two 0-d ``int32`` tensors on the
+effect's device and a step advances them with tensor operations: a step
+reads nothing back, so a CUDA graph that captures it
+(``engine/graph.py``) replays the LFO's advance instead of freezing the
+position it had at capture.
 """
 
 from __future__ import annotations
@@ -52,13 +58,17 @@ def tremolo(cfg: EngineConfig, depth: float = 0.4, lfo_hz: float = 4.5,
 
 def init_state(params: TremoloParams, batch_shape: tuple[int, ...] = ()):
     """LFO position: absolute phase into the periodic stream plus the rolling
-    copy's remaining length (which controls the freeze quirk). Plain ints:
-    the LFO is shared across channels and the schedule is host arithmetic."""
-    return {"phase": 0, "avail": params.lfo_length}
+    copy's remaining length (which controls the freeze quirk), 0-d int32
+    tensors on the LFO's device: the LFO is shared across channels."""
+    dev = params.lfo.device
+    return {"phase": torch.zeros((), dtype=torch.int32, device=dev),
+            "avail": torch.full((), params.lfo_length, dtype=torch.int32,
+                                device=dev)}
 
 
 def _advance(L: int, phase: int, avail: int, n: int) -> tuple[int, int]:
-    """One chunk's worth of the reference's append/consume logic."""
+    """One chunk's worth of the reference's append/consume logic, on host
+    ints (the offline phase schedule)."""
     if avail < n:
         avail += L * (-(-(n - avail) // L))
     if avail == n:
@@ -66,12 +76,25 @@ def _advance(L: int, phase: int, avail: int, n: int) -> tuple[int, int]:
     return (phase + n) % L, avail - n
 
 
+def _advance_tensors(L: int, phase: torch.Tensor, avail: torch.Tensor,
+                     n: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`_advance` on the 0-d int32 carry, branch-free (the JAX
+    package's ``_advance``): nothing is read back."""
+    appends = (torch.clamp(n - avail, min=0) + (L - 1)) // L
+    avail = avail + appends * L
+    frozen = avail == n
+    return (torch.where(frozen, phase, (phase + n) % L),
+            torch.where(frozen, avail, avail - n))
+
+
 def step(params: TremoloParams, state, block: torch.Tensor):
     n = block.shape[-1]
-    phase, avail = int(state["phase"]), int(state["avail"])
-    idx = (phase + torch.arange(n, device=block.device)) % params.lfo_length
+    phase = state["phase"]
+    idx = (phase + torch.arange(n, dtype=torch.int32, device=block.device)
+           ) % params.lfo_length
     gains = params.lfo[idx]
-    phase, avail = _advance(params.lfo_length, phase, avail, n)
+    phase, avail = _advance_tensors(params.lfo_length, phase,
+                                    state["avail"], n)
     return {"phase": phase, "avail": avail}, (block * gains).to(torch.float32)
 
 

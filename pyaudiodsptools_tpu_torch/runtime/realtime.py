@@ -1,4 +1,4 @@
-"""Realtime engine: native ring buffers around the chain's streaming step.
+"""Realtime engine: native ring buffers around the captured chain step.
 
 Counterpart of ``pyaudiodsptools_tpu/runtime/realtime.py``. The reference's
 realtime story is a PyAudio duplex stream whose C callback thread calls
@@ -10,17 +10,21 @@ device.apply (Example3.py:20-46). Here:
 
 The pump thread pops fixed blocks, steps them through a
 :class:`~..engine.stream.StreamProcessor` (numpy in, numpy out: one copy to
-the chain's device, the step's launches, one copy back, which waits for the
-step), pushes the results, and records deadline stats in the native layer
-(blocks, xruns, worst-case ns against the block_size/sample_rate budget -- the
-reference documents this budget in ModuleTests.py:24).
+the chain's device, one replay of the step's CUDA graph, one copy back, which
+waits for the step), pushes the results, and records deadline stats in the
+native layer (blocks, xruns, worst-case ns against the
+block_size/sample_rate budget -- the reference documents this budget in
+ModuleTests.py:24).
 
-Two things differ from the JAX engine because PyTorch runs eagerly on the
-calling thread:
+Two things differ from the JAX engine because PyTorch runs on the calling
+thread:
 
 * :meth:`RealtimeEngine.start` runs the processor's ``warmup`` on the
-  starting thread before the pump exists, so every kernel is built and
-  loaded there and the pump never meets a build;
+  starting thread BEFORE the pump thread starts: every kernel is built and
+  loaded there and the step is captured there (``engine/graph.py``), so the
+  pump only replays and never meets a build or a capture. The capture itself
+  runs in ``capture_error_mode="thread_local"``, so that other threads of the
+  process (another engine's pump) cannot invalidate it either;
 * the pump sets its own grad mode (``torch.inference_mode``, which is
   thread-local) and its own current CUDA device.
 """
@@ -66,7 +70,8 @@ class RealtimeEngine:
         self.dropped_samples = 0        # output-ring overflow loss (counted)
 
     def start(self) -> None:
-        """Build and load every kernel on this thread, then start the pump."""
+        """Build and load every kernel and capture the step on this thread,
+        then start the pump."""
         self.processor.warmup()
         self._stop.clear()
         self._error = None

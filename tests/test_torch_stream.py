@@ -241,9 +241,13 @@ def test_chain8_step_matches_jax_chain_step():
     # both automatons were at work: some state is not REST at the end of
     # some block is implied by the audio; at least the gains moved
     assert not np.array_equal(got, x)
-    # the tremolo's position is host arithmetic, equal on both sides
-    assert [int(v) for v in jax.tree.flatten(jst)[0][-2:]] \
-        == [pst[2][1]["avail"], pst[2][1]["phase"]]
+    # the tremolo's position: two 0-d int32 leaves on both sides (tensors
+    # on the device, advanced by tensor operations), equal
+    for j, p in zip(jax.tree.flatten(jst)[0][-2:],
+                    [pst[2][1]["avail"], pst[2][1]["phase"]]):
+        assert np.asarray(j).dtype == np.int32 and np.asarray(j).shape == ()
+        assert p.dtype == torch.int32 and p.shape == ()
+        assert int(p) == int(j)
 
 
 def test_streamed_equals_offline_within_the_port():
@@ -321,16 +325,12 @@ def test_stream_processor_reset_and_warmup_leave_no_trace():
     sp = pt.StreamProcessor(pchain, pcfg, (2,))
     first = [sp.process(b) for b in blocks]
     # warmup in mid-stream: one step on silence, the state stays as it was
-    before = [np.array(leaf) if not isinstance(leaf, torch.Tensor)
-              else leaf.clone() for leaf in state_leaves(sp.state)]
+    before = [leaf.clone() for leaf in state_leaves(sp.state)]
     sp.warmup()
     after = state_leaves(sp.state)
     assert len(before) == len(after) == 12
     for a, b in zip(before, after):
-        if isinstance(a, torch.Tensor):
-            assert torch.equal(a, b)
-        else:
-            assert int(a) == b
+        assert a.dtype == b.dtype and torch.equal(a, b)
     # reset: the same input gives the same output again, as in the JAX one
     sp.reset()
     again = [sp.process(b) for b in blocks]
@@ -440,8 +440,9 @@ def test_cuda_stream_bit_equal_across_a_checkpoint_on_card(tmp_path):
     cfg = pt.EngineConfig(44100, B)
     chain = pt.Chain(_chain8_effects(pt, cfg, device="cuda"), device="cuda")
     x = torch.from_numpy(_signal(4, 8 * B, seed=18)).cuda()
-    before = (convpairs.launch_count, kd.serial_walk_launch_count)
     sp = pt.StreamProcessor(chain, cfg, (4,))
+    sp.warmup()      # the capture's warm-up step launches too
+    before = (convpairs.launch_count, kd.serial_walk_launch_count)
     full = [sp.process(x[:, i * B:(i + 1) * B]) for i in range(8)]
     assert (convpairs.launch_count, kd.serial_walk_launch_count) \
         == (before[0] + 8, before[1] + 8)
