@@ -39,7 +39,11 @@ failed check raises (exit code != 0, no result line):
    fixpoint loop took.
 4. ``main_path``  two paths through ``render`` at 64 channels on noise
    bursts generated on the card from a seed, each with every kernel's launch
-   count set to 0 just before and read just after. First the earlier path,
+   count set to 0 just before and read just after. ``render`` replays the
+   chain's captured render (a CUDA graph a blocks shape, captured just
+   before the counts are zeroed; the dynamics fixpoint a conditional while
+   node whose audio walks are counted when the device's walk count is
+   read). First the earlier path,
    chain7 (saturator in place of the compressor/gate pair) at block size
    4096 over 10 s; then the offline main path, **chain8**, the flagship
    8-effect chain, over 30 s at block size 4096 then 512, through four
@@ -59,7 +63,7 @@ failed check raises (exit code != 0, no result line):
    and whole, against the plain-version stream over a short excerpt, and
    against the float64 oracle excerpt; a checkpoint saved in mid-stream and
    loaded into a fresh processor continues bit-equal; ``render_segmented``
-   (the eager ``Chain.step`` fold) equals the streamed one bit for bit;
+   (folding the captured step) equals the streamed one bit for bit;
    ``render_resumable`` with an injected stop resumes to the same bits.
    ``compiled_step``: the captured step against the eager ``Chain.step``
    fold at 64 ch x 30 s and both block sizes: bit-equal, the oracle's dB,
@@ -67,7 +71,26 @@ failed check raises (exit code != 0, no result line):
    whole replay loop under ``torch.cuda.set_sync_debug_mode("error")``, a
    checkpoint resumed bit-equal, then both steps timed in turns (graph,
    eager, eager, graph; tensors and numpy in and out) and their device time
-   a step queued behind a spin. ``stream_timing``: the step's
+   a step queued behind a spin. ``compiled_render``: the captured render
+   against the eager ``Chain.render_blocks`` at 64 ch x 30 s and both block
+   sizes: bit-equal to it and to main_path's output, the oracle's dB, the
+   device's walk count equal to the eager loop's read-backs, one replay's
+   launches counted from 0, three renders under the sync debug mode, both
+   renders timed in turns over chained passes (graph, eager, eager, graph)
+   with the output's copy, the replay alone, its device time queued and the
+   memory a fresh chain's graph holds (high-water with its pool, what
+   ``release`` gives back, the eager render's high-water); a burst followed
+   by silence through chain8 and a variant whose gate releases over 2 s
+   (many walks inside the while node), bit-equal, and chain8's dynamics
+   pair on 2 ch x 4 s of it against the plain render, walk count included;
+   the settle step on the card against its plain version at chain8's
+   entries (settled and not) and in a while node of its own against the
+   host's loop; two shapes of one chain live at once, an earlier output
+   valid after later renders; ``render`` over five lengths with one chain
+   keeping one graph, its reserved memory bounded; reverb(1500),
+   the FIR-ised EQ and an undecayed-EQ chain bit-equal to their eager
+   renders; ``render_segmented`` and ``render_resumable`` bit-equal to the
+   eager ``Chain.step`` fold. ``stream_timing``: the step's
    time (median, p99, max) beside the block's duration, with tensors and
    with numpy in and out, and the old per-sample step once for the record;
    the two streaming kernels at the step's shapes beside their times before
@@ -123,8 +146,8 @@ failed check raises (exit code != 0, no result line):
    ``sharded_meters`` to the global output's peak and RMS; the launches of
    every rank summed; times per render labelled as ranks sharing one card;
    ``profiling``: chain8 through ``profiling.annotate_chain`` (unfused, one
-   profiler scope an effect) at B=4096 and 512, rendered under
-   ``profiling.trace``: bit-equal to the unfused chain's render, >= 90 dB to
+   profiler scope an effect) at B=4096 and 512, rendered eagerly (a
+   graph's replay has no host scopes) under ``profiling.trace``: bit-equal to the unfused chain's render, >= 90 dB to
    the fused one, every ``effect.<name>.offline`` scope in the trace with
    the launches of our kernels inside it equal to the launch counters' over
    the same effect, and each scope's device ms against the roofline's cost
@@ -145,16 +168,19 @@ failed check raises (exit code != 0, no result line):
    ceiling) beside them, the kernel and the copy once more as launches
    queued behind a spin (``queued_ms``, ``copy_queued_ms``: no host time
    between the events), and unpack's masked path at the same geometry (tm
-   one float off 16 bytes, ``masked_path_queued_ms``). Also
+   one float off 16 bytes, ``masked_path_queued_ms``); rows 1-4 queued
+   too (``queued_ms``) beside their event time. Also
    the whole dynamics stage for a range of segment counts (the planner's
    sweep), the
    segmented conv by window and version (``segconv_versions``: the planner's
    rule) and the tail by runs of tiles per channel, down to one tile a run.
-7. ``throughput``  samples/s of the whole render, median of 3 chained passes.
+7. ``throughput``  samples/s of the whole render, median of 3 chained
+   passes: the eager render (the column the lane always had) and the
+   captured one.
    With ``--profile``, a ``profile`` phase follows: ``torch.profiler`` over a
-   few renders and over a window of streaming steps (the graph replays and
-   the eager steps), device time by kernel name and the device's idle
-   share.
+   few renders (captured and eager) and over a window of streaming steps
+   (the graph replays and the eager steps), device time by kernel name and
+   the device's idle share.
 8. the ``{"kernels": [...]}`` summary line (all eight), and as the LAST line
    ``{"ok": true, "device": {...}}``.
 
@@ -186,8 +212,8 @@ import torch.multiprocessing as mp
 
 import pyaudiodsptools_tpu_torch as pt
 from pyaudiodsptools_tpu_torch.kernels import (_build, convpairs,
-                                               dynamics as kdyn, relayout,
-                                               segconv, tail)
+                                               dynamics as kdyn, graph_cond,
+                                               relayout, segconv, tail)
 from pyaudiodsptools_tpu_torch import compat, profiling, roofline as rl
 from pyaudiodsptools_tpu_torch.engine import graph as pt_graph
 from pyaudiodsptools_tpu_torch.__main__ import main as cli_main
@@ -1287,6 +1313,7 @@ def zero_launch_counts() -> None:
     kdyn.state_walk_launch_count = 0
     kdyn.audio_walk_launch_count = 0
     kdyn.serial_walk_launch_count = 0
+    kdyn.settle_launch_count = 0
     convpairs.launch_count = 0
 
 
@@ -1373,6 +1400,10 @@ def time_segconv(x, fir_e, by_B: dict, B: int) -> torch.Tensor:
         (B, db_plain, db_oracle)
     del y_plain
     ms = time_ms(lambda: segconv.segmented_conv(x, plan))
+    # the launches queued behind a spin: the kernel's device time, without
+    # the host's time of a wrapper call between the events (rows 5-8 have it)
+    queued = queued_ms(lambda: segconv.segmented_conv(x, plan),
+                       RELAYOUT_QUEUED_RUNS)["ms"]
     plain_ms = time_ms(
         lambda: segconv.segmented_conv(x, plan, use_kernels=False))
     # library yardstick: the batched cuFFT convolution at this geometry,
@@ -1410,8 +1441,8 @@ def time_segconv(x, fir_e, by_B: dict, B: int) -> torch.Tensor:
         "seg": plan.seg, "taps": plan.kernel_len, "shift": plan.shift,
         "C": C, "T": T,
         "db_plain": db_json(db_plain), "db_oracle_2ch": db_json(db_oracle),
-        "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-        "library_ms": library_ms,
+        "max_abs_err": max_err, "ms": ms, "queued_ms": queued,
+        "plain_ms": plain_ms, "library_ms": library_ms,
         **roofline_row(rl.conv_cost_from_params(C, T, fir_e.params), ms=ms,
                        plain_ms=plain_ms, library_ms=library_ms),
         # what this design must move: the signal n/seg times in, once out
@@ -1422,8 +1453,8 @@ def time_segconv(x, fir_e, by_B: dict, B: int) -> torch.Tensor:
     return y_kernel
 
 
-# pack's and unpack's launches queued behind one spin (each 0.25-0.3 ms on
-# the device, a few tens of microseconds of the host's)
+# rows 1-6's launches queued behind one spin (each 0.25-1.3 ms on the
+# device, a few tens of microseconds of the host's)
 RELAYOUT_QUEUED_RUNS = 20
 
 
@@ -1515,7 +1546,10 @@ def time_dynamics(x, dyn_e, timing: dict, B: int) -> torch.Tensor:
     timing["state_walk"][B] = {
         **geom, "n_ops": n_ops, "exit_states_equal": True,
         "max_abs_err": float((z1 - z1_plain).abs().max()),
-        "ms": ms, "plain_ms": state_plain_ms,
+        "ms": ms, "queued_ms": queued_ms(
+            lambda: kdyn.state_walk(scalars, x, G, L, e0),
+            RELAYOUT_QUEUED_RUNS)["ms"],
+        "plain_ms": state_plain_ms,
         "plain_ran_with": f"G={G}, a Python loop over L={L} rows, its one "
                           "correctness run timed",
         "library_ms": None,
@@ -1536,7 +1570,10 @@ def time_dynamics(x, dyn_e, timing: dict, B: int) -> torch.Tensor:
     timing["audio_walk"][B] = {
         **geom, "n_ops": n_ops, "exit_states_equal": True,
         "mismatching_samples": mismatching, "max_abs_err": err,
-        "ms": ms, "plain_ms": audio_plain_ms,
+        "ms": ms, "queued_ms": queued_ms(
+            lambda: kdyn.audio_walk(scalars, x, G, L, e1),
+            RELAYOUT_QUEUED_RUNS)["ms"],
+        "plain_ms": audio_plain_ms,
         "plain_ran_with": f"G={G}, a Python loop over L={L} rows, its one "
                           "correctness run timed",
         "library_ms": None,
@@ -1648,6 +1685,8 @@ def time_tail(x, chain, tail_e, by_B: dict, B: int) -> None:
     t = {"ms": time_ms(lambda: tail.tail_kernel(plan, x, gains)),
          "plain_ms": time_ms(
              lambda: tail_e.offline(members, blocks, use_kernels=False))}
+    queued = queued_ms(lambda: tail.tail_kernel(plan, x, gains),
+                       RELAYOUT_QUEUED_RUNS)["ms"]
     by_B[B] = {
         "halo": D, "tile": plan.tile, "runs": runs,
         "n_tiles": n_tiles, "warm_tiles": plan.warm_tiles,
@@ -1655,6 +1694,7 @@ def time_tail(x, chain, tail_e, by_B: dict, B: int) -> None:
         "rings_in_shared_memory": plan.ring_smem,
         "blocks_per_sm": plan.blocks_per_sm, "C": C, "T": T,
         "db_plain": db_json(t_db), "max_abs_err": t_err, **t,
+        "queued_ms": queued,
         "offline_with_gain_row_ms": time_ms(
             lambda: tail_e.offline(members, blocks)),
         "library_ms": None,
@@ -2032,6 +2072,445 @@ def compiled_step_phase(chains: dict, signal: torch.Tensor, n: int,
             "launch_counts": counts_by_run, "nvidia_smi": smi}
 
 
+# The gate's release of the long-release variant of chain8 in the
+# compiled_render phase: 88,200 samples, 17 segments of the planner's 5,168
+# at 64 ch x 30 s, so a burst followed by silence hands the gate's state on
+# across them, one segment a walk.
+LONG_RELEASE_MS = 2000.0
+# Seconds of noise bursts before the silence of that signal.
+BURST_SECONDS = 1.0
+# Blocks (B=512) of the excerpt render_segmented folds there, and per segment.
+SEGMENTED_BLOCKS = 256
+SEGMENTED_PER = 48
+# The excerpt of that signal (its first channels and seconds: 1 s of bursts,
+# 3 s of silence) whose dynamics pair the plain render walks: its walks are
+# Python loops over a segment's samples (86 segments of 2,052 here).
+PLAIN_WALK_CHANNELS = 2
+PLAIN_WALK_SAMPLES = 4 * SAMPLE_RATE
+
+
+def memory_mib() -> dict:
+    return {"allocated_mib": torch.cuda.memory_allocated() / 2**20,
+            "reserved_mib": torch.cuda.memory_reserved() / 2**20}
+
+
+def render_memory(cfg, signal: torch.Tensor) -> dict:
+    """A fresh chain8's captured render at this signal's shape: the device
+    memory its capture and a replay take at their high-water (PyTorch's
+    allocator, the graph's private pool included: ``max_memory_reserved``
+    after ``reset_peak_memory_stats``), what the graph holds while it lives
+    (reserved after ``empty_cache``: the input buffer and the pool), what
+    ``release`` gives back, and the eager render's high-water beside it.
+    MiB over what was held before; the capture's time too."""
+    chain = pt.Chain(chain8_effects(cfg, "cuda"), device="cuda")
+    shape = render_shape(signal, cfg.block_size)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = memory_mib()
+
+    def over(now):
+        return {k: now[k] - base[k] for k in now}
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    chain.captured_render().capture(shape)
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    peak_capture = {"allocated_mib": torch.cuda.max_memory_allocated() / 2**20
+                    - base["allocated_mib"],
+                    "reserved_mib": torch.cuda.max_memory_reserved() / 2**20
+                    - base["reserved_mib"]}
+    torch.cuda.empty_cache()
+    held = over(memory_mib())
+    torch.cuda.reset_peak_memory_stats()
+    y = pt.render(chain, signal, cfg)
+    torch.cuda.synchronize()
+    peak_replay = torch.cuda.max_memory_reserved() / 2**20 \
+        - base["reserved_mib"]
+    del y
+    chain.captured_render().release()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    after_release = over(memory_mib())
+    torch.cuda.reset_peak_memory_stats()
+    y = eager_render(chain, signal, cfg)
+    torch.cuda.synchronize()
+    peak_eager = torch.cuda.max_memory_reserved() / 2**20 \
+        - base["reserved_mib"]
+    del y, chain
+    torch.cuda.empty_cache()
+    return {"signal_mib": signal.numel() * 4 / 2**20,
+            "warmup_and_capture_ms": capture_ms,
+            "capture_high_water": peak_capture,
+            "held_by_the_graph": held,
+            "replay_high_water_reserved_mib": peak_replay,
+            "after_release": after_release,
+            "eager_render_high_water_reserved_mib": peak_eager}
+
+
+def render_lengths(chain, cfg, signal: torch.Tensor, n: int) -> dict:
+    """``render`` of one chain over signals of several lengths (the full
+    one, a third, the full one again, two thirds, the full one): the chain
+    keeps one graph, so after each render (and ``empty_cache``) the card
+    holds what the graph of that length holds, not the graphs of every
+    length met. MiB reserved over what was held before."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    lengths = (n, n // 3, n, 2 * n // 3, n)
+    held, kept = [], []
+    for m in lengths:
+        y = pt.render(chain, signal[:, :m], cfg)
+        del y
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        held.append((torch.cuda.memory_reserved() - base) / 2**20)
+        kept.append(len(chain.captured_render().shapes()))
+    r = {"lengths": list(lengths), "reserved_mib_after_each": held,
+         "graphs_kept_after_each": kept}
+    assert kept == [1] * len(lengths), r
+    # slack for the small caches a length adds (the tremolo's schedule)
+    assert max(held[2], held[4]) <= held[0] + 16.0, r
+    assert held[1] < held[0] and held[3] < held[0], r
+    return r
+
+
+def settle_cases(C: int, T: int) -> dict:
+    """The settle step (no TPU kernel: the fixpoint's shift, comparison and
+    count) on the card against ``settle_plain`` on copies of the same
+    inputs, at chain8's entries at C x T ((2, C*G) int32): entries that have
+    settled and entries that have not, after the state walk and after an
+    audio walk, the entries and all four flags exactly. Then the kernel in a
+    while node of its own, its exits changed every walk (the entries never
+    settle) or left alone, against the host's loop over the plain version:
+    the same walks, the bound G + 2 and the unsettled count."""
+    G, _, _ = relayout.geometry(C, T, kdyn.plan_segments(C, T))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    cases = []
+    for settled in (False, True):
+        z = torch.randint(-1, 30000, (2, C * G), generator=gen,
+                          device="cuda", dtype=torch.int32)
+        e = torch.randint(-1, 30000, (2, C * G), generator=gen,
+                          device="cuda", dtype=torch.int32)
+        if settled:
+            e[:, C:] = z[:, :-C]
+            e[:, :C] = 0
+        for mode in (kdyn.AFTER_STATE_WALK, kdyn.AFTER_AUDIO_WALK):
+            flags = torch.tensor([5, 9, 4, 2], dtype=torch.int32,
+                                 device="cuda")
+            want_e, want_f = e.clone(), flags.clone()
+            kdyn.settle_plain(z, want_e, want_f, C, mode)
+            got_e, got_f = e.clone(), flags.clone()
+            kdyn.settle(z, got_e, got_f, C, mode)
+            case = {"settled": settled, "mode": mode,
+                    "entries_equal": torch.equal(got_e, want_e),
+                    "flags": got_f.tolist(), "plain_flags": want_f.tolist()}
+            assert case["entries_equal"] \
+                and case["flags"] == case["plain_flags"] \
+                and case["flags"][kdyn.FLAG_DONE] == int(settled), case
+            cases.append(case)
+    loops = []
+    limit = G + 2
+    for moving in (True, False):
+        z0 = torch.randint(0, 30000, (2, C * G), generator=gen,
+                           device="cuda", dtype=torch.int32)
+        z, e = z0.clone(), torch.zeros_like(z0)
+        f = torch.zeros(4, dtype=torch.int32, device="cuda")
+        kdyn.settle_plain(z, e, f, C, kdyn.AFTER_STATE_WALK)
+        unsettled = 0
+        while True:
+            if moving:
+                z.add_(1)
+            kdyn.settle_plain(z, e, f, C, kdyn.AFTER_AUDIO_WALK)
+            done, walks = f[:2].tolist()
+            if done:
+                break
+            if walks >= limit:
+                unsettled = 1
+                break
+        want = f.tolist()[:3] + [unsettled]
+        zc, ec = z0.clone(), torch.zeros_like(z0)
+        fc = torch.zeros(4, dtype=torch.int32, device="cuda")
+        graph_cond.body_stream(torch.device("cuda"))
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            kdyn.settle(zc, ec, fc, C, kdyn.AFTER_STATE_WALK)
+            with graph_cond.while_node("cuda") as handle:
+                if moving:
+                    zc.add_(1)
+                kdyn.settle(zc, ec, fc, C, kdyn.IN_WHILE_NODE, limit, handle)
+        fc.zero_()
+        zc.copy_(z0)
+        graph.replay()
+        loop = {"exits_change_every_walk": moving, "limit": limit,
+                "flags": fc.tolist(), "host_loop_flags": want,
+                "entries_equal": torch.equal(ec, e)}
+        assert loop["flags"] == want and loop["entries_equal"], loop
+        loops.append(loop)
+        del graph
+    return {"entries_shape": [2, C * G], "C": C, "G": G, "cases": cases,
+            "while_node_loops": loops}
+
+
+def plain_walks_case(cfg, burst: torch.Tensor) -> dict:
+    """chain8's dynamics pair on a burst followed by silence (the first
+    channels of the main signal's burst): the captured render against the
+    plain render (``use_kernels=False``: every walk and settle step a plain
+    version, read back once a walk) on the same input, the output and the
+    walk count exactly."""
+    chain = pt.Chain(chain8_effects(cfg, "cuda")[3:5], device="cuda")
+    blocks = pt.block.make_blocks(burst, cfg.block_size)
+    t0 = time.perf_counter()
+    with graph_cond.fixpoints() as found:
+        plain = chain.render_blocks(blocks, use_kernels=False)
+    plain_walks = [int(f[kdyn.FLAG_WALKS]) for f in found]
+    plain_s = time.perf_counter() - t0
+    captured = chain.captured_render()
+    got = captured(blocks)
+    walks = captured.walks()[tuple(blocks.shape)]
+    r = {"blocks_shape": list(blocks.shape), "walks": walks,
+         "plain_walks": plain_walks, "bit_equal_to_plain":
+             torch.equal(got, plain), "plain_render_s": plain_s}
+    assert r["bit_equal_to_plain"] and walks == plain_walks, r
+    assert walks[0] > 2, r
+    captured.release()
+    return r
+
+
+def compiled_render_phase(chains: dict, signal: torch.Tensor, n: int,
+                          main_outputs: dict, oracles: dict, workdir: str,
+                          smi: str) -> dict:
+    """The settle step against its plain version (``settle_cases``), then
+    the captured render (``Chain.captured_render``, what ``render``
+    replays) against the eager ``Chain.render_blocks``, chain8 at 64 ch x
+    30 s, B=4096 and 512: bit-equal to the eager render and to main_path's
+    output, the same dB to the oracle, the same dynamics walks (the device's
+    count against the eager loop's read-backs), the launches a replay
+    counted from 0, three renders under
+    ``torch.cuda.set_sync_debug_mode("error")``, then both renders timed in
+    turns over chained passes (graph, eager, eager, graph) with the output's
+    copy, the replay alone, the replay's device time queued behind a spin,
+    and the memory a fresh chain's graph takes. Then: a burst followed by
+    silence through chain8 and through a variant whose gate releases over
+    2 s (many walks inside the while node), bit-equal to eager, and the
+    dynamics pair on its excerpt against the plain render, walks included
+    (``plain_walks_case``); two shapes of one chain live at once, an earlier
+    output valid after later renders; ``render`` over five lengths keeping
+    one graph (``render_lengths``); reverb(1500), the FIR-ised EQ and an undecayed-EQ chain bit-equal to
+    their eager renders; ``render_segmented`` and ``render_resumable``
+    (through the captured step) bit-equal to the eager ``Chain.step``
+    fold."""
+    C = signal.shape[0]
+    by_B, counts_by_run = {}, {}
+    shape = render_shape(signal, BLOCK_SIZES[0])
+    settle = settle_cases(C, shape[-2] * shape[-1])
+    for B in BLOCK_SIZES:
+        cfg, chain = chains[B]
+        captured = chain.captured_render()
+        shape = render_shape(signal, B)
+        T = shape[-2] * B
+        w0 = kdyn.state_walk_launch_count + kdyn.audio_walk_launch_count
+        eager = eager_render(chain, signal, cfg)
+        torch.cuda.synchronize()
+        eager_walks = kdyn.state_walk_launch_count \
+            + kdyn.audio_walk_launch_count - w0
+        captured.walks()            # earlier replays' walks counted first
+        (got, device_walks), counts = counted(
+            lambda: (pt.render(chain, signal, cfg), captured.walks()[shape]))
+        settles = kdyn.settle_launch_count
+        bit_equal = torch.equal(got, eager)
+        main_equal = torch.equal(got, main_outputs[B])
+        del eager
+        m = oracles[B].shape[1]
+        db_oracle = snr_db(oracles[B], got[[0, C - 1], :m].cpu().numpy())
+
+        # the replay loop may not synchronise
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            synced = [pt.render(chain, signal, cfg) for _ in range(3)]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        no_sync_equal = all(torch.equal(o, got) for o in synced)
+        del synced
+        captured.walks()
+
+        # timed in turns over chained passes, as throughput times them
+        runs = {"graph": [], "eager": []}
+        for kind in ("graph", "eager", "eager", "graph"):
+            fn = pt.render if kind == "graph" else eager_render
+            runs[kind].append(chained_ms(lambda o: fn(chain, o, cfg),
+                                         signal))
+        out_buf = captured.replay_input(shape)
+        copy_ms = time_ms(lambda: out_buf.clone())
+
+        def replay():
+            captured.replay_input(shape)
+            torch.cuda.synchronize()
+        replay_ms = host_ms(replay, runs=5)[1]
+        queued = queued_ms(lambda: captured.replay_input(shape), runs=5)
+        # the whole render (the signal into the input buffer, the replay,
+        # the output's copy) queued: the device's time of a render
+        render_queued = queued_ms(lambda: pt.render(chain, signal, cfg),
+                                  runs=5)
+        captured.walks()
+        graph_wall = statistics.mean(runs["graph"])
+        r = {"blocks_shape": list(shape), "bit_equal_to_eager": bit_equal,
+             "bit_equal_to_main_path": main_equal,
+             "db_oracle_2ch": db_json(db_oracle), "oracle_samples": m,
+             "dynamics_walks": {"graph_device_count": device_walks,
+                                "eager_read_backs": eager_walks},
+             "launches_one_replay": counts,
+             "settle_step_launches_one_replay": settles,
+             "launches_per_replay_outside_while_nodes":
+                 captured.launches_per_replay(shape),
+             "no_sync_replay_loop_equal": no_sync_equal,
+             "render_ms_in_turns": runs,
+             "replay_ms_host_clock": replay_ms,
+             "output_copy_ms": copy_ms,
+             "replay_device_ms_queued": queued,
+             "render_device_ms_queued": render_queued,
+             # host clock against the queued device time, unclamped: not
+             # the device's idle share (--profile traces that)
+             "host_clock_idle_ratio_of_the_graph_render":
+                 1.0 - render_queued["ms"] / graph_wall,
+             "samples_per_s": {k: C * T / statistics.mean(v) * 1e3
+                               for k, v in runs.items()},
+             "memory": render_memory(cfg, signal)}
+        assert bit_equal and main_equal and no_sync_equal, r
+        assert sum(device_walks) == eager_walks, r
+        assert counts["audio_walk"] == eager_walks - 1 \
+            and counts["state_walk"] == 1 and counts["segconv"] == 1 \
+            and counts["tail"] == 1 and settles == eager_walks, r
+        assert db_oracle >= CHAIN_DB_ORACLE, r
+        by_B[str(B)] = r
+        counts_by_run[f"graph_{B}"] = counts
+        del got
+
+    # a burst followed by silence: many walks inside the while node
+    B = BLOCK_SIZES[0]
+    cfg, chain = chains[B]
+    burst = signal.clone()
+    burst[:, int(BURST_SECONDS * SAMPLE_RATE):] = 0.0
+    effects = chain8_effects(cfg, "cuda")
+    effects[4] = pt.ops.gate(cfg, -45.0, 0.1, 3.1, LONG_RELEASE_MS,
+                             device="cuda")
+    long_release = pt.Chain(effects, device="cuda")
+    burst_runs = {}
+    for name, ch in (("chain8", chain),
+                     (f"chain8, gate release {LONG_RELEASE_MS:.0f} ms",
+                      long_release)):
+        w0 = kdyn.state_walk_launch_count + kdyn.audio_walk_launch_count
+        want = eager_render(ch, burst, cfg)
+        torch.cuda.synchronize()
+        eager_walks = kdyn.state_walk_launch_count \
+            + kdyn.audio_walk_launch_count - w0
+        prepare_render(ch, burst, cfg)
+        ch.captured_render().walks()
+        (got, device_walks), counts = counted(
+            lambda: (pt.render(ch, burst, cfg),
+                     ch.captured_render().walks()[render_shape(burst, B)]))
+        burst_runs[name] = {"walks": device_walks,
+                            "eager_walks": eager_walks,
+                            "bit_equal_to_eager": torch.equal(got, want),
+                            "launches": counts}
+        assert burst_runs[name]["bit_equal_to_eager"] \
+            and sum(device_walks) == eager_walks \
+            and counts["audio_walk"] == eager_walks - 1, burst_runs
+        counts_by_run[f"burst_{name}"] = counts
+        del want, got
+    burst_runs["dynamics_pair_against_the_plain_render"] = plain_walks_case(
+        cfg, burst[:PLAIN_WALK_CHANNELS, :PLAIN_WALK_SAMPLES].contiguous())
+    assert sum(burst_runs["chain8"]["walks"]) >= 2
+    assert sum(burst_runs[f"chain8, gate release {LONG_RELEASE_MS:.0f} ms"][
+        "walks"]) > 8, burst_runs
+    long_release.captured_render().release()
+    del long_release, burst
+
+    # two shapes of one chain live at once (its captured render called on
+    # blocks keeps one graph a shape); an earlier output stays valid
+    B = 512
+    cfg, chain = chains[B]
+    captured = chain.captured_render()
+    full = pt.block.make_blocks(signal, B)
+    short = pt.block.make_blocks(signal[:, :n // 3], B)
+    y_full = captured(full)
+    keep = y_full.clone()
+    y_short = captured(short)
+    captured(full * 0.5)
+    captured(short * 0.5)
+    live = captured.walks()
+    two_shapes = {
+        "shapes": [list(k) for k in live],
+        "earlier_output_valid": torch.equal(y_full, keep),
+        "short_bit_equal_to_eager": torch.equal(
+            y_short, chain.render_blocks(short))}
+    assert len(live) == 2 and two_shapes["earlier_output_valid"] \
+        and two_shapes["short_bit_equal_to_eager"], two_shapes
+    del y_full, keep, y_short, full, short
+    captured.release()
+    two_shapes["render_of_many_lengths"] = render_lengths(chain, cfg, signal,
+                                                          n)
+    captured.walks()
+
+    # the later paths' chains through the captured render
+    others = {}
+    for name, B, make in (
+            (f"reverb({REVERB_MS:.0f})", 4096,
+             lambda c: [pt.ops.reverb(c, REVERB_MS, device="cuda")]),
+            ("eq3band (FIR-ised)", 512,
+             lambda c: [pt.ops.eq3band(c, *EQ_ARGS, device="cuda")]),
+            (EQ_CHAIN + " (float64 recurrence)", 4096,
+             lambda c: eq_chain_effects(c, "cuda"))):
+        cfg = pt.EngineConfig(SAMPLE_RATE, B)
+        ch = pt.Chain(make(cfg), device="cuda")
+        want = eager_render(ch, signal, cfg)
+        prepare_render(ch, signal, cfg)
+        got, counts = counted(lambda: pt.render(ch, signal, cfg))
+        others[name] = {"B": B, "bit_equal_to_eager": torch.equal(got, want),
+                        "launches": counts}
+        assert others[name]["bit_equal_to_eager"], others
+        ch.captured_render().release()
+        del ch, got, want
+
+    # render_segmented / render_resumable fold the captured step
+    cfg, chain = chains[512]
+    xs = signal[:, :SEGMENTED_BLOCKS * 512 - 17].contiguous()
+    blocks = pt.block.make_blocks(xs, 512)
+    state, outs = chain.init_state((C,)), []
+    for i in range(blocks.shape[-2]):
+        state, y = chain.step(state, blocks[:, i])
+        outs.append(y)
+    fold = torch.cat(outs, dim=-1)
+    del outs
+    chain.fold_step((C,)).capture((C, 512))     # its warm-up uncounted
+    seg, seg_counts = counted(lambda: pt.render_segmented(
+        chain, xs, cfg, segment_blocks=SEGMENTED_PER))
+    res = pt.render_resumable(chain, blocks,
+                              os.path.join(workdir, "resumable_512"),
+                              segment_blocks=SEGMENTED_PER)
+    segmented = {"blocks": blocks.shape[-2], "segment_blocks": SEGMENTED_PER,
+                 "render_segmented_equal": torch.equal(seg, fold),
+                 "render_resumable_equal": torch.equal(
+                     res.reshape(C, -1), fold),
+                 "launches": seg_counts}
+    assert segmented["render_segmented_equal"] \
+        and segmented["render_resumable_equal"], segmented
+    assert seg_counts["conv_pairs"] == seg_counts["serial_walk"] \
+        == blocks.shape[-2], seg_counts
+    counts_by_run["render_segmented_512"] = seg_counts
+    return {"phase": "compiled_render", "chain": "chain8", "channels": C,
+            "seconds_of_audio": SECONDS,
+            "while_node_cuda_versions": dict(zip(
+                ("driver", "runtime"), graph_cond.cuda_versions())),
+            "settle_step": settle,
+            "by_block_size": by_B, "burst_then_silence": burst_runs,
+            "two_shapes": two_shapes, "other_chains": others,
+            "render_segmented": segmented,
+            "launch_counts": counts_by_run, "nvidia_smi": smi}
+
+
 # ---------------------------------------------------------------------------
 # phase 5b: windows no thread block holds, kernels longer than a window
 
@@ -2279,33 +2758,42 @@ def long_windows(signal: torch.Tensor, n: int) -> dict:
 
 
 # Cycles of the spin that holds the device while launches queue behind it
-# (about 20 ms at the H100's clock).
+# (about 20 ms at the H100's clock), and how often a spin that ended too soon
+# is tried again, four times as long each time (the host's pace varies: its
+# cores are shared).
 SPIN_CYCLES = 40_000_000
+SPIN_TRIES = 4
 
 
 def queued_ms(fn, runs: int = 50) -> dict:
     """Device time per call of a kernel that is over in microseconds: the
     launches are queued behind a spin kernel, so they run back to back and
     the host's pace (which is what a plain event pair around them would
-    measure) does not show. ``host_ms`` is what one call costs the host."""
+    measure) does not show. ``host_ms`` is what one call costs the host.
+    A try whose spin ended before the last launch was queued is thrown away
+    and made again behind a longer spin; after ``SPIN_TRIES`` it raises."""
     fn()
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(SPIN_CYCLES)
-    t0 = time.perf_counter()
-    a.record()
-    for _ in range(runs):
-        fn()
-    b.record()
-    host_s = time.perf_counter() - t0
-    still_spinning = not a.query()
-    torch.cuda.synchronize()
-    if not still_spinning:
-        raise RuntimeError(
-            "the spin ended before the launches were queued: the time would "
-            "be the host's, not the device's")
-    return {"ms": a.elapsed_time(b) / runs, "host_ms": host_s * 1e3 / runs}
+    spin = SPIN_CYCLES
+    for _ in range(SPIN_TRIES):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin)
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(runs):
+            fn()
+        b.record()
+        host_s = time.perf_counter() - t0
+        still_spinning = not a.query()
+        torch.cuda.synchronize()
+        if still_spinning:
+            return {"ms": a.elapsed_time(b) / runs,
+                    "host_ms": host_s * 1e3 / runs}
+        spin *= 4
+    raise RuntimeError(
+        f"the spin ended before the launches were queued, {SPIN_TRIES} "
+        "times: the time would be the host's, not the device's")
 
 
 # Segment lengths (log2) of the serial walk's sweep.
@@ -2599,20 +3087,24 @@ def profile_stream(chain, cfg, signal, wall_ms_per_step: float,
             "device_ms_per_step_by_name": top}
 
 
-def profile_renders(chain, signal, cfg, render_ms: float, passes: int = 3
-                    ) -> dict:
+def profile_renders(chain, signal, cfg, render_ms: float, passes: int = 3,
+                    eager: bool = False) -> dict:
     """Device time of ``passes`` chained renders under ``torch.profiler``, by
     kernel name, and the device's idle share of one render: 1 - busy time
     over ``render_ms`` (the host-clock render time taken WITHOUT the profiler,
-    whose own cost would otherwise count as idleness)."""
+    whose own cost would otherwise count as idleness). The captured render
+    (``render``), or with ``eager`` the eager one."""
     from torch.profiler import ProfilerActivity, profile
 
-    o = pt.render(chain, signal, cfg)
+    run = eager_render if eager else pt.render
+    o = run(chain, signal, cfg)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(passes):
-            o = pt.render(chain, o, cfg)
+            o = run(chain, o, cfg)
         torch.cuda.synchronize()
+    if not eager:
+        chain.captured_render().walks()
     by_name = {}
     for ev in prof.key_averages():
         # device-side entries only: a PyTorch operator's entry repeats the
@@ -2682,6 +3174,30 @@ def counted(fn):
     return out, launch_counts()
 
 
+def render_shape(signal: torch.Tensor, B: int) -> tuple:
+    """The blocks shape ``render`` gives a (..., n) signal at block size B."""
+    return tuple(signal.shape[:-1]) + (-(-signal.shape[-1] // B), B)
+
+
+def prepare_render(chain, signal: torch.Tensor, cfg) -> float:
+    """Capture the chain's render for the signal's blocks shape (its warm-up
+    on a side stream included; nothing if captured before), so that a
+    counted ``render`` counts one replay's launches. Returns the ms it
+    took, the device drained."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chain.captured_render().capture(render_shape(signal, cfg.block_size))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def eager_render(chain, signal: torch.Tensor, cfg) -> torch.Tensor:
+    """What ``render`` ran before it replayed a graph: block, the eager
+    ``Chain.render_blocks`` (one read-back a dynamics walk), deblock."""
+    blocks = pt.block.make_blocks(signal, cfg.block_size)
+    return pt.block.combine_blocks(chain.render_blocks(blocks))
+
+
 def reverb_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
     """reverb(1500) at 64 ch x 30 s: offline at both block sizes through
     ``render`` (route (a), the effect's own: the combined kernel in 4 / 5
@@ -2705,6 +3221,7 @@ def reverb_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
         T = -(-n // B) * B
         x = torch.nn.functional.pad(signal, (0, T - n)).contiguous()
         blocks = x.reshape(C, T // B, B)
+        prepare_render(chain, signal, cfg)
         out, counts_a = counted(lambda: pt.render(chain, signal, cfg))
         parts = len(eff.params.full.plans)
         assert counts_a["segconv"] == parts \
@@ -2828,6 +3345,7 @@ def eq3band_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
     T = -(-n // B) * B
     x = torch.nn.functional.pad(signal, (0, T - n)).contiguous()
     blocks = x.reshape(C, T // B, B)
+    prepare_render(chain, signal, cfg)
     out, counts = counted(lambda: pt.render(chain, signal, cfg))
     parts = len(eff.params.fir.plans)
     assert counts["segconv"] == parts and sum(counts.values()) == parts, \
@@ -3632,7 +4150,8 @@ def profiling_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
         chains[B] = (cfg, bare, ann)
         assert [e.name for e in ann.exec_effects] == CHAIN8_EFFECTS
         T = -(-n // B) * B
-        want = pt.render(bare, signal, cfg)
+        # eager renders throughout: a graph's replay has no host scopes
+        want = eager_render(bare, signal, cfg)
         # the counters' launches of each effect, effect by effect through
         # the annotated chain's own effects (untraced)
         x, by_effect = pt.block.make_blocks(signal, B), {}
@@ -3643,10 +4162,11 @@ def profiling_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
         del x
         with tempfile.TemporaryDirectory() as d:
             with profiling.trace(d):
-                got, traced = counted(lambda: pt.render(ann, signal, cfg))
+                got, traced = counted(lambda: eager_render(ann, signal,
+                                                           cfg))
             table = scope_table(read_trace(d))
         bit_equal = torch.equal(got, want)
-        db_fused = snr_db_cuda(pt.render(fused, signal, cfg), got)
+        db_fused = snr_db_cuda(eager_render(fused, signal, cfg), got)
         del got, want
         scopes = table["scopes"]
         assert sorted(scopes) == sorted(f"effect.{name}.offline"
@@ -3789,7 +4309,7 @@ def main() -> None:
     cfg7 = pt.EngineConfig(SAMPLE_RATE, B7)
     chain7 = pt.Chain(chain7_effects(cfg7, "cuda"), device="cuda")
     assert [e.name for e in chain7.exec_effects] == CHAIN7_NAMES
-    torch.cuda.synchronize()
+    capture7_ms = prepare_render(chain7, signal7, cfg7)
     zero_launch_counts()
     out7 = pt.render(chain7, signal7, cfg7)
     torch.cuda.synchronize()
@@ -3800,6 +4320,8 @@ def main() -> None:
     emit({"phase": "main_path", "chain": "chain7 (earlier path)",
           "channels": C, "seconds_of_audio": CHAIN7_SECONDS,
           "samples_per_channel": n7, "launches": launches7,
+          "through": "the captured render (a CUDA graph)",
+          "warmup_and_capture_ms": capture7_ms,
           "by_block_size": {str(B7): check7}, "nvidia_smi": smi})
     del out7, signal7
 
@@ -3810,17 +4332,28 @@ def main() -> None:
         chains[B] = (cfg, pt.Chain(chain8_effects(cfg, "cuda"), device="cuda"))
         assert [e.name for e in chains[B][1].exec_effects] == CHAIN8_NAMES
     torch.cuda.synchronize()
+    # each render's graph captured first (its warm-up is an eager render):
+    # the counted run is the replays'
+    capture_ms = {B: prepare_render(chains[B][1], signal, chains[B][0])
+                  for B in BLOCK_SIZES}
 
     zero_launch_counts()
-    outputs, walks = {}, {}
+    outputs, walks, device_walks = {}, {}, {}
     for B in BLOCK_SIZES:
         cfg, chain = chains[B]
         w0 = kdyn.state_walk_launch_count + kdyn.audio_walk_launch_count
         outputs[B] = pt.render(chain, signal, cfg)
-        torch.cuda.synchronize()
+        # the device's walk count (a sync): adds the while node's audio
+        # walks to their counter
+        device_walks[B] = chain.captured_render().walks()[
+            render_shape(signal, B)]
         walks[B] = kdyn.state_walk_launch_count \
             + kdyn.audio_walk_launch_count - w0
+        assert walks[B] == sum(device_walks[B]), (walks, device_walks)
     launches = launch_counts()
+    settles = kdyn.settle_launch_count
+    assert settles == sum(walks.values()), (settles, walks)
+    main_outputs = dict(outputs)    # compiled_render holds the graph to them
     for name, count in launches.items():
         if name in STREAM_KERNELS + OFF_PATH_KERNELS:
             assert count == 0, (name, launches)
@@ -3835,10 +4368,13 @@ def main() -> None:
                                       db_plain_bar=CHAIN8_DB_PLAIN,
                                       keep_oracle=oracles)
         main_checks[B]["dynamics_walks"] = walks[B]
+        main_checks[B]["warmup_and_capture_ms"] = capture_ms[B]
     T = -(-n // BLOCK_SIZES[0]) * BLOCK_SIZES[0]
     emit({"phase": "main_path", "chain": "chain8", "channels": C,
           "seconds_of_audio": SECONDS, "samples_per_channel": n,
-          "launches": launches,
+          "through": "the captured render (a CUDA graph a blocks shape; the "
+                     "dynamics fixpoint in a conditional while node)",
+          "launches": launches, "settle_step_launches": settles,
           "dynamics_segments": kdyn.plan_segments(C, T),
           "oracle": f"float64, 2 channels, first {ORACLE_EXCERPT} samples "
                     f"({ORACLE_EXCERPT / SAMPLE_RATE:.2f} s): the automatons "
@@ -3875,6 +4411,13 @@ def main() -> None:
                                        smi)
     path_launches["compiled_step"] = compiled["launch_counts"]
     emit({**compiled, "seconds": round(time.perf_counter() - t0, 1)})
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as workdir:
+        compiled_r = compiled_render_phase(chains, signal, n, main_outputs,
+                                           oracles, workdir, smi)
+    del main_outputs
+    path_launches["compiled_render"] = compiled_r["launch_counts"]
+    emit({**compiled_r, "seconds": round(time.perf_counter() - t0, 1)})
     for B in BLOCK_SIZES:
         cfg, chain = chains[B]
         T = -(-n // B) * B
@@ -3938,30 +4481,35 @@ def main() -> None:
           "segment_sweep": sweep})
 
     # ---- 7. throughput of the whole render: 3 chained passes, o = chain(o)
+    # samples_per_s / render_ms: the eager render (the column the lane has
+    # always printed); captured_*: the captured render, which render replays
     rates = {}
     for B in BLOCK_SIZES:
         cfg, chain = chains[B]
-        o = pt.render(chain, signal, cfg)              # warm-up
-        torch.cuda.synchronize()
-        total = o.numel()
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            o = pt.render(chain, o, cfg)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        assert bool(torch.isfinite(o).all())
-        rates[str(B)] = {"samples_per_s": total / statistics.median(times),
-                         "render_ms": statistics.median(times) * 1e3,
+        total = C * render_shape(signal, B)[-2] * B
+        eager_ms = chained_ms(lambda o: eager_render(chain, o, cfg), signal)
+        graph_ms_ = chained_ms(lambda o: pt.render(chain, o, cfg), signal)
+        chain.captured_render().walks()
+        rates[str(B)] = {"samples_per_s": total / eager_ms * 1e3,
+                         "render_ms": eager_ms,
+                         "captured_samples_per_s": total / graph_ms_ * 1e3,
+                         "captured_render_ms": graph_ms_,
                          "samples": total}
     emit({"phase": "throughput", "chain": "chain8", "channels": C,
           "by_block_size": rates, "nvidia_smi": smi})
 
     if args.profile:
         emit({"phase": "profile", "chain": "chain8", "channels": C,
+              # the captured and the eager render, each idle share against
+              # its own host-clock time (throughput's runs)
               "by_block_size": {
-                  str(B): profile_renders(chains[B][1], signal, chains[B][0],
-                                          rates[str(B)]["render_ms"])
+                  str(B): {
+                      "graph": profile_renders(
+                          chains[B][1], signal, chains[B][0],
+                          rates[str(B)]["captured_render_ms"]),
+                      "eager": profile_renders(
+                          chains[B][1], signal, chains[B][0],
+                          rates[str(B)]["render_ms"], eager=True)}
                   for B in BLOCK_SIZES},
               # the graph replays and the eager steps, each idle share
               # against its own wall time a step (compiled_step's runs)

@@ -676,3 +676,74 @@ extern "C" int dynamics_state_walk_launch(const float* x, const int* entry,
   return launch<false>(x, nullptr, entry, exit_state, ops, C, T, G, L,
                        stream);
 }
+
+// ---------------------------------------------------------------------------
+// The settle step of the offline fixpoint (no TPU kernel: the counterpart of
+// dynamics_pallas.py's next_entries and jnp.all inside dynamics_pallas_offline's
+// lax.while_loop). After a walk has written its exit states z (n_ops, R), one
+// launch
+//   * writes the next entries into e (n_ops, R) in place: lane r = g*C + c of
+//     segment g+1 takes segment g's exit z[r - C], segment 0 keeps REST (0);
+//   * compares them with the entries the walk started from (e before the
+//     write): flags[0] = 1 where none changed;
+//   * counts the walk: flags[1] = 1 after the state walk (mode 0), else + 1;
+//     flags[2] counts the audio walks of every settle since the flags were
+//     zeroed (modes 1 and 2), so that a reader can sum the walks of many
+//     replays of a graph;
+//   * in a CUDA graph's while node (mode 2) sets the node's condition to
+//     !done && walks < limit, the loop's bound G + 2 of dynamics_pallas.py;
+//     a loop that ends at the bound unsettled adds 1 to flags[3].
+// Each element is read and written by one thread only (e and z are distinct
+// buffers), so nothing waits for anything but the block's one reduction.
+// What bounds it: a few hundred KB read and written once by ONE block (the
+// flag needs the whole comparison), a few microseconds at chain8's 32,768
+// ints; the walks around it take hundreds.
+
+#define SETTLE_THREADS 1024
+
+namespace {
+
+__global__ void __launch_bounds__(SETTLE_THREADS)
+settle_kernel(const int* __restrict__ z, int* __restrict__ e,
+              int* __restrict__ flags, long long total, int C, int R,
+              int mode, int limit, cudaGraphConditionalHandle handle) {
+  int changed = 0;
+  for (long long i = threadIdx.x; i < total; i += SETTLE_THREADS) {
+    const int r = (int)(i % R);
+    const int next = r >= C ? z[i - C] : 0;
+    changed |= next != e[i];
+    e[i] = next;
+  }
+  changed = __syncthreads_or(changed);
+  if (threadIdx.x == 0) {
+    const int done = !changed;
+    const int walks = mode == 0 ? 1 : flags[1] + 1;
+    flags[0] = done;
+    flags[1] = walks;
+    if (mode != 0) flags[2] += 1;
+    if (mode == 2) {
+      const int more = !done && walks < limit;
+      if (!done && !more) flags[3] += 1;
+      cudaGraphSetConditional(handle, (unsigned int)more);
+    }
+  }
+}
+
+}  // namespace
+
+// The settle step: z, e (n_ops, C*G) int32, flags int32[4]; mode 0 after the
+// state walk, 1 after an audio walk run eagerly, 2 inside a while node whose
+// conditional handle is `handle`.
+extern "C" int dynamics_settle_launch(const int* z, int* e, int* flags,
+                                      int n_ops, int C, int R, int mode,
+                                      int limit,
+                                      unsigned long long handle,
+                                      void* stream) {
+  if (n_ops < 1 || n_ops > DYN_MAX_OPS || C < 1 || R < C || mode < 0 ||
+      mode > 2 || z == nullptr || e == nullptr || flags == nullptr)
+    return (int)cudaErrorInvalidValue;
+  settle_kernel<<<1, SETTLE_THREADS, 0, (cudaStream_t)stream>>>(
+      z, e, flags, (long long)n_ops * R, C, R, mode, limit,
+      (cudaGraphConditionalHandle)handle);
+  return (int)cudaGetLastError();
+}

@@ -8,15 +8,31 @@ streaming step over the blocks.
 Differences from the JAX package, all of them consequences of PyTorch
 running eagerly:
 
-* what the JAX package jit-compiles, the port runs eagerly, with one
-  exception: the streaming step on the card. :meth:`Chain.captured_step`
-  captures ``chain_step`` in a CUDA graph per block shape and replays it
-  (``engine/graph.py``), as the JAX chain calls its jitted step;
-  ``StreamProcessor``, the realtime pump and the ``compat`` devices stream
-  through it. :meth:`Chain.step` stays eager: it is the captured step's
-  reference, and ``profiling.annotate_chain`` scopes it. The offline render
-  is not captured: the dynamics walks read back once per walk to reach
-  their fixpoint, which JAX keeps inside the program as a ``while_loop``;
+* what the JAX package jit-compiles, the port captures in CUDA graphs on
+  the card (``engine/graph.py``) and runs eagerly elsewhere:
+
+  - the streaming step: :meth:`Chain.captured_step` captures ``chain_step``
+    in a graph per block shape and replays it, as the JAX chain calls its
+    jitted step; ``StreamProcessor``, the realtime pump, the ``compat``
+    devices and ``render_segmented`` / ``render_resumable`` stream through
+    it;
+  - the offline render: :meth:`Chain.captured_render` captures
+    ``chain_render`` in a graph per blocks shape, kept with the chain, as
+    the JAX chain keeps its jitted render; ``engine/render.render`` (and
+    with it ``render_file`` and the CLI) replays it and keeps the graph of
+    the last shape it rendered only. The dynamics
+    fixpoint, a loop whose trip count depends on the signal, runs inside
+    the graph as a conditional while node (CUDA 12.4 or later, driver and
+    runtime), so a replay reads nothing back. A
+    graph holds its input and output buffers and, in its private pool,
+    the intermediates: chain8 at 64 channels x 30 s holds 1,298 MiB, four
+    times the signal (an H100 with PyTorch 2.11; ``chip_smoke.py``'s
+    ``compiled_render`` phase measures it), until
+    :meth:`~.graph.CapturedRender.release` frees it;
+
+  :meth:`Chain.step` and :meth:`Chain.render_blocks` stay eager: they are
+  the graphs' references, and ``profiling.annotate_chain`` scopes them.
+  The sharded render (``parallel/``) is eager;
 * there is no structure/params split: the params are the effects' own;
 * the device is an argument of the Chain (default ``"cuda"``) and not a
   process-wide backend read at build time;
@@ -65,6 +81,8 @@ class Chain:
         self._exec_effects = fuse_lti_runs(self.effects) if fuse \
             else self.effects
         self.params = tuple(e.params for e in self._exec_effects)
+        self._captured_render = None
+        self._fold_steps = {}
 
     def __iter__(self):
         return iter(self.effects)
@@ -94,11 +112,41 @@ class Chain:
 
         return CapturedStep(self._exec_effects, self.device, batch_shape)
 
+    def captured_render(self):
+        """The offline render as CUDA graphs
+        (:class:`~.graph.CapturedRender`), one per blocks shape, bit-equal
+        to :meth:`render_blocks`; made once and kept with the chain, as
+        the JAX chain keeps its jitted render. Only for a chain on the
+        card."""
+        if self.device.type != "cuda":
+            raise ValueError(
+                f"a captured render runs on the card; this chain runs on "
+                f"{self.device}: call render_blocks")
+        if self._captured_render is None:
+            from .graph import CapturedRender
+
+            self._captured_render = CapturedRender(self._exec_effects,
+                                                   self.device)
+        return self._captured_render
+
+    def fold_step(self, batch_shape: tuple[int, ...] = ()):
+        """A captured step of ``batch_shape`` kept with the chain, for
+        folds that load a state, step a run of blocks and read the state
+        back (``engine/resumable.render_segment``). Only for a chain on the
+        card."""
+        step = self._fold_steps.get(tuple(batch_shape))
+        if step is None:
+            step = self._fold_steps[tuple(batch_shape)] = \
+                self.captured_step(batch_shape)
+        return step
+
     def render_blocks(self, blocks: torch.Tensor,
                       use_kernels: bool = True) -> torch.Tensor:
-        """Offline: process all ``(..., num_blocks, block_size)`` blocks.
-        The input is never overwritten: both kernels read halos that other
-        thread blocks still need, so every stage writes a fresh output.
+        """Offline: process all ``(..., num_blocks, block_size)`` blocks,
+        eagerly (the reference of :meth:`captured_render`, which
+        ``engine/render.render`` replays on the card). The input is never
+        overwritten: both kernels read halos that other thread blocks still
+        need, so every stage writes a fresh output.
 
         ``use_kernels=False`` runs every effect's plain PyTorch version on
         whatever device ``blocks`` is on (the reference for the kernels)."""

@@ -1,4 +1,5 @@
-"""The captured streaming step: the counterpart of ``jax.jit(chain_step)``.
+"""The captured streaming step and the captured offline render: the
+counterparts of ``jax.jit(chain_step)`` and ``jax.jit(chain_render)``.
 
 The JAX package compiles its streaming step once per block shape
 (``pyaudiodsptools_tpu/engine/chain.py``: ``jax.jit(partial(chain_step,
@@ -42,6 +43,23 @@ do not invalidate this thread's capture. A capture that fails raises
 :class:`CaptureError` naming the effect whose step broke it; nothing falls
 back to the eager step. ``Chain.step`` stays eager, the reference the graph
 is held to.
+
+The offline render (:class:`CapturedRender`, ``Chain.captured_render``) is
+captured the same way, one graph per blocks shape, each with a static input
+buffer that ``engine/render.render`` writes the padded signal into. Its one
+loop whose trip count depends on the data, the dynamics fixpoint
+(``kernels/dynamics.dynamics_offline``), becomes a conditional while node
+(``kernels/graph_cond.while_node``, ``csrc/graph_cond.cu``): the audio walk
+and the settle step are the node's body, and the settle step sets the node's
+condition on the card. Those launches are counted when the render's walks
+are read (:meth:`CapturedRender.walks`, a synchronisation), never in
+``replay``. A graph holds its intermediates in its private pool for as long
+as it lives (chain8 at 64 channels x 30 s: four times the signal), so
+:meth:`CapturedRender.render`, what ``engine/render.render`` calls, keeps the
+graph of the shape it renders and releases the others; ``capture``,
+``replay`` and ``__call__`` keep every shape until
+:meth:`CapturedRender.release`. ``Chain.render_blocks`` stays eager, the
+reference the graph is held to.
 """
 
 from __future__ import annotations
@@ -51,7 +69,9 @@ from typing import Sequence
 
 import torch
 
-from ..kernels import convpairs, dynamics, relayout, segconv, tail
+from ..kernels import (convpairs, dynamics, graph_cond, relayout, segconv,
+                       tail)
+from ..kernels.graph_cond import CaptureError
 from ..ops.base import Effect
 from .stream import state_leaves
 
@@ -60,13 +80,10 @@ LAUNCH_COUNTERS = ((convpairs, "launch_count"),
                    (dynamics, "serial_walk_launch_count"),
                    (dynamics, "state_walk_launch_count"),
                    (dynamics, "audio_walk_launch_count"),
+                   (dynamics, "settle_launch_count"),
                    (segconv, "launch_count"), (tail, "launch_count"),
                    (relayout, "pack_launch_count"),
                    (relayout, "unpack_launch_count"))
-
-
-class CaptureError(RuntimeError):
-    """A step could not be captured in a CUDA graph."""
 
 
 def _rebuild(template, it):
@@ -80,6 +97,51 @@ def _rebuild(template, it):
 
 def _counts() -> list[int]:
     return [getattr(m, a) for m, a in LAUNCH_COUNTERS]
+
+
+def _capture(device, warm, run, what: str):
+    """Run ``warm(where)`` once on a side stream (kernels built and loaded,
+    caches filled, cuBLAS's handle made; the result is dropped), then capture
+    ``run(where)`` in a CUDA graph in ``thread_local`` mode. Each callable
+    names the effect at work in ``where[0]``. Returns (graph, what ``run``
+    returned, each counter's launches a replay); the capture's own counts
+    are taken back. A failure raises :class:`CaptureError` naming
+    ``what`` and the effect."""
+    where = [None]
+    current = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(current)
+    with torch.cuda.stream(side):
+        warm(where)
+    current.wait_stream(side)
+    torch.cuda.synchronize(device)
+    before = _counts()
+    graph = torch.cuda.CUDAGraph()
+    failed, result = None, None
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            try:
+                result = run(where)
+            except Exception as exc:    # end the capture, then raise
+                failed = exc
+    except Exception as exc:
+        if failed is None:
+            raise CaptureError(f"capturing {what} failed when the capture "
+                               "ended") from exc
+    finally:
+        after = _counts()
+        for (m, a), v in zip(LAUNCH_COUNTERS, before):
+            setattr(m, a, v)
+    if failed is not None:
+        raise CaptureError(f"capturing {what} failed in the step of "
+                           f"{where[0]!r}: {failed}") from failed
+    return graph, result, [a - b for a, b in zip(after, before)]
+
+
+def _add_launches(launches: list[int]) -> None:
+    for (m, a), k in zip(LAUNCH_COUNTERS, launches):
+        if k:
+            setattr(m, a, getattr(m, a) + k)
 
 
 @dataclasses.dataclass
@@ -202,43 +264,20 @@ class CapturedStep:
 
     def _capture(self, shape: tuple[int, ...]) -> _Graph:
         block = torch.zeros(shape, dtype=torch.float32, device=self.device)
-        where = [None]
-        current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(current)
-        with torch.cuda.stream(side):
-            self._step(block, where)        # warm-up; the result is dropped
-        current.wait_stream(side)
-        torch.cuda.synchronize(self.device)
-        before = _counts()
-        graph = torch.cuda.CUDAGraph()
-        failed = None
-        try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                try:
-                    new_state, out = self._step(block, where)
-                    where[0] = "(writing the new state)"
-                    self._write_state(new_state)
-                except Exception as exc:    # end the capture, then raise
-                    failed = exc
-        except Exception as exc:
-            if failed is None:
-                raise CaptureError(
-                    f"capturing the streaming step for blocks of {shape} "
-                    "failed when the capture ended") from exc
-        finally:
-            after = _counts()
-            for (m, a), v in zip(LAUNCH_COUNTERS, before):
-                setattr(m, a, v)
-        if failed is not None:
-            raise CaptureError(
-                f"capturing the streaming step for blocks of {shape} failed "
-                f"in the step of {where[0]!r}: {failed}") from failed
+
+        def run(where):
+            new_state, out = self._step(block, where)
+            where[0] = "(writing the new state)"
+            self._write_state(new_state)
+            return out
+
+        graph, out, launches = _capture(
+            self.device, lambda where: self._step(block, where), run,
+            f"the streaming step for blocks of {shape}")
         if not isinstance(out, torch.Tensor) or out.shape != block.shape:
             raise CaptureError(f"the step gave {getattr(out, 'shape', out)} "
                                f"for a block of {shape}")
-        return _Graph(graph, block, out,
-                      [a - b for a, b in zip(after, before)])
+        return _Graph(graph, block, out, launches)
 
     def replay(self, block: torch.Tensor) -> torch.Tensor:
         """Step ``block`` (a tensor on the card or on the host), advancing
@@ -252,9 +291,7 @@ class CapturedStep:
             g = self._graphs[shape]
         g.block.copy_(block)
         g.graph.replay()
-        for (m, a), k in zip(LAUNCH_COUNTERS, g.launches):
-            if k:
-                setattr(m, a, getattr(m, a) + k)
+        _add_launches(g.launches)
         return g.out
 
     def __call__(self, block: torch.Tensor) -> torch.Tensor:
@@ -266,3 +303,202 @@ class CapturedStep:
         g = self._graphs[tuple(shape)]
         return {f"{m.__name__.rsplit('.', 1)[-1]}.{a}": k
                 for (m, a), k in zip(LAUNCH_COUNTERS, g.launches) if k}
+
+
+# -- the offline render ------------------------------------------------------
+
+
+@dataclasses.dataclass
+class _Render:
+    graph: torch.cuda.CUDAGraph
+    blocks: torch.Tensor         # static input buffer
+    out: torch.Tensor            # output buffer
+    launches: list[int]          # each counter's launches a replay, but the
+                                 # while nodes' (read with the walks)
+    flags: list[torch.Tensor]    # each fixpoint's settle flags
+    read: list[tuple[int, int]]  # each fixpoint's counters at the last read
+
+
+class CapturedRender:
+    """An offline render over ``effects`` (a chain's executed effects, in
+    order) replayed from CUDA graphs: the counterpart of the JAX package's
+    ``jax.jit(chain_render)``, one graph for each blocks shape, as jit
+    keeps one program for each.
+
+    >>> captured = chain.captured_render()
+    >>> out = captured(blocks)          # a new tensor; blocks untouched
+    >>> y = captured.render(signal, 512)  # engine.render: one shape kept
+    >>> captured.walks()                # the dynamics walks (a sync)
+    >>> captured.release()              # frees the graphs and their pools
+
+    Each graph reads a static input buffer and writes its own output
+    buffer, which the next replay of that shape overwrites:
+    :meth:`replay` returns that buffer, ``__call__`` and :meth:`render` a
+    copy (JAX's outputs are immutable). Every intermediate lies in the
+    graph's private memory pool for as long as the graph lives, which is
+    why :meth:`render` keeps the graph of one shape only."""
+
+    def __init__(self, effects: Sequence[Effect], device):
+        self.effects = tuple(effects)
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(
+                f"a captured render runs on a CUDA device, not {self.device}:"
+                " on the CPU call Chain.render_blocks")
+        for e in self.effects:
+            if e.device.type != "cuda":
+                raise ValueError(f"effect {e.name!r} was built for "
+                                 f"{e.device}, not for the card")
+        self._graphs: dict[tuple, _Render] = {}
+
+    def _render(self, blocks: torch.Tensor, where: list) -> torch.Tensor:
+        """``chain_render`` with kernels, the effect at work in
+        ``where[0]``."""
+        from .chain import scan_offline
+
+        for e in self.effects:
+            where[0] = e.name
+            if e.offline is not None:
+                blocks = e.offline(e.params, blocks)
+            else:
+                blocks = scan_offline(e.init_state, e.step, e.params, blocks)
+        where[0] = None
+        return blocks
+
+    def capture(self, shape: tuple[int, ...],
+                dtype: torch.dtype = torch.float32) -> None:
+        """Warm up and capture the render of ``(..., num_blocks,
+        block_size)`` blocks, once: a shape met before is kept."""
+        key = (tuple(shape), dtype)
+        if key in self._graphs:
+            return
+        if len(shape) < 2:
+            raise ValueError(f"a render takes (..., num_blocks, block_size) "
+                             f"blocks, not {tuple(shape)}")
+        with torch.cuda.device(self.device), torch.no_grad(), \
+                torch.inference_mode(False):
+            # the while nodes' library loaded and its stream made before
+            # the capture, not in it
+            graph_cond.body_stream(self.device)
+            blocks = torch.zeros(shape, dtype=dtype, device=self.device)
+            flags: list[torch.Tensor] = []      # each fixpoint's
+
+            def run(where):
+                with graph_cond.fixpoints() as found:
+                    out = self._render(blocks, where)
+                flags.extend(found)
+                return out
+
+            graph, out, launches = _capture(
+                self.device, lambda where: self._render(blocks, where), run,
+                f"the offline render of blocks of {tuple(shape)}")
+            if not isinstance(out, torch.Tensor) or out.shape != blocks.shape:
+                raise CaptureError(f"the render gave "
+                                   f"{getattr(out, 'shape', out)} for blocks "
+                                   f"of {tuple(shape)}")
+            for f in flags:         # the counters the graph only adds to
+                f.zero_()
+            self._graphs[key] = _Render(graph, blocks, out, launches, flags,
+                                        [(0, 0)] * len(flags))
+
+    def _get(self, shape, dtype) -> _Render:
+        key = (tuple(shape), dtype)
+        g = self._graphs.get(key)
+        if g is None:
+            self.capture(shape, dtype)
+            g = self._graphs[key]
+        return g
+
+    def replay_input(self, shape: tuple[int, ...],
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        """Replay the graph for ``shape`` (captured first if need be) on
+        what its static input buffer holds. Returns the graph's output
+        buffer, which the next replay of this shape overwrites. Reads
+        nothing back."""
+        g = self._get(shape, dtype)
+        g.graph.replay()
+        _add_launches(g.launches)
+        return g.out
+
+    def replay(self, blocks: torch.Tensor) -> torch.Tensor:
+        """Copy ``blocks`` into the input buffer of its shape and replay;
+        returns the graph's output buffer (see :meth:`replay_input`)."""
+        g = self._get(blocks.shape, blocks.dtype)
+        g.blocks.copy_(blocks)
+        return self.replay_input(blocks.shape, blocks.dtype)
+
+    def __call__(self, blocks: torch.Tensor) -> torch.Tensor:
+        """Render ``(..., num_blocks, block_size)`` blocks: :meth:`replay`,
+        its output copied, so that it stays valid. ``blocks`` is not
+        touched (the JAX package's render without donation)."""
+        return self.replay(blocks).clone()
+
+    def render(self, signal: torch.Tensor, block_size: int) -> torch.Tensor:
+        """Render a ``(..., n)`` signal on the card in blocks of
+        ``block_size``: the signal is written, zero-padded to whole blocks,
+        straight into the input buffer (no padded copy is made, as the JAX
+        package donates its padded blocks), the graph replayed and its
+        output copied. Returns ``(..., num_blocks, block_size)`` blocks.
+
+        Only this shape's graph is kept: the graphs of other shapes are
+        released first, so that a caller who renders signals of many lengths
+        holds one graph, not one for each length."""
+        n = signal.shape[-1]
+        nb = -(-n // block_size)
+        shape = tuple(signal.shape[:-1]) + (nb, block_size)
+        self.release(keep=(shape, signal.dtype))
+        flat = self._get(shape, signal.dtype).blocks.view(
+            shape[:-2] + (nb * block_size,))
+        flat[..., :n].copy_(signal)
+        flat[..., n:].zero_()
+        return self.replay_input(shape, signal.dtype).clone()
+
+    def walks(self) -> dict[tuple[int, ...], list[int]]:
+        """The walks of each graph's last replay, one int a dynamics stage
+        (the state walk included), by blocks shape. Reads the device (a
+        synchronisation) and adds to the launch counters the audio walks
+        and settle steps that the while nodes ran since the last read.
+        Raises if a fixpoint ended at its bound unsettled (unreachable: the
+        entries settle one segment a walk at least)."""
+        found = {}
+        for (shape, _), g in self._graphs.items():
+            if not g.flags:
+                found[shape] = []
+                continue
+            values = torch.stack(g.flags).tolist()
+            for i, v in enumerate(values):
+                audio, unsettled = (v[dynamics.FLAG_AUDIO_WALKS],
+                                    v[dynamics.FLAG_UNSETTLED])
+                seen_audio, seen_unsettled = g.read[i]
+                dynamics.audio_walk_launch_count += audio - seen_audio
+                dynamics.settle_launch_count += audio - seen_audio
+                g.read[i] = (audio, unsettled)
+                if unsettled != seen_unsettled:
+                    raise RuntimeError(
+                        f"a captured render of {shape} ended a dynamics "
+                        "fixpoint unsettled at its bound")
+            found[shape] = [v[dynamics.FLAG_WALKS] for v in values]
+        return found
+
+    def launches_per_replay(self, shape: tuple[int, ...],
+                            dtype: torch.dtype = torch.float32
+                            ) -> dict[str, int]:
+        """Each counter's launches in one replay outside the while nodes
+        (their audio walks and settle steps depend on the data: see
+        :meth:`walks`)."""
+        g = self._graphs[(tuple(shape), dtype)]
+        return {f"{m.__name__.rsplit('.', 1)[-1]}.{a}": k
+                for (m, a), k in zip(LAUNCH_COUNTERS, g.launches) if k}
+
+    def shapes(self) -> list[tuple[int, ...]]:
+        """The blocks shapes whose graphs are kept."""
+        return [shape for shape, _ in self._graphs]
+
+    def release(self, keep: tuple | None = None) -> None:
+        """Free every graph, its buffers and its private memory pool (the
+        memory goes back to PyTorch's caching allocator, which hands it to
+        the driver at ``torch.cuda.empty_cache`` or when an allocation would
+        fail), but the graph of ``keep`` (``(shape, dtype)``) if given. A
+        later render of a released shape captures again."""
+        for key in [k for k in self._graphs if k != keep]:
+            self._graphs.pop(key).graph.reset()

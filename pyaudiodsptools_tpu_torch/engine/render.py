@@ -4,6 +4,14 @@ Counterpart of ``pyaudiodsptools_tpu/engine/render.py``: block the signal,
 render the whole chain (at once through the offline kernels, or segment by
 segment through the streaming step), deblock. Output length is padded to
 whole blocks unless ``trim=True``.
+
+On the card both are the JAX package's compiled programs' counterparts:
+:func:`render` replays the chain's captured render (``Chain.captured_render``,
+kept with the chain; ``render`` keeps the graph of the last blocks shape it
+rendered and releases the others) and writes the padded signal straight
+into the graph's input buffer, as the JAX render donates its padded blocks; :func:`render_segmented` folds the chain's captured step
+(``engine/resumable.render_segment``). On the CPU, and with
+``use_kernels=False``, the render runs eagerly (``Chain.render_blocks``).
 """
 
 from __future__ import annotations
@@ -23,11 +31,17 @@ def render(chain: Chain, signal, cfg: EngineConfig, trim: bool = False,
     """Render ``(..., n)`` audio through the chain on the chain's device.
     Leading axes are channels. ``signal`` may be a tensor (moved to the
     chain's device if it is elsewhere) or anything ``torch.as_tensor`` takes.
-    ``use_kernels=False`` asks for the plain PyTorch versions throughout."""
+    ``use_kernels=False`` asks for the plain PyTorch versions throughout.
+    On the card the render replays a CUDA graph (captured at the first
+    render of a shape; the chain keeps the last shape's graph only) and
+    returns a tensor of its own."""
     signal = torch.as_tensor(signal, dtype=cfg.dtype).to(chain.device)
     n = signal.shape[-1]
-    blocks = blk.make_blocks(signal, cfg.block_size)
-    out = chain.render_blocks(blocks, use_kernels=use_kernels)
+    if chain.device.type == "cuda" and use_kernels:
+        out = chain.captured_render().render(signal, cfg.block_size)
+    else:
+        blocks = blk.make_blocks(signal, cfg.block_size)
+        out = chain.render_blocks(blocks, use_kernels=use_kernels)
     return blk.combine_blocks(out, n if trim else None)
 
 

@@ -39,7 +39,18 @@ def _atomic_write(path: str, write_fn) -> None:
 
 def render_segment(chain: Chain, state, seg_blocks: torch.Tensor):
     """One segment: fold the chain step over its ``(..., k, B)`` blocks.
-    Returns (state, output blocks)."""
+    Returns (state, output blocks). On the card the fold replays the chain's
+    captured step (``Chain.fold_step``: load the state, replay block after
+    block, read the state back), the counterpart of the JAX package's
+    jitted ``_render_segment``; it is bit-equal to folding ``Chain.step``,
+    which the CPU runs."""
+    if seg_blocks.is_cuda:
+        step = chain.fold_step(tuple(seg_blocks.shape[:-2]))
+        step.load_state(state)
+        out = torch.empty_like(seg_blocks, dtype=torch.float32)
+        for i in range(seg_blocks.shape[-2]):
+            out[..., i, :] = step.replay(seg_blocks[..., i, :])
+        return step.state, out
     outs = []
     for i in range(seg_blocks.shape[-2]):
         state, y = chain.step(state, seg_blocks[..., i, :])

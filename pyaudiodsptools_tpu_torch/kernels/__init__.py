@@ -8,7 +8,10 @@ plain PyTorch versions.
 ``relayout`` natural <-> time-major pack / unpack (csrc/relayout.cu; the
              walks' plain version uses them, no path launches them)
 ``dynamics`` speculative compressor/gate walks and the serial walk of the
-             streaming step                      (csrc/dynamics.cu)
+             streaming step, and the offline fixpoint's settle step
+                                                 (csrc/dynamics.cu)
+``graph_cond`` a conditional while node in a CUDA graph being captured,
+             and the record of the fixpoints run in one (csrc/graph_cond.cu)
 ``_build``   compiles csrc/*.cu with nvcc at first use and loads them with
              ctypes
 

@@ -35,9 +35,19 @@ differs from the faithful step's float32 ``linspace`` tables by <= 2 ulp.
 The loop ("hybrid", the JAX package's default): one states-only walk from
 REST, then audio walks until the shifted exits equal the entries, at most
 G+2 walks in all (unreachable: entries settle at least one segment per
-walk). The shift and the comparison are a few PyTorch calls on (n_ops, C*G)
-ints (lane ``r = g*C + c``); the comparison is the one device read-back per
-walk. The audio always comes from converged entries.
+walk). After each walk the settle step (:func:`settle`, one small launch of
+``csrc/dynamics.cu``, the counterpart of JAX's ``next_entries`` and
+``jnp.all``) shifts the exits into the entries in place (lane
+``r = g*C + c``), compares, counts the walk and writes a ``done`` flag on the
+device. Run eagerly, the loop reads that flag back once a walk. Inside a
+CUDA graph capture (a captured render, ``engine/graph.py``) the audio walk
+and the settle step are the body of a conditional while node
+(``graph_cond.while_node``) and the settle step sets the node's condition
+itself, so the loop runs on the card with no read-back, as JAX's
+``lax.while_loop`` runs inside its jitted render. Either way the same walks
+run on the same entries, and the audio always comes from converged entries;
+the flags go to ``graph_cond.note_fixpoint``, where a caller that opened
+``graph_cond.fixpoints`` reads the walks.
 
 The walks read the signal (C, T) as it lies and the audio walk writes its
 output (C, T): segment g of channel c is ``x[c, g*L : (g+1)*L]``, the last
@@ -84,7 +94,7 @@ import torch
 
 from ..ops.base import Effect
 from ..ops.dynamics import ATTACK, HOLD, RELEASE, REST, DynamicsParams
-from . import _build, relayout
+from . import _build, graph_cond, relayout
 
 # Mirror of DYN_MAX_OPS in csrc/dynamics.cu: ops per cascade kernel.
 MAX_OPS = 4
@@ -134,6 +144,17 @@ audio_walk_launch_count = 0
 # Launches of the serial-walk kernel made by :func:`serial_walk` and
 # :func:`cascade_step` (one a call).
 serial_walk_launch_count = 0
+# Launches of the settle step made by :func:`settle` (one a walk). Inside a
+# captured render the audio walks and settle steps of the while node are
+# counted when the render's walks are read (``CapturedRender.walks``).
+settle_launch_count = 0
+
+# The settle step's flags, int32[4]: done, walks of this render (the state
+# walk included), audio walks since the flags were zeroed, and loops that
+# ended at the bound unsettled. Its modes: after the state walk, after an
+# audio walk run eagerly, inside a while node (sets the node's condition).
+FLAG_DONE, FLAG_WALKS, FLAG_AUDIO_WALKS, FLAG_UNSETTLED = range(4)
+AFTER_STATE_WALK, AFTER_AUDIO_WALK, IN_WHILE_NODE = range(3)
 
 _F = np.float32
 
@@ -342,10 +363,13 @@ def _build_table(scalars) -> _Ops:
     return table
 
 
-def _launch_walk(scalars, x, G: int, L: int, entry, audio: bool):
+def _launch_walk(scalars, x, G: int, L: int, entry, audio: bool,
+                 out=None, exit_state=None):
     C, T = x.shape
-    out = torch.empty_like(x) if audio else None
-    exit_state = torch.empty_like(entry)
+    if audio and out is None:
+        out = torch.empty_like(x)
+    if exit_state is None:
+        exit_state = torch.empty_like(entry)
     table = _ops_table(scalars)
     ops = ctypes.POINTER(_Ops)
     if audio:
@@ -373,31 +397,116 @@ def _launch_walk(scalars, x, G: int, L: int, entry, audio: bool):
     return out, exit_state
 
 
+def _check_into(t: torch.Tensor, like: torch.Tensor, what: str) -> None:
+    if t.shape != like.shape or t.dtype != like.dtype \
+            or t.device != like.device or not t.is_contiguous() \
+            or t.data_ptr() == like.data_ptr():
+        raise ValueError(
+            f"{what} must be a contiguous {tuple(like.shape)} {like.dtype} "
+            f"tensor on {like.device} of its own, got {tuple(t.shape)} "
+            f"{t.dtype} on {t.device}")
+
+
 def state_walk(scalars, x: torch.Tensor, G: int, L: int, entry: torch.Tensor,
-               use_kernels: bool = True) -> torch.Tensor:
+               use_kernels: bool = True,
+               exit_state: torch.Tensor | None = None) -> torch.Tensor:
     """Exit states (n_ops, C*G) of walking the G segments of L samples of
     every channel of x (C, T) from ``entry`` (lane g*C + c). A CUDA tensor
-    goes through the hand-written kernel, or the call raises."""
+    goes through the hand-written kernel, or the call raises. With
+    ``exit_state`` (shaped as ``entry``) the states are written there."""
     global state_walk_launch_count
     _check_walk(scalars, x, G, L, entry)
+    if exit_state is not None:
+        _check_into(exit_state, entry, "exit_state")
     if not (x.is_cuda and use_kernels):
-        return segments_plain(scalars, x, G, L, entry, audio=False)[1]
-    _, exit_state = _launch_walk(scalars, x, G, L, entry, audio=False)
+        z = segments_plain(scalars, x, G, L, entry, audio=False)[1]
+        return z if exit_state is None else exit_state.copy_(z)
+    _, exit_state = _launch_walk(scalars, x, G, L, entry, audio=False,
+                                 exit_state=exit_state)
     state_walk_launch_count += 1
     return exit_state
 
 
 def audio_walk(scalars, x: torch.Tensor, G: int, L: int, entry: torch.Tensor,
-               use_kernels: bool = True):
+               use_kernels: bool = True, out: torch.Tensor | None = None,
+               exit_state: torch.Tensor | None = None):
     """(out (C, T), exit states (n_ops, C*G)) of the same walk with audio:
-    the output lies as x does."""
+    the output lies as x does. With ``out`` / ``exit_state`` the results
+    are written there (a captured loop allocates nothing)."""
     global audio_walk_launch_count
     _check_walk(scalars, x, G, L, entry)
+    if out is not None:
+        _check_into(out, x, "out")
+    if exit_state is not None:
+        _check_into(exit_state, entry, "exit_state")
     if not (x.is_cuda and use_kernels):
-        return segments_plain(scalars, x, G, L, entry, audio=True)
-    out, exit_state = _launch_walk(scalars, x, G, L, entry, audio=True)
+        y, z = segments_plain(scalars, x, G, L, entry, audio=True)
+        return (y if out is None else out.copy_(y),
+                z if exit_state is None else exit_state.copy_(z))
+    out, exit_state = _launch_walk(scalars, x, G, L, entry, audio=True,
+                                   out=out, exit_state=exit_state)
     audio_walk_launch_count += 1
     return out, exit_state
+
+
+def settle_plain(z: torch.Tensor, entry: torch.Tensor, flags: torch.Tensor,
+                 C: int, mode: int) -> None:
+    """The plain version of :func:`settle` (no while node on the CPU): the
+    same writes with tensor operations, reading nothing back."""
+    if mode == IN_WHILE_NODE:
+        raise ValueError("the settle step sets a while node's condition on "
+                         "the card only")
+    nxt = torch.zeros_like(z)
+    nxt[:, C:] = z[:, :z.shape[1] - C]
+    flags[FLAG_DONE] = (nxt == entry).all().to(torch.int32)
+    if mode == AFTER_STATE_WALK:
+        flags[FLAG_WALKS] = 1
+    else:
+        flags[FLAG_WALKS] += 1
+        flags[FLAG_AUDIO_WALKS] += 1
+    entry.copy_(nxt)
+
+
+def settle(z: torch.Tensor, entry: torch.Tensor, flags: torch.Tensor, C: int,
+           mode: int, limit: int = 0, handle: int = 0,
+           use_kernels: bool = True) -> None:
+    """The settle step after a walk: ``entry`` (n_ops, C*G) int32 becomes the
+    next entries (segment g+1 takes segment g's exit from ``z``, segment 0
+    keeps REST) in place, and ``flags`` (int32[4], ``FLAG_*``) records
+    whether they changed and counts the walk. ``mode`` is
+    ``AFTER_STATE_WALK``, ``AFTER_AUDIO_WALK`` or ``IN_WHILE_NODE``; in the
+    last, the kernel sets the conditional ``handle`` of the while node it is
+    captured in to ``not done and walks < limit``. A CUDA tensor goes
+    through ``csrc/dynamics.cu``'s settle kernel (one block), or the call
+    raises."""
+    global settle_launch_count
+    if z.dtype != torch.int32 or z.dim() != 2 or not z.is_contiguous():
+        raise ValueError(f"exit states must be a contiguous (n_ops, lanes) "
+                         f"int32 tensor, got {tuple(z.shape)} {z.dtype}")
+    _check_into(entry, z, "entry")
+    if flags.shape != (4,) or flags.dtype != torch.int32 \
+            or flags.device != z.device:
+        raise ValueError(f"flags must be an int32[4] tensor on {z.device}, "
+                         f"got {tuple(flags.shape)} {flags.dtype}")
+    n_ops, R = z.shape
+    if not 1 <= n_ops <= MAX_OPS or not 1 <= C <= R or R % C:
+        raise ValueError(f"{n_ops} ops over {R} lanes of {C} channels")
+    if mode not in (AFTER_STATE_WALK, AFTER_AUDIO_WALK, IN_WHILE_NODE):
+        raise ValueError(f"settle mode {mode}")
+    if not (z.is_cuda and use_kernels):
+        settle_plain(z, entry, flags, C, mode)
+        return
+    fn = _build.launcher("dynamics", "dynamics_settle_launch",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+                         + [ctypes.c_ulonglong, ctypes.c_void_p])
+    with _build.on_device(z.device):
+        err = fn(z.data_ptr(), entry.data_ptr(), flags.data_ptr(), n_ops, C,
+                 R, mode, limit, handle,
+                 torch.cuda.current_stream(z.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dynamics settle launch failed with CUDA error "
+                           f"{err} (n_ops={n_ops}, lanes={R}, C={C})")
+    settle_launch_count += 1
 
 
 def serial_walk_plain(scalars, x: torch.Tensor, entry: torch.Tensor):
@@ -599,26 +708,48 @@ def dynamics_offline(params, x: torch.Tensor, segments: int | None = None,
     if segments is None:
         segments = plan_segments(C, T)
     G, L, _ = relayout.geometry(C, T, segments)
-    R = C * G
     x = x.to(torch.float32).contiguous()
-
-    def next_entries(z: torch.Tensor) -> torch.Tensor:
-        # lane r = g*C + c: segment g+1 takes segment g's exit, i.e. a shift
-        # by C lanes; segment 0 keeps REST.
-        e = torch.zeros_like(z)
-        e[:, C:R] = z[:, :R - C]
-        return e
-
-    e0 = torch.zeros((len(plist), R), dtype=torch.int32, device=x.device)
-    e = next_entries(state_walk(scalars, x, G, L, e0, use_kernels))
-    for _ in range(G + 1):
-        out, z = audio_walk(scalars, x, G, L, e, use_kernels)
-        e_next = next_entries(z)
-        if torch.equal(e_next, e):      # the one read-back per walk
+    in_graph = x.is_cuda and use_kernels \
+        and torch.cuda.is_current_stream_capturing()
+    entry = torch.zeros((len(plist), C * G), dtype=torch.int32,
+                        device=x.device)
+    z = torch.empty_like(entry)
+    out = torch.empty_like(x)
+    # a capture leaves the flags' counters to be zeroed by the capturer
+    flags = torch.empty(4, dtype=torch.int32, device=x.device) if in_graph \
+        else torch.zeros(4, dtype=torch.int32, device=x.device)
+    limit = G + 2
+    graph_cond.note_fixpoint(flags)
+    state_walk(scalars, x, G, L, entry, use_kernels, exit_state=z)
+    settle(z, entry, flags, C, AFTER_STATE_WALK, use_kernels=use_kernels)
+    if in_graph:
+        _fixpoint_in_graph(scalars, x, G, L, entry, z, out, flags, C, limit)
+        return out
+    while True:
+        audio_walk(scalars, x, G, L, entry, use_kernels, out=out,
+                   exit_state=z)
+        settle(z, entry, flags, C, AFTER_AUDIO_WALK, use_kernels=use_kernels)
+        done, walks = flags[:2].tolist()    # the one read-back per walk
+        if done:
             return out
-        e = e_next
-    raise RuntimeError(
-        f"the dynamics entries did not settle within {G + 2} walks")
+        if walks >= limit:
+            raise RuntimeError(
+                f"the dynamics entries did not settle within {limit} walks")
+
+
+def _fixpoint_in_graph(scalars, x, G: int, L: int, entry, z, out, flags,
+                       C: int, limit: int) -> None:
+    """The audio walks and settle steps as the body of a conditional while
+    node of the graph being captured (``graph_cond.while_node``): every
+    buffer the body touches was made before it. The body's launches are
+    data-dependent, so they are not counted here: a captured render adds
+    them when it reads the flags (``graph_cond.fixpoints``)."""
+    global audio_walk_launch_count, settle_launch_count
+    counted = audio_walk_launch_count, settle_launch_count
+    with graph_cond.while_node(x.device) as handle:
+        audio_walk(scalars, x, G, L, entry, out=out, exit_state=z)
+        settle(z, entry, flags, C, IN_WHILE_NODE, limit, handle)
+    audio_walk_launch_count, settle_launch_count = counted
 
 
 def offline_blocks(params, blocks: torch.Tensor,

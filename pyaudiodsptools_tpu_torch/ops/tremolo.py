@@ -7,7 +7,9 @@ absolute phase p is ``lfo[p mod L]`` -- EXCEPT for a reference quirk: when
 the rolling copy's remaining length hits exactly the chunk size, the phase
 freezes and that LFO segment repeats for all later chunks. The
 ``phase``/``avail`` carry replicates this; the offline path precomputes the
-per-block phase schedule on the host.
+per-block phase schedule on the host once per (LFO length, blocks, block
+size) and keeps it on the device, so that a render copies nothing from the
+host (a captured render, ``engine/graph.py``, replays it).
 
 As in the JAX package, the carry is two 0-d ``int32`` tensors on the
 effect's device and a step advances them with tensor operations: a step
@@ -118,6 +120,27 @@ def _phase_schedule(L: int, num_blocks: int, n: int) -> np.ndarray:
     return phases
 
 
+_device_schedules: dict[tuple[int, int, int, str], torch.Tensor] = {}
+
+
+def device_phase_schedule(L: int, num_blocks: int, n: int,
+                          device) -> torch.Tensor:
+    """:func:`_phase_schedule` as an int64 tensor on ``device``, copied there
+    once per key and device and kept (as ``kernels/segconv.pass_twiddles``
+    keeps its tables): a render reads it and copies nothing from the host,
+    which a CUDA graph could not replay. Nothing is evicted, because a
+    captured render reads the tensor at every replay; a key is three ints
+    and the tensor one int a block."""
+    device = torch.device(device)
+    key = (L, num_blocks, n, str(device))
+    sched = _device_schedules.get(key)
+    if sched is None:
+        sched = torch.from_numpy(
+            _phase_schedule(L, num_blocks, n).copy()).to(device)
+        _device_schedules[key] = sched
+    return sched
+
+
 def gain_row(params: TremoloParams, nb: int, n: int,
              device=None, first_block: int = 0) -> torch.Tensor:
     """The whole render's per-sample gain as one flat (nb*n,) f32 row --
@@ -129,13 +152,13 @@ def gain_row(params: TremoloParams, nb: int, n: int,
     times omega (periodicity is only exact when sr/lfo_hz is an integer,
     hence the explicit mod).
 
-    A fresh tensor per call, as the JAX package computes the row per render;
-    only the host-side phase schedule is cached."""
+    A fresh tensor per call, computed on the device from device tensors
+    alone, as the JAX package computes the row per render; only the phase
+    schedule is cached (:func:`device_phase_schedule`)."""
     device = params.lfo.device if device is None else torch.device(device)
     L = params.lfo_length
-    phases = torch.from_numpy(
-        _phase_schedule(L, first_block + nb, n)[first_block:].copy()
-    ).to(device)
+    phases = device_phase_schedule(L, first_block + nb, n,
+                                   device)[first_block:]
     idx = (phases[:, None] + torch.arange(n, device=device)[None, :]) % L
     ph = idx.to(torch.float32) * params.omega
     gains = (torch.sin(ph) * 0.5 + 0.5) * params.depth + (1.0 - params.depth)
