@@ -144,7 +144,18 @@ failed check raises (exit code != 0, no result line):
    mesh held to the single-card render (chain8 90 dB, the EQ chain 100 dB),
    ``render_local_channels`` equal to the global render's channels,
    ``sharded_meters`` to the global output's peak and RMS; the launches of
-   every rank summed; times per render labelled as ranks sharing one card;
+   every rank summed; times per render labelled as ranks sharing one card.
+   ``render`` replays the rank's captured program (one CUDA graph on the
+   NCCL 1x1 mesh, one a piece between gloo's exchanges), held on every rank
+   and for both chains bit-equal to the eager ``render_shard`` + ``gather``,
+   a repeated replay too, with the same launches kernel by kernel, dynspec
+   rounds and fixpoint walks, the cuts as ``sharding.plan_cuts`` plans
+   them; graph and eager timed in turns (graph, eager, eager, graph), the
+   memory each program holds; dynspec's rounds on the device (the NCCL
+   route) played eagerly over gloo, bit-equal to the host-read rounds; the
+   round kernel against its plain version and its gate driving an if node;
+   one NCCL all-gather and all-reduce captured in a graph (asserted) and in
+   a while node (reported: the four-card run found NCCL refused there);
    ``profiling``: chain8 through ``profiling.annotate_chain`` (unfused, one
    profiler scope an effect) at B=4096 and 512, rendered eagerly (a
    graph's replay has no host scopes) under ``profiling.trace``: bit-equal to the unfused chain's render, >= 90 dB to
@@ -224,6 +235,9 @@ from pyaudiodsptools_tpu_torch.ops.reverb import (
 from pyaudiodsptools_tpu_torch.ops.tremolo import TremoloParams, gain_row
 from pyaudiodsptools_tpu_torch.parallel import (ShardedRenderer,
                                                 dist as pdist, make_mesh)
+from pyaudiodsptools_tpu_torch.parallel import dynspec as pdynspec
+from pyaudiodsptools_tpu_torch.parallel import sharding as psharding
+from pyaudiodsptools_tpu_torch.parallel.mesh import play
 from pyaudiodsptools_tpu_torch.runtime import (DuplexAudioStream,
                                                RealtimeEngine,
                                                native_lib as runtime_native)
@@ -1314,6 +1328,7 @@ def zero_launch_counts() -> None:
     kdyn.audio_walk_launch_count = 0
     kdyn.serial_walk_launch_count = 0
     kdyn.settle_launch_count = 0
+    kdyn.round_launch_count = 0
     convpairs.launch_count = 0
 
 
@@ -3780,8 +3795,11 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+PARALLEL_CFG = pt.EngineConfig(SAMPLE_RATE, PARALLEL_B)
+
+
 def parallel_chains():
-    cfg = pt.EngineConfig(SAMPLE_RATE, PARALLEL_B)
+    cfg = PARALLEL_CFG
     return cfg, {"chain8": pt.Chain(chain8_effects(cfg, "cuda"),
                                     device="cuda"),
                  "eq_chain": pt.Chain(eq_chain_effects(cfg, "cuda"),
@@ -3802,10 +3820,246 @@ def host_ms(fn, runs: int = 2):
     return out, statistics.median(times)
 
 
+def in_turns(fns: dict, order=("graph", "eager", "eager", "graph")) -> dict:
+    """Each of ``fns`` timed by :func:`host_ms` in the turns of ``order``:
+    kind -> the ms of each of its turns."""
+    times = {k: [] for k in fns}
+    for kind in order:
+        times[kind].append(host_ms(fns[kind])[1])
+    return times
+
+
+def captured_vs_eager(rend, signal: torch.Tensor, n: int, steps=None
+                      ) -> tuple[dict, torch.Tensor]:
+    """The captured sharded render against the eager one on ``signal``
+    (collective: every rank of the mesh calls it): ``rend.render`` (a
+    replay of the captured program) against ``render_shard`` + ``gather``.
+    Bit-equality, a repeated replay's, each kernel's launches in one replay
+    and in one eager render (counted from 0, the conditional nodes' added by
+    reading the device's rounds and walks), dynspec's rounds and the
+    fixpoints' walks both ways, the memory the program holds (reserved after
+    ``empty_cache``, over what was held before) and the times of both in
+    turns (graph, eager, eager, graph). Returns (that, the captured
+    output). With ``steps`` (a rank program on the shard) it times that
+    program captured against ``render_shard`` alone instead."""
+    cfg, mesh = rend.cfg, rend.mesh
+    B, t = cfg.block_size, mesh.shape["time"]
+    blocks = pt.block.make_blocks(torch.nn.functional.pad(
+        signal, (0, (-n) % (t * B))), B)
+    local = rend.shard(blocks)
+    kind = "global" if steps is None else "shard"
+    steps = rend.steps if steps is None else steps
+
+    def eager():
+        y = rend.render_shard(local)
+        return y if kind == "shard" else rend.gather(y)
+
+    def graph():
+        if kind == "global":
+            return pt.block.make_blocks(rend.render(signal), B)
+        rend.captured.prepare(kind, tuple(local.shape), steps).copy_(local)
+        return rend.captured.replay()
+
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    with graph_cond.fixpoints() as fx, pdynspec.recorded_rounds() as rr:
+        want = eager()
+    walks_eager = [int(f[kdyn.FLAG_WALKS]) for f in fx]
+    rounds_eager = pdynspec.read_rounds(rr)
+    torch.cuda.synchronize()
+    launches_eager = launch_counts()
+
+    rend.captured.release()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = memory_mib()
+    t0 = time.perf_counter()
+    rend.captured.prepare(kind, tuple(local.shape), steps)
+    torch.cuda.synchronize()
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.empty_cache()
+    held = {k: v - base[k] for k, v in memory_mib().items()}
+    zero_launch_counts()
+    got = graph()
+    rounds_graph = rend.captured.rounds()
+    walks_graph = rend.captured.walks()
+    torch.cuda.synchronize()
+    launches_graph = launch_counts()
+    got = got.clone()
+    again = graph()
+    r = {"bit_equal": bool(torch.equal(got, want)),
+         "repeat_bit_equal": bool(torch.equal(again, got)),
+         "pieces": len(rend.captured.cuts()) + 1,
+         "cuts": rend.captured.cuts(),
+         "planned_cuts": None if kind == "shard" else psharding.plan_cuts(
+             rend.chain, mesh.shape, B, mesh.capturable),
+         "launches_graph": launches_graph,
+         "launches_eager": launches_eager,
+         "rounds_graph": rounds_graph, "rounds_eager": rounds_eager,
+         "walks_graph": walks_graph, "walks_eager": walks_eager,
+         "capture_ms": capture_ms, "held_by_the_program_mib": held}
+    del again, want
+    r["ms_in_turns"] = in_turns({"graph": graph, "eager": eager})
+    return r, got
+
+
+def check_captured(key: str, name: str, r: dict) -> None:
+    """What the captured sharded render must show against the eager one:
+    the same bits, launches kernel by kernel, rounds and walks."""
+    assert r["bit_equal"] and r["repeat_bit_equal"], (key, name, r)
+    assert r["launches_graph"] == r["launches_eager"], (key, name, r)
+    assert r["rounds_graph"] == r["rounds_eager"], (key, name, r)
+    assert r["walks_graph"] == r["walks_eager"], (key, name, r)
+    assert r["planned_cuts"] in (None, r["cuts"]), (key, name, r)
+
+
+def round_cases() -> dict:
+    """The round kernel of dynspec's rounds on the device against its plain
+    version: the step on entries (n_ops, C) at 1, 2 and 4 ops and 1, 3 and
+    64 channels, moved and not, on the first time rank and after it, from
+    flags of a live round and of one past the fixpoint (the entries and the
+    flags exactly); and the gate, in a captured graph, setting the if node
+    that holds a round's walk: the body runs where the round is live."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    steps = 0
+    for n_ops in (1, 2, 4):
+        for C in (1, 3, 64):
+            came = torch.randint(-1, 400, (n_ops, C), generator=gen,
+                                 device="cuda", dtype=torch.int32)
+            fresh = torch.randint(-1, 400, (n_ops, C), generator=gen,
+                                  device="cuda", dtype=torch.int32)
+            for entry0 in (fresh, came.clone()):
+                for first in (False, True):
+                    for f0 in ((0, 0, 7), (1, 2, 7), (0, 2, 7)):
+                        flags0 = torch.tensor(f0, dtype=torch.int32,
+                                              device="cuda")
+                        e1, f1 = entry0.clone(), flags0.clone()
+                        kdyn.round_step(came, e1, f1, first)
+                        e2, f2 = entry0.clone(), flags0.clone()
+                        kdyn.round_step_plain(came, e2, f2, first)
+                        torch.cuda.synchronize()
+                        assert torch.equal(e1, e2) and torch.equal(f1, f2), \
+                            (n_ops, C, first, f0, f1, f2)
+                        steps += 1
+    gates = {}
+    graph_cond.body_stream(torch.device("cuda"))
+    for f0 in ((0, 0, 0), (1, 2, 0), (0, 2, 0)):
+        flags = torch.tensor(f0, dtype=torch.int32, device="cuda")
+        ran = torch.zeros(1, dtype=torch.int32, device="cuda")
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            handle = graph_cond.if_handle("cuda")
+            kdyn.round_gate(flags, handle)
+            with graph_cond.if_node("cuda", handle):
+                ran.add_(1)
+        for _ in range(2):
+            graph.replay()
+        torch.cuda.synchronize()
+        gates[str(f0[:2])] = int(ran)
+        assert int(ran) == 2 * kdyn.round_live(flags), (f0, int(ran))
+        graph.reset()
+    return {"round_step_cases_equal_to_plain": steps,
+            "gate_if_node_runs_of_two_replays": gates}
+
+
+def device_rounds_played(mesh, chain, signal: torch.Tensor, n: int) -> dict:
+    """dynspec's rounds on the device (the route a capturable mesh
+    captures), played eagerly over this mesh's exchanges, against the
+    rounds that read their flag back each round: bit-equal, the same
+    rounds (collective)."""
+    B = PARALLEL_B
+    rend = ShardedRenderer(chain, PARALLEL_CFG, mesh)
+    local = rend.shard(pt.block.make_blocks(torch.nn.functional.pad(
+        signal, (0, (-n) % (mesh.shape["time"] * B))), B))
+    dyn = chain.exec_effects[1]
+    out = {}
+    for capturable in (False, True):
+        with pdynspec.recorded_rounds() as rr:
+            y = play(pdynspec.time_sharded_steps(dyn.params, local, mesh,
+                                                 capturable))
+        out[capturable] = (y, pdynspec.read_rounds(rr))
+    return {"bit_equal": bool(torch.equal(out[False][0], out[True][0])),
+            "rounds_host": out[False][1], "rounds_device": out[True][1]}
+
+
+def capture_checks(body, state: list, rounds: int = 3) -> dict:
+    """``body()`` (exchanges and kernels on the tensors of ``state``, in
+    place, allocating nothing) run eagerly ``rounds`` times; then from the
+    same start, ``rounds`` bodies captured in one CUDA graph (what a
+    capturable rank program does), and one body inside a conditional while
+    node run ``rounds`` times (the settle step counting and setting the
+    condition on the card: the route the rank program could not take). Each
+    result against the eager one: bit-equal, or the error that stopped
+    it."""
+    dev = state[0].device
+    start = [s.clone() for s in state]
+
+    def reset():
+        for s, s0 in zip(state, start):
+            s.copy_(s0)
+        torch.cuda.synchronize()
+
+    for _ in range(rounds):
+        body()
+    torch.cuda.synchronize()
+    want = [s.clone() for s in state]
+    res = {}
+    flags = torch.zeros(4, dtype=torch.int32, device=dev)
+    z = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    entry = torch.zeros_like(z)
+    graph_cond.body_stream(dev)
+    for kind in ("graph", "while_node"):
+        reset()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                if kind == "graph":
+                    for _ in range(rounds):
+                        body()
+                else:
+                    flags.zero_()
+                    with graph_cond.while_node(dev) as handle:
+                        body()
+                        z.add_(1)       # the entries move every time
+                        kdyn.settle(z, entry, flags, 1, kdyn.IN_WHILE_NODE,
+                                    rounds, handle)
+            reset()
+            graph.replay()
+            torch.cuda.synchronize()
+            ok = all(torch.equal(s, w) for s, w in zip(state, want))
+            if kind == "while_node":
+                ok = ok and int(flags[kdyn.FLAG_WALKS]) == rounds
+            res[kind] = {"bit_equal": bool(ok)}
+        except Exception as exc:          # reported, then asserted
+            res[kind] = {"error": f"{type(exc).__name__}: {exc}"}
+        finally:
+            graph.reset()
+    return res
+
+
+def nccl_world_capture(rounds: int = 3) -> dict:
+    """One NCCL all_gather and all_reduce of the job's group (one rank on
+    this card) captured: :func:`capture_checks`."""
+    x = torch.arange(4096, dtype=torch.float32, device="cuda")
+    acc = x.clone()
+    gathered = torch.empty((torch.distributed.get_world_size(), 4096),
+                           dtype=torch.float32, device="cuda")
+
+    def body():
+        torch.distributed.all_gather_into_tensor(gathered, acc)
+        acc.add_(gathered[0])
+        torch.distributed.all_reduce(acc)
+
+    return capture_checks(body, [acc, gathered], rounds)
+
+
 def parallel_rank(rank: int, world: int, port: int, shapes, seconds: float,
                   seed: int, out_dir: str) -> None:
     """One rank of the gloo job on the one card: every mesh shape of
-    ``shapes``, both chains, held (rank 0) to the single-card render."""
+    ``shapes``, both chains, the captured sharded render against the eager
+    one (:func:`captured_vs_eager`), and held (rank 0) to the single-card
+    render; ``render_local_channels`` and ``sharded_meters`` of chain8."""
     pdist.init_distributed(f"localhost:{port}", num_processes=world,
                            process_id=rank, backend="gloo")
     torch.cuda.set_device(0)
@@ -3817,35 +4071,40 @@ def parallel_rank(rank: int, world: int, port: int, shapes, seconds: float,
     if rank == 0:
         for name, chain in chains.items():
             single[name] = host_ms(lambda: pt.render(chain, signal, cfg))
+            chain.captured_render().release()
     res = {"rank": rank, "meshes": {}}
     for c, t in shapes:
         mesh = make_mesh(c, t, device="cuda")
         torch.distributed.barrier()
-        torch.cuda.synchronize()
-        zero_launch_counts()
-        r = {}
+        r = {"capturable": mesh.capturable}
         for name, chain in chains.items():
             rend = ShardedRenderer(chain, cfg, mesh)
-            first = rend.render(signal)
-            out, ms = host_ms(lambda: rend.render(signal))
-            r[name] = {"ms_per_render": ms,
-                       "repeat_bit_equal": bool(torch.equal(first, out))}
-            del first
+            r[name], got = captured_vs_eager(rend, signal, n)
+            rend.captured.release()
             if rank == 0:
                 want, ms1 = single[name]
-                got = out[:, :want.shape[-1]]
+                got = got.reshape(CHANNELS, -1)[:, :want.shape[-1]]
                 r[name].update({"db_single_card": db_json(
-                    snr_db_cuda(want, got)), "bit_equal": bool(
+                    snr_db_cuda(want, got)), "single_bit_equal": bool(
                         torch.equal(want, got)), "single_card_ms": ms1})
+            del got
+        if t > 1:
+            r["device_rounds_played"] = device_rounds_played(
+                mesh, chains["chain8"], signal, n)
         r8 = ShardedRenderer(chains["chain8"], cfg, mesh)
         mine = signal[pdist.host_channel_slice(CHANNELS)]
+        torch.cuda.synchronize()
+        zero_launch_counts()
         local = pdist.render_local_channels(r8, mine)
+        r8.captured.rounds()
+        r8.captured.walks()
+        torch.cuda.synchronize()
+        r["local_launches"] = launch_counts()
+        r8.captured.release()
         shard = r8.render_shard(r8.shard(pt.block.make_blocks(
             torch.nn.functional.pad(signal, (0, (-n) % (t * cfg.block_size))),
             cfg.block_size)))
         meters = pdist.sharded_meters(shard, mesh)
-        torch.cuda.synchronize()
-        r["launches"] = launch_counts()
         whole = r8.gather(shard).reshape(CHANNELS, -1)
         r["local_equal_to_global"] = bool(torch.equal(
             local, whole[pdist.host_channel_slice(CHANNELS), :n]))
@@ -3862,10 +4121,18 @@ def parallel_rank(rank: int, world: int, port: int, shapes, seconds: float,
     torch.distributed.destroy_process_group()
 
 
+CHAINS = ("chain8", "eq_chain")
+DYNSPEC_ROUTE = ("under NCCL, n_time rounds unrolled in the rank's graph, "
+                 "each walk in an if node (CUDA refused NCCL's work in a "
+                 "conditional while node); "
+                 "under gloo, between graphs, a host read a round")
+
+
 def run_ranks(world: int, shapes, seconds: float, seed: int) -> dict:
     """Spawn ``world`` ranks (start method spawn; they load the kernels the
     parent built and build nothing), wait with a deadline, and return each
-    mesh's results: rank 0's checks and every rank's launches summed."""
+    mesh's results: rank 0's checks, every rank's captured-against-eager
+    checks, launches summed over ranks."""
     with tempfile.TemporaryDirectory() as out_dir:
         ctx = mp.start_processes(
             parallel_rank, args=(world, free_port(), shapes, seconds, seed,
@@ -3887,76 +4154,114 @@ def run_ranks(world: int, shapes, seconds: float, seed: int) -> dict:
         for r in range(world):
             with open(os.path.join(out_dir, f"rank{r}.json")) as f:
                 ranks.append(json.load(f))
-    out = {}
-    for key, r0 in ranks[0]["meshes"].items():
-        launches = {name: sum(rk["meshes"][key]["launches"][name]
-                              for rk in ranks) for name in KERNELS}
-        out[key] = {**{k: v for k, v in r0.items() if k != "launches"},
-                    "launches_all_ranks": launches,
-                    "local_equal_to_global": all(
-                        rk["meshes"][key]["local_equal_to_global"]
-                        for rk in ranks),
-                    "meters_ok": all(rk["meshes"][key]["meters_ok"]
-                                     for rk in ranks),
-                    "repeat_bit_equal": {
-                        name: all(rk["meshes"][key][name]["repeat_bit_equal"]
-                                  for rk in ranks)
-                        for name in ("chain8", "eq_chain")},
-                    "ms_per_render_by_rank": {
-                        name: [rk["meshes"][key][name]["ms_per_render"]
-                               for rk in ranks] for name in ("chain8",
-                                                             "eq_chain")}}
+    return {key: merge_ranks([rk["meshes"][key] for rk in ranks])
+            for key in ranks[0]["meshes"]}
+
+
+def merge_ranks(per_rank: list) -> dict:
+    """One mesh's results over its ranks: rank 0's single-card checks, each
+    chain's captured-against-eager checks on every rank (launches summed),
+    times, rounds and memory by rank."""
+    r0 = per_rank[0]
+    out = {"capturable": r0["capturable"],
+           "local_equal_to_global": all(r["local_equal_to_global"]
+                                        for r in per_rank),
+           "meters_ok": all(r["meters_ok"] for r in per_rank),
+           "meters": r0["meters"],
+           "device_rounds_played": [r.get("device_rounds_played")
+                                    for r in per_rank],
+           "local_launches_all_ranks": {
+               k: sum(r["local_launches"][k] for r in per_rank)
+               for k in KERNELS}}
+    for name in CHAINS:
+        rs = [r[name] for r in per_rank]
+        out[name] = {
+            **{k: r0[name][k] for k in ("db_single_card", "single_bit_equal",
+                                        "single_card_ms", "pieces", "cuts",
+                                        "planned_cuts")
+               if k in r0[name]},
+            "bit_equal": all(r["bit_equal"] for r in rs),
+            "repeat_bit_equal": all(r["repeat_bit_equal"] for r in rs),
+            "launches_graph": {k: sum(r["launches_graph"][k] for r in rs)
+                               for k in KERNELS},
+            "launches_eager": {k: sum(r["launches_eager"][k] for r in rs)
+                               for k in KERNELS},
+            "rounds_graph": [r["rounds_graph"] for r in rs],
+            "rounds_eager": [r["rounds_eager"] for r in rs],
+            "walks_graph": [r["walks_graph"] for r in rs],
+            "walks_eager": [r["walks_eager"] for r in rs],
+            "ms_in_turns_by_rank": [r["ms_in_turns"] for r in rs],
+            "capture_ms_by_rank": [r["capture_ms"] for r in rs],
+            "held_by_the_program_mib_by_rank": [
+                r["held_by_the_program_mib"] for r in rs]}
     return out
 
 
 def check_mesh(key: str, r: dict) -> None:
     c, t = map(int, key.split("x"))
-    launches = r["launches_all_ranks"]
     for name, bar in (("chain8", CHAIN8_DB_PLAIN), ("eq_chain", CHAIN_DB_PLAIN)):
         db = r[name]["db_single_card"]           # None: bit-equal
-        assert r[name]["bit_equal"] or db >= bar, (key, name, r)
+        assert r[name]["single_bit_equal"] or db >= bar, (key, name, r)
+        check_captured(key, name, r[name])
+        assert r[name]["pieces"] == (1 if r["capturable"]
+                                     else len(r[name]["cuts"]) + 1)
     assert r["local_equal_to_global"] and r["meters_ok"], (key, r)
-    assert all(r["repeat_bit_equal"].values()), (key, r)
+    for played in r["device_rounds_played"]:
+        assert played is None or (
+            played["bit_equal"]
+            and played["rounds_host"] == played["rounds_device"]), (key, r)
     walks = ("serial_walk",) if t > 1 else ("state_walk", "audio_walk")
+    launches = {k: r["chain8"]["launches_graph"][k]
+                + r["eq_chain"]["launches_graph"][k] for k in KERNELS}
     for name in KERNELS:
         on_path = name in ("segconv", "tail") + walks
         assert (launches[name] > 0) == on_path, (key, name, launches)
+        assert (r["local_launches_all_ranks"][name] > 0) \
+            == (name in ("segconv", "tail") + walks), (key, name, r)
 
 
 def parallel_phase(signal: torch.Tensor, n: int, smi: str, seed: int
                    ) -> dict:
     """The sharded render at 64 ch x 30 s, B=4096, chain8 and a chain with an
-    undecayed EQ (so that timescan runs): (i) one rank on NCCL, a 1x1 mesh,
-    bit-equal to Chain.render, both timed; (ii) two ranks on the one card
-    over gloo, meshes (1, 2) and (2, 1); (iii) four ranks, mesh (2, 2).
-    The ranks share one card: their times are not scaling."""
+    undecayed EQ (so that timescan runs), captured (``render`` replays the
+    rank's program) and held bit-equal to the eager ``render_shard`` +
+    ``gather`` (:func:`captured_vs_eager`): (i) one rank on NCCL, a 1x1 mesh,
+    also bit-equal to Chain.render, and one NCCL all_gather and all_reduce
+    captured in a graph and in a while node (:func:`nccl_world_capture`);
+    (ii) two ranks on the one card over gloo, meshes (1, 2) and (2, 1);
+    (iii) four ranks, mesh (2, 2). The ranks share one card: their times are
+    not scaling."""
     cfg, chains = parallel_chains()
+    rounds = round_cases()
     torch.distributed.init_process_group(
         "nccl", init_method=f"tcp://localhost:{free_port()}", world_size=1,
         rank=0)
     try:
         mesh = make_mesh(1, 1, device="cuda")
-        one, single = {}, {}
-        torch.cuda.synchronize()
-        zero_launch_counts()
+        one = {}
         for name, chain in chains.items():
             rend = ShardedRenderer(chain, cfg, mesh)
-            out, ms = host_ms(lambda: rend.render(signal))
-            one[name] = (out, ms)
-        launches1 = launch_counts()
-        for name, chain in chains.items():
+            r, got = captured_vs_eager(rend, signal, n)
+            rend.captured.release()
             want, ms1 = host_ms(lambda: pt.render(chain, signal, cfg))
-            out, ms = one[name]
-            single[name] = {"bit_equal": bool(torch.equal(out, want)),
-                            "ms_per_render": ms, "chain_render_ms": ms1}
-            assert single[name]["bit_equal"], name
-            del out, want
-        one.clear()
+            chain.captured_render().release()
+            r["chain_render_bit_equal"] = bool(torch.equal(
+                got.reshape(CHANNELS, -1)[:, :want.shape[-1]], want))
+            r["chain_render_ms"] = ms1
+            check_captured("1x1", name, r)
+            assert r["chain_render_bit_equal"] and r["pieces"] == 1, (name, r)
+            one[name] = r
+            del got, want
+        nccl_capture = nccl_world_capture()
+        assert nccl_capture["graph"].get("bit_equal"), nccl_capture
     finally:
         torch.distributed.destroy_process_group()
-    r1 = {"backend": "nccl", "ranks": 1, **single, "launches": launches1}
+    launches1 = {k: one["chain8"]["launches_graph"][k]
+                 + one["eq_chain"]["launches_graph"][k] for k in KERNELS}
     for name in ("segconv", "tail", "state_walk", "audio_walk"):
         assert launches1[name] > 0, launches1
+    r1 = {"backend": "nccl", "ranks": 1, **one, "launches": launches1,
+          "nccl_capture": nccl_capture}
     torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
@@ -3970,7 +4275,7 @@ def parallel_phase(signal: torch.Tensor, n: int, smi: str, seed: int
     # the kernels at a (1, 2) time shard's shapes, in this process (CUDA
     # events, median of 5; measurement only, after every count was read):
     # the conv and the tail with their halos of 5 and 4 blocks, and one
-    # round of dynspec's serial walk over the shard
+    # round of dynspec's serial walk over the shard, and its round step
     fir_e, dyn_e, tail_e = chains["chain8"].exec_effects
     nbl = -(-n // (2 * PARALLEL_B))
     x = pt.block.make_blocks(torch.nn.functional.pad(
@@ -3979,21 +4284,28 @@ def parallel_phase(signal: torch.Tensor, n: int, smi: str, seed: int
                        device="cuda")
     flat = x[:, nbl:].reshape(CHANNELS, -1).contiguous()
     scalars = [kdyn.op_scalars(p) for p in dyn_e.params]
+    entry, flags = rest.clone(), torch.zeros(3, dtype=torch.int32,
+                                             device="cuda")
     shard_kernel_ms = {
         "segconv_with_halo": time_ms(lambda: fir_e.offline(
             fir_e.params, x[:, nbl - 5:].contiguous())),
         "serial_walk_round": time_ms(lambda: kdyn.serial_walk(
             scalars, flat, rest)),
+        "round_step": time_ms(lambda: kdyn.round_step(
+            rest, entry, flags, False)),
         "tail_with_halo": time_ms(lambda: tail_e.offline(
             tail_e.params, x[:, nbl - 4:].contiguous(),
             first_block=nbl - 4)),
         "shard_blocks": nbl}
     del x, flat
     launch_counts_by_run = {"1x1": launches1,
-                            **{k: r["launches_all_ranks"]
+                            **{k: {name: r["chain8"]["launches_graph"][name]
+                                   + r["eq_chain"]["launches_graph"][name]
+                                   for name in KERNELS}
                                for k, r in {**two, **four}.items()}}
     return {"phase": "parallel", "channels": CHANNELS, "B": PARALLEL_B,
             "chains": {"chain8": CHAIN8_NAMES, "eq_chain": EQ_CHAIN},
+            "dynspec_route": DYNSPEC_ROUTE,
             "note": "ranks share one card (gloo): per-render times are "
                     "not scaling",
             "one_rank_nccl": r1,
@@ -4002,6 +4314,7 @@ def parallel_phase(signal: torch.Tensor, n: int, smi: str, seed: int
             "four_ranks_gloo": {"seconds_of_audio": PARALLEL4_SECONDS,
                                 "phase_s": four_s, **four},
             "kernel_ms_at_a_1x2_shard": shard_kernel_ms,
+            "round_step": rounds,
             "launch_counts": launch_counts_by_run, "nvidia_smi": smi}
 
 

@@ -747,3 +747,76 @@ extern "C" int dynamics_settle_launch(const int* z, int* e, int* flags,
       (cudaGraphConditionalHandle)handle);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// The round step of the time-sharded dynamics (parallel/dynspec.py; no TPU
+// kernel: the counterpart of the body of the lax.while_loop in
+// pyaudiodsptools_tpu/parallel/dynspec.py, after its ppermute). Each time rank
+// walks its shard with the serial walk; its exits go to the next time rank
+// (NCCL, point to point) into `came`. Then one launch, mode 0:
+//   * writes the next entries into e (n_ops, C) in place: `came` as it is,
+//     REST (0) on time rank 0 (`first`), which receives nothing;
+//   * counts the round where the JAX package's loop runs it (it is "live"):
+//     the first round of the render, or one after a round in which an entry
+//     moved on some time rank (flags[0], as the last round's all-reduce left
+//     it); flags[1] counts this render's live rounds, flags[2] every live
+//     round since the flags were zeroed (a reader sums many replays);
+//   * compares the next entries with the ones the round walked from:
+//     flags[0] = 1 where one moved (the flag is then all-reduced, max, over
+//     the time ranks, in place).
+// Mode 1, the round gate, before a round inside a CUDA graph: sets the
+// conditional `handle` of the if node that holds the round's walk to "the
+// round is live". A captured render runs n_time rounds, unrolled (NCCL's work
+// inside a conditional while node was refused on the H100: PERF.md), each
+// walk in an if node; a round after the fixpoint walks from the same entries,
+// so skipping its walk leaves the loop's output and exits as they are.
+// What bounds it: a few hundred ints by one block; the walk beside it takes
+// milliseconds.
+
+#define ROUND_THREADS 256
+
+namespace {
+
+__global__ void __launch_bounds__(ROUND_THREADS)
+round_kernel(const int* __restrict__ came, int* __restrict__ e,
+             int* __restrict__ flags, int total, int first, int mode,
+             cudaGraphConditionalHandle handle) {
+  const bool live = flags[1] == 0 || flags[0] != 0;
+  if (mode == 1) {
+    if (threadIdx.x == 0) cudaGraphSetConditional(handle, live ? 1u : 0u);
+    return;
+  }
+  int changed = 0;
+  for (int i = threadIdx.x; i < total; i += ROUND_THREADS) {
+    const int next = first ? 0 : came[i];
+    changed |= next != e[i];
+    e[i] = next;
+  }
+  changed = __syncthreads_or(changed);
+  if (threadIdx.x == 0) {
+    if (live) {
+      flags[1] += 1;
+      flags[2] += 1;
+    }
+    flags[0] = changed;
+  }
+}
+
+}  // namespace
+
+// The round step: came, e (n_ops, C) int32 (`total` = n_ops * C; came unread
+// where `first`), flags int32[3]; mode 0 the step, mode 1 the gate of the
+// if node whose conditional handle is `handle`.
+extern "C" int dynamics_round_launch(const int* came, int* e, int* flags,
+                                     int total, int first, int mode,
+                                     unsigned long long handle,
+                                     void* stream) {
+  if (flags == nullptr || mode < 0 || mode > 1 ||
+      (mode == 0 && (total < 1 || e == nullptr ||
+                     (!first && came == nullptr))))
+    return (int)cudaErrorInvalidValue;
+  round_kernel<<<1, mode == 0 ? ROUND_THREADS : 32, 0,
+                 (cudaStream_t)stream>>>(came, e, flags, total, first, mode,
+                                         (cudaGraphConditionalHandle)handle);
+  return (int)cudaGetLastError();
+}

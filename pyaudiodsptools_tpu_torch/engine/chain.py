@@ -32,7 +32,8 @@ running eagerly:
 
   :meth:`Chain.step` and :meth:`Chain.render_blocks` stay eager: they are
   the graphs' references, and ``profiling.annotate_chain`` scopes them.
-  The sharded render (``parallel/``) is eager;
+  The sharded render (``parallel/``) captures a rank's program the same
+  way (``parallel/captured.py``);
 * there is no structure/params split: the params are the effects' own;
 * the device is an argument of the Chain (default ``"cuda"``) and not a
   process-wide backend read at build time;

@@ -81,6 +81,7 @@ LAUNCH_COUNTERS = ((convpairs, "launch_count"),
                    (dynamics, "state_walk_launch_count"),
                    (dynamics, "audio_walk_launch_count"),
                    (dynamics, "settle_launch_count"),
+                   (dynamics, "round_launch_count"),
                    (segconv, "launch_count"), (tail, "launch_count"),
                    (relayout, "pack_launch_count"),
                    (relayout, "unpack_launch_count"))
@@ -99,14 +100,16 @@ def _counts() -> list[int]:
     return [getattr(m, a) for m, a in LAUNCH_COUNTERS]
 
 
-def _capture(device, warm, run, what: str):
+def _capture(device, warm, run, what: str, pool=None):
     """Run ``warm(where)`` once on a side stream (kernels built and loaded,
     caches filled, cuBLAS's handle made; the result is dropped), then capture
-    ``run(where)`` in a CUDA graph in ``thread_local`` mode. Each callable
-    names the effect at work in ``where[0]``. Returns (graph, what ``run``
-    returned, each counter's launches a replay); the capture's own counts
-    are taken back. A failure raises :class:`CaptureError` naming
-    ``what`` and the effect."""
+    ``run(where)`` in a CUDA graph in ``thread_local`` mode, its memory from
+    ``pool`` if given (``torch.cuda.graph_pool_handle``, shared by graphs
+    that replay in the order they were captured), else a pool of its own.
+    Each callable names the effect at work in ``where[0]``. Returns (graph,
+    what ``run`` returned, each counter's launches a replay); the capture's
+    own counts are taken back. A failure raises :class:`CaptureError`
+    naming ``what`` and the effect."""
     where = [None]
     current = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
@@ -119,7 +122,8 @@ def _capture(device, warm, run, what: str):
     graph = torch.cuda.CUDAGraph()
     failed, result = None, None
     try:
-        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode="thread_local"):
             try:
                 result = run(where)
             except Exception as exc:    # end the capture, then raise
@@ -136,6 +140,30 @@ def _capture(device, warm, run, what: str):
         raise CaptureError(f"capturing {what} failed in the step of "
                            f"{where[0]!r}: {failed}") from failed
     return graph, result, [a - b for a, b in zip(after, before)]
+
+
+def read_fixpoints(flags: list[torch.Tensor], read: list[tuple[int, int]],
+                   what: str) -> list[int]:
+    """The walks of each dynamics fixpoint's last run from its settle flags
+    (``dynamics.FLAG_*``; a synchronisation), and the audio walks and settle
+    steps its while node ran since ``read`` (each fixpoint's counters at the
+    last read, updated) added to the launch counters. Raises if a fixpoint
+    ended at its bound unsettled (unreachable: the entries settle one
+    segment a walk at least)."""
+    if not flags:
+        return []
+    values = torch.stack(flags).tolist()
+    for i, v in enumerate(values):
+        audio, unsettled = (v[dynamics.FLAG_AUDIO_WALKS],
+                            v[dynamics.FLAG_UNSETTLED])
+        seen_audio, seen_unsettled = read[i]
+        dynamics.audio_walk_launch_count += audio - seen_audio
+        dynamics.settle_launch_count += audio - seen_audio
+        read[i] = (audio, unsettled)
+        if unsettled != seen_unsettled:
+            raise RuntimeError(f"{what} ended a dynamics fixpoint unsettled "
+                               "at its bound")
+    return [v[dynamics.FLAG_WALKS] for v in values]
 
 
 def _add_launches(launches: list[int]) -> None:
@@ -460,25 +488,9 @@ class CapturedRender:
         and settle steps that the while nodes ran since the last read.
         Raises if a fixpoint ended at its bound unsettled (unreachable: the
         entries settle one segment a walk at least)."""
-        found = {}
-        for (shape, _), g in self._graphs.items():
-            if not g.flags:
-                found[shape] = []
-                continue
-            values = torch.stack(g.flags).tolist()
-            for i, v in enumerate(values):
-                audio, unsettled = (v[dynamics.FLAG_AUDIO_WALKS],
-                                    v[dynamics.FLAG_UNSETTLED])
-                seen_audio, seen_unsettled = g.read[i]
-                dynamics.audio_walk_launch_count += audio - seen_audio
-                dynamics.settle_launch_count += audio - seen_audio
-                g.read[i] = (audio, unsettled)
-                if unsettled != seen_unsettled:
-                    raise RuntimeError(
-                        f"a captured render of {shape} ended a dynamics "
-                        "fixpoint unsettled at its bound")
-            found[shape] = [v[dynamics.FLAG_WALKS] for v in values]
-        return found
+        return {shape: read_fixpoints(g.flags, g.read,
+                                      f"a captured render of {shape}")
+                for (shape, _), g in self._graphs.items()}
 
     def launches_per_replay(self, shape: tuple[int, ...],
                             dtype: torch.dtype = torch.float32

@@ -76,6 +76,14 @@ fields of ``ops/dynamics.py``'s carry itself, as the TPU kernel does.
 :func:`encode_state` and :func:`decode_state` serve the plain version, the
 offline stage and the tests.
 
+The time-sharded stage (``parallel/dynspec.py``) walks each time rank's
+shard with :func:`serial_walk`, into buffers it gives, and after the exits'
+exchange runs the round step (:func:`round_step`, one small launch of
+``csrc/dynamics.cu``'s round kernel, :func:`round_step_plain` beside it): the
+previous rank's exits become the entries (REST on the first rank), the round
+is counted and the moved flag that the ranks all-reduce is written, on the
+device.
+
 The plain versions (:func:`walk_plain`: the same single-int automaton as
 tensor code over all lanes with a Python loop over the rows, separate ``mul``
 and ``add`` calls in the kernel's order; for the offline walks,
@@ -155,6 +163,14 @@ settle_launch_count = 0
 # audio walk run eagerly, inside a while node (sets the node's condition).
 FLAG_DONE, FLAG_WALKS, FLAG_AUDIO_WALKS, FLAG_UNSETTLED = range(4)
 AFTER_STATE_WALK, AFTER_AUDIO_WALK, IN_WHILE_NODE = range(3)
+
+# Launches of the round kernel made by :func:`round_step` and
+# :func:`round_gate` (parallel/dynspec.py's rounds on the device).
+round_launch_count = 0
+# The round step's flags, int32[3]: an entry moved in the last round (then
+# all-reduced over the time ranks), the live rounds of this render (those the
+# JAX package's loop runs), live rounds since the flags were zeroed.
+ROUND_CHANGED, ROUND_COUNT, ROUND_TOTAL = range(3)
 
 _F = np.float32
 
@@ -509,6 +525,85 @@ def settle(z: torch.Tensor, entry: torch.Tensor, flags: torch.Tensor, C: int,
     settle_launch_count += 1
 
 
+def round_live(flags: torch.Tensor) -> bool:
+    """Whether the next round is live (the JAX package's loop runs it): the
+    first of the render, or one after a round that moved an entry on some
+    time rank. Reads the flags back (a synchronisation on the card)."""
+    moved, count = flags[:ROUND_COUNT + 1].tolist()
+    return count == 0 or moved != 0
+
+
+def round_step_plain(came: torch.Tensor, entry: torch.Tensor,
+                     flags: torch.Tensor, first: bool) -> None:
+    """The plain version of :func:`round_step`: the same writes with tensor
+    operations, reading nothing back."""
+    nxt = torch.zeros_like(entry) if first else came
+    live = (flags[ROUND_COUNT] == 0) | (flags[ROUND_CHANGED] != 0)
+    flags[ROUND_COUNT:] += live.to(torch.int32)
+    flags[ROUND_CHANGED] = (nxt != entry).any().to(torch.int32)
+    entry.copy_(nxt)
+
+
+def _check_flags(flags: torch.Tensor, device) -> None:
+    if flags.shape != (3,) or flags.dtype != torch.int32 \
+            or flags.device != device:
+        raise ValueError(f"round flags must be an int32[3] tensor on "
+                         f"{device}, got {tuple(flags.shape)} {flags.dtype} "
+                         f"on {flags.device}")
+
+
+def _launch_round(came, entry, flags, first: bool, mode: int,
+                  handle: int) -> None:
+    global round_launch_count
+    fn = _build.launcher("dynamics", "dynamics_round_launch",
+                         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                         + [ctypes.c_ulonglong, ctypes.c_void_p])
+    with _build.on_device(flags.device):
+        err = fn(None if came is None else came.data_ptr(),
+                 None if entry is None else entry.data_ptr(),
+                 flags.data_ptr(), 0 if entry is None else entry.numel(),
+                 int(first), mode, handle,
+                 torch.cuda.current_stream(flags.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"dynamics round launch (mode {mode}) failed with "
+                           f"CUDA error {err}")
+    round_launch_count += 1
+
+
+def round_step(came: torch.Tensor | None, entry: torch.Tensor,
+               flags: torch.Tensor, first: bool,
+               use_kernels: bool = True) -> None:
+    """One round of the time-sharded dynamics after its walk and exchange
+    (``parallel/dynspec.py``): ``entry`` (n_ops, C) int32 becomes the next
+    entries in place, ``came`` (the previous time rank's exits) or REST on
+    the first time rank (which takes no ``came``); ``flags`` (int32[3],
+    ``ROUND_*``) counts the round where it is live (:func:`round_live`) and
+    records whether an entry moved. A CUDA tensor goes through
+    ``csrc/dynamics.cu``'s round kernel (one block), or the call raises."""
+    if entry.dtype != torch.int32 or entry.dim() != 2 \
+            or not entry.is_contiguous() or entry.numel() == 0:
+        raise ValueError(f"entries must be a contiguous (n_ops, C) int32 "
+                         f"tensor, got {tuple(entry.shape)} {entry.dtype}")
+    _check_flags(flags, entry.device)
+    if not first:
+        _check_into(came, entry, "came")
+    if not (entry.is_cuda and use_kernels):
+        round_step_plain(came, entry, flags, first)
+        return
+    _launch_round(None if first else came, entry, flags, first, 0, 0)
+
+
+def round_gate(flags: torch.Tensor, handle: int) -> None:
+    """Inside a capture: set the conditional ``handle`` of the if node that
+    holds the next round's walk (``graph_cond.if_node``) to whether the round
+    is live. The card only: eagerly the caller asks :func:`round_live`."""
+    if not flags.is_cuda:
+        raise ValueError("the round gate sets an if node's condition on the "
+                         "card: flags must be a CUDA tensor")
+    _check_flags(flags, flags.device)
+    _launch_round(None, None, flags, False, 1, handle)
+
+
 def serial_walk_plain(scalars, x: torch.Tensor, entry: torch.Tensor):
     """The plain version of :func:`serial_walk`: :func:`walk_plain` on the
     transposed block, i.e. the audio walk's plain version at one segment
@@ -547,7 +642,8 @@ def _check_block(x: torch.Tensor) -> None:
 
 def _launch_serial(scalars, x: torch.Tensor, entry: torch.Tensor,
                    lseg: int | None = None, want_rounds: bool = False,
-                   quiet_jump: bool = True):
+                   quiet_jump: bool = True, out: torch.Tensor | None = None,
+                   exit_state: torch.Tensor | None = None):
     """The kernel on encoded states: (out, exit) or, with ``want_rounds``,
     (out, exit, rounds (C,) int32: the walks of a segment the fixpoint loop
     took, summed over the tiles).
@@ -558,8 +654,10 @@ def _launch_serial(scalars, x: torch.Tensor, entry: torch.Tensor,
     over quiet segments (every entry its left neighbour's exit)."""
     global serial_walk_launch_count
     C, T = x.shape
-    out = torch.empty_like(x)
-    exit_state = torch.empty_like(entry)
+    if out is None:
+        out = torch.empty_like(x)
+    if exit_state is None:
+        exit_state = torch.empty_like(entry)
     rounds = torch.empty((C,), dtype=torch.int32, device=x.device) \
         if want_rounds else None
     lseg, segments, threads = serial_geometry(T, lseg)
@@ -582,21 +680,32 @@ def _launch_serial(scalars, x: torch.Tensor, entry: torch.Tensor,
 
 
 def serial_walk(scalars, x: torch.Tensor, entry: torch.Tensor,
-                use_kernels: bool = True):
+                use_kernels: bool = True, out: torch.Tensor | None = None,
+                exit_state: torch.Tensor | None = None):
     """One block of a cascade, walked from carried states: x (C, T) float32
     contiguous (channel-major, as a streaming block lies) and entry
     (n_ops, C) int32 in :func:`encode_state`'s encoding -> (out (C, T), exit
     (n_ops, C)). A CUDA tensor goes through the hand-written kernel (one
     thread block a channel, the block cut into segments that settle their
-    entries among themselves), or the call raises."""
+    entries among themselves), or the call raises. With ``out`` /
+    ``exit_state`` the results are written there (a captured loop allocates
+    nothing)."""
     _check_block(x)
     C, T = x.shape
     _check_entry(scalars, C, entry, x.device)
+    if out is not None:
+        _check_into(out, x, "out")
+    if exit_state is not None:
+        _check_into(exit_state, entry, "exit_state")
     if not (x.is_cuda and use_kernels):
-        return serial_walk_plain(scalars, x, entry)
+        y, z = serial_walk_plain(scalars, x, entry)
+        return (y if out is None else out.copy_(y),
+                z if exit_state is None else exit_state.copy_(z))
     if T == 0:
-        return torch.empty_like(x), entry.clone()
-    return _launch_serial(scalars, x, entry)
+        return (torch.empty_like(x) if out is None else out,
+                entry.clone() if exit_state is None
+                else exit_state.copy_(entry))
+    return _launch_serial(scalars, x, entry, out=out, exit_state=exit_state)
 
 
 FIELDS = ("mode", "x", "y", "skip")

@@ -1,13 +1,17 @@
-"""A conditional while node in a CUDA graph being captured, and the record of
-the dynamics fixpoints that run in one.
+"""Conditional while and if nodes in a CUDA graph being captured, and the
+record of the dynamics fixpoints that run in one.
 
-PyTorch's ``CUDAGraph`` builds *if* nodes only; ``csrc/graph_cond.cu`` builds
-a *while* node the same way, so that the offline render's one loop whose trip
-count depends on the data, the dynamics fixpoint
+PyTorch's ``CUDAGraph`` builds *if* nodes only, on handles of its own;
+``csrc/graph_cond.cu`` builds both kinds, so that the offline render's one
+loop whose trip count depends on the data, the dynamics fixpoint
 (``kernels/dynamics.dynamics_offline``), runs inside the captured render as
-the JAX package's ``lax.while_loop`` runs inside its jitted render.
-:func:`while_node` adds the node and captures its body; a kernel of the body
-sets the node's condition on the card (the settle step of ``dynamics.cu``).
+the JAX package's ``lax.while_loop`` runs inside its jitted render, and a
+captured sharded render skips dynspec's walks once its rounds settled
+(``parallel/dynspec.py``). :func:`while_node` adds a while node and captures
+its body; a kernel of the body sets the node's condition on the card (the
+settle step of ``dynamics.cu``). :func:`if_node` adds an if node on a handle
+made before it (:func:`if_handle`), which a kernel captured before the node
+sets (the round gate of ``dynamics.cu``).
 
 A fixpoint records its settle flags (``dynamics.FLAG_*``) with
 :func:`note_fixpoint`; a caller that wants them (``engine/graph.py``'s
@@ -74,6 +78,62 @@ def _allocations(device) -> int:
     return torch.cuda.memory_stats(device).get("allocation.all.allocated", 0)
 
 
+def _handle(device, default: int) -> int:
+    """A conditional handle in the graph being captured on ``device``'s
+    current stream, reset to ``default`` at every launch of the graph."""
+    handle = ctypes.c_ulonglong()
+    err = _fn("graph_cond_handle",
+              [ctypes.c_void_p, ctypes.c_uint, ctypes.c_void_p])(
+        torch.cuda.current_stream(device).cuda_stream, default,
+        ctypes.byref(handle))
+    if err != 0:
+        driver, runtime = cuda_versions()
+        raise CaptureError(
+            f"making a conditional handle failed with CUDA error {err} "
+            f"(driver {driver}, runtime {runtime}; conditional nodes need "
+            "12040 or later of both, and a capture in progress on the "
+            "current stream)")
+    return handle.value
+
+
+def if_handle(device) -> int:
+    """A handle for an :func:`if_node` of the graph being captured on
+    ``device``'s current stream: 0 at every launch of the graph, so that a
+    kernel captured before the node must set it (``cudaGraphSetConditional``,
+    1: run the body) for the body to run."""
+    return _handle(torch.device(device), 0)
+
+
+@contextlib.contextmanager
+def _conditional(device, handle: int, is_while: bool):
+    kind = "while" if is_while else "if"
+    outer = torch.cuda.current_stream(device)
+    body = body_stream(device)
+    err = _fn("graph_cond_begin",
+              [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_ulonglong,
+               ctypes.c_int])(outer.cuda_stream, body.cuda_stream, handle,
+                              int(is_while))
+    if err != 0:
+        raise CaptureError(f"adding a conditional {kind} node failed with "
+                           f"CUDA error {err}")
+    allocated = _allocations(device)
+    failed = None
+    try:
+        with torch.cuda.stream(body):
+            yield handle
+    except Exception as exc:
+        failed = exc
+    err = _fn("graph_cond_end", [ctypes.c_void_p])(body.cuda_stream)
+    if failed is not None:
+        raise failed
+    if err != 0:
+        raise CaptureError(f"ending the capture of a {kind} node's body "
+                           f"failed with CUDA error {err}")
+    if _allocations(device) != allocated:
+        raise CaptureError(f"a tensor was allocated inside a {kind} node's "
+                           "body: it would lie outside the graph's pool")
+
+
 @contextlib.contextmanager
 def while_node(device):
     """Inside a capture on ``device``'s current stream: add a conditional
@@ -88,34 +148,19 @@ def while_node(device):
     an allocation inside raises :class:`CaptureError`, as does a driver or
     runtime older than CUDA 12.4."""
     device = torch.device(device)
-    outer = torch.cuda.current_stream(device)
-    body = body_stream(device)
-    handle = ctypes.c_ulonglong()
-    err = _fn("graph_while_begin", [ctypes.c_void_p] * 3)(
-        outer.cuda_stream, body.cuda_stream, ctypes.byref(handle))
-    if err != 0:
-        driver, runtime = cuda_versions()
-        raise CaptureError(
-            f"adding a conditional while node failed with CUDA error {err} "
-            f"(driver {driver}, runtime {runtime}; while nodes need 12040 "
-            "or later of both, and a capture in progress on the current "
-            "stream)")
-    allocated = _allocations(device)
-    failed = None
-    try:
-        with torch.cuda.stream(body):
-            yield handle.value
-    except Exception as exc:
-        failed = exc
-    err = _fn("graph_while_end", [ctypes.c_void_p])(body.cuda_stream)
-    if failed is not None:
-        raise failed
-    if err != 0:
-        raise CaptureError(f"ending the capture of a while node's body "
-                           f"failed with CUDA error {err}")
-    if _allocations(device) != allocated:
-        raise CaptureError("a tensor was allocated inside a while node's "
-                           "body: it would lie outside the graph's pool")
+    with _conditional(device, _handle(device, 1), True) as handle:
+        yield handle
+
+
+@contextlib.contextmanager
+def if_node(device, handle: int):
+    """Inside a capture on ``device``'s current stream: add a conditional if
+    node on ``handle`` (:func:`if_handle`, set by a kernel captured before
+    the node) and capture the ``with`` body into its body graph, as
+    :func:`while_node` does; the body runs once where the handle is 1 when
+    the node is reached, else not at all."""
+    with _conditional(torch.device(device), handle, False):
+        yield
 
 
 # -- the record of fixpoints ---------------------------------------------------

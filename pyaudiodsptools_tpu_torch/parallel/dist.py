@@ -26,8 +26,8 @@ import torch.distributed as dist
 from ..core import block as blk
 from ..core.config import EngineConfig
 from ..engine.chain import Chain
-from .mesh import Mesh, _world, make_mesh
-from .sharding import ShardedRenderer
+from .mesh import Exchange, Mesh, _world, make_mesh, play
+from .sharding import ShardedRenderer, shard_steps
 
 
 def init_distributed(coordinator_address: str | None = None,
@@ -92,6 +92,36 @@ def distributed_renderer(chain: Chain, cfg: EngineConfig,
                                                    device=chain.device))
 
 
+def local_steps(renderer: ShardedRenderer, blocks: torch.Tensor,
+                capturable: bool, where: list | None = None):
+    """The rank program of :func:`render_local_channels` on this rank's
+    (local_channels, nb, B) blocks: the row's channels all-gathered over the
+    time axis, this rank's time shard of them rendered
+    (``sharding.shard_steps``), the row's outputs all-gathered, and this
+    rank's channels of them returned."""
+    mesh = renderer.mesh
+    t, ti = mesh.shape["time"], mesh.index("time")
+    lc, nb = blocks.shape[0], blocks.shape[1]
+    row = blocks
+    if t > 1:
+        rows = blocks.new_empty((t,) + tuple(blocks.shape))
+        yield Exchange("row: channels",
+                       lambda: mesh.all_gather_into(blocks, rows, "time"))
+        row = rows.reshape((t * lc,) + tuple(blocks.shape[1:]))
+    nbl = nb // t
+    out = yield from shard_steps(renderer.chain, mesh,
+                                 row[:, ti * nbl:(ti + 1) * nbl].contiguous(),
+                                 capturable, where)
+    full = out
+    if t > 1:
+        mine = out.contiguous()
+        parts = mine.new_empty((t,) + tuple(mine.shape))
+        yield Exchange("row: outputs",
+                       lambda: mesh.all_gather_into(mine, parts, "time"))
+        full = torch.cat(list(parts.unbind(0)), dim=-2)
+    return full[ti * lc:(ti + 1) * lc]
+
+
 def render_local_channels(renderer: ShardedRenderer,
                           local_signal) -> torch.Tensor:
     """Render where each rank feeds ONLY its own channels.
@@ -102,34 +132,45 @@ def render_local_channels(renderer: ShardedRenderer,
     channels and their outputs within the row only; no rank holds another
     row's audio. Returns this rank's channels of the output, (local_channels,
     n), on the mesh's device. Needs a mesh over every rank of the job
-    (:func:`global_mesh`)."""
+    (:func:`global_mesh`). On the card it replays the renderer's captured
+    program (:func:`local_steps`; the row's two all-gathers inside the graph
+    where the mesh is capturable), the signal written straight into its
+    input buffer."""
     mesh, cfg = renderer.mesh, renderer.cfg
     n_ranks, _ = _world()
     if mesh.size != n_ranks:
         raise ValueError(f"a {mesh.size}-rank mesh in a {n_ranks}-rank job: "
                          "render_local_channels needs global_mesh()")
-    local = torch.as_tensor(local_signal, dtype=cfg.dtype).to(mesh.device)
+    local = torch.as_tensor(local_signal, dtype=cfg.dtype)
     if local.dim() != 2:
         raise ValueError("render_local_channels expects (channels, n) audio")
-    n = local.shape[1]
-    pad = (-n) % (mesh.shape["time"] * cfg.block_size)
-    if pad:
-        local = torch.nn.functional.pad(local, (0, pad))
-    blocks = blk.make_blocks(local, cfg.block_size)
-    t, ti = mesh.shape["time"], mesh.index("time")
-    # the row's channel shard from its ranks' channels, in rank order
-    row = torch.cat(mesh.all_gather(blocks, "time"), dim=0)
-    nbl = blocks.shape[1] // t
-    out = renderer.render_shard(row[:, ti * nbl:(ti + 1) * nbl].contiguous())
-    full = torch.cat(mesh.all_gather(out, "time"), dim=-2)
-    own = full[ti * local.shape[0]:(ti + 1) * local.shape[0]]
-    return blk.combine_blocks(own)[..., :n]
+    lc, n = local.shape
+    B = cfg.block_size
+    nb = -(-n // (mesh.shape["time"] * B)) * mesh.shape["time"]
+    if renderer.chain.device.type == "cuda":
+        inp = renderer.captured.prepare(
+            "local", (lc, nb, B),
+            lambda b, capturable, where: local_steps(renderer, b, capturable,
+                                                     where))
+        flat = inp.view(lc, nb * B)
+        flat[:, :n].copy_(local)
+        flat[:, n:].zero_()
+        own = renderer.captured.replay()
+    else:
+        flat = torch.nn.functional.pad(local.to(mesh.device),
+                                       (0, nb * B - n))
+        own = play(local_steps(renderer, blk.make_blocks(flat, B),
+                               capturable=False))
+    return blk.combine_blocks(own)[..., :n].clone()
 
 
 def sharded_meters(local_out: torch.Tensor, mesh: Mesh) -> dict:
     """Global peak and RMS of a sharded render's output from this rank's
     shard (``ShardedRenderer.render_shard``): the peak is an all-reduce of
-    the max, the RMS of the sum of squares (float64) and the count."""
+    the max, the RMS of the sum of squares (float64) and the count. It stays
+    eager, uncaptured: one reduction and one read-back, which the JAX
+    package jits as a single expression
+    (``pyaudiodsptools_tpu/parallel/dist.py``)."""
     peak = mesh.all_reduce(local_out.abs().max().reshape(1).float(), "max")
     sums = torch.stack([local_out.double().square().sum(),
                         torch.tensor(float(local_out.numel()),

@@ -24,12 +24,23 @@ so where a group's backend is gloo each exchanged tensor is staged through
 host memory and the result moved back to the rank's device. That is
 transport, not a fallback: the compute stays on the rank's device. It is
 also how several ranks share one card, which NCCL refuses.
+
+Each exchange has a form that writes into buffers the caller made
+(:meth:`Mesh.all_gather_into`, :meth:`Mesh.all_reduce_`,
+:meth:`Mesh.shift_into`): under NCCL it allocates nothing and reads nothing
+back to the host, so a CUDA graph can hold it (:attr:`Mesh.capturable`),
+once :meth:`Mesh.warmup` has made NCCL's communicators outside any capture.
+``all_reduce`` and ``shift``, which return new tensors, are built on
+them. A rank program
+(``parallel/sharding.py``) yields each exchange as an :class:`Exchange`,
+which whoever runs the program runs at once (:func:`play`, or inside a
+capture where the mesh is capturable) or between two CUDA graphs (gloo).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
+from typing import Any, Callable
 
 import torch
 import torch.distributed as dist
@@ -88,58 +99,136 @@ class Mesh:
         c, t = (i, t) if axis == "channel" else (c, i)
         return self.ranks[c * self.shape["time"] + t]
 
-    def _staged(self, group, x: torch.Tensor) -> torch.Tensor:
-        """``x`` as the group's backend takes it: on the host for gloo."""
-        if x.is_cuda and dist.get_backend(group) == "gloo":
-            return x.cpu()
-        return x.contiguous()
+    def _host_staged(self, group, x: torch.Tensor) -> bool:
+        """Whether ``x`` goes through host memory: a CUDA tensor and gloo."""
+        return x.is_cuda and dist.get_backend(group) == "gloo"
 
-    def all_gather(self, x: torch.Tensor, axis: str | None = None
-                   ) -> list[torch.Tensor]:
+    @property
+    def capturable(self) -> bool:
+        """True where every group the mesh uses is NCCL (a mesh of one rank
+        uses none): its exchanges can be captured in a CUDA graph. False
+        where any is gloo, whose exchanges stage through host memory."""
+        return all(dist.get_backend(g) == "nccl"
+                   for g in (*self.groups.values(), self.group)
+                   if g is not None)
+
+    def all_gather_into(self, x: torch.Tensor, out: torch.Tensor,
+                        axis: str | None = None) -> torch.Tensor:
         """Every rank's ``x`` (equal shapes) along ``axis`` (the whole mesh
-        for None), in coordinate (for the whole mesh: rank) order, on this
-        rank's device."""
+        for None) written into ``out``, shaped ``(ranks,) + x.shape``, in
+        coordinate (for the whole mesh: rank) order. Returns ``out``."""
         group = self._group(axis)
         if group is None:
-            return [x]
-        src = self._staged(group, x)
-        parts = [torch.empty_like(src) for _ in range(
-            dist.get_world_size(group))]
-        dist.all_gather(parts, src, group=group)
-        return [p.to(x.device) for p in parts]
+            return out.copy_(x.unsqueeze(0))
+        if self._host_staged(group, x):
+            host = torch.empty(out.shape, dtype=out.dtype)
+            dist.all_gather(list(host.unbind(0)), x.cpu(), group=group)
+            return out.copy_(host)
+        if out.is_cuda:
+            dist.all_gather_into_tensor(out, x.contiguous(), group=group)
+        else:
+            dist.all_gather(list(out.unbind(0)), x.contiguous(), group=group)
+        return out
+
+    def all_reduce_(self, x: torch.Tensor, op: str,
+                    axis: str | None = None) -> torch.Tensor:
+        """``x`` (contiguous) reduced (``"max"`` or ``"sum"``) over ``axis``
+        (the whole mesh for None) in place. Returns ``x``."""
+        group = self._group(axis)
+        if group is None:
+            return x
+        if self._host_staged(group, x):
+            host = x.cpu()
+            dist.all_reduce(host, op=_REDUCE_OPS[op], group=group)
+            return x.copy_(host)
+        dist.all_reduce(x, op=_REDUCE_OPS[op], group=group)
+        return x
 
     def all_reduce(self, x: torch.Tensor, op: str,
                    axis: str | None = None) -> torch.Tensor:
         """``x`` reduced (``"max"`` or ``"sum"``) over ``axis`` (the whole
         mesh for None); a new tensor on this rank's device."""
-        group = self._group(axis)
+        return self.all_reduce_(x.clone(memory_format=torch.contiguous_format),
+                                op, axis)
+
+    def shift_into(self, x: torch.Tensor, out: torch.Tensor,
+                   axis: str = "time") -> bool:
+        """Point to point: send ``x`` to the next rank along ``axis`` and
+        receive the previous rank's into ``out`` (same shape). The first
+        rank receives nothing and leaves ``out`` as it is; returns whether
+        ``out`` was written."""
+        group = self.groups[axis]
         if group is None:
-            return x.clone()
-        buf = self._staged(group, x).clone()
-        dist.all_reduce(buf, op=_REDUCE_OPS[op], group=group)
-        return buf.to(x.device)
+            return False
+        i, n = self.index(axis), self.shape[axis]
+        staged = self._host_staged(group, x)
+        src = x.cpu() if staged else x.contiguous()
+        buf = torch.empty(out.shape, dtype=out.dtype) if staged else out
+        ops = []
+        if i + 1 < n:
+            ops.append(dist.P2POp(dist.isend, src, self._peer(axis, i + 1),
+                                  group))
+        if i > 0:
+            ops.append(dist.P2POp(dist.irecv, buf, self._peer(axis, i - 1),
+                                  group))
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        if staged and i > 0:
+            out.copy_(buf)
+        return i > 0
 
     def shift(self, x: torch.Tensor, axis: str = "time"
               ) -> torch.Tensor | None:
         """Point to point: send ``x`` to the next rank along ``axis`` and
         return the previous rank's (same shape), or None on the first rank
         (which sends only)."""
-        group = self.groups[axis]
-        if group is None:
-            return None
-        i, n = self.index(axis), self.shape[axis]
-        src = self._staged(group, x)
-        ops, buf = [], None
-        if i + 1 < n:
-            ops.append(dist.P2POp(dist.isend, src, self._peer(axis, i + 1),
-                                  group))
-        if i > 0:
-            buf = torch.empty_like(src)
-            ops.append(dist.P2POp(dist.irecv, buf, self._peer(axis, i - 1),
-                                  group))
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return None if buf is None else buf.to(x.device)
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        return out if self.shift_into(x, out, axis) else None
+
+    def warmup(self) -> None:
+        """Run each exchange this rank makes, on each of its groups, once
+        on a tiny tensor, and the shift along time: NCCL makes its
+        communicators (and the shift's point-to-point links) at first use,
+        which must happen outside any capture. Collective: every rank of
+        the job calls it, in the same order."""
+        if self.coords is None:
+            return
+        x = torch.zeros(1, dtype=torch.int32, device=self.device)
+        for axis in ("time", "channel", None):
+            group = self._group(axis)
+            if group is None:
+                continue
+            n = dist.get_world_size(group)
+            self.all_gather_into(x, x.new_empty((n, 1)), axis)
+            self.all_reduce_(x.clone(), "max", axis)
+        if self.groups["time"] is not None:
+            self.shift_into(x, x.clone(), "time")
+
+
+@dataclasses.dataclass(frozen=True)
+class Exchange:
+    """An exchange of a rank program, between buffers the program made:
+    ``run()`` performs it. Whoever runs the program runs it at once
+    (:func:`play`; inside a capture where the mesh is capturable) or between
+    two CUDA graphs (gloo: it reads and writes host memory). ``what`` names
+    it (``sharding.plan_cuts`` lists them)."""
+
+    what: str
+    run: Callable[[], Any]
+
+
+def play(program, exchanged: list | None = None):
+    """Run a rank program (a generator that yields :class:`Exchange` s and
+    returns its output) eagerly, each exchange at once; returns the output.
+    ``exchanged``, if given, receives each exchange's ``what``."""
+    while True:
+        try:
+            ex = program.send(None)
+        except StopIteration as stop:
+            return stop.value
+        ex.run()
+        if exchanged is not None:
+            exchanged.append(ex.what)
 
 
 def make_mesh(channel: int | None = None, time: int = 1,

@@ -14,7 +14,15 @@ chain8, the port's bar where the conv's last bits move (shards with a halo
 put the overlap-save windows elsewhere); >= 90 dB to the JAX renderer;
 dynspec bit-equal to the port's single-device stage; timescan >= 130 dB to
 the port's single-device float64 recurrence and >= 60 dB to JAX's (its own
-bar, ``tests/test_timescan.py:36``)."""
+bar, ``tests/test_timescan.py:36``).
+
+The same jobs play the rank program that the card captures
+(``parallel/captured.py``) piece by piece, with dynspec's rounds on the
+device (the NCCL route) and read back each round (gloo's): bit-equal to
+``render_shard``, chain8 >= 90 dB to the JAX package's renderer, dynspec
+bit-equal to the host-read rounds with the same round count and >= 90 dB to
+JAX's dynspec, the exchanges made equal to the planned cuts, and no host
+read but the params' and the flags'."""
 
 import os
 import socket
@@ -46,6 +54,7 @@ from pyaudiodsptools_tpu_torch.ops.tremolo import gain_row
 from pyaudiodsptools_tpu_torch.parallel import (Mesh, ShardedRenderer,
                                                 make_mesh, single_device_mesh)
 from pyaudiodsptools_tpu_torch.parallel.dynspec import is_dynamics_params
+from pyaudiodsptools_tpu_torch.parallel.sharding import plan_cuts
 
 import torch_dist_worker as worker
 from torch_port_util import snr_db
@@ -168,13 +177,20 @@ def recursion64(rows, x: np.ndarray) -> np.ndarray:
     return y
 
 
+_JAX_RENDERS = {}
+
+
 def _jax_sharded(effects_fn, sig, shape):
     if len(jax.devices()) < shape[0] * shape[1]:
         pytest.skip("needs the virtual 8-device mesh")
-    cfg = jx.EngineConfig(44100, B)
-    chain = jx.Chain(effects_fn(jx, cfg))
-    mesh = jx_make_mesh(channel=shape[0], time=shape[1])
-    return np.asarray(JxRenderer(chain, cfg, mesh).render(sig))
+    key = (effects_fn, sig.tobytes(), shape)    # each is compiled once
+    if key not in _JAX_RENDERS:
+        cfg = jx.EngineConfig(44100, B)
+        chain = jx.Chain(effects_fn(jx, cfg))
+        mesh = jx_make_mesh(channel=shape[0], time=shape[1])
+        _JAX_RENDERS[key] = np.asarray(
+            JxRenderer(chain, cfg, mesh).render(sig))
+    return _JAX_RENDERS[key]
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
@@ -351,3 +367,117 @@ def test_dynamics_stage_is_the_serial_walk(data):
     out, _ = pt_dynamics.serial_walk(sc, x, torch.zeros((1, 2), dtype=torch.int32))
     np.testing.assert_array_equal(
         out.numpy(), pt_dynamics.dynamics_offline(comp.params, x).numpy())
+
+
+# ---------------------------------------------------------------------------
+# the rank program that the card captures (``parallel/captured.py``), played
+# piece by piece in the same jobs: ``prog<k>_*`` with dynspec's rounds on
+# the device (k = 1, the NCCL route) or read back each round (k = 0, gloo's)
+
+
+@pytest.mark.parametrize("k", [0, 1])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_rank_program_played_piece_by_piece_equals_render_shard(
+        runs, data, port_single, shape, k):
+    """Bit-equal to ``render_shard`` + ``gather`` (the eager renders of the
+    same job), chain8 >= 90 dB to the JAX package's ``ShardedRenderer`` and
+    the undecayed-EQ chain >= 100 dB to the port's single device (the JAX
+    package's own float32 scan of that shelf is 85 dB from both, single
+    device included), with the same dynspec rounds both ways."""
+    glob, _ = _job(runs, shape)
+    np.testing.assert_array_equal(glob[f"prog{k}_chain8"], glob["chain8"])
+    np.testing.assert_array_equal(glob[f"rounds{k}_chain8"],
+                                  glob["rounds0_chain8"])
+    assert len(glob["rounds0_chain8"]) == (shape[1] > 1)
+    assert snr_db(port_single["eq_chain"], glob[f"prog{k}_eq_chain"]) >= 100.0
+    if shape[1] > 1:
+        np.testing.assert_array_equal(glob[f"prog{k}_eq_chain"],
+                                      glob["eq_chain"])
+    if shape == (1, 4):
+        np.testing.assert_array_equal(glob[f"prog{k}_lowcut"],
+                                      glob["lowcut"])
+    jgot = _jax_sharded(worker.chain8_effects, data["chain8"], shape)
+    assert snr_db(jgot, glob[f"prog{k}_chain8"]) >= 90.0
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_program_exchanges_are_the_planned_cuts(runs, shape):
+    """Under gloo (k = 0) every exchange the program made is a planned cut,
+    in order; with dynspec's rounds on the device (k = 1) the program made
+    the same exchanges but dynspec's, which its rounds make inside."""
+    glob, _ = _job(runs, shape)
+    cfg = pt.EngineConfig(44100, B)
+    chains = {"chain8": worker.chain8_effects, "eq_chain": worker.eq_effects,
+              "lowcut": lambda pkg, c, **kw: [pkg.ops.lowcut(c, 400.0, **kw)]}
+    for name, effects in chains.items():
+        if f"exchanges0_{name}" not in glob:
+            continue
+        chain = pt.Chain(effects(pt, cfg, device=CPU), device=CPU)
+        mesh_shape = {"channel": shape[0], "time": shape[1]}
+        plan = plan_cuts(chain, mesh_shape, B, capturable=False)
+        assert list(glob[f"exchanges0_{name}"]) == plan
+        assert list(glob[f"exchanges1_{name}"]) == [
+            cut for cut in plan if cut != "dynspec rounds"]
+        assert plan_cuts(chain, mesh_shape, B, capturable=True) == []
+
+
+@pytest.mark.parametrize("signal", ["dyn", "dyn_silence"])
+@pytest.mark.parametrize("time_", [2, 4])
+@pytest.mark.parametrize("case", ["cascade", "comp"])
+def test_device_rounds_equal_the_host_rounds(runs, data, time_, case, signal):
+    """dynspec's rounds on the device (``time`` rounds unrolled, each walk
+    where the round is live, the round step's plain version here) bit-equal
+    to the rounds that read their flag back, with the same round count, and
+    to the single-device stage; >= 90 dB to the JAX package's dynspec (its
+    ramps are float32 ``linspace`` tables, the port's arithmetic: within 2
+    ulp); on the burst signal and on a burst followed by silence, whose gate
+    release crosses every shard. The loop never runs more than ``time``
+    rounds (its bound is time + 1), which is why ``time`` unrolled rounds
+    give its bits."""
+    glob, _ = _job(runs, (1, time_))
+    got = glob[f"dynspec1_{case}_{signal}"]
+    np.testing.assert_array_equal(got, glob[f"dynspec0_{case}_{signal}"])
+    rounds = glob[f"rounds1_{case}_{signal}"]
+    np.testing.assert_array_equal(rounds, glob[f"rounds0_{case}_{signal}"])
+    assert len(rounds) == 1 and 1 <= rounds[0] <= time_
+    cfg = pt.EngineConfig(44100, B)
+    comp = pt.ops.compressor(cfg, -18.0, 0.6, 3.1, 30.1, device=CPU)
+    ops = [comp]
+    if case == "cascade":
+        ops.append(pt.ops.gate(cfg, -45.0, 0.1, 3.1, 200.1, device=CPU))
+    single = pt_dynamics.dynamics_offline(
+        tuple(e.params for e in ops) if case == "cascade" else comp.params,
+        torch.from_numpy(data[signal]))
+    np.testing.assert_array_equal(got, single.numpy())
+    if len(jax.devices()) < time_:
+        pytest.skip("needs the virtual 8-device mesh")
+    jcfg = jx.EngineConfig(44100, B)
+    jops = [jx.ops.compressor(jcfg, -18.0, 0.6, 3.1, 30.1)]
+    if case == "cascade":
+        jops.append(jx.ops.gate(jcfg, -45.0, 0.1, 3.1, 200.1))
+    mesh = jx_make_mesh(channel=1, time=time_)
+    blocks = jx_block.make_blocks(jnp.asarray(data[signal]), B)
+    for eff in jops:
+        blocks = jax.jit(lambda p, b: jx_dynspec(p, b, mesh))(eff.params,
+                                                              blocks)
+    want = np.asarray(jx_block.combine_blocks(blocks))
+    assert snr_db(want, got) >= 90.0
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+def test_capturable_program_reads_back_only_its_flags(runs, shape):
+    """chain8's program with dynspec's rounds on the device, under a guard
+    that refuses a host read of any tensor but the params' and the flags':
+    nothing else is read (a graph would freeze it). Played eagerly, the
+    rounds read their flags once a round, whether to walk (time > 1), and
+    the time == 1 fixpoint its settle flags once a walk; a capture turns
+    each read into a conditional node's condition, set on the card."""
+    glob, _ = _job(runs, shape)
+    assert str(glob["guard_error"]) == ""
+    settles, rounds = glob["guard_flags"]
+    if shape[1] > 1:
+        assert (settles, rounds) == (0, 1)
+        assert glob["guard_flag_reads"] == shape[1]
+    else:
+        assert (settles, rounds) == (1, 0)
+        assert glob["guard_flag_reads"] >= 1

@@ -17,7 +17,18 @@ torch thread, builds the (channel, time) mesh on the CPU and runs:
 * ``lowcut`` (time == 4): a lowcut whose reach (639 samples) is longer
   than a one-block shard;
 * ``local`` / meters (two ranks): ``dist.render_local_channels`` and
-  ``dist.sharded_meters``.
+  ``dist.sharded_meters``;
+* ``prog<k>_<chain>``: chain8 and the undecayed-EQ chain (and at time == 4
+  the lowcut) through the renderer's rank program
+  (``ShardedRenderer.steps``) played piece by piece, with dynspec's rounds
+  on the device (k = 1, the route a capturable mesh captures) and read back
+  each round (k = 0), the exchanges in the order they ran
+  (``exchanges<k>_<chain>``) and dynspec's rounds (``rounds<k>_<chain>``);
+* ``rounds<k>_<case>_<signal>`` / ``dynspec<k>_<case>_<signal>`` (time >
+  1): the cascade and the lone compressor through ``dynspec`` on the burst
+  signal and on a burst followed by silence, both routes;
+* ``guard``: the k = 1 program of chain8 under a guard that refuses any
+  read of a tensor's value on the host but the params' and the flags'.
 
 Rank 0 writes the global results to ``<out_dir>/global.npz``; every rank
 writes its own channels of ``local`` to ``<out_dir>/local_<rank>.npz``.
@@ -78,10 +89,73 @@ def burst(channels: int, n: int, seed: int) -> np.ndarray:
     return np.clip(x, -0.99, 0.99).astype(np.float32)
 
 
+def burst_then_silence(channels: int, n: int, seed: int) -> np.ndarray:
+    """A loud burst, then silence: the gate's release (8,824 samples) runs
+    across every time shard, the rounds' worst case."""
+    rng = np.random.default_rng(seed)
+    x = np.zeros((channels, n), np.float32)
+    x[:, :1500] = np.clip(rng.standard_normal((channels, 1500)) * 0.7,
+                          -0.99, 0.99)
+    return x
+
+
 def inputs() -> dict:
     n = B * N_BLOCKS
     return {"chain8": noise(CHANNELS, n, 0), "dyn": burst(2, n, 5),
-            "eq": noise(2, n, 2), "lowcut": noise(2, 4 * B, 1)}
+            "eq": noise(2, n, 2), "lowcut": noise(2, 4 * B, 1),
+            "dyn_silence": burst_then_silence(2, n, 6)}
+
+
+REFUSED = frozenset({"item", "tolist", "__int__", "__bool__", "cpu", "numpy",
+                     "__float__", "__index__", "__complex__"})
+
+
+def _storages(node, found: set) -> set:
+    """Storage addresses of every tensor in a params tree."""
+    import dataclasses
+    import torch
+    if isinstance(node, torch.Tensor):
+        found.add(node.untyped_storage().data_ptr())
+    elif dataclasses.is_dataclass(node) and not isinstance(node, type):
+        for f in dataclasses.fields(node):
+            _storages(getattr(node, f.name), found)
+    elif isinstance(node, (tuple, list)):
+        for part in node:
+            _storages(part, found)
+    elif isinstance(node, dict):
+        for part in node.values():
+            _storages(part, found)
+    return found
+
+
+def host_read_guard(params, flag_lists):
+    """A TorchFunctionMode that refuses a read of a tensor's value on the
+    host (what a CUDA graph would freeze) but on the params' tensors and on
+    the flags in ``flag_lists`` (lists the program appends its round and
+    settle flags to before it reads them); counts the flags' reads."""
+    from torch.overrides import TorchFunctionMode
+    import torch
+
+    class Guard(TorchFunctionMode):
+        flag_reads = 0
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            name = getattr(func, "__name__", "")
+            if name in REFUSED and args \
+                    and isinstance(args[0], torch.Tensor):
+                ptr = args[0].untyped_storage().data_ptr()
+                flags = {f.untyped_storage().data_ptr()
+                         for lst in flag_lists for f in lst}
+                if ptr in flags:
+                    Guard.flag_reads += 1
+                elif ptr not in allowed:
+                    raise AssertionError(
+                        f"the program read a tensor back: {name} on "
+                        f"{tuple(args[0].shape)} {args[0].dtype}")
+            return func(*args, **(kwargs or {}))
+
+    allowed = _storages(params, set())
+    return Guard()
 
 
 def main() -> None:
@@ -153,6 +227,53 @@ def main() -> None:
             torch.from_numpy(data["chain8"]), B)))
         meters = dist.sharded_meters(shard, mesh)
         res["meters"] = np.array([meters["peak"], meters["rms"]])
+
+    from pyaudiodsptools_tpu_torch.kernels import graph_cond
+    from pyaudiodsptools_tpu_torch.parallel import dynspec
+    from pyaudiodsptools_tpu_torch.parallel.mesh import play
+
+    def program(rend, sig, capturable):
+        """The renderer's rank program on this rank's shard of ``sig``,
+        played piece by piece: (global output, exchanges, rounds)."""
+        local = rend.shard(blk.make_blocks(torch.from_numpy(sig), B))
+        done = []
+        with dynspec.recorded_rounds() as rounds:
+            out = play(rend.steps(local, capturable), done)
+        return (blk.combine_blocks(out).numpy(), np.array(done, dtype=str),
+                np.array(dynspec.read_rounds(rounds), dtype=np.int64))
+
+    eq8 = pt.Chain(eq_effects(pt, cfg, device="cpu"), device="cpu")
+    progs = {"chain8": (r8, data["chain8"]),
+             "eq_chain": (ShardedRenderer(eq8, cfg, mesh), data["eq"])}
+    if time_ == 4:
+        progs["lowcut"] = (ShardedRenderer(low, cfg, mesh), data["lowcut"])
+    for name, (rend, sig) in progs.items():
+        for k in (0, 1):
+            (res[f"prog{k}_{name}"], res[f"exchanges{k}_{name}"],
+             res[f"rounds{k}_{name}"]) = program(rend, sig, bool(k))
+    if time_ > 1:
+        for name, p in (("cascade", cascade.params), ("comp", comp.params)):
+            for sig in ("dyn", "dyn_silence"):
+                for k in (0, 1):
+                    with dynspec.recorded_rounds() as rounds:
+                        res[f"dynspec{k}_{name}_{sig}"] = sharded(
+                            lambda x: play(dynspec.time_sharded_steps(
+                                p, x, mesh, bool(k))), data[sig])
+                    res[f"rounds{k}_{name}_{sig}"] = np.array(
+                        dynspec.read_rounds(rounds), dtype=np.int64)
+
+    local8 = r8.shard(blk.make_blocks(torch.from_numpy(data["chain8"]), B))
+    with graph_cond.fixpoints() as settles, \
+            dynspec.recorded_rounds() as rounds:
+        guard = host_read_guard(chain8.params, [settles, rounds])
+        try:
+            with guard:
+                play(r8.steps(local8, True))
+            res["guard_error"] = np.array("")
+        except AssertionError as exc:
+            res["guard_error"] = np.array(str(exc))
+    res["guard_flag_reads"] = np.array(guard.flag_reads)
+    res["guard_flags"] = np.array([len(settles), len(rounds)])
 
     if rank == 0:
         np.savez(os.path.join(out_dir, "global.npz"), **res)
