@@ -30,8 +30,10 @@ Layers:
             and gather an explicit exchange
   convert   build a chain from a plain numpy description of its params
   compat    drop-in ``pyAudioDspTools`` API (``Create*().apply(chunk)``)
-  profiling per-effect profiler scopes (``annotate_chain``) and a
-            TensorBoard trace (``trace``)
+  profiling per-effect profiler scopes (``annotate_chain``), a
+            TensorBoard trace (``trace``), the program's own spans and the
+            captured graphs' stage marks (``enable``), read back by
+            ``attribute``
   roofline  the kernels' cost models, the H100's peaks, a call's bound and
             its share of each roofline
 

@@ -37,6 +37,14 @@ wrapper runs but launches nothing, so the capture's increments are taken back
 and recorded; every replay adds them again, because a replay launches every
 captured kernel once.
 
+Tracing (``profiling.py``). A capture is the span ``graph.capture``, and
+:data:`capture_s` / :data:`captures` count the host's seconds in captures
+(warm-up included) and the captures made, always. A graph captured with the
+program's tracing on records a stage mark (``profiling.mark``) before the
+first executed effect, after each and, in the step, after the state
+write-back; ``stages()`` names the stages in order. Captured with tracing
+off, a graph holds no mark.
+
 Captures use ``capture_error_mode="thread_local"``: another thread's CUDA
 calls (a realtime pump replaying its own graph, a producer copying a block)
 do not invalidate this thread's capture. A capture that fails raises
@@ -65,10 +73,12 @@ reference the graph is held to.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Sequence
 
 import torch
 
+from .. import profiling
 from ..kernels import (convpairs, dynamics, graph_cond, relayout, segconv,
                        tail)
 from ..kernels.graph_cond import CaptureError
@@ -85,6 +95,11 @@ LAUNCH_COUNTERS = ((convpairs, "launch_count"),
                    (segconv, "launch_count"), (tail, "launch_count"),
                    (relayout, "pack_launch_count"),
                    (relayout, "unpack_launch_count"))
+
+# The host's seconds in _capture (warm-up and capture) in this process, and
+# the captures made.
+capture_s = 0.0
+captures = 0
 
 
 def _rebuild(template, it):
@@ -109,7 +124,18 @@ def _capture(device, warm, run, what: str, pool=None):
     Each callable names the effect at work in ``where[0]``. Returns (graph,
     what ``run`` returned, each counter's launches a replay); the capture's
     own counts are taken back. A failure raises :class:`CaptureError`
-    naming ``what`` and the effect."""
+    naming ``what`` and the effect. Its time goes to :data:`capture_s`."""
+    global capture_s, captures
+    t0 = time.perf_counter()
+    try:
+        with profiling.span("graph.capture"):
+            return _capture_timed(device, warm, run, what, pool)
+    finally:
+        capture_s += time.perf_counter() - t0
+        captures += 1
+
+
+def _capture_timed(device, warm, run, what: str, pool):
     where = [None]
     current = torch.cuda.current_stream(device)
     side = torch.cuda.Stream(device)
@@ -178,6 +204,7 @@ class _Graph:
     block: torch.Tensor          # input buffer
     out: torch.Tensor            # output buffer
     launches: list[int]          # each counter's launches a replay
+    stages: list[str]            # between its marks (none: untraced)
 
 
 class CapturedStep:
@@ -240,15 +267,22 @@ class CapturedStep:
 
     # -- capture and replay --------------------------------------------------
 
-    def _step(self, block: torch.Tensor, where: list):
+    def _step(self, block: torch.Tensor, where: list, stages=None):
         """The eager step on the state buffers (``chain_step``), the effect
-        at work named in ``where[0]``."""
+        at work named in ``where[0]``; with a list for ``stages``, a mark
+        before the first effect and after each, the effects' names
+        appended."""
         state = _rebuild(self._template, iter(self._buffers))
         new = []
+        if stages is not None:
+            profiling.mark(self.device)
         for e, st in zip(self.effects, state):
             where[0] = e.name
             st, block = e.step(e.params, st, block)
             new.append(st)
+            if stages is not None:
+                profiling.mark(self.device)
+                stages.append(e.name)
         where[0] = None
         return tuple(new), block
 
@@ -292,20 +326,29 @@ class CapturedStep:
 
     def _capture(self, shape: tuple[int, ...]) -> _Graph:
         block = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        traced = profiling.enabled()
+        stages: list[str] = []
 
         def run(where):
-            new_state, out = self._step(block, where)
+            new_state, out = self._step(block, where,
+                                        stages if traced else None)
             where[0] = "(writing the new state)"
             self._write_state(new_state)
+            if traced:
+                profiling.mark(self.device)
+                stages.append("write_state")
             return out
 
+        # the warm-up marks too, so that the mark's kernel is loaded before
+        # the capture
         graph, out, launches = _capture(
-            self.device, lambda where: self._step(block, where), run,
-            f"the streaming step for blocks of {shape}")
+            self.device,
+            lambda where: self._step(block, where, [] if traced else None),
+            run, f"the streaming step for blocks of {shape}")
         if not isinstance(out, torch.Tensor) or out.shape != block.shape:
             raise CaptureError(f"the step gave {getattr(out, 'shape', out)} "
                                f"for a block of {shape}")
-        return _Graph(graph, block, out, launches)
+        return _Graph(graph, block, out, launches, profiling.unique(stages))
 
     def replay(self, block: torch.Tensor) -> torch.Tensor:
         """Step ``block`` (a tensor on the card or on the host), advancing
@@ -317,9 +360,11 @@ class CapturedStep:
         if g is None:
             self.capture(shape)
             g = self._graphs[shape]
-        g.block.copy_(block)
-        g.graph.replay()
-        _add_launches(g.launches)
+        with profiling.span("step.copy_in"):
+            g.block.copy_(block)
+        with profiling.span("step.replay"):
+            g.graph.replay()
+            _add_launches(g.launches)
         return g.out
 
     def __call__(self, block: torch.Tensor) -> torch.Tensor:
@@ -331,6 +376,12 @@ class CapturedStep:
         g = self._graphs[tuple(shape)]
         return {f"{m.__name__.rsplit('.', 1)[-1]}.{a}": k
                 for (m, a), k in zip(LAUNCH_COUNTERS, g.launches) if k}
+
+    def stages(self, shape: tuple[int, ...]) -> list[str]:
+        """The stages between the marks of the graph at ``shape``, in
+        order: the executed effects, then ``write_state``; none where it
+        was captured with tracing off."""
+        return list(self._graphs[tuple(shape)].stages)
 
 
 # -- the offline render ------------------------------------------------------
@@ -345,6 +396,7 @@ class _Render:
                                  # while nodes' (read with the walks)
     flags: list[torch.Tensor]    # each fixpoint's settle flags
     read: list[tuple[int, int]]  # each fixpoint's counters at the last read
+    stages: list[str]            # between its marks (none: untraced)
 
 
 class CapturedRender:
@@ -379,17 +431,24 @@ class CapturedRender:
                                  f"{e.device}, not for the card")
         self._graphs: dict[tuple, _Render] = {}
 
-    def _render(self, blocks: torch.Tensor, where: list) -> torch.Tensor:
+    def _render(self, blocks: torch.Tensor, where: list,
+                stages=None) -> torch.Tensor:
         """``chain_render`` with kernels, the effect at work in
-        ``where[0]``."""
+        ``where[0]``; with a list for ``stages``, a mark before the first
+        effect and after each, the effects' names appended."""
         from .chain import scan_offline
 
+        if stages is not None:
+            profiling.mark(self.device)
         for e in self.effects:
             where[0] = e.name
             if e.offline is not None:
                 blocks = e.offline(e.params, blocks)
             else:
                 blocks = scan_offline(e.init_state, e.step, e.params, blocks)
+            if stages is not None:
+                profiling.mark(self.device)
+                stages.append(e.name)
         where[0] = None
         return blocks
 
@@ -410,16 +469,23 @@ class CapturedRender:
             graph_cond.body_stream(self.device)
             blocks = torch.zeros(shape, dtype=dtype, device=self.device)
             flags: list[torch.Tensor] = []      # each fixpoint's
+            traced = profiling.enabled()
+            stages: list[str] = []
 
             def run(where):
                 with graph_cond.fixpoints() as found:
-                    out = self._render(blocks, where)
+                    out = self._render(blocks, where,
+                                       stages if traced else None)
                 flags.extend(found)
                 return out
 
+            # the warm-up marks too: the mark's kernel loaded before the
+            # capture
             graph, out, launches = _capture(
-                self.device, lambda where: self._render(blocks, where), run,
-                f"the offline render of blocks of {tuple(shape)}")
+                self.device,
+                lambda where: self._render(blocks, where,
+                                           [] if traced else None),
+                run, f"the offline render of blocks of {tuple(shape)}")
             if not isinstance(out, torch.Tensor) or out.shape != blocks.shape:
                 raise CaptureError(f"the render gave "
                                    f"{getattr(out, 'shape', out)} for blocks "
@@ -427,7 +493,8 @@ class CapturedRender:
             for f in flags:         # the counters the graph only adds to
                 f.zero_()
             self._graphs[key] = _Render(graph, blocks, out, launches, flags,
-                                        [(0, 0)] * len(flags))
+                                        [(0, 0)] * len(flags),
+                                        profiling.unique(stages))
 
     def _get(self, shape, dtype) -> _Render:
         key = (tuple(shape), dtype)
@@ -477,9 +544,13 @@ class CapturedRender:
         self.release(keep=(shape, signal.dtype))
         flat = self._get(shape, signal.dtype).blocks.view(
             shape[:-2] + (nb * block_size,))
-        flat[..., :n].copy_(signal)
-        flat[..., n:].zero_()
-        return self.replay_input(shape, signal.dtype).clone()
+        with profiling.span("render.copy_in"):
+            flat[..., :n].copy_(signal)
+            flat[..., n:].zero_()
+        with profiling.span("render.replay"):
+            out = self.replay_input(shape, signal.dtype)
+        with profiling.span("render.copy_out"):
+            return out.clone()
 
     def walks(self) -> dict[tuple[int, ...], list[int]]:
         """The walks of each graph's last replay, one int a dynamics stage
@@ -501,6 +572,13 @@ class CapturedRender:
         g = self._graphs[(tuple(shape), dtype)]
         return {f"{m.__name__.rsplit('.', 1)[-1]}.{a}": k
                 for (m, a), k in zip(LAUNCH_COUNTERS, g.launches) if k}
+
+    def stages(self, shape: tuple[int, ...],
+               dtype: torch.dtype = torch.float32) -> list[str]:
+        """The stages between the marks of the graph for ``shape``, in
+        order: the executed effects; none where it was captured with
+        tracing off."""
+        return list(self._graphs[(tuple(shape), dtype)].stages)
 
     def shapes(self) -> list[tuple[int, ...]]:
         """The blocks shapes whose graphs are kept."""

@@ -16,14 +16,19 @@ into the graph's input buffer, as the JAX render donates its padded blocks; :fun
 
 from __future__ import annotations
 
+import itertools
+
 import numpy as np
 import torch
 
+from .. import profiling
 from ..core import block as blk
 from ..core import wavio
 from ..core.config import EngineConfig
 from .chain import Chain
 from .resumable import render_segment
+
+_renders = itertools.count()   # the sequence numbers of the render spans
 
 
 def render(chain: Chain, signal, cfg: EngineConfig, trim: bool = False,
@@ -34,15 +39,17 @@ def render(chain: Chain, signal, cfg: EngineConfig, trim: bool = False,
     ``use_kernels=False`` asks for the plain PyTorch versions throughout.
     On the card the render replays a CUDA graph (captured at the first
     render of a shape; the chain keeps the last shape's graph only) and
-    returns a tensor of its own."""
-    signal = torch.as_tensor(signal, dtype=cfg.dtype).to(chain.device)
-    n = signal.shape[-1]
-    if chain.device.type == "cuda" and use_kernels:
-        out = chain.captured_render().render(signal, cfg.block_size)
-    else:
-        blocks = blk.make_blocks(signal, cfg.block_size)
-        out = chain.render_blocks(blocks, use_kernels=use_kernels)
-    return blk.combine_blocks(out, n if trim else None)
+    returns a tensor of its own. The call is the span ``render`` when
+    tracing is on (``profiling``)."""
+    with profiling.span("render", next(_renders)):
+        signal = torch.as_tensor(signal, dtype=cfg.dtype).to(chain.device)
+        n = signal.shape[-1]
+        if chain.device.type == "cuda" and use_kernels:
+            out = chain.captured_render().render(signal, cfg.block_size)
+        else:
+            blocks = blk.make_blocks(signal, cfg.block_size)
+            out = chain.render_blocks(blocks, use_kernels=use_kernels)
+        return blk.combine_blocks(out, n if trim else None)
 
 
 def render_segmented(chain: Chain, signal, cfg: EngineConfig,

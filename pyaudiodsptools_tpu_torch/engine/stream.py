@@ -23,11 +23,13 @@ it back is all resume takes.
 
 from __future__ import annotations
 
+import itertools
 from typing import Any, Iterable, Iterator
 
 import numpy as np
 import torch
 
+from .. import profiling
 from ..core.config import EngineConfig
 from .chain import Chain
 
@@ -116,6 +118,7 @@ class StreamProcessor:
             if chain.device.type == "cuda" else None
         self._state = None if self._captured is not None \
             else chain.init_state(self.batch_shape)
+        self._steps = itertools.count()  # the step spans' sequence numbers
 
     @property
     def state(self):
@@ -153,7 +156,26 @@ class StreamProcessor:
         tensor (on the chain's device) gives a new tensor there and waits
         for nothing; a numpy array gives a numpy array. A shorter final
         block is padded with silence, stepped whole, and cut back to its
-        length."""
+        length. With tracing on (``profiling``) the call is the span
+        ``step``: ``step.to_tensor``, on the card ``step.copy_in`` and
+        ``step.replay``, then ``step.copy_out`` (the wait for the card in
+        it where the answer is numpy)."""
+        with profiling.span("step", next(self._steps)):
+            with profiling.span("step.to_tensor"):
+                block, n, as_numpy = self._to_tensor(block)
+            if self._captured is not None:
+                # the graph's output buffer: the next block overwrites it
+                out = self._captured.replay(block)[..., :n]
+                with profiling.span("step.copy_out"):
+                    return out.cpu().numpy() if as_numpy else out.clone()
+            self._state, out = self.chain.step(self._state, block)
+            out = out[..., :n]
+            with profiling.span("step.copy_out"):
+                return out.cpu().numpy() if as_numpy else out
+
+    def _to_tensor(self, block):
+        """(the block as a tensor padded to the block size, its length,
+        whether it came as numpy)."""
         as_numpy = not isinstance(block, torch.Tensor)
         if as_numpy:
             block = torch.from_numpy(
@@ -172,13 +194,7 @@ class StreamProcessor:
                     f"{self.cfg.block_size}")
             block = torch.nn.functional.pad(block,
                                             (0, self.cfg.block_size - n))
-        if self._captured is not None:
-            # the graph's output buffer: the next block overwrites it
-            out = self._captured.replay(block)[..., :n]
-            return out.cpu().numpy() if as_numpy else out.clone()
-        self._state, out = self.chain.step(self._state, block)
-        out = out[..., :n]
-        return out.cpu().numpy() if as_numpy else out
+        return block, n, as_numpy
 
     def process_stream(self, blocks: Iterable) -> Iterator:
         for b in blocks:

@@ -13,7 +13,8 @@ plain PyTorch versions.
 ``graph_cond`` a conditional while node in a CUDA graph being captured,
              and the record of the fixpoints run in one (csrc/graph_cond.cu)
 ``_build``   compiles csrc/*.cu with nvcc at first use and loads them with
-             ctypes
+             ctypes (csrc/trace_mark.cu too: the graphs' stage mark, which
+             ``profiling.mark`` launches)
 
 Importing these modules needs neither ``nvcc`` nor a card: a kernel is built
 and loaded inside the call that first launches it.

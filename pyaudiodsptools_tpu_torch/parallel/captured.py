@@ -21,6 +21,15 @@ captures it on the card, from a static input buffer, in **pieces**:
   are one such exchange). The pieces share one memory pool and replay in
   the order they were captured.
 
+Captured with the program's tracing on (``profiling``), the program marks
+its stages on the card: ``program.<k>``, the k-th stretch of work between
+two exchanges, and under NCCL ``exchange.<what>``, from just before an
+exchange to just after it (the mark after it runs once the collective,
+and with it the wait for the peers, is done); a gloo piece starts and ends
+with a mark, and its exchange, on the host between two graphs, is the span
+``sharded.exchange.<what>``. :meth:`~CapturedShardedRender.stages` lists
+them in order.
+
 Before the capture the mesh's communicators are made (``Mesh.warmup``) and
 the whole program runs once eagerly on a side stream (the kernels loaded,
 cuBLAS's handle made, NCCL's links for these sizes set up); every rank
@@ -45,6 +54,7 @@ import warnings
 
 import torch
 
+from .. import profiling
 from ..engine.graph import _add_launches, _capture, read_fixpoints
 from ..kernels import dynamics, graph_cond
 from ..kernels.graph_cond import CaptureError
@@ -69,6 +79,7 @@ class _Program:
     fixpoints_read: list[tuple[int, int]]
     rounds: list[torch.Tensor]        # dynspec stages' round flags
     rounds_read: list[int]
+    stages: list[str]                 # between its marks (none: untraced)
 
 
 class CapturedShardedRender:
@@ -137,23 +148,42 @@ class CapturedShardedRender:
         fixpoints: list[torch.Tensor] = []
         rounds: list[torch.Tensor] = []
         out = None
+        traced = profiling.enabled()
+        stages: list[str] = []
 
         def warm(where):
             play(steps(blocks, capturable, where))
+            if traced:      # loads the mark's kernel before the capture
+                profiling.mark(device)
+
+        def stage(name):
+            profiling.mark(device)
+            stages.append(name)
+
+        def work():
+            stage(f"program.{sum(s.startswith('program.') for s in stages)}")
 
         def run(where):
             """The program to its next cut (gloo) or its end."""
             with graph_cond.fixpoints() as found, \
                     dynspec.recorded_rounds() as recorded:
                 try:
+                    if traced:
+                        profiling.mark(device)
                     while True:
                         try:
                             ex = program.send(None)
                         except StopIteration as stop:
+                            if traced:
+                                work()
                             return None, stop.value
+                        if traced:
+                            work()
                         if not capturable:
                             return ex, None
                         ex.run()
+                        if traced:
+                            stage(f"exchange.{ex.what}")
                 except Exception:
                     where[0] = here[0]
                     raise
@@ -181,7 +211,8 @@ class CapturedShardedRender:
         for f in fixpoints + rounds:    # the counters the graphs only add to
             f.zero_()
         return _Program(key, pieces, blocks, out, fixpoints,
-                        [(0, 0)] * len(fixpoints), rounds, [0] * len(rounds))
+                        [(0, 0)] * len(fixpoints), rounds, [0] * len(rounds),
+                        profiling.unique(stages))
 
     def replay(self) -> torch.Tensor:
         """Replay the kept program on what its input buffer holds: each
@@ -193,7 +224,8 @@ class CapturedShardedRender:
             piece.graph.replay()
             _add_launches(piece.launches)
             if piece.cut is not None:
-                piece.cut.run()
+                with profiling.span(f"sharded.exchange.{piece.cut.what}"):
+                    piece.cut.run()
         return p.out
 
     def rounds(self) -> list[int]:
@@ -216,6 +248,12 @@ class CapturedShardedRender:
         p = self._require()
         return read_fixpoints(p.fixpoints, p.fixpoints_read,
                               f"a captured sharded render of {p.key}")
+
+    def stages(self) -> list[str]:
+        """The stages between the kept program's marks, in order (a gloo
+        program's pieces one after another); none where it was captured
+        with tracing off."""
+        return list(self._require().stages)
 
     def cuts(self) -> list[str]:
         """The exchanges between the kept program's pieces."""

@@ -48,8 +48,11 @@ chain is on the CPU renders eagerly.
 
 from __future__ import annotations
 
+import itertools
+
 import torch
 
+from .. import profiling
 from ..core import block as blk
 from ..core.config import EngineConfig
 from ..engine.chain import Chain, scan_offline
@@ -205,7 +208,10 @@ class ShardedRenderer:
     were built for the CPU). On the card :meth:`render` and
     :meth:`render_blocks` replay the captured rank program
     (:attr:`captured`, kept with the renderer, one blocks shape at a time);
-    :meth:`render_shard` and :meth:`gather` stay eager, the reference.
+    :meth:`render_shard` and :meth:`gather` stay eager, the reference. With
+    tracing on (``profiling``) a render on the card is the span
+    ``sharded.render``: ``sharded.copy_in``, ``sharded.replay``,
+    ``sharded.copy_out``.
     """
 
     def __init__(self, chain: Chain, cfg: EngineConfig, mesh: Mesh):
@@ -219,6 +225,7 @@ class ShardedRenderer:
         self.cfg = cfg
         self.mesh = mesh
         self._captured = None
+        self._renders = itertools.count()  # the spans' sequence numbers
 
     @property
     def captured(self):
@@ -279,10 +286,15 @@ class ShardedRenderer:
         if self.chain.device.type != "cuda":
             return self.gather(self.render_shard(self.shard(blocks)))
         blocks = torch.as_tensor(blocks)
-        inp = self.captured.prepare("global", self.shard_shape(blocks.shape),
-                                    self.steps)
-        inp.copy_(self.shard(blocks))
-        return self.captured.replay().clone()
+        with profiling.span("sharded.render", next(self._renders)):
+            inp = self.captured.prepare(
+                "global", self.shard_shape(blocks.shape), self.steps)
+            with profiling.span("sharded.copy_in"):
+                inp.copy_(self.shard(blocks))
+            with profiling.span("sharded.replay"):
+                out = self.captured.replay()
+            with profiling.span("sharded.copy_out"):
+                return out.clone()
 
     def render(self, signal) -> torch.Tensor:
         """(channels, n) audio, the same on every rank -> the output padded
@@ -301,10 +313,16 @@ class ShardedRenderer:
             blocks = blk.make_blocks(signal, B)
             return blk.combine_blocks(self.render_blocks(blocks))
         Cl, nbl, _ = self.shard_shape((signal.shape[0], (n + pad) // B, B))
-        inp = self.captured.prepare("global", (Cl, nbl, B), self.steps)
-        ci, ti = self.mesh.coords
-        flat = inp.view(Cl, nbl * B)
-        part = signal[ci * Cl:(ci + 1) * Cl, ti * nbl * B:(ti + 1) * nbl * B]
-        flat[:, :part.shape[-1]].copy_(part)
-        flat[:, part.shape[-1]:].zero_()
-        return blk.combine_blocks(self.captured.replay().clone())
+        with profiling.span("sharded.render", next(self._renders)):
+            inp = self.captured.prepare("global", (Cl, nbl, B), self.steps)
+            ci, ti = self.mesh.coords
+            flat = inp.view(Cl, nbl * B)
+            part = signal[ci * Cl:(ci + 1) * Cl,
+                          ti * nbl * B:(ti + 1) * nbl * B]
+            with profiling.span("sharded.copy_in"):
+                flat[:, :part.shape[-1]].copy_(part)
+                flat[:, part.shape[-1]:].zero_()
+            with profiling.span("sharded.replay"):
+                out = self.captured.replay()
+            with profiling.span("sharded.copy_out"):
+                return blk.combine_blocks(out.clone())

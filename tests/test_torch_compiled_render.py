@@ -713,3 +713,38 @@ def test_cuda_render_segmented_through_the_captured_step_on_card():
         outs.append(y)
     assert torch.equal(seg, torch.cat(outs, -1))
     assert list(chain._fold_steps) == [(4,)]
+
+
+@pytest.mark.cuda
+def test_cuda_traced_render_marks_its_stages_on_card(tmp_path):
+    """A render captured under ``profiling.trace`` marks each executed
+    effect: the same launches and bits as a graph captured untraced (which
+    holds no stage), its spans and stages read back from the trace, every
+    replayed operation between two marks."""
+    _need_card()
+    from pyaudiodsptools_tpu_torch import profiling
+
+    cfg, chain = _card_chain(4096)
+    x = torch.from_numpy(_noise_bursts(4, 8 * 4096 - 77, seed=3)).cuda()
+    want = pt.render(chain, x, cfg)
+    (shape,) = chain.captured_render().shapes()
+    assert chain.captured_render().stages(shape) == []
+    launches = chain.captured_render().launches_per_replay(shape)
+    _, traced_chain = _card_chain(4096)
+    with profiling.trace(str(tmp_path)) as prof:
+        got = [pt.render(traced_chain, x, cfg) for _ in range(2)]
+    assert not profiling.enabled()
+    captured = traced_chain.captured_render()
+    names = [e.name for e in traced_chain.exec_effects]
+    assert captured.stages(shape) == names
+    assert captured.launches_per_replay(shape) == launches
+    assert all(torch.equal(g, want) for g in got)
+    read = profiling.attribute(prof, captured.stages(shape))
+    assert list(read["stages"]) == names
+    assert all(s["replays"] == 2 for s in read["stages"].values())
+    assert read["staged_busy_s"] >= 0.95 * read["replay_busy_s"] > 0
+    spans = read["spans"]
+    assert spans["graph.capture"]["count"] == 1
+    assert spans["render"]["count"] == 2
+    for part in ("render.copy_in", "render.replay", "render.copy_out"):
+        assert spans[part]["count"] == 2 and spans[part]["device_s"] > 0

@@ -453,3 +453,59 @@ def test_cuda_compat_devices_bit_equal_to_eager_on_card():
     trem.reset()
     got = [trem.apply(x[:n]) for n in (B, 300, B, 300)]
     np.testing.assert_array_equal(got[-1], want.cpu().numpy())
+
+
+def _device_kernels(fn) -> tuple[list[str], object]:
+    """The names of the device operations ``fn`` ran, and the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation()], prof
+
+
+@pytest.mark.cuda
+def test_cuda_traced_step_marks_its_stages_on_card():
+    """Captured with tracing off, the step holds no mark and launches what
+    it launched before marks existed; captured with it on, a mark bounds
+    each executed effect and the state write-back, the counters count the
+    same launches and the outputs are the untraced graph's bits."""
+    _need_card()
+    from pyaudiodsptools_tpu_torch import profiling
+
+    cfg = pt.EngineConfig(44100, B)
+    chain = pt.Chain(_chain8_effects(pt, cfg, device="cuda"), device="cuda")
+    x = torch.from_numpy(_signal(4, 8 * B, seed=12)).cuda()
+    shape = (4, B)
+    plain = chain.captured_step((4,))
+    plain.capture(shape)
+    profiling.enable()
+    try:
+        traced = chain.captured_step((4,))
+        traced.capture(shape)
+    finally:
+        profiling.enable(False)
+    names = [e.name for e in chain.exec_effects]
+    assert plain.stages(shape) == []
+    assert traced.stages(shape) == names + ["write_state"]
+    assert plain.launches_per_step(shape) == \
+        traced.launches_per_step(shape) == \
+        {"convpairs.launch_count": 1, "dynamics.serial_walk_launch_count": 1}
+    block = x[:, :B]
+    ops, _ = _device_kernels(lambda: plain(block))
+    marked, prof = _device_kernels(lambda: traced(block))
+    marks = [n for n in marked if "trace_mark_kernel" in n]
+    assert not any("trace_mark_kernel" in n for n in ops)
+    assert len(marks) == len(names) + 2
+    assert sorted(n for n in marked if "trace_mark_kernel" not in n) == \
+        sorted(ops)
+    got = profiling.attribute(prof, traced.stages(shape))
+    assert list(got["stages"]) == traced.stages(shape)
+    assert got["staged_busy_s"] >= 0.95 * got["replay_busy_s"] > 0
+    for i in range(1, 8):
+        blk = x[:, i * B:(i + 1) * B]
+        assert torch.equal(traced(blk), plain(blk))

@@ -317,3 +317,27 @@ def test_cuda_a_renderer_dropped_frees_its_graphs(one_rank_nccl):
     finally:
         gc.enable()
     chain.captured_render().release()
+
+
+@pytest.mark.cuda
+def test_cuda_a_traced_program_marks_its_stages(one_rank_nccl):
+    """Captured with tracing off the program has no stage; captured again
+    with it on, a 1x1 mesh's program (no exchange) is one stretch of work
+    between two marks, and renders the same bits."""
+    from pyaudiodsptools_tpu_torch import profiling
+
+    cfg, chain = _card_chain8()
+    rend = ShardedRenderer(chain, cfg, one_rank_nccl)
+    x = torch.from_numpy(worker.noise(2, 8 * B, 4)).cuda()
+    want = rend.render(x)
+    assert rend.captured.stages() == []
+    rend.captured.release()
+    profiling.enable()
+    try:
+        got = rend.render(x)
+    finally:
+        profiling.enable(False)
+    assert rend.captured.stages() == ["program.0"]
+    assert torch.equal(got, want)
+    rend.captured.release()
+    chain.captured_render().release()
