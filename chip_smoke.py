@@ -156,10 +156,17 @@ failed check raises (exit code != 0, no result line):
    round kernel against its plain version and its gate driving an if node;
    one NCCL all-gather and all-reduce captured in a graph (asserted) and in
    a while node (reported: the four-card run found NCCL refused there);
+   ``lone_maps``: each lone waveshaper's ``offline`` (saturator in both
+   modes, soft clipper, harddistortion, bitcrusher) at 64 ch x 30 s,
+   B=4096: one tail-kernel launch with a one-stage plan, held to its plain
+   ``offline`` (110 dB, the bitcrusher exactly), the kernel timed queued
+   and the plain map by events;
    ``profiling``: chain8 through ``profiling.annotate_chain`` (unfused, one
    profiler scope an effect) at B=4096 and 512, rendered eagerly (a
-   graph's replay has no host scopes) under ``profiling.trace``: bit-equal to the unfused chain's render, >= 90 dB to
-   the fused one, every ``effect.<name>.offline`` scope in the trace with
+   graph's replay has no host scopes) under ``profiling.trace``: bit-equal
+   to the unfused chain's render, >= 110 dB to the unfused chain rendered
+   with the tail's members plain (the lone soft clipper's kernel against
+   its plain map), the fused chain >= 90 dB to that plain-tail render, every ``effect.<name>.offline`` scope in the trace with
    the launches of our kernels inside it equal to the launch counters' over
    the same effect, and each scope's device ms against the roofline's cost
    of its effect; then 64 blocks at B=512 through the annotated chain's
@@ -629,8 +636,16 @@ TAIL_PLANS = {
     "saturator+bitcrusher": [("saturator", (), {}), ("bitcrusher", (), {})],
     "softclipper+bitcrusher": [("softclipper", (0.44,), {}),
                                ("bitcrusher", (), {})],
+    # one-stage plans: a lone waveshaper's offline
+    "softclipper": [("softclipper", (0.44,), {})],
+    "saturator": [("saturator", (), {})],
+    "soft_saturator": [("saturator", (-18.0, 1.5, "soft"), {})],
+    "harddistortion": [("harddistortion", (), {})],
+    "bitcrusher": [("bitcrusher", (), {})],
 }
-EXACT_PLANS = ("bitcrusher+delay", "delay+tremolo+bitcrusher")
+EXACT_PLANS = ("bitcrusher+delay", "delay+tremolo+bitcrusher", "bitcrusher")
+LONE_MAP_PLANS = ("softclipper", "saturator", "soft_saturator",
+                  "harddistortion", "bitcrusher")
 
 
 def tail_members(cfg, plan: str):
@@ -644,7 +659,9 @@ def tail_cases() -> dict:
     that the rings wrap hundreds of times, in 7 runs a channel (runs that
     walk the halo first), and a length that is not a multiple of 4 (rows
     off a 16-byte boundary, a ragged last chunk). All held to the plain
-    version: TAIL_DB_PLAIN, or the bitcrusher plans' exactness rule."""
+    version: TAIL_DB_PLAIN, or the bitcrusher plans' exactness rule. A
+    one-stage plan's lone effect is also run through its own ``offline``
+    (one launch), bit-equal to the fused effect of one member."""
     cfg = pt.EngineConfig(SAMPLE_RATE, 512)
     rng = np.random.default_rng(11)
     results = []
@@ -690,6 +707,12 @@ def tail_cases() -> dict:
             torch.cuda.synchronize()
             assert tail.launch_count == before + 1
             check({"plan": plan, "C": C, "T": nb * 512}, plan, want, got)
+            if len(members) == 1:
+                (e,) = members
+                lone = e.offline(e.params, xd)
+                torch.cuda.synchronize()
+                assert tail.launch_count == before + 2, plan
+                assert torch.equal(lone, got), plan
             if C == 1:
                 continue
             # small tiles: the rings wrap; 7 runs a channel
@@ -4425,7 +4448,8 @@ def effect_cost(e, C: int, T: int) -> dict:
 def expect_launches(name: str, launches: dict, kind: str, blocks: int = 1):
     """What an effect of unfused chain8 launches: offline, the conv once a
     FIR and both walks a dynamics op; a step, ``conv_pairs`` a FIR and
-    ``serial_walk`` a dynamics op; the tail's members run plain."""
+    ``serial_walk`` a dynamics op; the tail's members run plain, but for
+    the lone waveshaper's offline, one launch of the tail kernel."""
     if name in FIR_EFFECTS:
         want = {"segconv": 1} if kind == "offline" else \
             {"conv_pairs": blocks}
@@ -4436,14 +4460,66 @@ def expect_launches(name: str, launches: dict, kind: str, blocks: int = 1):
                 (name, launches)
         else:
             assert launches == {"serial_walk": blocks}, (name, launches)
+    elif name == "softclipper" and kind == "offline":
+        assert launches == {"tail": 1}, (name, launches)
     else:
         assert launches == {}, (name, kind, launches)
+
+
+def lone_map_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
+    """Each lone waveshaper of LONE_MAP_PLANS at the main path's shape
+    (64 ch x 30 s, B=4096), on the main path's signal times 3 (past full
+    scale in the bursts: the clippers' clamps at work): its ``offline`` is
+    one launch of the tail kernel (a one-stage ``map`` plan), held to the
+    same effect's plain ``offline`` (``use_kernels=False``) on the same
+    blocks: TAIL_DB_PLAIN, the bitcrusher exactly; the kernel timed queued
+    and the plain map by events, beside the roofline's bound."""
+    pk = rl.peaks_for_device()
+    B = BLOCK_SIZES[0]
+    cfg = pt.EngineConfig(SAMPLE_RATE, B)
+    blocks = pt.block.make_blocks(signal * 3.0, B)
+    C, nb, _ = blocks.shape
+    T = nb * B
+    maps, launch_counts_by_run = {}, {}
+    for plan in LONE_MAP_PLANS:
+        (e,) = tail_members(cfg, plan)
+        got, counts = counted(lambda: e.offline(e.params, blocks))
+        assert nonzero(counts) == {"tail": 1}, (plan, counts)
+        want = e.offline(e.params, blocks, use_kernels=False)
+        assert got.shape == blocks.shape and got.dtype == torch.float32
+        assert bool(torch.isfinite(got).all()), plan
+        r = {"effect": e.name, "launches": nonzero(counts)}
+        if plan in EXACT_PLANS:
+            r["bit_equal_to_plain"] = bool(torch.equal(got, want))
+            assert r["bit_equal_to_plain"], (plan, r)
+        else:
+            db = snr_db_cuda(want, got)
+            r["db_plain"] = db_json(db)
+            assert db >= TAIL_DB_PLAIN, (plan, r)
+        del got, want
+        cost = effect_cost(e, C, T)
+        kernel = queued_ms(lambda: e.offline(e.params, blocks), runs=20)
+        plain = time_ms(lambda: e.offline(e.params, blocks,
+                                          use_kernels=False))
+        maps[plan] = {
+            **r, **rl.bound(cost, pk),
+            "kernel": {**kernel, **rl.classify(kernel["ms"] * 1e-3, cost,
+                                               pk)},
+            "plain": {"ms": plain,
+                      **rl.classify(plain * 1e-3, cost, pk)}}
+        launch_counts_by_run[f"{plan} offline"] = counts
+    return {"phase": "lone_maps", "B": B, "channels": C, "samples": T,
+            "maps": maps, "launch_counts": launch_counts_by_run,
+            "nvidia_smi": smi}
 
 
 def profiling_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
     """chain8 through ``profiling.annotate_chain`` at 64 ch x 30 s, B=4096
     and 512: (a) rendered under ``profiling.trace``, bit-equal to the
-    unfused chain's render and >= CHAIN8_DB_PLAIN to the fused one; (b)
+    unfused chain's render and >= TAIL_DB_PLAIN to the unfused chain
+    rendered with the tail's members plain (the lone soft clipper's
+    one-stage launch against its plain map), and the fused chain's render
+    >= CHAIN8_DB_PLAIN to that plain-tail render; (b)
     every ``effect.<name>.offline`` scope in the trace; (c) each scope's
     launches equal to the counters' over the same effect's pass; (d) each
     scope's device ms against the roofline's cost of its effect; (e) at
@@ -4465,6 +4541,14 @@ def profiling_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
         T = -(-n // B) * B
         # eager renders throughout: a graph's replay has no host scopes
         want = eager_render(bare, signal, cfg)
+        # the same with the tail's members plain (the lone clipper's
+        # one-stage launch too): the fused tail's and the lone clipper's
+        # reference in plain PyTorch
+        plain_tail = pt.block.make_blocks(signal, B)
+        for e in bare.exec_effects:
+            plain_tail = e.offline(e.params, plain_tail,
+                                   use_kernels=not tail.tail_fusable(e))
+        plain_tail = pt.block.combine_blocks(plain_tail)
         # the counters' launches of each effect, effect by effect through
         # the annotated chain's own effects (untraced)
         x, by_effect = pt.block.make_blocks(signal, B), {}
@@ -4479,8 +4563,9 @@ def profiling_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
                                                            cfg))
             table = scope_table(read_trace(d))
         bit_equal = torch.equal(got, want)
-        db_fused = snr_db_cuda(eager_render(fused, signal, cfg), got)
-        del got, want
+        db_fused = snr_db_cuda(plain_tail, eager_render(fused, signal, cfg))
+        db_lone = snr_db_cuda(plain_tail, got)
+        del got, want, plain_tail
         scopes = table["scopes"]
         assert sorted(scopes) == sorted(f"effect.{name}.offline"
                                         for name in CHAIN8_EFFECTS), scopes
@@ -4501,7 +4586,9 @@ def profiling_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
             for k in nonzero(traced)}, (traced, scopes)
         runs[str(B)] = {
             "bit_equal_to_unfused": bit_equal,
-            "db_to_fused": db_json(db_fused), "launches": nonzero(traced),
+            "fused_db_to_plain_tail": db_json(db_fused),
+            "db_to_plain_tail": db_json(db_lone),
+            "launches": nonzero(traced),
             "device_ms_in_scopes": sum(r["device_ms"]
                                        for r in scopes.values()),
             "device_ms_outside_scopes":
@@ -4509,7 +4596,8 @@ def profiling_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
             "profiler_device_spans_ms": table["profiler_device_spans_ms"],
             "by_effect": by_scope}
         launch_counts_by_run[f"B={B} traced render"] = traced
-        assert bit_equal and db_fused >= CHAIN8_DB_PLAIN, runs[str(B)]
+        assert bit_equal and db_fused >= CHAIN8_DB_PLAIN \
+            and db_lone >= TAIL_DB_PLAIN, runs[str(B)]
 
     # (e) the annotated chain streamed, its steps' scopes
     B = PROFILE_STREAM_B
@@ -4761,6 +4849,7 @@ def main() -> None:
                       lambda: compat_phase(signal, n, workdir, smi),
                       lambda: runtime_phase(signal, n, smi),
                       lambda: parallel_phase(signal, n, smi, args.seed),
+                      lambda: lone_map_phase(signal, n, smi),
                       lambda: profiling_phase(signal, n, smi)):
             t0 = time.perf_counter()
             out = phase()

@@ -175,7 +175,8 @@ def fuse_lti_runs(effects: tuple[Effect, ...]) -> tuple[Effect, ...]:
     * tail runs (delay without pre-filters / tremolo / stateless
       waveshapers) left over after the passes above -> one kernel pass
       (kernels/tail.fused_tail), whatever the run's length and reach, as
-      the JAX package fuses them.
+      the JAX package fuses them. A lone waveshaper stays as it is: its own
+      ``offline`` takes the same kernel with a one-stage plan.
     """
     from ..ops.fft_filter import fuse_lti
 

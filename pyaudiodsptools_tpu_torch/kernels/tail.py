@@ -38,6 +38,11 @@ that the wrapper allocates: no run the JAX package fuses is refused.
 The CUDA source is ``csrc/tail.cu``. The plain version is the member ops'
 plain ``offline``s in sequence; it runs for CPU tensors, or on request
 (``use_kernels=False``), and is never a fallback for a CUDA tensor.
+
+A lone waveshaper is no run, and keeps its own name and place in a chain;
+its ``offline`` (:func:`map_offline`) on a CUDA tensor launches
+:func:`tail_kernel` with a one-stage ``map`` plan, from the same planner and
+plan cache as a run's.
 """
 
 from __future__ import annotations
@@ -361,6 +366,45 @@ def tail_kernel(plan: TailPlan, x: torch.Tensor, gains: torch.Tensor | None,
     return out
 
 
+def _plan_cache(stages, D: int, own, device, members=lambda p: p):
+    """``plan_for(params, device)``: the plan of one run's stages for these
+    params (``members(params)`` gives the members' params in order), kept by
+    the params' identity. The plan for ``own`` is built here, on ``device``,
+    so that a graph capture of the effect finds it and builds none."""
+    plans = {id(own): (own, make_plan(stages, D, members(own), device))}
+
+    def plan_for(params, device) -> TailPlan:
+        hit = plans.get(id(params))
+        if hit is None or hit[0] is not params \
+                or hit[1].table.device != device:
+            hit = (params, make_plan(stages, D, members(params), device))
+            plans[id(params)] = hit
+        return hit[1]
+
+    return plan_for
+
+
+def map_offline(effect: Effect):
+    """The ``offline`` of a lone waveshaper (no run to fuse into): on a CUDA
+    tensor one launch of :func:`tail_kernel` with a one-stage ``map`` plan,
+    a single pass over the signal where the plain map makes about ten; on a
+    CPU tensor, or with ``use_kernels=False``, the plain map."""
+    _, fn = _MAPS[type(effect.params)]
+    stages, _, _, D = _plan_stages((effect,))
+    plan_for = _plan_cache(stages, D, effect.params, effect.device,
+                           members=lambda p: (p,))
+
+    def offline(params, blocks: torch.Tensor, use_kernels: bool = True
+                ) -> torch.Tensor:
+        if not (blocks.is_cuda and use_kernels):
+            return fn(params, blocks)
+        shape = blocks.shape
+        x = blocks.reshape(-1, shape[-2] * shape[-1]).contiguous()
+        return tail_kernel(plan_for(params, x.device), x, None).reshape(shape)
+
+    return offline
+
+
 def fused_tail(effects) -> Effect:
     """ONE Effect for a tail run (delay / tremolo / waveshapers, in order).
     Offline runs the fused CUDA kernel on a CUDA tensor and the members'
@@ -370,16 +414,7 @@ def fused_tail(effects) -> Effect:
     members = tuple(effects)
     stages, _n_scal, _n_gain, D_total = _plan_stages(members)
     own = tuple(e.params for e in members)
-    plans = {id(own): (own, make_plan(stages, D_total, own,
-                                      members[0].device))}
-
-    def plan_for(params, device) -> TailPlan:
-        hit = plans.get(id(params))
-        if hit is None or hit[0] is not params \
-                or hit[1].table.device != device:
-            hit = (params, make_plan(stages, D_total, params, device))
-            plans[id(params)] = hit
-        return hit[1]
+    plan_for = _plan_cache(stages, D_total, own, members[0].device)
 
     def _sequential(params, blocks, first_block):
         for e, p in zip(members, params):

@@ -13,9 +13,13 @@ are the same:
   (so silence maps to about 0.951).
 * BitCrusher -- int32 cast, wrap to int16, FLOOR division by 512, /64.
 
-All are pure elementwise maps; ``step`` and ``offline`` share one function.
-The fused tail kernel (``kernels/tail.py``) carries the same four maps in
-CUDA C++.
+All are pure elementwise maps; ``step`` runs the plain function, and so
+does ``offline`` on a CPU tensor or with ``use_kernels=False``. The fused
+tail kernel (``kernels/tail.py``) carries the same four maps in CUDA C++: a
+run of two or more tail effects fuses into one of its passes, and a lone
+waveshaper's ``offline`` on a CUDA tensor is one launch of it with a
+one-stage ``map`` plan (a single pass over the signal, where the plain
+function makes about ten).
 """
 
 from __future__ import annotations
@@ -33,11 +37,12 @@ def _stateless(name: str, params, fn, device) -> Effect:
     def step(params, state, block):
         return state, fn(params, block)
 
-    def offline(params, blocks, use_kernels: bool = True):
-        return fn(params, blocks)
+    effect = Effect(name=name, params=params, init_state=init_state,
+                    step=step, device=resolve_device(device))
+    # imported here: kernels/tail imports this module
+    from ..kernels import tail
 
-    return Effect(name=name, params=params, init_state=init_state, step=step,
-                  offline=offline, device=resolve_device(device))
+    return effect._replace(offline=tail.map_offline(effect))
 
 
 # --------------------------------------------------------------------------

@@ -27,8 +27,9 @@ that needs:
   kernel layer does not import the engine.
 
 The ``cuda`` tests (skipped without a card) hold the captured render itself
-(bit-equal to eager, the while node's walks against the plain render's, no
-synchronisation in a replay, outputs that stay valid, one graph kept by
+(bit-equal to eager, also with a lone soft clipper's one-stage tail launch
+and no kernel plan built in the capture; the while node's walks against
+the plain render's, no synchronisation in a replay, outputs that stay valid, one graph kept by
 ``render`` over signals of many lengths), the settle kernel against its
 plain version and in a while node of its own, and import no JAX, so that ``python -m pytest --noconftest -m cuda
 tests/test_torch_compiled_render.py`` runs on a machine with a card and no
@@ -48,6 +49,7 @@ from pyaudiodsptools_tpu_torch.engine import graph as eg
 from pyaudiodsptools_tpu_torch.kernels import dynamics as kd
 from pyaudiodsptools_tpu_torch.kernels import graph_cond as kgc
 from pyaudiodsptools_tpu_torch.kernels import relayout as rl
+from pyaudiodsptools_tpu_torch.kernels import tail as kt
 
 # the module (``ops.tremolo`` is its factory)
 trem = importlib.import_module("pyaudiodsptools_tpu_torch.ops.tremolo")
@@ -507,6 +509,46 @@ def test_cuda_captured_render_bit_equal_to_eager_on_card(B):
     assert torch.equal(pt.render(chain, x, cfg),
                        want.reshape(4, -1))
     assert chain.captured_render() is captured
+
+
+@pytest.mark.cuda
+def test_cuda_captured_lone_clipper_render_bit_equal_to_eager_on_card(
+        monkeypatch):
+    """compressor -> gate -> softclipper: the clipper stays alone, and its
+    offline is one launch of the tail kernel. The captured render is
+    bit-equal to the eager one, a replay launches the tail kernel once, and
+    the capture builds no plan: the clipper's was built with it."""
+    _need_card()
+    B = 4096
+    cfg = pt.EngineConfig(44100, B)
+    chain = pt.Chain(_dyn(pt, cfg, device="cuda")
+                     + [pt.ops.softclipper(cfg, 0.44, device="cuda")],
+                     device="cuda")
+    assert [e.name for e in chain.exec_effects] == \
+        ["dynamics_cascade:compressor+gate", "softclipper"]
+    built = []
+    make_plan = kt.make_plan
+
+    def spy(*args, **kwargs):
+        built.append(torch.cuda.is_current_stream_capturing())
+        return make_plan(*args, **kwargs)
+
+    monkeypatch.setattr(kt, "make_plan", spy)
+    # past full scale in the bursts: the clipper's clamp at work
+    x = torch.from_numpy(_noise_bursts(4, 8 * B - 77, seed=3) * 1.5).cuda()
+    blocks = pt.block.make_blocks(x, B)
+    before = kt.launch_count
+    want, walks = _eager_walks(chain, blocks)
+    assert kt.launch_count == before + 1
+    captured = chain.captured_render()
+    got = captured(blocks)
+    assert torch.equal(got, want)
+    assert captured.walks()[tuple(blocks.shape)] == [walks]
+    before = kt.launch_count
+    assert torch.equal(captured(blocks), want)
+    assert kt.launch_count == before + 1
+    assert torch.equal(pt.render(chain, x, cfg), want.reshape(4, -1))
+    assert built == []
 
 
 @pytest.mark.cuda

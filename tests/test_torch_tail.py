@@ -34,6 +34,11 @@ PLANS = {
         ("harddistortion", (), {}), ("delay", (40.0, 2), {"wet": True})],
     "delay+delay": [
         ("delay", (30.0, 2), {}), ("delay", (7.0, 3), {})],
+    # one-stage plans: a lone waveshaper's offline on a card
+    "softclipper": [("softclipper", (0.44,), {})],
+    "saturator": [("saturator", (-18.0, 1.5, "soft"), {})],
+    "harddistortion": [("harddistortion", (), {})],
+    "bitcrusher": [("bitcrusher", (), {})],
 }
 
 
