@@ -42,8 +42,9 @@ Tracing (``profiling.py``). A capture is the span ``graph.capture``, and
 (warm-up included) and the captures made, always. A graph captured with the
 program's tracing on records a stage mark (``profiling.mark``) before the
 first executed effect, after each and, in the step, after the state
-write-back; ``stages()`` names the stages in order. Captured with tracing
-off, a graph holds no mark.
+write-back, and in the render between the partitions of a FIR
+(``<effect>.part0``, ...); ``stages()`` names the stages in order.
+Captured with tracing off, a graph holds no mark.
 
 Captures use ``capture_error_mode="thread_local"``: another thread's CUDA
 calls (a realtime pump replaying its own graph, a producer copying a block)
@@ -92,7 +93,9 @@ LAUNCH_COUNTERS = ((convpairs, "launch_count"),
                    (dynamics, "audio_walk_launch_count"),
                    (dynamics, "settle_launch_count"),
                    (dynamics, "round_launch_count"),
-                   (segconv, "launch_count"), (tail, "launch_count"),
+                   (segconv, "launch_count"),
+                   (segconv, "accumulate_launch_count"),
+                   (tail, "launch_count"),
                    (relayout, "pack_launch_count"),
                    (relayout, "unpack_launch_count"))
 
@@ -435,20 +438,24 @@ class CapturedRender:
                 stages=None) -> torch.Tensor:
         """``chain_render`` with kernels, the effect at work in
         ``where[0]``; with a list for ``stages``, a mark before the first
-        effect and after each, the effects' names appended."""
+        effect and after each, the effects' names appended (a FIR in
+        partitions marks between them too, its parts' names appended:
+        ``profiling.stage_parts``)."""
         from .chain import scan_offline
 
         if stages is not None:
             profiling.mark(self.device)
         for e in self.effects:
             where[0] = e.name
-            if e.offline is not None:
-                blocks = e.offline(e.params, blocks)
-            else:
-                blocks = scan_offline(e.init_state, e.step, e.params, blocks)
+            with profiling.stage_parts(stages is not None) as parts:
+                if e.offline is not None:
+                    blocks = e.offline(e.params, blocks)
+                else:
+                    blocks = scan_offline(e.init_state, e.step, e.params,
+                                          blocks)
             if stages is not None:
                 profiling.mark(self.device)
-                stages.append(e.name)
+                stages.extend(profiling.stage_names(e.name, len(parts)))
         where[0] = None
         return blocks
 
@@ -576,8 +583,9 @@ class CapturedRender:
     def stages(self, shape: tuple[int, ...],
                dtype: torch.dtype = torch.float32) -> list[str]:
         """The stages between the marks of the graph for ``shape``, in
-        order: the executed effects; none where it was captured with
-        tracing off."""
+        order: the executed effects, a FIR in partitions as its parts
+        (``<effect>.part0``, ...); none where it was captured with tracing
+        off."""
         return list(self._graphs[(tuple(shape), dtype)].stages)
 
     def shapes(self) -> list[tuple[int, ...]]:

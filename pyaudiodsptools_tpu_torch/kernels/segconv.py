@@ -52,6 +52,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import profiling
 from . import _build
 
 # One block's window of complex float32 must fit its shared memory: 8 bytes
@@ -75,6 +76,9 @@ CLUSTER_AT = {2 * BLOCK_WINDOW: 2, 4 * BLOCK_WINDOW: 4}
 # :func:`partitioned_conv` (one a partition; and by nothing else) since the
 # caller last set it to 0.
 launch_count = 0
+# Of those, the launches in the accumulate mode (``into=``: every partition
+# of :func:`partitioned_conv` after the first).
+accumulate_launch_count = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -289,7 +293,7 @@ def _launch(x: torch.Tensor, plan: ConvPlan, blocks: int | None = None,
     contiguous, added into that one (the accumulate mode), which is
     returned. ``blocks`` (thread blocks a window pair, 1, 2 or 4) overrides
     the plan's version, for measurement only."""
-    global launch_count
+    global launch_count, accumulate_launch_count
     blocks = plan.blocks if blocks is None else blocks
     if blocks not in versions(plan.n):
         raise ValueError(
@@ -331,6 +335,8 @@ def _launch(x: torch.Tensor, plan: ConvPlan, blocks: int | None = None,
             f"(C={C}, T={T}, n={plan.n}, halo={plan.halo}, seg={plan.seg}, "
             f"blocks={blocks})")
     launch_count += 1
+    if into is not None:
+        accumulate_launch_count += 1
     return y
 
 
@@ -361,10 +367,13 @@ def partitioned_conv(x: torch.Tensor, plans,
     with its own kernel slice and output delay): the first writes the
     output, each later one adds into it, in order. One partition is
     :func:`segmented_conv` itself. A CUDA tensor goes through the
-    hand-written kernel, one launch a partition, or the call raises."""
+    hand-written kernel, one launch a partition, or the call raises. In a
+    graph captured with tracing on, a stage mark lies between two
+    partitions (``profiling.part``)."""
     if not (x.is_cuda and use_kernels):
         return partitioned_conv_plain(x, plans)
     y = _launch(x, plans[0])
     for plan in plans[1:]:
+        profiling.part(x.device)
         _launch(x, plan, into=y)
     return y

@@ -35,8 +35,11 @@ Offline, two routes compute the same function:
   samples) through the fused tail kernel's ``taps`` stage, the two lines
   summed.
 
-``offline`` is route (a); ``chip_smoke.py`` times both on the card (PERF.md
-has the numbers and the reason for the choice).
+``offline`` is route (a). The benchmark's cell ``reverb1500.offline``
+(``BENCHMARK.json``: compressor, gate and this reverb over 64 channels of
+10 minutes) measures it on the card, its five launches a render marked as
+stages ``reverb.part0`` ... ``reverb.part4`` under tracing; PERF.md's
+findings have the numbers.
 """
 
 from __future__ import annotations

@@ -22,7 +22,10 @@ Counterpart of ``pyaudiodsptools_tpu/profiling.py``, and beyond it:
     executed effect, between two, after the last, after the streaming
     step's state write-back, and around each exchange of a sharded program
     (under NCCL the mark after it waits for the collective, peers
-    included). The graphs' ``stages()`` give the stage names in order. A
+    included). In the offline render a FIR of two or more partitions also
+    marks between its partitions (``part``), its stages named
+    ``<effect>.part0``, ``<effect>.part1``, ... The graphs' ``stages()``
+    give the stage names in order. A
     replay runs the marks with it, so the trace's device clock puts every
     operation of a replay, and every idle gap between its first and last
     mark, in one stage. Marks never go inside a conditional node.
@@ -47,6 +50,7 @@ from __future__ import annotations
 import bisect
 import contextlib
 import ctypes
+import threading
 from collections import defaultdict
 
 import torch
@@ -104,6 +108,44 @@ def mark(device=None) -> None:
                           [ctypes.c_void_p])(stream.cuda_stream)
     if err != 0:
         raise RuntimeError(f"trace_mark_kernel failed with CUDA error {err}")
+
+
+class _Parts(threading.local):
+    found = None     # a list while a traced stage is being recorded
+
+
+_parts = _Parts()
+
+
+@contextlib.contextmanager
+def stage_parts(on: bool = True):
+    """Around one stage of a graph captured with tracing on: yields a list
+    that gets an entry at each boundary between two parts of the stage
+    that the code inside marks with :func:`part`. Off (``on`` False) it
+    yields an empty list and nothing inside marks."""
+    outer = _parts.found
+    _parts.found = [] if on else None
+    try:
+        yield _parts.found if on else []
+    finally:
+        _parts.found = outer
+
+
+def part(device=None) -> None:
+    """A boundary between two parts of one stage (the partitions of a
+    FIR): a :func:`mark` inside :func:`stage_parts` on this thread, else
+    nothing."""
+    if _parts.found is not None:
+        mark(device)
+        _parts.found.append(device)
+
+
+def stage_names(name: str, boundaries: int) -> list[str]:
+    """The stage ``name``, or with part boundaries inside it its parts
+    ``name.part0``, ``name.part1``, ..."""
+    if not boundaries:
+        return [name]
+    return [f"{name}.part{i}" for i in range(boundaries + 1)]
 
 
 def unique(names) -> list[str]:
