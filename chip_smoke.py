@@ -191,7 +191,10 @@ failed check raises (exit code != 0, no result line):
    the whole dynamics stage for a range of segment counts (the planner's
    sweep), the
    segmented conv by window and version (``segconv_versions``: the planner's
-   rule) and the tail by runs of tiles per channel, down to one tile a run.
+   rule), reverb(1500)'s FIR partitions at that shape (``reverb_parts``: a
+   16,385-tap slice at a window of 32,768 writing and accumulating, the
+   1,285-tap slice at 16,384; the time a block beside the bound's) and the
+   tail by runs of tiles per channel, down to one tile a run.
 7. ``throughput``  samples/s of the whole render, median of 3 chained
    passes: the eager render (the column the lane always had) and the
    captured one.
@@ -1494,6 +1497,63 @@ def time_segconv(x, fir_e, by_B: dict, B: int) -> torch.Tensor:
 # rows 1-6's launches queued behind one spin (each 0.25-1.3 ms on the
 # device, a few tens of microseconds of the host's)
 RELAYOUT_QUEUED_RUNS = 20
+
+
+def time_reverb_parts(x) -> dict:
+    """reverb(1500)'s FIR partitions (its combined kernel, 4 x 16,385 taps
+    at a window of 32,768 over a cluster of two, then 1,285 at 16,384 in
+    one block) at the main-path shape, one launch each: the first partition
+    writing the output, the second and the last adding into it (the
+    accumulate mode), each held to its plain version and timed by events
+    and queued. Beside each time, its blocks in waves of one block an SM
+    (a block holds 16,384 points: one fits an SM), the time a block
+    (``us_per_block``: the queued time over the waves) and the bound's:
+    the cost model of ``roofline.conv_cost`` at the plan's window, 4 C T
+    bytes more in the accumulate mode (the output read back), as the
+    benchmark's ``kernel.segconv_parts.roofline_pct`` costs a partition."""
+    C, T = x.shape
+    cfg = pt.EngineConfig(SAMPLE_RATE, BLOCK_SIZES[0])
+    plans = pt.ops.reverb(cfg, REVERB_MS, device="cuda").params.full.plans
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    base = torch.randn(C, T, device="cuda",
+                       generator=torch.Generator("cuda").manual_seed(19))
+    rows = {}
+    for name, k, acc in (("part0", 0, False), ("part1", 1, True),
+                         (f"part{len(plans) - 1}", len(plans) - 1, True)):
+        plan = plans[k]
+        y = base.clone() if acc else None
+
+        def launch(plan=plan, y=y):
+            return segconv._launch(x, plan, into=y)
+
+        want = segconv.segmented_conv_plain(x, plan)
+        if acc:
+            got = base.clone()
+            segconv._launch(x, plan, into=got)
+            want += base
+        else:
+            got = launch()
+        db = snr_db_cuda(want, got)
+        assert db >= CONV_DB_PLAIN, (name, db)
+        del got, want
+        ms = time_ms(launch)
+        queued = queued_ms(launch, RELAYOUT_QUEUED_RUNS)["ms"]
+        cost = rl.conv_cost(C, T, plan.n, plan.seg)
+        if acc:
+            cost = {**cost, "bytes": cost["bytes"] + 4 * C * T}
+        b = bound(cost)
+        waves = C * -(-(-(-T // plan.seg)) // 2) * plan.blocks / sms
+        rows[name] = {
+            "taps": plan.kernel_len, "n": plan.n, "halo": plan.halo,
+            "seg": plan.seg, "blocks_a_pair": plan.blocks,
+            "accumulate": acc, "db_plain": db_json(db), "ms": ms,
+            "queued_ms": queued, "waves": waves,
+            "us_per_block": queued * 1e3 / waves,
+            "bound_us_per_block": b["bound_ms"] * 1e3 / waves,
+            "roofline_pct": 100.0 * b["bound_ms"] / queued, **b}
+        del y
+    del base
+    return {"C": C, "T": T, "sms": sms, "by_partition": rows}
 
 
 def time_dynamics(x, dyn_e, timing: dict, B: int) -> torch.Tensor:
@@ -4864,6 +4924,8 @@ def main() -> None:
         T = -(-n // B) * B
         x = torch.nn.functional.pad(signal, (0, T - n)).contiguous()
         y_conv = time_segconv(x, fir_e, timing["segconv"], B)
+        if B == BLOCK_SIZES[0]:
+            timing["segconv"][B]["reverb_parts"] = time_reverb_parts(x)
         y_dyn = time_dynamics(y_conv, dyn_e, timing, B)
         stage_by_B[B] = time_dynamics_stage(y_conv, dyn_e, y_dyn)
         if B == BLOCK_SIZES[0]:
@@ -4957,7 +5019,7 @@ def main() -> None:
             "by_block_size": {str(B): {k: v[k] for k in (
                 "ms", "plain_ms", "library_ms", "copy_ms", "queued_ms",
                 "copy_queued_ms", "masked_path_queued_ms", "bound_ms",
-                "bound_by", "in_graph_ms",
+                "bound_by", "in_graph_ms", "reverb_parts",
                 "roofline", "critical_path_ms", "serial_walk_ms",
                 "conv_pairs_ms", "conv_pairs_bound_ms")
                 if k in v}

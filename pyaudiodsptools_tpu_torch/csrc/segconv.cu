@@ -18,13 +18,21 @@
 //
 // What bounds it: device memory has to deliver the signal n/seg times and
 // take it once, but the transform itself moves each window through shared
-// memory once per pass, forward and back, with a barrier after each, and that
-// (not device memory, not the fp32 FLOPs) is what the time goes to. The
-// design therefore keeps a window in shared memory from its gather to its
-// store, halves the number of transforms by packing two real windows into
-// one complex signal, and runs the transform of csrc/window_fft.cuh (two
-// radix-4 levels per pass, no reorder pass, a fused innermost pass, padded
-// shared memory, per-pass twiddle rows), which csrc/convpairs.cu shares.
+// memory once per pass, forward and back, and that (not device memory, not
+// the fp32 FLOPs) is what the time goes to. The design therefore keeps a
+// window in shared memory from its gather to its store, halves the number
+// of transforms by packing two real windows into one complex signal, and
+// runs the transform of csrc/window_fft.cuh (two radix-4 levels per pass, no
+// reorder pass, a fused innermost pass, padded shared memory, per-pass
+// twiddle rows), which csrc/convpairs.cu shares. A window over a cluster
+// runs the transform's owned schedule: below the top pass each run of
+// points belongs to the same warps in every pass, and only the warps that
+// share points wait for each other. On an H100 at a window of 32,768 it is
+// 4.6-5.4 % faster than the same items with a block barrier after every
+// pass, which is no faster than the block-wide passes: the warp and group
+// barriers, not the item order, buy the time (they also leave ptxas fewer
+// spills, 120 bytes against 164). A window in one block keeps a block
+// barrier after every pass, which measured faster there (PERF.md).
 //
 // One window pair per thread block, or per thread-block CLUSTER of P = 2 or
 // 4 blocks (segconv_kernel<P>): a window of up to 16,384 points fits one
@@ -182,7 +190,7 @@ segconv_kernel(const float* __restrict__ x, float* __restrict__ y,
     __syncthreads();
     convolve_window(z, spec, tw, ln);
   } else {
-    convolve_window_cluster<P>(z, spec, tw, ln);
+    convolve_window_cluster<P, true>(z, spec, tw, ln);
   }
 
   // Store the wrap-free points (window index >= halo) of each window, masked

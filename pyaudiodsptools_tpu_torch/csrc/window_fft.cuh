@@ -48,6 +48,15 @@
 // same order: the cluster and the one-block transform agree bit for bit.
 // The kernel fills its block's z, then calls convolve_window_cluster<P>()
 // with all its threads (it synchronises the cluster first and last).
+//
+// csrc/segconv.cu runs a cluster's window in the owned schedule
+// (convolve_window_cluster<P, true>): below the top pass each run of n/16
+// points belongs to the same threads in every pass down and back up, and
+// only the threads that share points wait for each other between two passes,
+// a warp or a group of warps; the cluster barriers stay after the gather,
+// after the top pass, before its adjoint and before the store. A window in
+// one block, and every window of csrc/convpairs.cu, keep a block barrier
+// after every pass (the passes' default instantiations).
 
 #pragma once
 
@@ -58,6 +67,8 @@
 // the passes are latency-bound, so the block brings as many warps as it can
 // (fewer threads per block measured slower on an H100: PERF.md).
 #define WINDOW_FFT_THREADS 1024
+// The fewest threads that wait at one group barrier (owner_threads).
+#define WINDOW_FFT_OWNER_THREADS 128
 
 namespace {
 
@@ -132,14 +143,34 @@ __device__ __forceinline__ void dft4_inverse(float2& a0, float2& a1, float2& a2,
   a3 = csub(t1, t3);
 }
 
+// f(t) for the items t of a pass of n items that this thread does in the
+// owned schedule, shared out warp by warp: warp w does the w-th of the
+// block's equal runs of items, its lanes taking them in turn. A pass numbers
+// its items in the order of the points they touch (a pass at size m = 2^lm:
+// item t lies in the run of m points t >> (lm - 4) or t >> (lm - 2); the
+// innermost pass: item t is points 16t.. or 8t..), so where a pass's runs of
+// points fit a warp's share, the warp touches the same points in every pass;
+// neighbouring lanes take neighbouring items as in the block-wide passes
+// (the same shared-memory banks).
+template <class F>
+__device__ __forceinline__ void for_warp_items(int n, F f) {
+  const int per = n / (int)(blockDim.x >> 5);
+  const int t0 = (int)(threadIdx.x >> 5) * per + (int)(threadIdx.x & 31);
+  for (int k = 0; k < per; k += 32)
+    if (t0 + k < n) f(t0 + k);        // a block of one warp: n may be < 32
+}
+
 // One pass over ONE radix-4 level of size m = 2^lm, in place. `tw` points at
-// this pass's three rows of m/4 twiddles: row p-1 holds w_m^(j*p).
-template <bool kForward>
+// this pass's three rows of m/4 twiddles: row p-1 holds w_m^(j*p). Its
+// 2^(ln-2) items (radix-4 butterflies) are shared out over the block, or
+// (kOwned) warp by warp.
+template <bool kForward, bool kOwned = false>
 __device__ __forceinline__ void pass_one_level(float2* z,
                                                const float2* __restrict__ tw,
                                                int ln, int lm) {
-  const int lq = lm - 2, q = 1 << lq;
-  for (int t = threadIdx.x; t < (1 << (ln - 2)); t += blockDim.x) {
+  // the owned passes compute the pass's geometry in each item (fewer live
+  // registers there, measured on an H100); the block-wide ones once
+  const auto item = [&](int t, int lq, int q) {
     const int j = t & (q - 1);
     const int i0 = ((t >> lq) << lm) + j;
     const float2 w1 = __ldg(tw + j), w2 = __ldg(tw + q + j),
@@ -161,6 +192,14 @@ __device__ __forceinline__ void pass_one_level(float2* z,
     z[pad(i0 + q)] = a1;
     z[pad(i0 + 2 * q)] = a2;
     z[pad(i0 + 3 * q)] = a3;
+  };
+  if constexpr (kOwned) {
+    for_warp_items(1 << (ln - 2),
+                   [&](int t) { item(t, lm - 2, 1 << (lm - 2)); });
+  } else {
+    const int lq = lm - 2, q = 1 << lq;
+    for (int t = threadIdx.x; t < (1 << (ln - 2)); t += blockDim.x)
+      item(t, lq, q);
   }
 }
 
@@ -207,13 +246,15 @@ __device__ __forceinline__ void two_levels_on_registers(float2 (&x)[4][4],
 
 // One pass over TWO radix-4 levels, sizes m = 2^lm and m/4, in place on the
 // 2^ln points of z. `tw` points at this pass's six rows of m/16 twiddles:
-// rows 0..2 hold w_m^(j*p), rows 3..5 hold w_(m/4)^(j*p), p = 1..3.
-template <bool kForward>
+// rows 0..2 hold w_m^(j*p), rows 3..5 hold w_(m/4)^(j*p), p = 1..3. Its
+// 2^(ln-4) items (16 points each) are shared out over the block, or
+// (kOwned) warp by warp.
+template <bool kForward, bool kOwned = false>
 __device__ __forceinline__ void pass_two_levels(float2* z,
                                                 const float2* __restrict__ tw,
                                                 int ln, int lm) {
-  const int lq2 = lm - 4, q2 = 1 << lq2, q1 = q2 << 2;
-  for (int t = threadIdx.x; t < (1 << (ln - 4)); t += blockDim.x) {
+  // the geometry as in pass_one_level
+  const auto item = [&](int t, int lq2, int q2, int q1) {
     const int j = t & (q2 - 1);
     const int i0 = ((t >> lq2) << lm) + j;
     float2 w[6];
@@ -229,16 +270,28 @@ __device__ __forceinline__ void pass_two_levels(float2* z,
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int c = 0; c < 4; ++c) z[pad(i0 + c * q2 + a * q1)] = x[a][c];
+  };
+  if constexpr (kOwned) {
+    for_warp_items(1 << (ln - 4), [&](int t) {
+      item(t, lm - 4, 1 << (lm - 4), 4 << (lm - 4));
+    });
+  } else {
+    const int lq2 = lm - 4, q2 = 1 << lq2, q1 = q2 << 2;
+    for (int t = threadIdx.x; t < (1 << (ln - 4)); t += blockDim.x)
+      item(t, lq2, q2, q1);
   }
 }
 
 // The innermost pass for even ln: forward levels 16 and 4, the spectrum
 // multiply, inverse levels 4 and 16, on 16 neighbouring points per thread.
 // Its twiddles, w_16^(c*p), are compile-time constants.
+// Its 2^(ln-4) items are shared out over the block, or (kOwned) warp by
+// warp.
+template <bool kOwned = false>
 __device__ __forceinline__ void center_pass_16(float2* z,
                                                const float2* __restrict__ spec,
                                                int ln) {
-  for (int t = threadIdx.x; t < (1 << (ln - 4)); t += blockDim.x) {
+  const auto item = [&](int t) {
     const int i0 = t << 4;
     float2 x[4][4];
 #pragma unroll
@@ -269,16 +322,23 @@ __device__ __forceinline__ void center_pass_16(float2* z,
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int c = 0; c < 4; ++c) z[pad(i0 + c + 4 * a)] = x[a][c];
-  }
+  };
+  if constexpr (kOwned)
+    for_warp_items(1 << (ln - 4), item);
+  else
+    for (int t = threadIdx.x; t < (1 << (ln - 4)); t += blockDim.x) item(t);
 }
 
 // The innermost pass for odd ln: forward level 8 and the radix-2 level, the
 // spectrum multiply, and their inverses, on 8 neighbouring points per thread.
 // Its twiddles are w_8^(c*p) = w_16^(2*c*p).
+// Its 2^(ln-3) items are shared out over the block, or (kOwned) warp by
+// warp.
+template <bool kOwned = false>
 __device__ __forceinline__ void center_pass_8(float2* z,
                                               const float2* __restrict__ spec,
                                               int ln) {
-  for (int t = threadIdx.x; t < (1 << (ln - 3)); t += blockDim.x) {
+  const auto item = [&](int t) {
     const int i0 = t << 3;
     float2 x[4][2];
 #pragma unroll
@@ -309,7 +369,11 @@ __device__ __forceinline__ void center_pass_8(float2* z,
     for (int a = 0; a < 4; ++a)
 #pragma unroll
       for (int c = 0; c < 2; ++c) z[pad(i0 + c + 2 * a)] = x[a][c];
-  }
+  };
+  if constexpr (kOwned)
+    for_warp_items(1 << (ln - 3), item);
+  else
+    for (int t = threadIdx.x; t < (1 << (ln - 3)); t += blockDim.x) item(t);
 }
 
 // The levels of size <= 2^lm_top of the circular convolution, down and back
@@ -369,6 +433,83 @@ __device__ __forceinline__ void convolve_window(float2* z,
   convolve_levels(z, spec, tw, ln, ln);
 }
 
+// The owned schedule (csrc/segconv.cu, a window over a cluster). Below a
+// window's top pass its points are 16 independent runs of n/16, 16/P of
+// them in each block of a cluster of P. convolve_levels_owned runs
+// convolve_levels' passes with each pass's items shared out warp by warp,
+// so that each run belongs to the same threads in every pass, from its
+// first forward level through the spectrum multiply back up, and between
+// two passes only the threads that share points wait for each other.
+
+// Threads of a group that owns runs of points below the top pass of a
+// window spread over `blocks` blocks of `threads` (16 / blocks runs a
+// block): the threads of a run, but WINDOW_FFT_OWNER_THREADS at least (a
+// block has 16 hardware barriers and __syncthreads takes one, so 1,024
+// threads make at most 8 groups), and the whole block at most. A block of
+// 1,024 threads: 8 groups of 128 in a cluster of two (a run of 2,048 points
+// each), 4 of 256 in a cluster of four (4,096). kernels/segconv.py::
+// owner_threads is the same rule.
+__device__ __forceinline__ int owner_threads(int threads, int blocks) {
+  const int run = threads * blocks / 16;
+  const int width = run > WINDOW_FFT_OWNER_THREADS ? run
+                                                    : WINDOW_FFT_OWNER_THREADS;
+  return width < threads ? width : threads;
+}
+
+// The barrier between two passes of the owned schedule whose runs of points
+// (the larger of the two passes') are 2^ls of the block's 2^ln: only the
+// threads holding one run wait for each other. A warp where it lies in one
+// warp's points; the group of `width` where in a group's, at hardware
+// barrier 1 + the group's index (0 is __syncthreads'); else the block.
+template <int P>
+__device__ __forceinline__ void owned_sync(int ln, int ls) {
+  const int width = owner_threads(blockDim.x, P);
+  const int span = (int)(blockDim.x >> (ln - ls));
+  if (span <= 32) {
+    __syncwarp();
+  } else if (span <= width && width < (int)blockDim.x) {
+    asm volatile("bar.sync %0, %1;" ::"r"(1 + (int)threadIdx.x / width),
+                 "r"(width)
+                 : "memory");
+  } else {
+    __syncthreads();
+  }
+}
+
+// convolve_levels in the owned schedule of a window over P blocks. It ends
+// with no barrier: the caller's block or cluster barrier follows before any
+// thread reads another group's points.
+template <int P>
+__device__ __forceinline__ void convolve_levels_owned(
+    float2* z, const float2* __restrict__ spec, const float2* __restrict__ tw,
+    int ln, int lm_top) {
+  const int inner = (lm_top & 1) ? 3 : 4;
+  int lm = lm_top;
+  for (; lm - 4 >= inner; lm -= 4) {
+    pass_two_levels<true, true>(z, tw, ln, lm);
+    tw += 6 << (lm - 4);
+    owned_sync<P>(ln, lm);
+  }
+  const bool single = lm > inner;
+  if (single) {
+    pass_one_level<true, true>(z, tw, ln, lm);
+    owned_sync<P>(ln, lm);
+  }
+
+  if (lm_top & 1) center_pass_8<true>(z, spec, ln);
+  else center_pass_16<true>(z, spec, ln);
+
+  if (single) {
+    owned_sync<P>(ln, lm);
+    pass_one_level<false, true>(z, tw, ln, lm);
+  }
+  for (lm += 4; lm <= lm_top; lm += 4) {
+    owned_sync<P>(ln, lm);
+    tw -= 6 << (lm - 4);
+    pass_two_levels<false, true>(z, tw, ln, lm);
+  }
+}
+
 // The top pass of a window spread over a cluster of P blocks: two radix-4
 // levels of size n = 2^ln and n/4. Point j + c*(n/16) + a*(n/4) lives in
 // block a*P/4 at local index (a % (4/P))*(n/4) + j + c*(n/16); this block
@@ -402,7 +543,9 @@ __device__ __forceinline__ void pass_two_levels_cluster(
 // cluster of P (2 or 4) blocks, n/P points in each block's z (filled, not
 // yet synchronised). Every thread of every block of the cluster calls it;
 // it ends in a cluster barrier, after which a block may read its own z.
-template <int P>
+// kOwned: the levels below the top pass in the owned schedule, whose only
+// block-wide barriers are the cluster's.
+template <int P, bool kOwned = false>
 __device__ __forceinline__ void convolve_window_cluster(
     float2* z, const float2* __restrict__ spec, const float2* __restrict__ tw,
     int ln) {
@@ -417,7 +560,11 @@ __device__ __forceinline__ void convolve_window_cluster(
   cluster.sync();
   pass_two_levels_cluster<P, true>(zq, tw, ln, rank);
   cluster.sync();
-  convolve_levels(z, spec + (rank << lm), tw + (6 << (ln - 4)), lm, ln - 4);
+  if constexpr (kOwned)
+    convolve_levels_owned<P>(z, spec + (rank << lm), tw + (6 << (ln - 4)),
+                             lm, ln - 4);
+  else
+    convolve_levels(z, spec + (rank << lm), tw + (6 << (ln - 4)), lm, ln - 4);
   cluster.sync();
   pass_two_levels_cluster<P, false>(zq, tw, ln, rank);
   cluster.sync();

@@ -13,22 +13,27 @@ sample offset and masks ``idx < 0`` and ``idx >= T`` to zero itself.
 
 What bounds it on an H100: by bytes it must read the signal ``n/seg`` times
 and write it once, a few hundred microseconds at the main-path shape; the
-fp32 FFT on the CUDA cores, with every pass going through shared memory and
-ending in a barrier, costs several times that, so this kernel is bound by
-shared-memory passes and not by device memory. The design keeps everything
-between the window gather and the wrap-free store in shared memory (one
-device-memory read and one write per window), packs two real windows into
-one complex transform, does two radix-4 levels per pass in registers, runs
-the innermost levels of both directions and the spectrum multiply as one
-pass, and stores the spectrum in the forward transform's output order so
-that no reorder pass is needed. A window wider than one block's shared
-memory (up to 65,536 points) is spread over a thread-block cluster of two or
-four blocks, whose top pass goes through distributed shared memory: at a
-long halo the wider window transforms fewer points for each one it keeps
-(:data:`CLUSTER_AT`, the version by window). The gather and the store move
-16 bytes a thread where the signal's offset allows, and a thread issues all
-its loads before its first shared-memory store. Tensor-core DFTs are left to
-a later change (PERF.md, open questions).
+fp32 FFT on the CUDA cores, with every pass going through shared memory,
+costs several times that, so this kernel is bound by shared-memory passes
+and not by device memory. The design keeps everything between the window
+gather and the wrap-free store in shared memory (one device-memory read and
+one write per window), packs two real windows into one complex transform,
+does two radix-4 levels per pass in registers, runs the innermost levels of
+both directions and the spectrum multiply as one pass, and stores the
+spectrum in the forward transform's output order so that no reorder pass is
+needed. A window wider than one block's shared memory (up to 65,536 points)
+is spread over a thread-block cluster of two or four blocks, whose top pass
+goes through distributed shared memory: at a long halo the wider window
+transforms fewer points for each one it keeps (:data:`CLUSTER_AT`, the
+version by window). The gather and the store move 16 bytes a thread where
+the signal's offset allows, and a thread issues all its loads before its
+first shared-memory store. Below the top pass of a window over a cluster
+each run of points belongs to the same warps in every pass, which wait only
+for the warps that share their points (a warp, or a group of at least
+:data:`OWNER_THREADS` threads at a hardware barrier of its own); those
+narrower waits, not the item order, make it about 5 % faster than a block
+barrier after every pass (PERF.md). Tensor-core DFTs are left to a later
+change (PERF.md, open questions).
 
 The CUDA source is ``csrc/segconv.cu``; the transform itself lives in
 ``csrc/window_fft.cuh``, which the streaming windows' convolution
@@ -71,6 +76,18 @@ CLUSTER_MIN_WINDOW = 256
 # the version; chip_smoke.py's `segconv_versions` times each at the main
 # path's halos (PERF.md has the table).
 CLUSTER_AT = {2 * BLOCK_WINDOW: 2, 4 * BLOCK_WINDOW: 4}
+
+# Threads of a thread block, by the points it holds: one per 16, a warp at
+# least, BLOCK_THREADS at most (csrc/window_fft.cuh: WINDOW_FFT_THREADS,
+# window_threads).
+BLOCK_THREADS = 1024
+# Below the top pass of a window over a cluster (2 or 4 blocks) the kernel's
+# transform gives each run of points to the same threads in every pass, and
+# a group of at least OWNER_THREADS of them (owning whole runs) waits at a
+# hardware barrier of its own (csrc/window_fft.cuh: WINDOW_FFT_OWNER_THREADS,
+# owner_threads). A window in one block keeps a block barrier after every
+# pass (it measured faster so on an H100).
+OWNER_THREADS = 128
 
 # Number of kernel launches made by :func:`segmented_conv` and
 # :func:`partitioned_conv` (one a partition; and by nothing else) since the
@@ -185,6 +202,21 @@ def blocks_for(n: int) -> int:
     """Thread blocks a window pair of n points takes: one where the window
     fits one block, else the cluster of :data:`CLUSTER_AT`."""
     return CLUSTER_AT.get(n, 1)
+
+
+def block_threads(m: int) -> int:
+    """Threads of a block that holds m points of a window."""
+    return min(BLOCK_THREADS, max(32, m // 16))
+
+
+def owner_threads(n: int, blocks: int) -> int:
+    """Threads of a group that owns runs of points below the top pass of an
+    n-point window over a cluster of ``blocks`` thread blocks: below it a
+    block's points are 16 / blocks independent runs; a group is the threads
+    of a run, but :data:`OWNER_THREADS` at least (a block has 16 hardware
+    barriers, one of them the block's own) and the whole block at most."""
+    threads = block_threads(n // blocks)
+    return min(threads, max(threads * blocks // 16, OWNER_THREADS))
 
 
 def versions(n: int) -> list[int]:

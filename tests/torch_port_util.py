@@ -197,89 +197,120 @@ def _tables(plan):
     return _c64(tw[:, 0] + 1j * tw[:, 1]), _c64(spec[:, 0] + 1j * spec[:, 1])
 
 
-def _levels(sm, ln, lm_top, tw, tw_off, spec):
-    """csrc/window_fft.cuh's convolve_levels on the 2^ln points held in the
-    padded array ``sm``: the passes of the levels of size <= 2^lm_top down,
-    the innermost pass with the spectrum multiply (``spec`` indexed by the
-    points of ``sm``), and back up; the twiddle rows of its first pass start
-    at ``tw_off``."""
-    n = 1 << ln
+def _one_level(sm, t, lm, tw, off, forward):
+    """csrc/window_fft.cuh's pass_one_level on the items ``t``."""
+    q = 1 << (lm - 2)
+    j = t & (q - 1)
+    i0 = ((t >> (lm - 2)) << lm) + j
+    slots = [_pad(i0 + k * q) for k in range(4)]
+    w = [None] + [tw[off + p * q + j] for p in range(3)]
+    a = [sm[s_] for s_ in slots]
+    if forward:
+        a = _dft4(a, -1)
+        a = [a[0]] + [_c64(a[p] * w[p]) for p in (1, 2, 3)]
+    else:
+        a = [a[0]] + [_c64(a[p] * np.conj(w[p])) for p in (1, 2, 3)]
+        a = _dft4(a, +1)
+    for s_, v in zip(slots, a):
+        sm[s_] = v
 
-    def one_level(off, lm, forward):
-        q = 1 << (lm - 2)
-        t = np.arange(1 << (ln - 2))
-        j = t & (q - 1)
-        i0 = ((t >> (lm - 2)) << lm) + j
-        slots = [_pad(i0 + k * q) for k in range(4)]
-        w = [None] + [tw[off + p * q + j] for p in range(3)]
-        a = [sm[s_] for s_ in slots]
-        if forward:
-            a = _dft4(a, -1)
-            a = [a[0]] + [_c64(a[p] * w[p]) for p in (1, 2, 3)]
+
+def _two_levels(sm, t, lm, tw, off, forward):
+    """csrc/window_fft.cuh's pass_two_levels on the items ``t``."""
+    lq2 = lm - 4
+    q2, q1 = 1 << lq2, 1 << (lq2 + 2)
+    j = t & (q2 - 1)
+    i0 = ((t >> lq2) << lm) + j
+    w = [tw[off + p * q2 + j] for p in range(6)]
+    x = [[sm[_pad(i0 + c * q2 + a * q1)] for c in range(4)]
+         for a in range(4)]
+    _two_levels_regs(x, w, forward)
+    for a in range(4):
+        for c in range(4):
+            sm[_pad(i0 + c * q2 + a * q1)] = x[a][c]
+
+
+def _center(sm, t, width, spec):
+    """csrc/window_fft.cuh's innermost pass on the items ``t``; width 4:
+    levels 16 and 4; width 2: level 8 and the radix-2 level."""
+    span = 4 * width
+    i0 = t * span
+    step = 16 // span                   # w_span = w_16 ** step
+    x = [[sm[_pad(i0 + c + width * a)] for c in range(width)]
+         for a in range(4)]
+    for c in range(width):
+        col = _dft4([x[a][c] for a in range(4)], -1)
+        for a in range(4):
+            x[a][c] = _c64(col[a] * _W16[(step * c * a) & 15])
+    for a in range(4):
+        if width == 4:
+            x[a] = _dft4(x[a], -1)
         else:
-            a = [a[0]] + [_c64(a[p] * np.conj(w[p])) for p in (1, 2, 3)]
-            a = _dft4(a, +1)
-        for s_, v in zip(slots, a):
-            sm[s_] = v
-
-    def two_levels(off, lm, forward):
-        lq2 = lm - 4
-        q2, q1 = 1 << lq2, 1 << (lq2 + 2)
-        t = np.arange(1 << (ln - 4))
-        j = t & (q2 - 1)
-        i0 = ((t >> lq2) << lm) + j
-        w = [tw[off + p * q2 + j] for p in range(6)]
-        x = [[sm[_pad(i0 + c * q2 + a * q1)] for c in range(4)]
-             for a in range(4)]
-        _two_levels_regs(x, w, forward)
+            x[a] = [_c64(x[a][0] + x[a][1]), _c64(x[a][0] - x[a][1])]
+        x[a] = [_c64(x[a][c] * spec[i0 + c + width * a])
+                for c in range(width)]
+        if width == 4:
+            x[a] = _dft4(x[a], +1)
+        else:
+            x[a] = [_c64(x[a][0] + x[a][1]), _c64(x[a][0] - x[a][1])]
+    for c in range(width):
+        col = [_c64(x[a][c] * _W16[(16 - step * c * a) & 15])
+               for a in range(4)]
+        col = _dft4(col, +1)
         for a in range(4):
-            for c in range(4):
-                sm[_pad(i0 + c * q2 + a * q1)] = x[a][c]
-
-    def center(width):
-        """width 4: levels 16 and 4; width 2: level 8 and the radix-2 level."""
-        span = 4 * width
-        i0 = np.arange(n // span) * span
-        step = 16 // span                   # w_span = w_16 ** step
-        x = [[sm[_pad(i0 + c + width * a)] for c in range(width)]
-             for a in range(4)]
+            x[a][c] = col[a]
+    for a in range(4):
         for c in range(width):
-            col = _dft4([x[a][c] for a in range(4)], -1)
-            for a in range(4):
-                x[a][c] = _c64(col[a] * _W16[(step * c * a) & 15])
-        for a in range(4):
-            if width == 4:
-                x[a] = _dft4(x[a], -1)
-            else:
-                x[a] = [_c64(x[a][0] + x[a][1]), _c64(x[a][0] - x[a][1])]
-            x[a] = [_c64(x[a][c] * spec[i0 + c + width * a])
-                    for c in range(width)]
-            if width == 4:
-                x[a] = _dft4(x[a], +1)
-            else:
-                x[a] = [_c64(x[a][0] + x[a][1]), _c64(x[a][0] - x[a][1])]
-        for c in range(width):
-            col = [_c64(x[a][c] * _W16[(16 - step * c * a) & 15])
-                   for a in range(4)]
-            col = _dft4(col, +1)
-            for a in range(4):
-                x[a][c] = col[a]
-        for a in range(4):
-            for c in range(width):
-                sm[_pad(i0 + c + width * a)] = x[a][c]
+            sm[_pad(i0 + c + width * a)] = x[a][c]
 
+
+def _level_passes(lm_top, tw_off):
+    """csrc/window_fft.cuh's convolve_levels as a list, in order, of
+    (kind, lm, twiddle offset, k, forward): "two" and "one" passes down,
+    the innermost pass ("center", its width in lm), and the adjoint passes
+    back up; a pass over 2^ln points has 2^(ln - k) items."""
     from pyaudiodsptools_tpu_torch.kernels.segconv import pass_schedule
 
     offsets, off = [], tw_off
     for kind, lm in pass_schedule(1 << lm_top):
         offsets.append(off)
         off += (6 << (lm - 4)) if kind == "two" else (3 << (lm - 2))
-    passes = list(zip(pass_schedule(1 << lm_top), offsets))
-    for (kind, lm), off in passes:
-        (two_levels if kind == "two" else one_level)(off, lm, True)
-    center(2 if lm_top & 1 else 4)
-    for (kind, lm), off in reversed(passes):
-        (two_levels if kind == "two" else one_level)(off, lm, False)
+    down = [(kind, lm, o, 4 if kind == "two" else 2)
+            for (kind, lm), o in zip(pass_schedule(1 << lm_top), offsets)]
+    width = 2 if lm_top & 1 else 4
+    return ([(*p, True) for p in down]
+            + [("center", width, None, 3 if width == 2 else 4, None)]
+            + [(*p, False) for p in reversed(down)])
+
+
+def _levels(sm, ln, lm_top, tw, tw_off, spec, pick=np.arange):
+    """csrc/window_fft.cuh's convolve_levels on the 2^ln points held in the
+    padded array ``sm``: the passes of the levels of size <= 2^lm_top down,
+    the innermost pass with the spectrum multiply (``spec`` indexed by the
+    points of ``sm``), and back up; the twiddle rows of its first pass start
+    at ``tw_off``. ``pick(count)``: the items of a pass of ``count`` that
+    run (all of them, in lockstep, by default)."""
+    for kind, lm, off, k, forward in _level_passes(lm_top, tw_off):
+        t = pick(1 << (ln - k))
+        if kind == "two":
+            _two_levels(sm, t, lm, tw, off, forward)
+        elif kind == "one":
+            _one_level(sm, t, lm, tw, off, forward)
+        else:
+            _center(sm, t, lm, spec)
+
+
+def _owned_levels(sm, ln, lm_top, tw, tw_off, spec, groups):
+    """The owned levels below the top pass (csrc/window_fft.cuh's
+    convolve_levels_owned), group after group, the last first: each group
+    runs its own items of every pass to the end before the next starts, so
+    a read of a point that another group writes between the same two block
+    barriers would find it unwritten or written too early, and the result
+    would differ from the lockstep schedule's."""
+    for g in reversed(range(groups)):
+        _levels(sm, ln, lm_top, tw, tw_off, spec,
+                pick=lambda count, g=g: np.arange(
+                    g * count // groups, (g + 1) * count // groups))
 
 
 def _padded(z):
@@ -289,7 +320,8 @@ def _padded(z):
     return sm
 
 
-def emulate_window_fft(z: np.ndarray, plan, blocks: int = 1) -> np.ndarray:
+def emulate_window_fft(z: np.ndarray, plan, blocks: int = 1,
+                       owned: bool = False) -> np.ndarray:
     """One complex window through csrc/window_fft.cuh's passes, with its index
     arithmetic: padded shared memory, per-pass twiddle rows indexed by j, two
     radix-4 levels per pass (one alone if the outer levels are odd in
@@ -300,7 +332,13 @@ def emulate_window_fft(z: np.ndarray, plan, blocks: int = 1) -> np.ndarray:
     the top pass gathers a thread's 16 points from the blocks by the
     kernel's own index map (block a*P/4, local (a % (4/P))*(n/4) + j +
     c*(n/16), j split into the ranks' shares), and each block runs the
-    levels below on its points with its slice of the spectrum."""
+    levels below on its points with its slice of the spectrum. ``owned``:
+    csrc/segconv.cu's schedule of a cluster's window, the levels below the
+    top pass run group by group (:func:`_owned_levels`,
+    :func:`owned_schedule`'s groups)."""
+    from pyaudiodsptools_tpu_torch.kernels.segconv import (block_threads,
+                                                           owner_threads)
+
     n = plan.n
     ln = n.bit_length() - 1
     tw, spec = _tables(plan)
@@ -308,6 +346,7 @@ def emulate_window_fft(z: np.ndarray, plan, blocks: int = 1) -> np.ndarray:
         sm = _padded(z)
         _levels(sm, ln, ln, tw, 0, spec)
         return sm[_pad(np.arange(n))]
+    groups = block_threads(n // blocks) // owner_threads(n, blocks)
     P = blocks
     m = n // P
     lm = m.bit_length() - 1
@@ -331,9 +370,87 @@ def emulate_window_fft(z: np.ndarray, plan, blocks: int = 1) -> np.ndarray:
 
     top(True)
     for q in range(P):
-        _levels(zq[q], lm, ln - 4, tw, 6 << (ln - 4), spec[q * m:(q + 1) * m])
+        args = (zq[q], lm, ln - 4, tw, 6 << (ln - 4), spec[q * m:(q + 1) * m])
+        if owned:
+            _owned_levels(*args, groups)
+        else:
+            _levels(*args)
     top(False)
     return np.concatenate([zq[q][_pad(np.arange(m))] for q in range(P)])
+
+
+def _pass_points(kind, lm, ln, t):
+    """(items, points) array of the points of the block's 2^ln that each of
+    the items ``t`` of a pass touches (csrc/window_fft.cuh's index maps)."""
+    if kind == "two":
+        q2 = 1 << (lm - 4)
+        i0 = ((t >> (lm - 4)) << lm) + (t & (q2 - 1))
+        offs = [c * q2 + a * 4 * q2 for a in range(4) for c in range(4)]
+    elif kind == "one":
+        q = 1 << (lm - 2)
+        i0 = ((t >> (lm - 2)) << lm) + (t & (q - 1))
+        offs = [k * q for k in range(4)]
+    else:                                 # center: lm is its width
+        i0 = t * 4 * lm
+        offs = list(range(4 * lm))
+    return i0[:, None] + np.asarray(offs)[None, :]
+
+
+def owned_schedule(n: int, blocks: int) -> dict:
+    """csrc/segconv.cu's transform in one block of an n-point window over
+    ``blocks`` blocks, as the kernel shares it out: over a cluster the
+    owned schedule (csrc/window_fft.cuh's ``convolve_levels_owned``), in
+    one block the block-wide one (``convolve_levels``). ``passes`` in order,
+    each a dict with ``name``, ``owner`` (the thread that touches each of
+    the block's points in the pass; -1: none; -2: two threads) and
+    ``barrier``, what the kernel waits at after it (``block``, ``cluster``,
+    ``group``, ``warp``: ``owned_sync``'s rule, the cluster's barrier after
+    the last); ``threads``, ``width`` (a group's threads) and ``m`` (the
+    block's points). A cluster's top pass spans its blocks' points
+    (distributed shared memory) and is left out: a cluster barrier lies on
+    each side of it."""
+    from pyaudiodsptools_tpu_torch.kernels.segconv import (block_threads,
+                                                           owner_threads)
+
+    m = n // blocks
+    ln = m.bit_length() - 1
+    lnw = n.bit_length() - 1
+    threads = block_threads(m)
+    width = owner_threads(n, blocks) if blocks > 1 else threads
+    warps = threads // 32
+
+    def owners(kind, lm, k):
+        """Over a cluster for_warp_items: warp w takes the w-th equal run
+        of the items, its lanes in turn; in one block thread by thread."""
+        count = 1 << (ln - k)
+        t = np.arange(count)
+        per = count // warps
+        thread = ((t // per) * 32 + (t % per) % 32 if blocks > 1
+                  else t % threads)
+        owner = np.full(m, -1)
+        for col in _pass_points(kind, lm, ln, t).T:
+            owner[col] = np.where(owner[col] == -1, thread, -2)
+        return owner
+
+    def barrier(ls):
+        span = threads >> (ln - ls)
+        return ("warp" if span <= 32 else
+                "group" if span <= width < threads else "block")
+
+    levels = _level_passes(lnw if blocks == 1 else lnw - 4, 0)
+    passes = []
+    for i, (kind, lm, _, k, fwd) in enumerate(levels):
+        if blocks == 1:
+            after = "block"
+        elif i + 1 == len(levels):
+            after = "cluster"
+        else:
+            # after a forward pass its own level, else the next pass's
+            after = barrier(lm if fwd else levels[i + 1][1])
+        passes.append({
+            "name": kind + str(lm) + {True: "f", False: "i", None: ""}[fwd],
+            "owner": owners(kind, lm, k), "barrier": after})
+    return {"passes": passes, "threads": threads, "width": width, "m": m}
 
 
 def emulate_segconv(x: np.ndarray, plan, blocks: int | None = None
@@ -358,7 +475,7 @@ def emulate_segconv(x: np.ndarray, plan, blocks: int | None = None
             idx = s0 * seg - halo - shift + np.arange(n)
             a = gather(c, idx)
             b = gather(c, idx + seg) if s0 + 1 < n_seg else np.zeros(n, np.float32)
-            z = emulate_window_fft(a + 1j * b, plan, blocks)
+            z = emulate_window_fft(a + 1j * b, plan, blocks, owned=True)
             for part, s in ((z.real, s0), (z.imag, s0 + 1)):
                 if s < n_seg:
                     o = s * seg
