@@ -19,14 +19,13 @@ sharded render (ONE CUDA graph a rank: every exchange and dynspec's
 ``n_time`` rounds inside it) against the eager ``render_shard`` + ``gather``
 (``chip_smoke.captured_vs_eager``): bit-equal on every rank, a repeated
 replay too, the same launches kernel by kernel (but the unrolled rounds'
-serial walks, ``n_time`` a stage) and the same dynspec rounds;
-graph and eager timed in turns (graph, eager, eager, graph; host clock,
-median of 2 after one untimed call), globally and for the shard alone (the
-rank program without the final all-gather); the memory each rank's program
-holds; and the global output's dB to the single-card render. Every rank
-prints a JSON line a mesh; with ``--json`` all ranks' results and the cards'
-``nvidia-smi`` lines are written to PATH; any rank's failed check fails the
-run.
+serial walks, ``n_time`` a stage) and the same dynspec rounds, globally and
+for the shard alone (the rank program without the final all-gather); and
+the global output's dB to the single-card render. It times nothing: the
+benchmark's cell ``chain8_256ch.sharded_4x1`` times the four cards. Every
+rank prints a JSON line a mesh; with ``--json`` all ranks' results and the
+cards' ``nvidia-smi`` lines are written to PATH; any rank's failed check
+fails the run.
 """
 
 import json
@@ -75,7 +74,8 @@ def rank_main(rank, world, port, out_dir):
                           process_id=rank)
     backend = torch.distributed.get_backend()
     n = int(cs.SECONDS * cs.SAMPLE_RATE)
-    signal = cs.burst_noise(cs.CHANNELS, n, 0)
+    signal = cs.bench_signals.burst_noise(cs.CHANNELS, n, cs.SAMPLE_RATE, 0,
+                                          "cuda")
     cfg, chains = cs.parallel_chains()
     res = {"rank": rank, "backend": backend,
            "device": str(torch.cuda.current_device()),
@@ -84,10 +84,8 @@ def rank_main(rank, world, port, out_dir):
     print(json.dumps({"rank": rank, **res}), flush=True)
     single = {}
     for name, chain in chains.items():
-        single[name] = cs.host_ms(lambda: cs.pt.render(chain, signal, cfg),
-                                  runs=5)
+        single[name] = cs.pt.render(chain, signal, cfg)
         chain.captured_render().release()
-        res[f"single_{name}_ms"] = single[name][1]
     for c, t in SHAPES:
         mesh = make_mesh(c, t)
         r = {"capturable": mesh.capturable}
@@ -95,7 +93,7 @@ def rank_main(rank, world, port, out_dir):
             rend = ShardedRenderer(chain, cfg, mesh)
             torch.distributed.barrier()
             r[name], got = cs.captured_vs_eager(rend, signal, n)
-            want = single[name][0]
+            want = single[name]
             got = got.reshape(cs.CHANNELS, -1)[:, :want.shape[-1]]
             r[name].update({"db": cs.db_json(cs.snr_db_cuda(want, got)),
                             "single_bit_equal": bool(torch.equal(want, got))})

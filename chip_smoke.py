@@ -1,16 +1,23 @@
 #!/usr/bin/env python3
-"""Card lane of the PyTorch/CUDA port: build, check and drive it on one GPU.
+"""Card lane of the PyTorch/CUDA port: build, check and time its kernels on
+one GPU.
 
     python3 chip_smoke.py            # needs one NVIDIA GPU (written for H100)
 
-What it does, in order; every phase prints one JSON object per line, and any
-failed check raises (exit code != 0, no result line):
+It checks every path of the port on the card and times its kernels, one by
+one, for PERF.md's table of kernels. It times no whole render, step, chunk
+or pump: the benchmark's cells (``portbench/run.py``, ``BENCHMARK.json``)
+time the system. chain8 is the benchmark's configuration
+(``portbench/configs/chain8.json``, built by ``portbench.port.chain``) and
+every signal is ``portbench.signals.burst_noise``, made on the card from
+``--seed``: the lane and the cells run one chain. In order; every phase
+prints one JSON object per line, and any failed check raises (exit code !=
+0, no result line):
 
 1. ``device``  the card's name and power limit as ``nvidia-smi`` gives them,
    and the torch / CUDA versions.
 2. ``build``   compiles ``pyaudiodsptools_tpu_torch/csrc/*.cu`` with ``nvcc``
-   for sm_90a (one process per source, started together). Set-up time: it
-   is in no rate below.
+   for sm_90a (one process per source, started together).
 3. ``kernel_cases``  each hand-written kernel against its plain PyTorch
    version (and the convs against a float64 oracle) on small cases that cover
    the edges: odd window counts, ragged lengths, rows off a 16-byte boundary,
@@ -18,191 +25,91 @@ failed check raises (exit code != 0, no result line):
    of two or four; the clusters bit-equal to one block); for the tail,
    re-zeroing before the signal start, rings that wrap (small tiles) in runs
    that walk the halo first, rings in device memory (a halo of 88,200), 65
-   taps; pack and unpack on
+   taps, the one-stage plans of a lone waveshaper; pack and unpack on
    ragged lengths and 1, 3, 64, 80, 96 and 128 channels, on shapes whose
    unpack tiles take the box path (TMA), the masked path or both, and a tm
-   whose pointer is off 16 bytes (exact, pad lanes and ragged rows zero,
-   every element written into an output filled with NaN; each case reports
-   the launcher's count of an unpack's tiles on each path); the two
-   dynamics walks, which read (C, T) as it lies, on three signals for
-   compressor, gate, their cascade and the one-sample attack (exit states
-   equal, 0 mismatching samples), at both copy widths, ragged last segments
-   and several blocks of segments, and the whole speculative stage against
-   the plain one-segment (serial) walk; ``convpairs_cases``: the circular
-   convolution at every power of two from 16 to 65,536 and 1, 2, 5 and 64
-   rows, in every version a window takes (one block a pair, a cluster of two
-   or four; bit-equal), and its step entry point (window gathered from
-   history and block, the kept samples, the next history) bit-equal to it on
-   the same window; ``serial_walk_cases``: the serial walk
-   equal to its plain version and to the audio walk at one segment, also on
-   the signals a stream meets at the step's two shapes, with the rounds its
-   fixpoint loop took.
-4. ``main_path``  two paths through ``render`` at 64 channels on noise
-   bursts generated on the card from a seed, each with every kernel's launch
-   count set to 0 just before and read just after. ``render`` replays the
-   chain's captured render (a CUDA graph a blocks shape, captured just
-   before the counts are zeroed; the dynamics fixpoint a conditional while
-   node whose audio walks are counted when the device's walk count is
-   read). First the earlier path,
-   chain7 (saturator in place of the compressor/gate pair) at block size
-   4096 over 10 s; then the offline main path, **chain8**, the flagship
-   8-effect chain, over 30 s at block size 4096 then 512, through four
-   kernels (the conv, the two walks, the tail; pack and unpack are launched
-   0 times). The outputs are held against the same render with
-   ``use_kernels=False`` on the card and, for two channels, against a
-   float64 numpy oracle of the whole chain (chain8: over an excerpt, because
-   the oracle walks the two automatons sample by sample in Python).
-5. ``stream_path``  the streaming main path: chain8, 64 channels x 30 s,
-   block by block through ``StreamProcessor`` (its step captured in a CUDA
-   graph in ``warmup()`` and replayed a block) at block
-   size 4096 (323 steps)
-   and 512 (2,584 steps), counts set to 0 just before and read just after
-   (one launch of the circular convolution's step and one of the serial walk
-   a step: the FIR stage and the dynamics stage, nothing else counted). The
-   streamed output is held against the offline kernel render, stage by stage
-   and whole, against the plain-version stream over a short excerpt, and
-   against the float64 oracle excerpt; a checkpoint saved in mid-stream and
-   loaded into a fresh processor continues bit-equal; ``render_segmented``
-   (folding the captured step) equals the streamed one bit for bit;
-   ``render_resumable`` with an injected stop resumes to the same bits.
-   ``compiled_step``: the captured step against the eager ``Chain.step``
-   fold at 64 ch x 30 s and both block sizes: bit-equal, the oracle's dB,
-   one ``conv_pairs`` and one ``serial_walk`` launch counted a step, the
-   whole replay loop under ``torch.cuda.set_sync_debug_mode("error")``, a
-   checkpoint resumed bit-equal, then both steps timed in turns (graph,
-   eager, eager, graph; tensors and numpy in and out) and their device time
-   a step queued behind a spin. ``compiled_render``: the captured render
-   against the eager ``Chain.render_blocks`` at 64 ch x 30 s and both block
-   sizes: bit-equal to it and to main_path's output, the oracle's dB, the
-   device's walk count equal to the eager loop's read-backs, one replay's
-   launches counted from 0, three renders under the sync debug mode, both
-   renders timed in turns over chained passes (graph, eager, eager, graph)
-   with the output's copy, the replay alone, its device time queued and the
-   memory a fresh chain's graph holds (high-water with its pool, what
-   ``release`` gives back, the eager render's high-water); a burst followed
-   by silence through chain8 and a variant whose gate releases over 2 s
-   (many walks inside the while node), bit-equal, and chain8's dynamics
-   pair on 2 ch x 4 s of it against the plain render, walk count included;
-   the settle step on the card against its plain version at chain8's
-   entries (settled and not) and in a while node of its own against the
-   host's loop; two shapes of one chain live at once, an earlier output
-   valid after later renders; ``render`` over five lengths with one chain
-   keeping one graph, its reserved memory bounded; reverb(1500),
-   the FIR-ised EQ and an undecayed-EQ chain bit-equal to their eager
-   renders; ``render_segmented`` and ``render_resumable`` bit-equal to the
-   eager ``Chain.step`` fold. ``stream_timing``: the step's
-   time (median, p99, max) beside the block's duration, with tensors and
-   with numpy in and out, and the old per-sample step once for the record;
-   the two streaming kernels at the step's shapes beside their times before
-   the redesign and inside a CUDA graph of 64 calls (``in_graph_ms``: no
-   host launch between them), both versions of the convolution by window
-   and by batch,
-   and the serial walk's sweep over segment lengths. ``long_windows``: a
-   lowcut and chain8 streamed at block size 16,384 (windows of 32,768 and
-   65,536 over clusters of two and four blocks), FIRs longer than one
-   window offline through their partitions (40,000 taps at 64 ch x 30 s,
-   timed; 65,000 taps at B=4096), and streams past the largest window: the
-   65,000-tap FIR at B=4096 in two partitions, a lowcut at B=65,536 in two
-   sub-blocks, chain8 at B=32,768 with its three filters fused (two
-   partitions), each held to its offline render with its launches a step
-   counted, and one step of each held to its plain version on the same
-   history and block (110 dB, next history equal).
+   whose pointer is off 16 bytes (exact, every element written into an
+   output filled with NaN); the two dynamics walks, which read (C, T) as it
+   lies, on several signals and cascades (exit states equal, 0 mismatching
+   samples), at both copy widths and ragged last segments, and the whole
+   speculative stage against the plain one-segment (serial) walk;
+   ``convpairs_cases``: the circular convolution at every power of two from
+   16 to 65,536 and 1, 2, 5 and 64 rows in every version a window takes
+   (bit-equal), and its step entry point bit-equal to it on the same
+   window; ``serial_walk_cases``: the serial walk equal to its plain
+   version and to the audio walk at one segment, also on the signals a
+   stream meets at the step's two shapes, with the rounds its fixpoint loop
+   took.
+4. ``main_path``  chain8 over 64 ch x 30 s at block size 4096 then 512
+   through ``render``, which replays the chain's captured render (a CUDA
+   graph a blocks shape, the dynamics fixpoint a conditional while node),
+   every kernel's launch count set to 0 just before and read just after
+   (the conv, the two walks, the tail; pack and unpack 0). The outputs are
+   held against the same render with ``use_kernels=False`` on the card and,
+   for two channels, against a float64 numpy oracle of the whole chain over
+   an excerpt.
+5. ``stream_path``  chain8 streamed block by block through
+   ``StreamProcessor`` (its step captured in ``warmup()``) at 4096 (323
+   steps) and 512 (2,584 steps): one ``conv_pairs`` and one ``serial_walk``
+   launch a step; held to the offline render stage by stage and whole, the
+   plain-version stream, the oracle; a checkpoint resumed bit-equal;
+   ``render_segmented`` and ``render_resumable`` bit-equal.
+   ``compiled_step``: the captured step bit-equal to the eager
+   ``Chain.step`` fold, its launches a step, the replay loop under
+   ``torch.cuda.set_sync_debug_mode("error")``, a checkpoint resumed.
+   ``compiled_render``: the settle step against its plain version; the
+   captured render bit-equal to the eager ``Chain.render_blocks`` and to
+   main_path's output, the device's walk count equal to the eager loop's
+   read-backs, one replay's launches, renders under the sync debug mode; a
+   burst then silence (many walks in the while node); two shapes live;
+   ``render`` over five lengths keeping one graph; reverb, EQ and an
+   undecayed-EQ chain captured; ``render_segmented`` /
+   ``render_resumable`` against the eager fold. ``stream_kernels``: rows
+   7-8, the two streaming kernels at the step's shapes, queued behind a
+   spin and inside a CUDA graph of 64 calls (``in_graph_ms``), both
+   versions of the circular convolution by window and by batch, and the
+   serial walk's sweep over segment lengths. ``long_windows``: a lowcut and
+   chain8 streamed at B = 16,384, a 40,000-tap FIR offline through its
+   partitions, and streams past the largest window (a 65,000-tap FIR at
+   4,096, a lowcut at 65,536, chain8 at 32,768), each held to its offline
+   render, one step of each to its plain version.
 5b. the later slices' paths, each with the counts set to 0 just before it
-   and read just after, at 64 ch x 30 s (the main path's signal):
-   ``reverb``: reverb(1500) offline at B=4096 and 512 through ``render``
-   (route (a), the combined kernel in 4-5 segconv partitions) and through
-   route (b) (each line's high-cut through segconv, its taps through the
-   tail kernel), both timed and held to the plain version (110 dB) and a
-   float64 oracle (100 dB), then streamed at B=512 for 1,000 blocks (two
-   ``conv_pairs_step`` launches a step), step times beside 11.61 ms, held to
-   its offline render (90 dB); ``eq3band``: the FIR-ised offline (segconv)
-   and the float64 recurrence, streamed at B=512 (no kernel: plain PyTorch
-   in float64), all held to a float64 per-sample recursion (100 dB);
-   ``compat``: the reference's own chunk loop through ``compat`` on one
-   mono channel (lowcut, the three EQ bands, compressor, gate, delay,
-   tremolo, soft clipper, reverb; numpy in and out; each device warmed on
-   one silent chunk, which captures its step, and reset first), each
-   chunk's time beside 11.61 ms, held to the same effects' ``Chain`` render
-   (90 dB), and the CLI once on a 2-channel wav; the three streams go
-   through captured steps and are each held bit-equal to the same loop of
-   eager steps, whose times stand beside theirs;
-   ``runtime``: chain8, mono, B=512 through ``RealtimeEngine``: (a) a
-   producer thread pushes the main path's 30 s (2,584 blocks) as fast as
-   the ring takes it, the output bit-equal to the StreamProcessor fold, one
-   ``conv_pairs`` and one ``serial_walk`` launch a block; (b) 5 s (431
-   blocks) through ``DuplexAudioStream`` with a fake ``sounddevice`` whose
-   clock thread calls back every 11.61 ms, bit-equal to the fold after the
-   ring's whole-block lag; the pump's stats and the under- and overruns
-   reported, not asserted (the host's cores are shared); the pump replays
-   the captured step, and the eager step's fold (numpy in and out a
-   block) is held bit-equal to it and timed beside it;
-   ``parallel``: chain8 and a chain with an undecayed EQ (timescan) at
-   64 ch x 30 s, B=4096 through ``ShardedRenderer``: (i) one rank on NCCL,
-   a 1x1 mesh, bit-equal to ``Chain.render``; (ii) two ranks sharing the
-   card over gloo, meshes (1, 2) and (2, 1); (iii) four ranks, mesh
-   (2, 2); the ranks are spawned after the build and build nothing; each
-   mesh held to the single-card render (chain8 90 dB, the EQ chain 100 dB),
-   ``render_local_channels`` equal to the global render's channels,
-   ``sharded_meters`` to the global output's peak and RMS; the launches of
-   every rank summed; times per render labelled as ranks sharing one card.
-   ``render`` replays the rank's captured program (one CUDA graph on the
-   NCCL 1x1 mesh, one a piece between gloo's exchanges), held on every rank
-   and for both chains bit-equal to the eager ``render_shard`` + ``gather``,
-   a repeated replay too, with the same launches kernel by kernel, dynspec
-   rounds and fixpoint walks, the cuts as ``sharding.plan_cuts`` plans
-   them; graph and eager timed in turns (graph, eager, eager, graph), the
-   memory each program holds; dynspec's rounds on the device (the NCCL
-   route) played eagerly over gloo, bit-equal to the host-read rounds; the
-   round kernel against its plain version and its gate driving an if node;
-   one NCCL all-gather and all-reduce captured in a graph (asserted) and in
-   a while node (reported: the four-card run found NCCL refused there);
-   ``lone_maps``: each lone waveshaper's ``offline`` (saturator in both
-   modes, soft clipper, harddistortion, bitcrusher) at 64 ch x 30 s,
-   B=4096: one tail-kernel launch with a one-stage plan, held to its plain
-   ``offline`` (110 dB, the bitcrusher exactly), the kernel timed queued
-   and the plain map by events;
-   ``profiling``: chain8 through ``profiling.annotate_chain`` (unfused, one
-   profiler scope an effect) at B=4096 and 512, rendered eagerly (a
-   graph's replay has no host scopes) under ``profiling.trace``: bit-equal
-   to the unfused chain's render, >= 110 dB to the unfused chain rendered
-   with the tail's members plain (the lone soft clipper's kernel against
-   its plain map), the fused chain >= 90 dB to that plain-tail render, every ``effect.<name>.offline`` scope in the trace with
-   the launches of our kernels inside it equal to the launch counters' over
-   the same effect, and each scope's device ms against the roofline's cost
-   of its effect; then 64 blocks at B=512 through the annotated chain's
-   eager ``Chain.step`` (a graph's replay has no host scopes) under a
-   trace, bit-equal to the unfused chain's steps, every
-   ``effect.<name>.step`` scope with its launches.
+   and read just after: ``reverb`` (reverb(1500) offline at both block
+   sizes through ``render``, its combined kernel in 4-5 segconv partitions,
+   held to the plain version and a float64 oracle; streamed at B=512 for
+   1,000 blocks, bit-equal to the eager fold); ``eq3band`` (the FIR-ised
+   offline and the float64 recurrence, streamed, all held to a float64
+   per-sample recursion); ``compat`` (the reference's chunk loop on one mono
+   channel, bit-equal to the eager loop and held to the same effects'
+   ``Chain`` render; then the CLI once); ``runtime`` (chain8 mono at B=512
+   through ``RealtimeEngine``, unpaced and paced through
+   ``DuplexAudioStream`` with a fake ``sounddevice``, bit-equal to the
+   ``StreamProcessor`` fold; the step's two kernels at (1, 512) queued);
+   ``parallel`` (chain8 and an undecayed-EQ chain through
+   ``ShardedRenderer``: one rank on NCCL, then two and four ranks sharing
+   the card over gloo; each mesh's captured program bit-equal to the eager
+   one with the same launches, rounds and walks, held to the single-card
+   render; the round kernel and its if-node gate; NCCL captured; the
+   kernels at a (1, 2) shard's shapes); ``lone_maps`` (each lone
+   waveshaper's one-stage tail launch held to its plain ``offline``, the
+   kernel queued); ``profiling`` (chain8 through
+   ``profiling.annotate_chain`` under ``profiling.trace``: each
+   ``effect.<name>.*`` scope's launches equal to the counters', its device
+   ms against the roofline's cost).
 6. ``kernel_timing``  each kernel at the main-path shapes: time (CUDA events,
-   median of 5 after a warm-up; the two streaming kernels, which are over in
-   tens of microseconds, as launches queued behind a spin so that the host's
-   pace does not show) beside its plain version, a library yardstick where
-   there is one, and its bound and each time's share of each roofline
-   (``pyaudiodsptools_tpu_torch/roofline.py``: the function's bytes over the
-   card's memory rate, its operations over its fp32 rate, whichever is
-   larger; ``classify`` names the binding resource); pack and unpack,
-   which no path launches, at the geometry they had on the main path, with
-   a plain copy of the same bytes (``copy_ms``, the card's practical
-   ceiling) beside them, the kernel and the copy once more as launches
-   queued behind a spin (``queued_ms``, ``copy_queued_ms``: no host time
-   between the events), and unpack's masked path at the same geometry (tm
-   one float off 16 bytes, ``masked_path_queued_ms``); rows 1-4 queued
-   too (``queued_ms``) beside their event time. Also
-   the whole dynamics stage for a range of segment counts (the planner's
-   sweep), the
-   segmented conv by window and version (``segconv_versions``: the planner's
-   rule), reverb(1500)'s FIR partitions at that shape (``reverb_parts``: a
-   16,385-tap slice at a window of 32,768 writing and accumulating, the
-   1,285-tap slice at 16,384; the time a block beside the bound's) and the
-   tail by runs of tiles per channel, down to one tile a run.
-7. ``throughput``  samples/s of the whole render, median of 3 chained
-   passes: the eager render (the column the lane always had) and the
-   captured one.
+   median of 5 after a warm-up, and ``queued_ms``, launches queued behind a
+   spin) beside its plain version, a library yardstick where there is one,
+   and its bound and each time's share of each roofline
+   (``pyaudiodsptools_tpu_torch/roofline.py``); pack and unpack, which no
+   path launches, at the geometry they had on the main path, with a plain
+   copy of the same bytes beside them. Also the planner's sweeps: the
+   dynamics stage by segment count, the segmented conv by window and version
+   (``segconv_versions``), reverb(1500)'s FIR partitions (``reverb_parts``)
+   and the tail by runs of tiles per channel.
    With ``--profile``, a ``profile`` phase follows: ``torch.profiler`` over a
-   few renders (captured and eager) and over a window of streaming steps
-   (the graph replays and the eager steps), device time by kernel name and
-   the device's idle share.
-8. the ``{"kernels": [...]}`` summary line (all eight), and as the LAST line
+   few captured renders and a window of streaming steps (graph replays and
+   eager steps), device time by kernel name.
+7. the ``{"kernels": [...]}`` summary line (all eight), and as the LAST line
    ``{"ok": true, "device": {...}}``.
 
 Tolerances, with their reasons, are the constants below.
@@ -240,8 +147,7 @@ from pyaudiodsptools_tpu_torch.engine import graph as pt_graph
 from pyaudiodsptools_tpu_torch.__main__ import main as cli_main
 from pyaudiodsptools_tpu_torch.ops import dynamics as ops_dynamics, fft_filter
 from pyaudiodsptools_tpu_torch.ops.eq3band import offline as eq_recurrence
-from pyaudiodsptools_tpu_torch.ops.reverb import (
-    offline_fir, offline_lines, tail_plan as reverb_lines_tail_plan)
+from pyaudiodsptools_tpu_torch.ops.reverb import offline_fir
 from pyaudiodsptools_tpu_torch.ops.tremolo import TremoloParams, gain_row
 from pyaudiodsptools_tpu_torch.parallel import (ShardedRenderer,
                                                 dist as pdist, make_mesh)
@@ -252,13 +158,17 @@ from pyaudiodsptools_tpu_torch.runtime import (DuplexAudioStream,
                                                RealtimeEngine,
                                                native_lib as runtime_native)
 
+from portbench import port as bench_port, signals as bench_signals
+
 SAMPLE_RATE = 44100
 BLOCK_SIZES = (4096, 512)
 # The main path's size: the flagship render, full width and full length.
 CHANNELS = 64
 SECONDS = 30.0
-# The earlier path (chain7) runs the same width over a shorter signal.
-CHAIN7_SECONDS = 10.0
+# chain8, the flagship 8-effect chain: the benchmark's configuration.
+with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "portbench", "configs", "chain8.json")) as _f:
+    CHAIN8 = json.load(_f)
 # Steps of the plain-version stream (its dynamics walk is a Python loop over
 # the block's samples), by block size.
 PLAIN_STREAM_STEPS = {512: 32, 4096: 4}
@@ -388,49 +298,19 @@ def fft_conv64(x: np.ndarray, kernel: np.ndarray, shift: int = 0) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# the chain
+# the chain and the signal
 
 
-def chain7_effects(cfg, device):
-    """The earlier path: chain8 with a stateless saturator where the
-    compressor -> gate pair stands."""
-    o = pt.ops
-    return [o.lowcut(cfg, 120.0, device=device),
-            o.highcut(cfg, 12000.0, device=device),
-            o.eq3band_fft(cfg, 250.0, 2.0, 1500.0, -1.5, 6000.0, 2.5,
-                          device=device),
-            o.saturator(cfg, device=device),
-            o.delay(cfg, 150.0, 2, device=device),
-            o.tremolo(cfg, 0.3, 5.0, device=device),
-            o.softclipper(cfg, 0.44, device=device)]
+def chain8(B: int):
+    """(cfg, Chain) of chain8 at block size B on the card."""
+    chain, cfg = bench_port.chain(CHAIN8, B, "cuda")
+    assert [e.name for e in chain.exec_effects] == CHAIN8_NAMES
+    return cfg, chain
 
 
-def chain8_effects(cfg, device):
-    """The main path: the flagship 8-effect chain."""
-    o = pt.ops
-    effects = chain7_effects(cfg, device)
-    effects[3:4] = [o.compressor(cfg, -18.0, 0.6, 3.1, 30.1, device=device),
-                    o.gate(cfg, -45.0, 0.1, 3.1, 200.1, device=device)]
-    return effects
-
-
-CHAIN7_NAMES = ["fir_cascade:lowcut+highcut+eq3band_fft",
-                "tail:saturator+delay+tremolo+softclipper"]
 CHAIN8_NAMES = ["fir_cascade:lowcut+highcut+eq3band_fft",
                 "dynamics_cascade:compressor+gate",
                 "tail:delay+tremolo+softclipper"]
-
-
-def burst_noise(channels: int, n: int, seed: int) -> torch.Tensor:
-    """Noise times a burst envelope, made on the card from a seed."""
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(seed)
-    noise = 0.25 * torch.randn((channels, n), generator=gen, device="cuda",
-                               dtype=torch.float32)
-    t = torch.arange(n, device="cuda", dtype=torch.float32)
-    burst = (torch.sin(2 * torch.pi * t / (SAMPLE_RATE // 3)) > 0.6
-             ).to(torch.float32) * 0.5 + 0.3
-    return torch.clip(noise * burst, -0.99, 0.99)
 
 
 def automaton_gains64(over, attack_env, release_env) -> np.ndarray:
@@ -471,8 +351,8 @@ def automaton_gains64(over, attack_env, release_env) -> np.ndarray:
 
 def chain_oracle(x: np.ndarray, effects, block_size: int) -> np.ndarray:
     """A whole chain in float64 numpy, from the ops' definitions: causal FIRs
-    (the filters' float64 impulse responses), the saturator knee, the
-    compressor and gate automatons (mask from the unscaled input, gains from
+    (the filters' float64 impulse responses), the compressor and gate
+    automatons (mask from the unscaled input, gains from
     :func:`automaton_gains64`), the delay's taps, the tremolo's LFO table
     walked block by block (freeze quirk included), the soft clipper."""
     C, T = x.shape
@@ -481,14 +361,6 @@ def chain_oracle(x: np.ndarray, effects, block_size: int) -> np.ndarray:
         p = e.params
         if e.name in ("lowcut", "highcut", "eq3band_fft"):
             y = fft_conv64(y, e.lti_kernel)
-        elif e.name == "saturator":
-            coeff, makeup = float(p.coeff), float(p.makeup)
-            a = np.abs(y)
-            over = a - coeff
-            shaped = coeff + over / (1.0 + (over / (1.0 - coeff)) ** p.mode)
-            a = np.where(a > coeff, shaped, a)
-            a = np.where(a > 1.0, (coeff + 1.0) / 2.0, a)
-            y = makeup * np.where(y < 0, -a, a)
         elif e.name in ("compressor", "gate"):
             gains = np.stack([
                 automaton_gains64(np.abs(y[c]) > float(p.threshold),
@@ -1146,8 +1018,9 @@ def stream_signals(C: int, T: int) -> dict:
     """name -> (x (2 T,) per channel as a (C, 2 T) tensor: the block BEFORE
     the measured one and the measured one). The measured block is walked from
     the state the block before leaves behind, as a stream would."""
-    noise = burst_noise(C, 3 * SAMPLE_RATE, 29)[:, SAMPLE_RATE:SAMPLE_RATE
-                                                + 2 * T].contiguous()
+    noise = bench_signals.burst_noise(
+        C, 3 * SAMPLE_RATE, SAMPLE_RATE, 29, "cuda")[
+            :, SAMPLE_RATE:SAMPLE_RATE + 2 * T].contiguous()
     loud_then_silent = torch.zeros((C, 2 * T), device="cuda")
     loud_then_silent[:, :T] = 0.5
     dies_away = torch.zeros((C, 2 * T), device="cuda")
@@ -1179,9 +1052,7 @@ def serial_walk_signal_cases(members) -> list:
     shapes: equal to the audio walk at one segment and to its plain version
     (samples and exit states; the plain version at 4,096 samples on the
     signals of PLAIN_AT_FULL_LENGTH), with the rounds of its fixpoint loop
-    (the most any channel took) and its device time as launches queued behind
-    a spin; rounds and time also of the kernel without the jump over quiet
-    segments."""
+    (the most any channel took)."""
     params = [e.params for e in members]
     scalars = [kdyn.op_scalars(p) for p in params]
     results = []
@@ -1216,20 +1087,7 @@ def serial_walk_signal_cases(members) -> list:
                  "mismatching_samples": int((out != p_out).sum()),
                  "exit_states_equal": torch.equal(z, p_z),
                  "equal_audio_walk_one_segment":
-                     torch.equal(out, a_out) and torch.equal(z, a_z),
-                 "queued_ms": queued_ms(
-                     lambda: kdyn.serial_walk(scalars, x, entry),
-                     runs=30)["ms"]}
-            # the kernel without the jump over quiet segments, beside it: the
-            # same result in more rounds
-            n_out, n_z, n_rounds = kdyn._launch_serial(
-                scalars, x, entry, want_rounds=True, quiet_jump=False)
-            assert torch.equal(n_out, out) and torch.equal(n_z, z), name
-            assert 1 <= int(n_rounds.max()) <= segments, name
-            r["without_quiet_jump"] = {
-                "rounds": int(n_rounds.max()),
-                "queued_ms": queued_ms(lambda: kdyn._launch_serial(
-                    scalars, x, entry, quiet_jump=False), runs=30)["ms"]}
+                     torch.equal(out, a_out) and torch.equal(z, a_z)}
             results.append(r)
             assert r["mismatching_samples"] == 0 and r["exit_states_equal"] \
                 and r["equal_audio_walk_one_segment"], r
@@ -1311,7 +1169,7 @@ def serial_walk_cases() -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 4-7: the main paths
+# phases 4-6: the main paths
 
 
 VERSION_NAMES = {1: "one_block", 2: "cluster_of_two", 4: "cluster_of_four"}
@@ -1358,17 +1216,14 @@ def zero_launch_counts() -> None:
     convpairs.launch_count = 0
 
 
-def check_render(chain, cfg, signal, out, n: int,
-                 oracle_samples: int | None = None,
-                 db_plain_bar: float = CHAIN_DB_PLAIN,
-                 keep_oracle: dict | None = None) -> dict:
-    """Hold a render to the plain render on the card, to the plain versions
-    of the stages after the conv run on the kernel's conv output (see
-    CHAIN8_DB_PLAIN) and, for the first and last channel, to the float64
-    oracle (over the first ``oracle_samples`` samples: every effect is
-    causal, so a prefix of the output depends on the same prefix of the
-    input only). ``keep_oracle`` receives the oracle excerpt under the block
-    size, for the streaming path to be held to as well."""
+def check_render(chain, cfg, signal, out, n: int, keep_oracle: dict) -> dict:
+    """Hold chain8's render to the plain render on the card (CHAIN8_DB_PLAIN),
+    to the plain versions of the stages after the conv run on the kernel's
+    conv output and, for the first and last channel, to the float64 oracle
+    (over the first ORACLE_EXCERPT samples: every effect is causal, so a
+    prefix of the output depends on the same prefix of the input only).
+    ``keep_oracle`` receives the oracle excerpt under the block size, for
+    the streaming path to be held to as well."""
     C, B = signal.shape[0], cfg.block_size
     T = out.shape[-1]
     assert out.shape == (C, -(-n // B) * B) and out.dtype == torch.float32
@@ -1387,18 +1242,17 @@ def check_render(chain, cfg, signal, out, n: int,
     db_after_conv = snr_db_cuda(after.reshape(C, T), out)
     del after, blocks
     pick = [0, C - 1]
-    m = T if oracle_samples is None else oracle_samples
+    m = ORACLE_EXCERPT
     assert m % B == 0 and m <= T
     x2 = torch.nn.functional.pad(signal[pick], (0, T - n))[:, :m].cpu().numpy()
     oracle = chain_oracle(x2, chain.effects, B)
-    if keep_oracle is not None:
-        keep_oracle[B] = oracle
+    keep_oracle[B] = oracle
     db_oracle = snr_db(oracle, out[pick, :m].cpu().numpy())
     r = {"db_plain": db_json(db_plain),
          "db_plain_after_conv": db_json(db_after_conv),
          "db_oracle_2ch": db_json(db_oracle),
          "oracle_samples": m, "peak": float(out.abs().max())}
-    assert db_plain >= db_plain_bar, r
+    assert db_plain >= CHAIN8_DB_PLAIN, r
     assert db_after_conv >= CHAIN_DB_PLAIN, r
     assert db_oracle >= CHAIN_DB_ORACLE, r
     assert 0.0 < r["peak"] <= 1.0, r
@@ -1444,7 +1298,7 @@ def time_segconv(x, fir_e, by_B: dict, B: int) -> torch.Tensor:
     # the launches queued behind a spin: the kernel's device time, without
     # the host's time of a wrapper call between the events (rows 5-8 have it)
     queued = queued_ms(lambda: segconv.segmented_conv(x, plan),
-                       RELAYOUT_QUEUED_RUNS)["ms"]
+                       RELAYOUT_QUEUED_RUNS)
     plain_ms = time_ms(
         lambda: segconv.segmented_conv(x, plan, use_kernels=False))
     # library yardstick: the batched cuFFT convolution at this geometry,
@@ -1537,7 +1391,7 @@ def time_reverb_parts(x) -> dict:
         assert db >= CONV_DB_PLAIN, (name, db)
         del got, want
         ms = time_ms(launch)
-        queued = queued_ms(launch, RELAYOUT_QUEUED_RUNS)["ms"]
+        queued = queued_ms(launch, RELAYOUT_QUEUED_RUNS)
         cost = rl.conv_cost(C, T, plan.n, plan.seg)
         if acc:
             cost = {**cost, "bytes": cost["bytes"] + 4 * C * T}
@@ -1591,9 +1445,9 @@ def time_dynamics(x, dyn_e, timing: dict, B: int) -> torch.Tensor:
          # the kernel and the copy with their launches queued behind a spin:
          # device time without the host's pace between the events
          "queued_ms": queued_ms(lambda: relayout.pack(x, G, L, Rp),
-                                RELAYOUT_QUEUED_RUNS)["ms"],
+                                RELAYOUT_QUEUED_RUNS),
          "copy_queued_ms": queued_ms(lambda: torch.empty_like(x).copy_(x),
-                                     RELAYOUT_QUEUED_RUNS)["ms"]}
+                                     RELAYOUT_QUEUED_RUNS)}
     timing["pack"][B] = {
         **geom, "Rp": Rp, "max_abs_err": err, "note": not_on_path, **t,
         **roofline_row(rl.simple_cost(C, T, 1.0, tm_passes), **t)}
@@ -1613,14 +1467,14 @@ def time_dynamics(x, dyn_e, timing: dict, B: int) -> torch.Tensor:
              .contiguous()),
          "copy_ms": time_ms(lambda: torch.empty_like(tm).copy_(tm)),
          "queued_ms": queued_ms(lambda: relayout.unpack(tm, C, T, G, L),
-                                RELAYOUT_QUEUED_RUNS)["ms"],
+                                RELAYOUT_QUEUED_RUNS),
          "copy_queued_ms": queued_ms(lambda: torch.empty_like(tm).copy_(tm),
-                                     RELAYOUT_QUEUED_RUNS)["ms"],
+                                     RELAYOUT_QUEUED_RUNS),
          # the masked path on the same geometry (tm one float off 16 bytes),
          # queued as the line above
          "masked_path_queued_ms": queued_ms(
              lambda: relayout.unpack(tm_off, C, T, G, L),
-             RELAYOUT_QUEUED_RUNS)["ms"]}
+             RELAYOUT_QUEUED_RUNS)}
     assert torch.equal(relayout.unpack(tm_off, C, T, G, L), x)
     timing["unpack"][B] = {
         **geom, "Rp": Rp, "max_abs_err": err, "note": not_on_path,
@@ -1646,7 +1500,7 @@ def time_dynamics(x, dyn_e, timing: dict, B: int) -> torch.Tensor:
         "max_abs_err": float((z1 - z1_plain).abs().max()),
         "ms": ms, "queued_ms": queued_ms(
             lambda: kdyn.state_walk(scalars, x, G, L, e0),
-            RELAYOUT_QUEUED_RUNS)["ms"],
+            RELAYOUT_QUEUED_RUNS),
         "plain_ms": state_plain_ms,
         "plain_ran_with": f"G={G}, a Python loop over L={L} rows, its one "
                           "correctness run timed",
@@ -1670,7 +1524,7 @@ def time_dynamics(x, dyn_e, timing: dict, B: int) -> torch.Tensor:
         "mismatching_samples": mismatching, "max_abs_err": err,
         "ms": ms, "queued_ms": queued_ms(
             lambda: kdyn.audio_walk(scalars, x, G, L, e1),
-            RELAYOUT_QUEUED_RUNS)["ms"],
+            RELAYOUT_QUEUED_RUNS),
         "plain_ms": audio_plain_ms,
         "plain_ran_with": f"G={G}, a Python loop over L={L} rows, its one "
                           "correctness run timed",
@@ -1690,23 +1544,19 @@ def stage_walks(fn):
                     + kdyn.audio_walk_launch_count - w0)
 
 
-def time_dynamics_stage(x, dyn_e, y_dyn) -> dict:
+def check_dynamics_stage(x, dyn_e, y_dyn) -> dict:
     """The fused effect's whole ``offline`` (the walks to the fixpoint on
-    (C, T) as it lies, with one read-back each) on the conv stage's
-    output."""
+    (C, T) as it lies, with one read-back each) on the conv stage's output,
+    against the loop's own result and the plain stage."""
     C, T = x.shape
     blocks = x.reshape(C, 1, T)
     got, walks = stage_walks(lambda: dyn_e.offline(dyn_e.params, blocks))
     assert torch.equal(got.reshape(C, T), y_dyn)
-    plain, plain_ms = once_ms(
-        lambda: dyn_e.offline(dyn_e.params, blocks, use_kernels=False))
+    plain = dyn_e.offline(dyn_e.params, blocks, use_kernels=False)
     mismatching = int((got != plain).sum())
     assert mismatching == 0, f"dynamics stage: {mismatching} samples differ"
-    del plain, got
     return {"segments": kdyn.plan_segments(C, T), "walks": walks,
-            "mismatching_samples_vs_plain": mismatching,
-            "ms": time_ms(lambda: dyn_e.offline(dyn_e.params, blocks)),
-            "plain_ms": plain_ms}
+            "mismatching_samples_vs_plain": mismatching}
 
 
 def sweep_segments(x, dyn_e, want) -> list:
@@ -1784,7 +1634,7 @@ def time_tail(x, chain, tail_e, by_B: dict, B: int) -> None:
          "plain_ms": time_ms(
              lambda: tail_e.offline(members, blocks, use_kernels=False))}
     queued = queued_ms(lambda: tail.tail_kernel(plan, x, gains),
-                       RELAYOUT_QUEUED_RUNS)["ms"]
+                       RELAYOUT_QUEUED_RUNS)
     by_B[B] = {
         "halo": D, "tile": plan.tile, "runs": runs,
         "n_tiles": n_tiles, "warm_tiles": plan.warm_tiles,
@@ -1793,8 +1643,6 @@ def time_tail(x, chain, tail_e, by_B: dict, B: int) -> None:
         "blocks_per_sm": plan.blocks_per_sm, "C": C, "T": T,
         "db_plain": db_json(t_db), "max_abs_err": t_err, **t,
         "queued_ms": queued,
-        "offline_with_gain_row_ms": time_ms(
-            lambda: tail_e.offline(members, blocks)),
         "library_ms": None,
         **roofline_row(rl.tail_cost(C, T, stages, gains.numel()), **t),
         "one_tile_a_run_ms": ms[f"runs={n_tiles}"],
@@ -1812,53 +1660,34 @@ def time_tail(x, chain, tail_e, by_B: dict, B: int) -> None:
 # phase 5: the streaming path
 
 
-def percentile(values, q: float) -> float:
-    return float(np.percentile(np.asarray(values, dtype=np.float64), q))
-
-
-def step_stats(step_s: list, wall_s: float, block_ms: float) -> dict:
-    """Per-step host-clock times of one streamed run (ms)."""
-    ms = [t * 1e3 for t in step_s]
-    return {"steps": len(ms), "median_ms": statistics.median(ms),
-            "p99_ms": percentile(ms, 99), "max_ms": max(ms),
-            "wall_ms_per_step": wall_s * 1e3 / len(ms),
-            "stream_wall_s": wall_s, "block_budget_ms": block_ms,
-            "times_realtime": block_ms / (wall_s * 1e3 / len(ms))}
-
-
 def stream_run(chain, cfg, x: torch.Tensor, as_numpy: bool = False,
                save_at: int | None = None, save_path: str | None = None):
     """Stream x (C, T) block by block through a fresh, warmed-up
     StreamProcessor, every launch count set to 0 just before the first block
-    and read just after the last. Returns (outputs, per-step seconds on the
-    host clock, seconds for the whole stream with the device drained, the
-    counts). With
-    ``as_numpy`` the blocks go in and come out as numpy arrays (a copy each
-    way and a synchronisation per block); otherwise nothing waits until the
-    end. ``save_at`` writes a checkpoint before that step."""
+    and read just after the last. Returns (outputs, the counts). With
+    ``as_numpy`` the blocks go in and come out as numpy arrays; otherwise
+    nothing waits until the end. ``save_at`` writes a checkpoint before that
+    step."""
     C, T = x.shape
     B = cfg.block_size
     sp = pt.StreamProcessor(chain, cfg, (C,))
     sp.warmup()
     src = x.cpu().numpy() if as_numpy else x
-    outs, step_s = [], []
+    outs = []
     torch.cuda.synchronize()
     zero_launch_counts()
-    t_all = time.perf_counter()
     for i in range(T // B):
         if i == save_at:
             sp.save_state(save_path)
-        t0 = time.perf_counter()
         outs.append(sp.process(src[:, i * B:(i + 1) * B]))
-        step_s.append(time.perf_counter() - t0)
     counts = launch_counts()
     torch.cuda.synchronize()
-    return outs, step_s, time.perf_counter() - t_all, counts
+    return outs, counts
 
 
 def eager_run(chain, cfg, x: torch.Tensor, as_numpy: bool = False):
-    """The eager ``Chain.step`` folded over x (C, T), timed as
-    :func:`stream_run` times the processor (the same returns): what a
+    """The eager ``Chain.step`` folded over x (C, T), counted as
+    :func:`stream_run` counts the processor (the same returns): what a
     ``StreamProcessor`` did before the step was captured. One step on
     silence first, discarded, as ``warmup`` did; with ``as_numpy`` a block
     goes to the card and its output comes back as numpy, one copy each
@@ -1868,21 +1697,18 @@ def eager_run(chain, cfg, x: torch.Tensor, as_numpy: bool = False):
     state = chain.init_state((C,))
     chain.step(state, torch.zeros((C, B), device="cuda"))
     src = x.cpu().numpy() if as_numpy else x
-    outs, step_s = [], []
+    outs = []
     torch.cuda.synchronize()
     zero_launch_counts()
-    t_all = time.perf_counter()
     for i in range(T // B):
-        t0 = time.perf_counter()
         blk = src[:, i * B:(i + 1) * B]
         if as_numpy:
             blk = torch.from_numpy(np.ascontiguousarray(blk)).cuda()
         state, y = chain.step(state, blk)
         outs.append(y.cpu().numpy() if as_numpy else y)
-        step_s.append(time.perf_counter() - t0)
     counts = launch_counts()
     torch.cuda.synchronize()
-    return outs, step_s, time.perf_counter() - t_all, counts
+    return outs, counts
 
 
 def graph_ms(fn, steps: int = GRAPH_STEPS, replays: int = 5) -> float:
@@ -1937,18 +1763,17 @@ def fold_steps(effect, x: torch.Tensor, B: int, step=None) -> torch.Tensor:
 
 
 def stream_path(chain, cfg, signal, n: int, offline_out: torch.Tensor,
-                oracle: np.ndarray, workdir: str) -> tuple[dict, dict, dict]:
+                oracle: np.ndarray, workdir: str) -> tuple[dict, dict]:
     """Drive and check the streaming main path at one block size. Returns
-    (checks, timing, launch counts of the counted run)."""
+    (checks, launch counts of the counted run)."""
     C, B = signal.shape[0], cfg.block_size
     T = -(-n // B) * B
     nb = T // B
     x = torch.nn.functional.pad(signal, (0, T - n)).contiguous()
     fir_e, dyn_e, tail_e = chain.exec_effects
-    block_ms = cfg.block_duration_ms
 
     # the counted run: tensors in and out, nothing waits
-    outs, step_s, wall_s, counts = stream_run(chain, cfg, x)
+    outs, counts = stream_run(chain, cfg, x)
     # one circular convolution and one serial walk a step, nothing else
     assert all(v == (nb if k in STREAM_KERNELS else 0)
                for k, v in counts.items()), counts
@@ -1960,8 +1785,6 @@ def stream_path(chain, cfg, signal, n: int, offline_out: torch.Tensor,
          "window": fir_e.params.stream.n, "lead": fir_e.params.lead,
          "history_samples": fft_filter.history_len(fir_e.params),
          "peak": float(streamed.abs().max())}
-    timing = {"through": "the captured step (StreamProcessor)",
-              "tensors_in_and_out": step_stats(step_s, wall_s, block_ms)}
 
     # against the offline kernel render, whole and stage by stage
     r["db_offline"] = db_json(snr_db_cuda(offline_out, streamed))
@@ -1999,9 +1822,8 @@ def stream_path(chain, cfg, signal, n: int, offline_out: torch.Tensor,
     # numpy in and out, with a checkpoint written in mid-stream ...
     half = nb // 2
     ckpt = os.path.join(workdir, f"stream_{B}.npz")
-    outs_np, step_np, wall_np, _ = stream_run(chain, cfg, x, as_numpy=True,
-                                              save_at=half, save_path=ckpt)
-    timing["numpy_in_and_out"] = step_stats(step_np, wall_np, block_ms)
+    outs_np, _ = stream_run(chain, cfg, x, as_numpy=True, save_at=half,
+                            save_path=ckpt)
     r["numpy_stream_equal"] = bool(np.array_equal(
         np.concatenate(outs_np, axis=-1), streamed.cpu().numpy()))
     del outs_np
@@ -2047,32 +1869,7 @@ def stream_path(chain, cfg, signal, n: int, offline_out: torch.Tensor,
     assert r["numpy_stream_equal"] and r["checkpoint_resume_equal"] \
         and r["render_segmented_equal"], r
     assert 0.0 < r["peak"] <= 1.0, r
-
-    # the old per-sample step on one block of 512, once, for the record
-    if B == 512:
-        st = dyn_e.state((C,))
-        blk = streamed[:, :B].contiguous()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for p, s_op in zip(dyn_e.params, st):
-            _, blk = ops_dynamics.step_faithful(p, s_op, blk)
-        torch.cuda.synchronize()
-        timing["step_faithful_dynamics_stage_one_block_ms"] = \
-            (time.perf_counter() - t0) * 1e3
-    return r, timing, counts
-
-
-def interleaved_runs(chain, cfg, x: torch.Tensor, as_numpy: bool) -> dict:
-    """The whole stream through the captured step (a StreamProcessor) and
-    through the eager ``Chain.step`` in turns, graph, eager, eager, graph:
-    each run's ``step_stats``, by kind."""
-    runs = {"graph": [], "eager": []}
-    for kind in ("graph", "eager", "eager", "graph"):
-        run = stream_run if kind == "graph" else eager_run
-        outs, step_s, wall_s, _ = run(chain, cfg, x, as_numpy=as_numpy)
-        del outs
-        runs[kind].append(step_stats(step_s, wall_s, cfg.block_duration_ms))
-    return runs
+    return r, counts
 
 
 def compiled_step_phase(chains: dict, signal: torch.Tensor, n: int,
@@ -2083,10 +1880,7 @@ def compiled_step_phase(chains: dict, signal: torch.Tensor, n: int,
     to the float64 oracle excerpt; one ``conv_pairs`` and one
     ``serial_walk`` launch counted a step; the whole replay loop (tensors in
     and out) under ``torch.cuda.set_sync_debug_mode("error")``; a checkpoint
-    in mid-stream resumed bit-equal in a fresh processor; then the two
-    steps timed in turns (median, p99, max; tensors and numpy in and out)
-    and their device time a step (launches or replays queued behind a
-    spin)."""
+    in mid-stream resumed bit-equal in a fresh processor."""
     C = signal.shape[0]
     by_B, counts_by_run = {}, {}
     for B in BLOCK_SIZES:
@@ -2096,14 +1890,11 @@ def compiled_step_phase(chains: dict, signal: torch.Tensor, n: int,
         x = torch.nn.functional.pad(signal, (0, T - n)).contiguous()
         expect = {k: (nb if k in STREAM_KERNELS else 0) for k in KERNELS}
         sp = pt.StreamProcessor(chain, cfg, (C,))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         sp.warmup()
-        capture_ms = (time.perf_counter() - t0) * 1e3
         per_step = sp._captured.launches_per_step((C, B))
-        outs, _, _, g_counts = stream_run(chain, cfg, x)
+        outs, g_counts = stream_run(chain, cfg, x)
         graph_out = torch.cat(outs, dim=-1)
-        outs, _, _, e_counts = eager_run(chain, cfg, x)
+        outs, e_counts = eager_run(chain, cfg, x)
         bit_equal = torch.equal(graph_out, torch.cat(outs, dim=-1))
         del outs
         m = oracles[B].shape[1]
@@ -2133,30 +1924,12 @@ def compiled_step_phase(chains: dict, signal: torch.Tensor, n: int,
                              for i in range(half, nb)], dim=-1)
         resume_equal = torch.equal(resumed, graph_out[:, half * B:])
         del resumed, graph_out
-
-        # device time a step: graph replays, or eager steps, queued
-        blk = x[:, :B]
-        state = chain.init_state((C,))
-        device_ms = {"graph": queued_ms(lambda: sp2._captured.replay(blk)),
-                     "eager": queued_ms(lambda: chain.step(state, blk),
-                                        runs=20)}
-        timing = {"tensors_in_and_out": interleaved_runs(chain, cfg, x,
-                                                         False),
-                  "numpy_in_and_out": interleaved_runs(chain, cfg, x, True)}
-        walls = {k: statistics.mean(r["wall_ms_per_step"] for r in runs)
-                 for k, runs in timing["tensors_in_and_out"].items()}
         r = {"steps": nb, "bit_equal_to_eager_fold": bit_equal,
              "db_oracle_2ch": db_json(db_oracle), "oracle_samples": m,
              "launches_graph": g_counts, "launches_eager": e_counts,
              "captured_launches_per_step": per_step,
              "no_sync_replay_loop_equal": no_sync_equal,
-             "checkpoint_resume_equal": resume_equal,
-             "warmup_and_capture_ms": capture_ms,
-             "device_ms_per_step_queued": device_ms,
-             "device_idle_share_tensors": {
-                 k: max(0.0, 1.0 - device_ms[k]["ms"] / walls[k])
-                 for k in walls},
-             "timing": timing}
+             "checkpoint_resume_equal": resume_equal}
         assert bit_equal and no_sync_equal and resume_equal, r
         assert g_counts == expect and e_counts == expect, r
         assert per_step == {"convpairs.launch_count": 1,
@@ -2185,65 +1958,6 @@ SEGMENTED_PER = 48
 # Python loops over a segment's samples (86 segments of 2,052 here).
 PLAIN_WALK_CHANNELS = 2
 PLAIN_WALK_SAMPLES = 4 * SAMPLE_RATE
-
-
-def memory_mib() -> dict:
-    return {"allocated_mib": torch.cuda.memory_allocated() / 2**20,
-            "reserved_mib": torch.cuda.memory_reserved() / 2**20}
-
-
-def render_memory(cfg, signal: torch.Tensor) -> dict:
-    """A fresh chain8's captured render at this signal's shape: the device
-    memory its capture and a replay take at their high-water (PyTorch's
-    allocator, the graph's private pool included: ``max_memory_reserved``
-    after ``reset_peak_memory_stats``), what the graph holds while it lives
-    (reserved after ``empty_cache``: the input buffer and the pool), what
-    ``release`` gives back, and the eager render's high-water beside it.
-    MiB over what was held before; the capture's time too."""
-    chain = pt.Chain(chain8_effects(cfg, "cuda"), device="cuda")
-    shape = render_shape(signal, cfg.block_size)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    base = memory_mib()
-
-    def over(now):
-        return {k: now[k] - base[k] for k in now}
-
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    chain.captured_render().capture(shape)
-    torch.cuda.synchronize()
-    capture_ms = (time.perf_counter() - t0) * 1e3
-    peak_capture = {"allocated_mib": torch.cuda.max_memory_allocated() / 2**20
-                    - base["allocated_mib"],
-                    "reserved_mib": torch.cuda.max_memory_reserved() / 2**20
-                    - base["reserved_mib"]}
-    torch.cuda.empty_cache()
-    held = over(memory_mib())
-    torch.cuda.reset_peak_memory_stats()
-    y = pt.render(chain, signal, cfg)
-    torch.cuda.synchronize()
-    peak_replay = torch.cuda.max_memory_reserved() / 2**20 \
-        - base["reserved_mib"]
-    del y
-    chain.captured_render().release()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    after_release = over(memory_mib())
-    torch.cuda.reset_peak_memory_stats()
-    y = eager_render(chain, signal, cfg)
-    torch.cuda.synchronize()
-    peak_eager = torch.cuda.max_memory_reserved() / 2**20 \
-        - base["reserved_mib"]
-    del y, chain
-    torch.cuda.empty_cache()
-    return {"signal_mib": signal.numel() * 4 / 2**20,
-            "warmup_and_capture_ms": capture_ms,
-            "capture_high_water": peak_capture,
-            "held_by_the_graph": held,
-            "replay_high_water_reserved_mib": peak_replay,
-            "after_release": after_release,
-            "eager_render_high_water_reserved_mib": peak_eager}
 
 
 def render_lengths(chain, cfg, signal: torch.Tensor, n: int) -> dict:
@@ -2351,25 +2065,23 @@ def settle_cases(C: int, T: int) -> dict:
             "while_node_loops": loops}
 
 
-def plain_walks_case(cfg, burst: torch.Tensor) -> dict:
-    """chain8's dynamics pair on a burst followed by silence (the first
-    channels of the main signal's burst): the captured render against the
-    plain render (``use_kernels=False``: every walk and settle step a plain
-    version, read back once a walk) on the same input, the output and the
-    walk count exactly."""
-    chain = pt.Chain(chain8_effects(cfg, "cuda")[3:5], device="cuda")
+def plain_walks_case(pair, cfg, burst: torch.Tensor) -> dict:
+    """chain8's dynamics pair (``pair``, its compressor and gate) on a burst
+    followed by silence (the first channels of the main signal's burst): the
+    captured render against the plain render (``use_kernels=False``: every
+    walk and settle step a plain version, read back once a walk) on the same
+    input, the output and the walk count exactly."""
+    chain = pt.Chain(pair, device="cuda")
     blocks = pt.block.make_blocks(burst, cfg.block_size)
-    t0 = time.perf_counter()
     with graph_cond.fixpoints() as found:
         plain = chain.render_blocks(blocks, use_kernels=False)
     plain_walks = [int(f[kdyn.FLAG_WALKS]) for f in found]
-    plain_s = time.perf_counter() - t0
     captured = chain.captured_render()
     got = captured(blocks)
     walks = captured.walks()[tuple(blocks.shape)]
     r = {"blocks_shape": list(blocks.shape), "walks": walks,
          "plain_walks": plain_walks, "bit_equal_to_plain":
-             torch.equal(got, plain), "plain_render_s": plain_s}
+             torch.equal(got, plain)}
     assert r["bit_equal_to_plain"] and walks == plain_walks, r
     assert walks[0] > 2, r
     captured.release()
@@ -2386,19 +2098,16 @@ def compiled_render_phase(chains: dict, signal: torch.Tensor, n: int,
     output, the same dB to the oracle, the same dynamics walks (the device's
     count against the eager loop's read-backs), the launches a replay
     counted from 0, three renders under
-    ``torch.cuda.set_sync_debug_mode("error")``, then both renders timed in
-    turns over chained passes (graph, eager, eager, graph) with the output's
-    copy, the replay alone, the replay's device time queued behind a spin,
-    and the memory a fresh chain's graph takes. Then: a burst followed by
+    ``torch.cuda.set_sync_debug_mode("error")``. Then: a burst followed by
     silence through chain8 and through a variant whose gate releases over
     2 s (many walks inside the while node), bit-equal to eager, and the
     dynamics pair on its excerpt against the plain render, walks included
     (``plain_walks_case``); two shapes of one chain live at once, an earlier
     output valid after later renders; ``render`` over five lengths keeping
-    one graph (``render_lengths``); reverb(1500), the FIR-ised EQ and an undecayed-EQ chain bit-equal to
-    their eager renders; ``render_segmented`` and ``render_resumable``
-    (through the captured step) bit-equal to the eager ``Chain.step``
-    fold."""
+    one graph (``render_lengths``); reverb(1500), the FIR-ised EQ and an
+    undecayed-EQ chain bit-equal to their eager renders;
+    ``render_segmented`` and ``render_resumable`` (through the captured
+    step) bit-equal to the eager ``Chain.step`` fold."""
     C = signal.shape[0]
     by_B, counts_by_run = {}, {}
     shape = render_shape(signal, BLOCK_SIZES[0])
@@ -2407,7 +2116,6 @@ def compiled_render_phase(chains: dict, signal: torch.Tensor, n: int,
         cfg, chain = chains[B]
         captured = chain.captured_render()
         shape = render_shape(signal, B)
-        T = shape[-2] * B
         w0 = kdyn.state_walk_launch_count + kdyn.audio_walk_launch_count
         eager = eager_render(chain, signal, cfg)
         torch.cuda.synchronize()
@@ -2433,27 +2141,6 @@ def compiled_render_phase(chains: dict, signal: torch.Tensor, n: int,
         no_sync_equal = all(torch.equal(o, got) for o in synced)
         del synced
         captured.walks()
-
-        # timed in turns over chained passes, as throughput times them
-        runs = {"graph": [], "eager": []}
-        for kind in ("graph", "eager", "eager", "graph"):
-            fn = pt.render if kind == "graph" else eager_render
-            runs[kind].append(chained_ms(lambda o: fn(chain, o, cfg),
-                                         signal))
-        out_buf = captured.replay_input(shape)
-        copy_ms = time_ms(lambda: out_buf.clone())
-
-        def replay():
-            captured.replay_input(shape)
-            torch.cuda.synchronize()
-        replay_ms = host_ms(replay, runs=5)[1]
-        queued = queued_ms(lambda: captured.replay_input(shape), runs=5)
-        # the whole render (the signal into the input buffer, the replay,
-        # the output's copy) queued: the device's time of a render
-        render_queued = queued_ms(lambda: pt.render(chain, signal, cfg),
-                                  runs=5)
-        captured.walks()
-        graph_wall = statistics.mean(runs["graph"])
         r = {"blocks_shape": list(shape), "bit_equal_to_eager": bit_equal,
              "bit_equal_to_main_path": main_equal,
              "db_oracle_2ch": db_json(db_oracle), "oracle_samples": m,
@@ -2463,19 +2150,7 @@ def compiled_render_phase(chains: dict, signal: torch.Tensor, n: int,
              "settle_step_launches_one_replay": settles,
              "launches_per_replay_outside_while_nodes":
                  captured.launches_per_replay(shape),
-             "no_sync_replay_loop_equal": no_sync_equal,
-             "render_ms_in_turns": runs,
-             "replay_ms_host_clock": replay_ms,
-             "output_copy_ms": copy_ms,
-             "replay_device_ms_queued": queued,
-             "render_device_ms_queued": render_queued,
-             # host clock against the queued device time, unclamped: not
-             # the device's idle share (--profile traces that)
-             "host_clock_idle_ratio_of_the_graph_render":
-                 1.0 - render_queued["ms"] / graph_wall,
-             "samples_per_s": {k: C * T / statistics.mean(v) * 1e3
-                               for k, v in runs.items()},
-             "memory": render_memory(cfg, signal)}
+             "no_sync_replay_loop_equal": no_sync_equal}
         assert bit_equal and main_equal and no_sync_equal, r
         assert sum(device_walks) == eager_walks, r
         assert counts["audio_walk"] == eager_walks - 1 \
@@ -2491,7 +2166,7 @@ def compiled_render_phase(chains: dict, signal: torch.Tensor, n: int,
     cfg, chain = chains[B]
     burst = signal.clone()
     burst[:, int(BURST_SECONDS * SAMPLE_RATE):] = 0.0
-    effects = chain8_effects(cfg, "cuda")
+    effects = list(chain.effects)
     effects[4] = pt.ops.gate(cfg, -45.0, 0.1, 3.1, LONG_RELEASE_MS,
                              device="cuda")
     long_release = pt.Chain(effects, device="cuda")
@@ -2519,7 +2194,8 @@ def compiled_render_phase(chains: dict, signal: torch.Tensor, n: int,
         counts_by_run[f"burst_{name}"] = counts
         del want, got
     burst_runs["dynamics_pair_against_the_plain_render"] = plain_walks_case(
-        cfg, burst[:PLAIN_WALK_CHANNELS, :PLAIN_WALK_SAMPLES].contiguous())
+        chain.effects[3:5], cfg,
+        burst[:PLAIN_WALK_CHANNELS, :PLAIN_WALK_SAMPLES].contiguous())
     assert sum(burst_runs["chain8"]["walks"]) >= 2
     assert sum(burst_runs[f"chain8, gate release {LONG_RELEASE_MS:.0f} ms"][
         "walks"]) > 8, burst_runs
@@ -2662,9 +2338,8 @@ def long_windows(signal: torch.Tensor, n: int) -> dict:
     ``conv_pairs_step`` launch a step, held to the offline kernel render,
     the plain-version stream and a float64 oracle; (3) a 40,000-tap FIR
     offline at 64 ch x 30 s through its three partitions (one launch each,
-    the later ones adding into the output), held to the plain version and
-    the oracle, timed against one partition's window of 32,768 and against
-    partitions summed by ``torch.add`` instead of the accumulate mode; (4) a
+    the later ones adding into the output), held to the plain version, the
+    oracle and the partitions summed by ``torch.add``, and timed; (4) a
     65,000-tap FIR at B=4096: four partitions offline, and streamed in two
     (its window would be 69,099 samples), held to its offline render; (5) a
     lowcut at B=65,536 streamed in two sub-blocks; (6) chain8 at B=32,768,
@@ -2680,7 +2355,7 @@ def long_windows(signal: torch.Tensor, n: int) -> dict:
     # (1) the lowcut
     lowcut = pt.ops.lowcut(cfg, 120.0, device="cuda")
     p = lowcut.params
-    outs, _, _, counts = stream_run(pt.Chain([lowcut], device="cuda"), cfg, x)
+    outs, counts = stream_run(pt.Chain([lowcut], device="cuda"), cfg, x)
     streamed = torch.cat(outs, dim=-1)
     assert counts["conv_pairs"] == LONG_STEPS and sum(counts.values()) \
         == LONG_STEPS, counts
@@ -2697,9 +2372,6 @@ def long_windows(signal: torch.Tensor, n: int) -> dict:
         "blocks": convpairs.blocks_for(p.stream.n, C), "launches": counts,
         "db_offline": db_json(dbs[0]), "db_plain_stream": db_json(dbs[1]),
         "db_oracle_2ch": db_json(dbs[2]),
-        "step_ms": {VERSION_NAMES[b]: queued_ms(
-            lambda: convpairs._launch_step(hist, x[:, :B], p.stream, b))["ms"]
-            for b in convpairs.versions(p.stream.n)},
         "versions_bit_equal": all(torch.equal(
             convpairs._launch_step(hist, x[:, :B], p.stream, b)[0],
             convpairs.conv_pairs_step(hist, x[:, :B], p.stream, p.lead)[0])
@@ -2710,10 +2382,9 @@ def long_windows(signal: torch.Tensor, n: int) -> dict:
     del streamed, offline, plain, outs
 
     # (2) chain8
-    chain = pt.Chain(chain8_effects(cfg, "cuda"), device="cuda")
-    assert [e.name for e in chain.exec_effects] == CHAIN8_NAMES
+    _, chain = chain8(B)
     fir_e, dyn_e, _ = chain.exec_effects
-    outs, _, _, counts = stream_run(chain, cfg, x)
+    outs, counts = stream_run(chain, cfg, x)
     streamed = torch.cat(outs, dim=-1)
     assert counts["conv_pairs"] == counts["serial_walk"] == LONG_STEPS \
         and sum(counts.values()) == 2 * LONG_STEPS, counts
@@ -2753,6 +2424,7 @@ def long_windows(signal: torch.Tensor, n: int) -> dict:
                         kernel)
     db_plain, db_oracle = snr_db_cuda(plain, got), snr_db(
         oracle, got[[0, C - 1], :ORACLE_EXCERPT].cpu().numpy())
+    max_err = float((got - plain).abs().max())
     del plain
 
     def summed_by_add():
@@ -2768,14 +2440,8 @@ def long_windows(signal: torch.Tensor, n: int) -> dict:
                         "halo": q.halo, "seg": q.seg, "blocks": q.blocks}
                        for q in plans],
         "db_plain": db_json(db_plain), "db_oracle_2ch": db_json(db_oracle),
-        "oracle_samples": ORACLE_EXCERPT,
-        "max_abs_err": float((got - segconv.partitioned_conv(
-            xm, plans, use_kernels=False)).abs().max()),
+        "oracle_samples": ORACLE_EXCERPT, "max_abs_err": max_err,
         "ms": time_ms(lambda: segconv.partitioned_conv(xm, plans)),
-        "one_partition_ms": time_ms(lambda: segconv._launch(xm, plans[0])),
-        "summed_by_torch_add_ms": time_ms(summed_by_add),
-        "plain_ms": time_ms(lambda: segconv.partitioned_conv(
-            xm, plans, use_kernels=False), runs=1),
         **bound(rl.conv_cost_from_params(C, Tm, fir.params))}
     assert db_plain >= CONV_DB_PLAIN and db_oracle >= CONV_DB_ORACLE, r
     del got, xm
@@ -2790,13 +2456,11 @@ def long_windows(signal: torch.Tensor, n: int) -> dict:
                           use_kernels=False)
     db = snr_db_cuda(want, got)
     cfg4 = pt.EngineConfig(SAMPLE_RATE, 4096)
-    outs, _, _, counts = stream_run(pt.Chain([longer], device="cuda"), cfg4,
-                                    xs)
+    outs, counts = stream_run(pt.Chain([longer], device="cuda"), cfg4, xs)
     streamed = torch.cat(outs, dim=-1)
     assert counts["conv_pairs"] == 2 * LONGER_STEPS \
         and sum(counts.values()) == 2 * LONGER_STEPS, counts
     db_stream = snr_db_cuda(got.reshape(C, -1), streamed)
-    hist = torch.randn((C, longer.params.history), device="cuda")
     r["longer_fir"] = {
         "taps": LONGER_FIR_TAPS, "B": 4096,
         "partitions": len(longer.params.plans), "db_plain": db_json(db),
@@ -2807,8 +2471,6 @@ def long_windows(signal: torch.Tensor, n: int) -> dict:
         "steps": LONGER_STEPS, "launches": counts,
         "launches_a_step": counts["conv_pairs"] // LONGER_STEPS,
         "db_stream_to_offline": db_json(db_stream),
-        "step_queued": queued_ms(lambda: longer.step(
-            longer.params, {"hist": hist}, xs[:, :4096])),
         **step_vs_plain(longer, xs[:, :4096])}
     assert db >= CONV_DB_PLAIN and db_stream >= STREAM_FIR_DB, r
     del got, want, streamed, outs, xs
@@ -2818,7 +2480,7 @@ def long_windows(signal: torch.Tensor, n: int) -> dict:
     cfgw = pt.EngineConfig(SAMPLE_RATE, Bw)
     wide = pt.ops.lowcut(cfgw, 120.0, device="cuda")
     xw = signal[:, :WIDE_STEPS * Bw].contiguous()
-    outs, _, _, counts = stream_run(pt.Chain([wide], device="cuda"), cfgw, xw)
+    outs, counts = stream_run(pt.Chain([wide], device="cuda"), cfgw, xw)
     n_parts = len(wide.params.parts)
     assert n_parts == 2 and counts["conv_pairs"] == n_parts * WIDE_STEPS \
         and sum(counts.values()) == n_parts * WIDE_STEPS, counts
@@ -2835,12 +2497,10 @@ def long_windows(signal: torch.Tensor, n: int) -> dict:
 
     # (6) chain8 at B=32,768: the three filters fuse (two partitions)
     Bc = 32768
-    cfgc = pt.EngineConfig(SAMPLE_RATE, Bc)
-    chain = pt.Chain(chain8_effects(cfgc, "cuda"), device="cuda")
-    assert [e.name for e in chain.exec_effects] == CHAIN8_NAMES
+    cfgc, chain = chain8(Bc)
     fir_e = chain.exec_effects[0]
     xc = signal[:, :WIDE_STEPS * 2 * Bc].contiguous()
-    outs, _, _, counts = stream_run(chain, cfgc, xc)
+    outs, counts = stream_run(chain, cfgc, xc)
     steps = WIDE_STEPS * 2
     assert counts["conv_pairs"] == len(fir_e.params.parts) * steps \
         and counts["serial_walk"] == steps, counts
@@ -2863,13 +2523,13 @@ SPIN_CYCLES = 40_000_000
 SPIN_TRIES = 4
 
 
-def queued_ms(fn, runs: int = 50) -> dict:
-    """Device time per call of a kernel that is over in microseconds: the
-    launches are queued behind a spin kernel, so they run back to back and
-    the host's pace (which is what a plain event pair around them would
-    measure) does not show. ``host_ms`` is what one call costs the host.
-    A try whose spin ended before the last launch was queued is thrown away
-    and made again behind a longer spin; after ``SPIN_TRIES`` it raises."""
+def queued_ms(fn, runs: int = 50) -> float:
+    """Device time (ms) per call of a kernel that is over in microseconds:
+    the launches are queued behind a spin kernel, so they run back to back
+    and the host's pace (which is what a plain event pair around them would
+    measure) does not show. A try whose spin ended before the last launch
+    was queued is thrown away and made again behind a longer spin; after
+    ``SPIN_TRIES`` it raises."""
     fn()
     torch.cuda.synchronize()
     spin = SPIN_CYCLES
@@ -2877,17 +2537,14 @@ def queued_ms(fn, runs: int = 50) -> dict:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(spin)
-        t0 = time.perf_counter()
         a.record()
         for _ in range(runs):
             fn()
         b.record()
-        host_s = time.perf_counter() - t0
         still_spinning = not a.query()
         torch.cuda.synchronize()
         if still_spinning:
-            return {"ms": a.elapsed_time(b) / runs,
-                    "host_ms": host_s * 1e3 / runs}
+            return a.elapsed_time(b) / runs
         spin *= 4
     raise RuntimeError(
         f"the spin ended before the launches were queued, {SPIN_TRIES} "
@@ -2928,25 +2585,18 @@ def time_stream_kernels(chain, cfg, streamed_in: torch.Tensor,
         name = VERSION_NAMES[blocks]
         v = versions.setdefault(name, {"conv_pairs_ms": [], "step_ms": []})
         v["conv_pairs_ms"].append(queued_ms(lambda: convpairs._launch(
-            rows, plan, blocks))["ms"])
+            rows, plan, blocks)))
         v["step_ms"].append(queued_ms(lambda: convpairs._launch_step(
-            hist, block, plan, blocks))["ms"])
-
-    def join_convolve_slice():
-        # the FIR stage of a step before the step entry point: three launches
-        j = torch.cat([hist, block], dim=-1)
-        o = convpairs._launch(j[:, :n], plan, 1)
-        return o[:, n - B:].contiguous(), j[:, B:]
-
+            hist, block, plan, blocks)))
     q_step = queued_ms(lambda: convpairs.conv_pairs_step(hist, block, plan,
                                                          lead))
     plain_ms = queued_ms(lambda: convpairs.conv_pairs_step(
-        hist, block, plan, lead, use_kernels=False))["ms"]
+        hist, block, plan, lead, use_kernels=False))
     # the one call that computes the window's convolution; it is given the
     # window already joined and leaves the history to the caller
     library_ms = queued_ms(lambda: torch.fft.irfft(
         torch.fft.rfft(dense, dim=-1) * plan.spectrum_rfft, n=n,
-        dim=-1))["ms"]
+        dim=-1))
     # The headline figures are those of the entry point the main path
     # launches, the step: it reads history and block once and writes the
     # block's output and the next history once. `conv_pairs` on the same
@@ -2957,20 +2607,17 @@ def time_stream_kernels(chain, cfg, streamed_in: torch.Tensor,
         "version": VERSION_NAMES[convpairs.blocks_for(n, C)],
         "db_plain": db_json(snr_db_cuda(plain, got)),
         "max_abs_err": float((out - plain[:, n - B:]).abs().max()),
-        "ms": q_step["ms"], "host_ms_per_call": q_step["host_ms"],
+        "ms": q_step,
         # the same step, GRAPH_STEPS of them captured in one CUDA graph
         "in_graph_ms": graph_ms(lambda: convpairs.conv_pairs_step(
             hist, block, plan, lead)),
         "step_equal_conv_pairs": True,
-        "step_as_join_convolve_slice_3_launches_ms":
-            queued_ms(join_convolve_slice)["ms"],
         "plain_ms": plain_ms, "library_ms": library_ms,
-        **roofline_row(rl.conv_pairs_cost(C, n, H, B), ms=q_step["ms"],
+        **roofline_row(rl.conv_pairs_cost(C, n, H, B), ms=q_step,
                        plain_ms=plain_ms, library_ms=library_ms),
-        "conv_pairs_ms": q["ms"],
-        "conv_pairs_host_ms_per_call": q["host_ms"],
+        "conv_pairs_ms": q,
         "conv_pairs_plain_ms": queued_ms(lambda: convpairs.conv_pairs(
-            rows, plan, use_kernels=False))["ms"],
+            rows, plan, use_kernels=False)),
         "conv_pairs_bound_ms": bound(rl.conv_pairs_cost(C, n))["bound_ms"],
         "versions": versions}
     # row 7: the step's block, from REST
@@ -2999,15 +2646,14 @@ def time_stream_kernels(chain, cfg, streamed_in: torch.Tensor,
                    and new_state[j][f].dtype == want[f].dtype
                    for f in kdyn.FIELDS), j
     q_step = queued_ms(lambda: dyn_e.step(dyn_e.params, state, x), runs=20)
-    # the same block through the offline audio walk at one segment: one
-    # thread a channel, the design before the serial walk's
+    # the same block through the offline audio walk at one segment
     a_out, a_z = kdyn.audio_walk(scalars, x, 1, B, entry)
     assert torch.equal(a_out, out) and torch.equal(a_z, z)
     # one sample of the dependent chain: two one-round walks of silence that
     # differ only in the segment's length
     silence = torch.zeros_like(x)
     one_round = {k: queued_ms(lambda: kdyn._launch_serial(
-        scalars, silence, entry, lseg=k), runs=30)["ms"] for k in (7, 8)}
+        scalars, silence, entry, lseg=k), runs=30) for k in (7, 8)}
     sample_ns = (one_round[8] - one_round[7]) / 128 * 1e6
     lseg, segments, threads = kdyn.serial_geometry(B)
     timing["serial_walk"][B] = {
@@ -3020,13 +2666,10 @@ def time_stream_kernels(chain, cfg, streamed_in: torch.Tensor,
         # (the 4-field state read and written by the kernel); the walk on
         # encoded states stands beside it
         "headline_is": "cascade_step(scalars, params, states, block)",
-        "ms": q_step["ms"], "host_ms_per_call": q_step["host_ms"],
+        "ms": q_step,
         "in_graph_ms": graph_ms(lambda: dyn_e.step(dyn_e.params, state, x)),
-        "serial_walk_ms": q["ms"],
-        "serial_walk_host_ms_per_call": q["host_ms"],
+        "serial_walk_ms": q,
         "cascade_step_equal_walk_and_decoded_states": True,
-        "audio_walk_one_segment_ms": queued_ms(
-            lambda: kdyn.audio_walk(scalars, x, 1, B, entry), runs=20)["ms"],
         "dependent_chain_ns_per_sample": sample_ns,
         # rounds x segment x one sample's dependent chain: what this design
         # cannot go below on this data, launch aside
@@ -3036,7 +2679,7 @@ def time_stream_kernels(chain, cfg, streamed_in: torch.Tensor,
                           "host clock",
         "library_ms": None,
         **roofline_row(rl.serial_walk_cost(C, B, len(scalars)),
-                       ms=q_step["ms"], plain_ms=plain_ms)}
+                       ms=q_step, plain_ms=plain_ms)}
 
 
 def sweep_serial_segments(chain, cfg) -> dict:
@@ -3062,7 +2705,7 @@ def sweep_serial_segments(chain, cfg) -> dict:
                 f"a segment of {1 << lseg} samples changes the result"
             row[str(1 << lseg)] = [int(rounds.max()), queued_ms(
                 lambda: kdyn._launch_serial(scalars, x, entry, lseg=lseg),
-                runs=30)["ms"]]
+                runs=30)]
         table[name] = row
     return table
 
@@ -3088,8 +2731,7 @@ def time_full_batch() -> dict:
     by_rows = {}
     for rows in (64, 80, 96, 112, 128, 256, 1024, R):
         xr = x[:rows]
-        timer = time_ms if rows >= 1024 else \
-            (lambda fn: queued_ms(fn)["ms"])
+        timer = time_ms if rows >= 1024 else queued_ms
         by_rows[str(rows)] = {
             "chosen": VERSION_NAMES[convpairs.blocks_for(n, rows)],
             **{VERSION_NAMES[b]: [timer(lambda: convpairs._launch(xr, plan, b))
@@ -3123,21 +2765,39 @@ def time_cluster_by_window() -> dict:
         table[str(n)] = {
             "chosen": VERSION_NAMES[convpairs.blocks_for(n, CHANNELS)],
             "step_ms": queued_ms(lambda: convpairs.conv_pairs_step(
-                hist, blk, plan, 0))["ms"],
+                hist, blk, plan, 0)),
             **{VERSION_NAMES[b]: [queued_ms(lambda: convpairs._launch(
-                x, plan, b))["ms"] for _ in range(2)]
+                x, plan, b)) for _ in range(2)]
                for b in convpairs.versions(n)}}
         n *= 2
     return table
 
 
-def profile_stream(chain, cfg, signal, wall_ms_per_step: float,
-                   steps: int, eager: bool = False) -> dict:
+def device_ms_by_name(prof, calls: int, top: int) -> dict:
+    """The ``top`` device-side entries of a profile by kernel name, ms a
+    call over ``calls`` calls, and the device launches a call. Device-side
+    entries only: a PyTorch operator's entry repeats the time of the
+    kernels it launched."""
+    by_name, launches = {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = getattr(ev, "self_cuda_time_total", 0.0)
+        if us > 0:
+            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3 / calls
+            launches += ev.count
+    return {"device_launches_per_call": launches / calls,
+            "device_ms_per_call_by_name": dict(
+                sorted(by_name.items(), key=lambda kv: -kv[1])[:top])}
+
+
+def profile_stream(chain, cfg, signal, steps: int,
+                   eager: bool = False) -> dict:
     """Device time of ``steps`` streaming steps under ``torch.profiler``, by
-    kernel name, and the device's idle share of a step: 1 - busy time over
-    ``wall_ms_per_step`` (taken WITHOUT the profiler, see profile_renders).
-    The steps are a StreamProcessor's (graph replays), or with ``eager``
-    the eager ``Chain.step``'s."""
+    kernel name. The steps are a StreamProcessor's (graph replays), or with
+    ``eager`` the eager ``Chain.step``'s."""
     from torch.profiler import ProfilerActivity, profile
 
     C, B = signal.shape[0], cfg.block_size
@@ -3158,70 +2818,31 @@ def profile_stream(chain, cfg, signal, wall_ms_per_step: float,
         for i in range(8, 8 + steps):
             step(signal[:, i * B:(i + 1) * B])
         torch.cuda.synchronize()
-    by_name, launches = {}, 0
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        if us > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3 / steps
-            launches += ev.count
-    if not by_name:
+    r = {"steps": steps, **device_ms_by_name(prof, steps, 6)}
+    if not r["device_ms_per_call_by_name"]:
         if eager:
             raise RuntimeError("torch.profiler recorded no device time")
-        # the profiler may not see the kernels inside a graph's replay:
-        # compiled_step's queued replays give the device time instead
-        return {"steps": steps, "device_busy_ms_per_step": None,
-                "wall_ms_per_step": wall_ms_per_step,
-                "profiler": "recorded no device time in the graph replays"}
-    busy_ms = sum(by_name.values())
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
-    return {"steps": steps, "device_launches_per_step": launches / steps,
-            "device_busy_ms_per_step": busy_ms,
-            "wall_ms_per_step": wall_ms_per_step,
-            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms_per_step),
-            "device_ms_per_step_by_name": top}
+        # the profiler may not see the kernels inside a graph's replay
+        r["profiler"] = "recorded no device time in the graph replays"
+    return r
 
 
-def profile_renders(chain, signal, cfg, render_ms: float, passes: int = 3,
-                    eager: bool = False) -> dict:
-    """Device time of ``passes`` chained renders under ``torch.profiler``, by
-    kernel name, and the device's idle share of one render: 1 - busy time
-    over ``render_ms`` (the host-clock render time taken WITHOUT the profiler,
-    whose own cost would otherwise count as idleness). The captured render
-    (``render``), or with ``eager`` the eager one."""
+def profile_renders(chain, signal, cfg, passes: int = 3) -> dict:
+    """Device time of ``passes`` chained captured renders (``render``) under
+    ``torch.profiler``, by kernel name."""
     from torch.profiler import ProfilerActivity, profile
 
-    run = eager_render if eager else pt.render
-    o = run(chain, signal, cfg)
+    o = pt.render(chain, signal, cfg)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(passes):
-            o = run(chain, o, cfg)
+            o = pt.render(chain, o, cfg)
         torch.cuda.synchronize()
-    if not eager:
-        chain.captured_render().walks()
-    by_name = {}
-    for ev in prof.key_averages():
-        # device-side entries only: a PyTorch operator's entry repeats the
-        # time of the kernels it launched
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        us = getattr(ev, "self_device_time_total", None)
-        if us is None:
-            us = getattr(ev, "self_cuda_time_total", 0.0)
-        if us > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + us / 1e3 / passes
-    if not by_name:
+    chain.captured_render().walks()
+    r = {"passes": passes, **device_ms_by_name(prof, passes, 8)}
+    if not r["device_ms_per_call_by_name"]:
         raise RuntimeError("torch.profiler recorded no device time")
-    busy_ms = sum(by_name.values())
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
-    return {"passes": passes, "device_busy_ms_per_render": busy_ms,
-            "render_ms": render_ms,
-            "device_idle_share": max(0.0, 1.0 - busy_ms / render_ms),
-            "device_ms_per_render_by_name": top}
+    return r
 
 
 # ---------------------------------------------------------------------------
@@ -3230,8 +2851,8 @@ def profile_renders(chain, signal, cfg, render_ms: float, passes: int = 3,
 REVERB_MS = 1500.0
 # Blocks the reverb streams at B=512 (11.6 s of audio, past its 1.5 s).
 REVERB_STREAM_BLOCKS = 1000
-# The reverb's bars: its two routes are the conv kernel's (and the tail's)
-# rounding away from their plain versions, like row 1's (CONV_DB_PLAIN); the
+# The reverb's bars: its offline is the conv kernel's rounding away from its
+# plain version, like row 1's (CONV_DB_PLAIN); the
 # oracle holds a 65,000-tap response, whose float32 sum of products sits a
 # little further from float64 than a short filter's: 100 dB. The stream runs
 # other windows than the offline render: the chain bar, 90 dB.
@@ -3245,21 +2866,6 @@ EQ_STREAM_BLOCKS = 300
 # bar for its double-float scan.
 EQ_DB_ORACLE = 100.0
 COMPAT_CHUNK = 512
-
-
-def chained_ms(fn, x, passes: int = 3) -> float:
-    """Host-clock median of ``passes`` chained calls ``o = fn(o)``, each
-    ended by a synchronisation, after a warm-up call."""
-    fn(x)
-    torch.cuda.synchronize()
-    times, o = [], x
-    for _ in range(passes):
-        t0 = time.perf_counter()
-        o = fn(o)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-    assert bool(torch.isfinite(o).all())
-    return statistics.median(times) * 1e3
 
 
 def counted(fn):
@@ -3277,16 +2883,12 @@ def render_shape(signal: torch.Tensor, B: int) -> tuple:
     return tuple(signal.shape[:-1]) + (-(-signal.shape[-1] // B), B)
 
 
-def prepare_render(chain, signal: torch.Tensor, cfg) -> float:
+def prepare_render(chain, signal: torch.Tensor, cfg) -> None:
     """Capture the chain's render for the signal's blocks shape (its warm-up
     on a side stream included; nothing if captured before), so that a
-    counted ``render`` counts one replay's launches. Returns the ms it
-    took, the device drained."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    counted ``render`` counts one replay's launches."""
     chain.captured_render().capture(render_shape(signal, cfg.block_size))
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3
 
 
 def eager_render(chain, signal: torch.Tensor, cfg) -> torch.Tensor:
@@ -3298,14 +2900,11 @@ def eager_render(chain, signal: torch.Tensor, cfg) -> torch.Tensor:
 
 def reverb_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
     """reverb(1500) at 64 ch x 30 s: offline at both block sizes through
-    ``render`` (route (a), the effect's own: the combined kernel in 4 / 5
-    partitions) and through route (b) (each line's high-cut through the
-    conv, its taps through the tail kernel), both timed (host clock, median
-    of 3 chained passes) and held to the plain version and a float64
-    oracle; then streamed at B=512 through StreamProcessor for 1,000 blocks
-    (two ``conv_pairs_step`` launches a step: the lines' high-cuts), its step
-    times beside the 11.61 ms block and its output held to the offline
-    render."""
+    ``render`` (the effect's ``offline_fir``: the combined kernel in 4 / 5
+    segconv partitions), held to the plain version and a float64 oracle;
+    then streamed at B=512 through StreamProcessor for 1,000 blocks (two
+    ``conv_pairs_step`` launches a step: the lines' high-cuts), bit-equal to
+    the eager fold and held to the offline render."""
     C = signal.shape[0]
     pick = [0, C - 1]
     runs = {}
@@ -3315,66 +2914,31 @@ def reverb_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
     for B in BLOCK_SIZES:
         cfg = pt.EngineConfig(SAMPLE_RATE, B)
         eff = pt.ops.reverb(cfg, REVERB_MS, device="cuda")
+        assert eff.offline is offline_fir
         chain = pt.Chain([eff], device="cuda")
         T = -(-n // B) * B
         x = torch.nn.functional.pad(signal, (0, T - n)).contiguous()
         blocks = x.reshape(C, T // B, B)
         prepare_render(chain, signal, cfg)
-        out, counts_a = counted(lambda: pt.render(chain, signal, cfg))
+        out, counts = counted(lambda: pt.render(chain, signal, cfg))
         parts = len(eff.params.full.plans)
-        assert counts_a["segconv"] == parts \
-            and sum(counts_a.values()) == parts, counts_a
-        out_b, counts_b = counted(lambda: offline_lines(eff.params, blocks))
-        assert counts_b["segconv"] == 2 and counts_b["tail"] == 2 \
-            and sum(counts_b.values()) == 4, counts_b
+        assert counts["segconv"] == parts \
+            and sum(counts.values()) == parts, counts
         plain = eff.offline(eff.params, blocks, use_kernels=False
                             ).reshape(C, T)
         oracle = fft_conv64(x[pick, :ORACLE_EXCERPT].cpu().numpy(),
                             eff.lti_kernel)
-        dbs = {"a_db_plain": snr_db_cuda(plain, out),
-               "b_db_plain": snr_db_cuda(plain, out_b.reshape(C, T)),
-               "a_db_oracle_2ch": snr_db(
-                   oracle, out[pick, :ORACLE_EXCERPT].cpu().numpy()),
-               "b_db_oracle_2ch": snr_db(oracle, out_b.reshape(C, T)[
-                   pick, :ORACLE_EXCERPT].cpu().numpy())}
-        del plain, out_b
-        line = eff.params.line1
-        y1 = fft_filter.fir_offline(line.highcut, blocks).reshape(C, T)
-        tplan = reverb_lines_tail_plan(line, y1.device)
+        dbs = {"db_plain": snr_db_cuda(plain, out),
+               "db_oracle_2ch": snr_db(
+                   oracle, out[pick, :ORACLE_EXCERPT].cpu().numpy())}
+        del plain
         rb = {"partitions": parts, "stripped_taps": eff.params.full.kernel_len,
-              "launches_a": counts_a, "launches_b": counts_b,
-              **{k: db_json(v) for k, v in dbs.items()},
-              "a_render_ms": chained_ms(
-                  lambda o: pt.render(chain, o, cfg), signal),
-              "a_ms": chained_ms(lambda o: offline_fir(eff.params, o),
-                                 blocks),
-              "b_ms": chained_ms(lambda o: offline_lines(eff.params, o),
-                                 blocks),
-              "a_events_ms": time_ms(lambda: offline_fir(eff.params, blocks)),
-              "b_events_ms": time_ms(lambda: offline_lines(eff.params,
-                                                           blocks)),
-              "b_line1_highcut_segconv_ms": time_ms(
-                  lambda: fft_filter.fir_offline(line.highcut, blocks)),
-              "b_line1_taps_tail_ms": time_ms(
-                  lambda: tail.tail_kernel(tplan, y1, None)),
-              "b_line1_tail_geometry": {"tile": tplan.tile,
-                                        "rings_in_shared_memory":
-                                            tplan.ring_smem,
-                                        "halo": tplan.halo},
-              "partition_ms": time_ms(lambda: segconv._launch(
-                  x, eff.params.full.plans[0])),
-              "plain_ms": time_ms(lambda: eff.offline(
-                  eff.params, blocks, use_kernels=False), runs=1)}
-        rb["faster_route"] = "a" if rb["a_ms"] <= rb["b_ms"] else "b"
-        del y1
-        assert dbs["a_db_plain"] >= CONV_DB_PLAIN \
-            and dbs["b_db_plain"] >= CONV_DB_PLAIN, rb
-        assert dbs["a_db_oracle_2ch"] >= REVERB_DB_ORACLE \
-            and dbs["b_db_oracle_2ch"] >= REVERB_DB_ORACLE, rb
+              "launches": counts, **{k: db_json(v) for k, v in dbs.items()}}
+        assert dbs["db_plain"] >= CONV_DB_PLAIN, rb
+        assert dbs["db_oracle_2ch"] >= REVERB_DB_ORACLE, rb
         r["by_block_size"][str(B)] = rb
-        runs[f"offline_a_{B}"], runs[f"offline_b_{B}"] = counts_a, counts_b
+        runs[f"offline_{B}"] = counts
         del out, x, blocks
-    r["route_of_offline"] = "a" if eff.offline is offline_fir else "b"
 
     # streamed at B=512
     B = 512
@@ -3382,29 +2946,21 @@ def reverb_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
     eff = pt.ops.reverb(cfg, REVERB_MS, device="cuda")
     chain = pt.Chain([eff], device="cuda")
     xs = signal[:, :REVERB_STREAM_BLOCKS * B].contiguous()
-    outs, step_s, wall_s, counts = stream_run(chain, cfg, xs)
+    outs, counts = stream_run(chain, cfg, xs)
     assert counts["conv_pairs"] == 2 * REVERB_STREAM_BLOCKS \
         and sum(counts.values()) == 2 * REVERB_STREAM_BLOCKS, counts
     runs["stream_512"] = counts
     streamed = torch.cat(outs, dim=-1)
-    e_outs, e_step_s, e_wall_s, e_counts = eager_run(chain, cfg, xs)
+    e_outs, e_counts = eager_run(chain, cfg, xs)
     eager_equal = torch.equal(torch.cat(e_outs, dim=-1), streamed)
     del e_outs
     assert eager_equal and e_counts == counts, (eager_equal, e_counts)
     db = snr_db_cuda(pt.render(chain, xs, cfg), streamed)
-    hist = torch.zeros((C, eff.params.line1.highcut.history), device="cuda")
     r["stream"] = {"B": B, "launches": counts,
                    "db_offline": db_json(db),
                    "line_step_window": eff.params.line1.highcut.stream.n,
-                   "line_highcut_step_queued": queued_ms(
-                       lambda: fft_filter.fir_step(
-                           eff.params.line1.highcut, {"hist": hist},
-                           xs[:, :B])),
                    "through": "the captured step (StreamProcessor)",
-                   **step_stats(step_s, wall_s, cfg.block_duration_ms),
-                   "bit_equal_to_eager_fold": eager_equal,
-                   "eager": step_stats(e_step_s, e_wall_s,
-                                       cfg.block_duration_ms)}
+                   "bit_equal_to_eager_fold": eager_equal}
     assert db >= STREAM_DB, r
     return r
 
@@ -3453,10 +3009,10 @@ def eq3band_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
                          x[pick, :m].cpu().numpy())
     rec = eq_recurrence(eff.params, blocks).reshape(C, T)
     xs = x[:, :m].contiguous()
-    outs, step_s, wall_s, scounts = stream_run(chain, cfg, xs)
+    outs, scounts = stream_run(chain, cfg, xs)
     assert sum(scounts.values()) == 0, scounts
     streamed = torch.cat(outs, dim=-1)
-    e_outs, e_step_s, e_wall_s, _ = eager_run(chain, cfg, xs)
+    e_outs, _ = eager_run(chain, cfg, xs)
     eager_equal = torch.equal(torch.cat(e_outs, dim=-1), streamed)
     del e_outs
     dbs = {"fir_db_oracle_2ch": snr_db(oracle, out[pick, :m].cpu().numpy()),
@@ -3474,16 +3030,8 @@ def eq3band_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
                            "stream_512": scounts},
          **{k: db_json(v) for k, v in dbs.items()},
          "oracle_samples": m,
-         "fir_render_ms": chained_ms(lambda o: pt.render(chain, o, cfg),
-                                     signal),
-         "fir_segconv_ms": time_ms(lambda: eff.offline(eff.params, blocks)),
-         "recurrence_offline_ms": time_ms(
-             lambda: eq_recurrence(eff.params, blocks), runs=1),
          "stream": {"through": "the captured step (StreamProcessor)",
-                    **step_stats(step_s, wall_s, cfg.block_duration_ms),
-                    "bit_equal_to_eager_fold": eager_equal,
-                    "eager": step_stats(e_step_s, e_wall_s,
-                                        cfg.block_duration_ms)},
+                    "bit_equal_to_eager_fold": eager_equal},
          "nvidia_smi": smi}
     assert eager_equal, r
     assert all(v >= EQ_DB_ORACLE for k, v in dbs.items() if "oracle" in k), r
@@ -3492,15 +3040,13 @@ def eq3band_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
     return r
 
 
-def eager_chunk_loop(effects, chunks) -> tuple[list, list]:
+def eager_chunk_loop(effects, chunks) -> list:
     """The compat chunk loop with each effect's eager step, numpy in and
     out of every device as ``apply`` did before the steps were captured:
-    (per-chunk seconds, outputs)."""
+    the outputs."""
     states = [e.state() for e in effects]
-    times, outs = [], []
-    torch.cuda.synchronize()
+    outs = []
     for c in chunks:
-        t0 = time.perf_counter()
         y = c
         for j, e in enumerate(effects):
             blk = torch.from_numpy(np.ascontiguousarray(
@@ -3508,18 +3054,17 @@ def eager_chunk_loop(effects, chunks) -> tuple[list, list]:
             with torch.inference_mode():
                 states[j], out = e.step(e.params, states[j], blk)
             y = out.cpu().numpy()
-        times.append(time.perf_counter() - t0)
         outs.append(y)
-    return times, outs
+    return outs
 
 
 def compat_phase(signal: torch.Tensor, n: int, workdir: str,
                  smi: str) -> dict:
     """The reference's own usage through the drop-in API on one mono
     channel of 30 s: ``config.initialize(44100, 512)``, a chain of devices
-    applied chunk by chunk with numpy in and out, each chunk's time beside
-    the 11.61 ms chunk, the output held to the same effects' ``Chain``
-    render on the card; then the CLI once on a 2-channel wav."""
+    applied chunk by chunk with numpy in and out, bit-equal to the same
+    loop of eager steps and held to the same effects' ``Chain`` render on
+    the card; then the CLI once on a 2-channel wav."""
     compat.config.initialize(SAMPLE_RATE, COMPAT_CHUNK)
     low = compat.CreateLowCutFilter(800)
     eq = compat.CreateEQ3Band(*EQ_ARGS)
@@ -3536,23 +3081,17 @@ def compat_phase(signal: torch.Tensor, n: int, workdir: str,
     chunks = compat.MakeChunks(x)
     # each device's first chunk of a length captures its step (the JAX
     # devices compile at their first apply): one silent chunk, then reset
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     for d in in_order:
         d.apply(np.zeros(COMPAT_CHUNK, np.float32))
         d.reset()
-    torch.cuda.synchronize()
-    capture_ms = (time.perf_counter() - t0) * 1e3
-    times, outs = [], []
+    outs = []
     torch.cuda.synchronize()
     zero_launch_counts()
     for c in chunks:
-        t0 = time.perf_counter()
         y = low.apply(c)
         y = eq.applyhighband(eq.applymidband(eq.applylowband(y)))
         y = clip.apply(trem.apply(delay.apply(gate.apply(comp.apply(y)))))
         y = rev.applyreverb(y)
-        times.append(time.perf_counter() - t0)
         outs.append(y)
     counts = launch_counts()
     k = len(chunks)
@@ -3565,10 +3104,9 @@ def compat_phase(signal: torch.Tensor, n: int, workdir: str,
     assert got.shape == (k * COMPAT_CHUNK,) and np.isfinite(got).all()
     # the same chunk loop with each effect stepped eagerly, as ``apply`` did
     # before the steps were captured
-    e_times, e_outs = eager_chunk_loop([d._effect for d in in_order], chunks)
+    e_outs = eager_chunk_loop([d._effect for d in in_order], chunks)
     eager_equal = np.array_equal(compat.CombineChunks(e_outs), got)
     assert eager_equal, int((compat.CombineChunks(e_outs) != got).sum())
-    e_ms = [t * 1e3 for t in e_times]
     effects = [low._effect, eq._low._effect, eq._mid._effect,
                eq._high._effect, comp._effect, gate._effect, delay._effect,
                trem._effect, clip._effect, rev._effect]
@@ -3576,30 +3114,14 @@ def compat_phase(signal: torch.Tensor, n: int, workdir: str,
     chain = pt.Chain(effects, device="cuda")
     want = pt.render(chain, torch.from_numpy(x)[None].cuda(), cfg)[0]
     db = snr_db(want.cpu().numpy()[:len(got)], got)
-    ms = [t * 1e3 for t in times]
     r = {"phase": "compat", "chunks": k, "chunk": COMPAT_CHUNK,
          "devices": [type(d).__name__ for d in
                      (low, eq, comp, gate, delay, trem, clip, rev)],
          "launch_counts": {"chunk_loop": counts},
-         "offline_chain": [e.name for e in
-                                               chain.exec_effects],
+         "offline_chain": [e.name for e in chain.exec_effects],
          "db_offline_chain": db_json(db),
-         "apply_median_ms": statistics.median(ms),
-         "apply_p99_ms": percentile(ms, 99), "apply_max_ms": max(ms),
-         "apply_first_ms": ms[0], "apply_max_after_first_ms": max(ms[1:]),
-         "chunks_over_budget": sum(t > cfg.block_duration_ms for t in ms),
-         "chunk_budget_ms": cfg.block_duration_ms,
          "through": "each device's captured step",
-         "warm_and_capture_all_devices_ms": capture_ms,
          "bit_equal_to_eager_loop": eager_equal,
-         "eager": {"apply_median_ms": statistics.median(e_ms),
-                   "apply_p99_ms": percentile(e_ms, 99),
-                   "apply_max_ms": max(e_ms)},
-         "compressor_step_queued_1ch": queued_ms(
-             lambda: comp._effect.step(comp._effect.params,
-                                       comp._state,
-                                       torch.zeros((COMPAT_CHUNK,),
-                                                   device="cuda"))),
          "nvidia_smi": smi}
     assert db >= STREAM_DB, r
     # the CLI, once, on a 2-channel wav written here
@@ -3613,15 +3135,13 @@ def compat_phase(signal: torch.Tensor, n: int, workdir: str,
              "high_shelf_db": 4.0},
             {"op": "compressor", "threshold_db": -18.0},
             {"op": "reverb", "time_in_ms": 300.0}, {"op": "softclipper"}]
-    t0 = time.perf_counter()
     rc = cli_main([src, dst, "--chain", json.dumps(spec), "--block-size",
                    "4096", "--trim"])
     assert rc == 0, rc
     audio, rate = pt.wavio.read_wav(dst)
     assert rate == SAMPLE_RATE and audio.shape == (2, 5 * SAMPLE_RATE)
     assert np.isfinite(audio).all() and np.abs(audio).max() > 0.01
-    r["cli"] = {"seconds": round(time.perf_counter() - t0, 2),
-                "shape": list(audio.shape), "chain": [e["op"] for e in spec]}
+    r["cli"] = {"shape": list(audio.shape), "chain": [e["op"] for e in spec]}
     return r
 
 
@@ -3662,7 +3182,6 @@ def runtime_unpaced(chain, cfg, x: np.ndarray) -> dict:
     torch.cuda.synchronize()
     zero_launch_counts()
     producer = threading.Thread(target=produce, daemon=True)
-    t0 = time.perf_counter()
     producer.start()
     outs, got = [], 0
     deadline = time.monotonic() + 120.0
@@ -3673,13 +3192,11 @@ def runtime_unpaced(chain, cfg, x: np.ndarray) -> dict:
             got += o.size
         else:
             time.sleep(0.0002)
-    wall = time.perf_counter() - t0
     producer.join(timeout=10.0)
     eng.stop()
     counts = launch_counts()
     assert done.is_set() and got == x.size, (got, x.size)
-    return {"out": np.concatenate(outs), "counts": counts,
-            "stats": eng.stats(), "wall_s": wall}
+    return {"out": np.concatenate(outs), "counts": counts}
 
 
 class _PacedStream:
@@ -3699,7 +3216,7 @@ class _PacedStream:
         self.period = blocksize / samplerate
         self.blocksize = blocksize
         self.callback = callback
-        self.captured, self.padded, self.late_s = [], [], []
+        self.captured, self.padded = [], []
         self._stop = threading.Event()
 
     def _run(self):
@@ -3712,8 +3229,6 @@ class _PacedStream:
             delay = t_next - time.perf_counter()
             if delay > 0:
                 time.sleep(delay)
-            else:
-                self.late_s.append(-delay)
             before = self.adapter.underrun_samples
             out = np.zeros((B, 1), np.float32)
             self.callback(x[i * B:(i + 1) * B, None], out, B, None, None)
@@ -3767,7 +3282,7 @@ def runtime_paced(chain, cfg, x: np.ndarray) -> dict:
     real = np.concatenate([c[:B - p] for c, p in
                            zip(clock.captured, clock.padded)])
     return {"real": real, "padded": clock.padded,
-            "counts": counts, "stats": eng.stats(), "late_s": clock.late_s,
+            "counts": counts,
             "underrun_samples": stream.underrun_samples,
             "overrun_samples": stream.overrun_samples}
 
@@ -3779,11 +3294,10 @@ def runtime_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
     serial_walk launch a block; (b) paced at the audio clock through
     DuplexAudioStream over 5 s (431 blocks), bit-equal to the fold after
     the ring's whole-block lag. The xruns are reported, not asserted: the
-    host's cores are shared."""
-    cfg = pt.EngineConfig(SAMPLE_RATE, RUNTIME_B)
+    host's cores are shared. Then the step's two kernels at the pump's
+    shape."""
     B = RUNTIME_B
-    chain = pt.Chain(chain8_effects(cfg, "cuda"), device="cuda")
-    assert [e.name for e in chain.exec_effects] == CHAIN8_NAMES
+    cfg, chain = chain8(B)
     nb = -(-n // B)
     x = np.zeros(nb * B, np.float32)
     x[:n] = signal[0, :n].cpu().numpy()
@@ -3791,8 +3305,8 @@ def runtime_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
     a = runtime_unpaced(chain, cfg, x)
     want = runtime_fold(chain, cfg, x)
     # the eager step, numpy in and out a block, as the pump ran it before
-    # the step was captured: the same bits, its time beside the pump's
-    e_outs, e_step_s, e_wall_s, _ = eager_run(
+    # the step was captured: the same bits
+    e_outs, _ = eager_run(
         chain, cfg, torch.from_numpy(x)[None].cuda(), as_numpy=True)
     eager_equal = np.array_equal(np.concatenate([o[0] for o in e_outs]),
                                  want)
@@ -3802,17 +3316,10 @@ def runtime_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
     assert a["counts"] == expect, a["counts"]
     assert np.array_equal(a["out"], want), \
         int((a["out"] != want).sum())
-    deadline_ms = cfg.block_duration_ms
     unpaced = {"blocks": nb, "launches": a["counts"],
-               "bit_equal_to_fold": True, "pump": a["stats"],
-               "wall_s": a["wall_s"],
-               "ms_per_block_wall": a["wall_s"] * 1e3 / nb,
-               "deadline_ms": deadline_ms,
+               "bit_equal_to_fold": True,
                "through": "the captured step (StreamProcessor in the pump)",
-               "fold_bit_equal_to_eager_fold": eager_equal,
-               "eager_numpy_step": {
-                   **step_stats(e_step_s, e_wall_s, deadline_ms),
-                   "mean_ms": statistics.mean(e_step_s) * 1e3}}
+               "fold_bit_equal_to_eager_fold": eager_equal}
 
     nb5 = int(round(PACED_SECONDS * SAMPLE_RATE / B))
     x5 = x[:nb5 * B]
@@ -3836,16 +3343,12 @@ def runtime_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
             fir_e.params, fir_e.state(()), blk)),
         "serial_walk_step": queued_ms(lambda: kdyn.cascade_step(
             scalars, dyn_e.params, dyn_e.state(()), blk))}
-    late = b["late_s"]
     paced = {"blocks": nb5, "launches": b["counts"],
              "bit_equal_to_fold_after_lag": True,
              "lag_blocks": lag // B,
              "underrun_samples": b["underrun_samples"],
              "underrun_samples_after_lag": b["underrun_samples"] - lag,
-             "overrun_samples": b["overrun_samples"], "pump": b["stats"],
-             "clock_callbacks_late": len(late),
-             "clock_worst_late_ms": max(late) * 1e3 if late else 0.0,
-             "deadline_ms": deadline_ms}
+             "overrun_samples": b["overrun_samples"]}
     return {"phase": "runtime", "chain": "chain8", "channels": 1, "B": B,
             "unpaced": unpaced, "paced": paced, "kernel_ms_1x512": kernel_ms,
             "launch_counts": {"unpaced": a["counts"], "paced": b["counts"]},
@@ -3883,33 +3386,9 @@ PARALLEL_CFG = pt.EngineConfig(SAMPLE_RATE, PARALLEL_B)
 
 def parallel_chains():
     cfg = PARALLEL_CFG
-    return cfg, {"chain8": pt.Chain(chain8_effects(cfg, "cuda"),
-                                    device="cuda"),
+    return cfg, {"chain8": chain8(PARALLEL_B)[1],
                  "eq_chain": pt.Chain(eq_chain_effects(cfg, "cuda"),
                                       device="cuda")}
-
-
-def host_ms(fn, runs: int = 2):
-    """(result, host-clock median ms) of ``fn`` ended by a synchronisation,
-    after one untimed call."""
-    out = fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return out, statistics.median(times)
-
-
-def in_turns(fns: dict, order=("graph", "eager", "eager", "graph")) -> dict:
-    """Each of ``fns`` timed by :func:`host_ms` in the turns of ``order``:
-    kind -> the ms of each of its turns."""
-    times = {k: [] for k in fns}
-    for kind in order:
-        times[kind].append(host_ms(fns[kind])[1])
-    return times
 
 
 def captured_vs_eager(rend, signal: torch.Tensor, n: int, steps=None
@@ -3920,11 +3399,9 @@ def captured_vs_eager(rend, signal: torch.Tensor, n: int, steps=None
     Bit-equality, a repeated replay's, each kernel's launches in one replay
     and in one eager render (counted from 0, the conditional nodes' added by
     reading the device's rounds and walks), dynspec's rounds and the
-    fixpoints' walks both ways, the memory the program holds (reserved after
-    ``empty_cache``, over what was held before) and the times of both in
-    turns (graph, eager, eager, graph). Returns (that, the captured
-    output). With ``steps`` (a rank program on the shard) it times that
-    program captured against ``render_shard`` alone instead."""
+    fixpoints' walks both ways. Returns (that, the captured output). With
+    ``steps`` (a rank program on the shard) it holds that program captured
+    against ``render_shard`` alone instead."""
     cfg, mesh = rend.cfg, rend.mesh
     B, t = cfg.block_size, mesh.shape["time"]
     blocks = pt.block.make_blocks(torch.nn.functional.pad(
@@ -3953,15 +3430,8 @@ def captured_vs_eager(rend, signal: torch.Tensor, n: int, steps=None
     launches_eager = launch_counts()
 
     rend.captured.release()
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    base = memory_mib()
-    t0 = time.perf_counter()
     rend.captured.prepare(kind, tuple(local.shape), steps)
     torch.cuda.synchronize()
-    capture_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.empty_cache()
-    held = {k: v - base[k] for k, v in memory_mib().items()}
     zero_launch_counts()
     got = graph()
     rounds_graph = rend.captured.rounds()
@@ -3979,10 +3449,8 @@ def captured_vs_eager(rend, signal: torch.Tensor, n: int, steps=None
          "launches_graph": launches_graph,
          "launches_eager": launches_eager,
          "rounds_graph": rounds_graph, "rounds_eager": rounds_eager,
-         "walks_graph": walks_graph, "walks_eager": walks_eager,
-         "capture_ms": capture_ms, "held_by_the_program_mib": held}
+         "walks_graph": walks_graph, "walks_eager": walks_eager}
     del again, want
-    r["ms_in_turns"] = in_turns({"graph": graph, "eager": eager})
     return r, got
 
 
@@ -4148,12 +3616,13 @@ def parallel_rank(rank: int, world: int, port: int, shapes, seconds: float,
     torch.cuda.set_device(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     n = int(seconds * SAMPLE_RATE)
-    signal = burst_noise(CHANNELS, n, seed)
+    signal = bench_signals.burst_noise(CHANNELS, n, SAMPLE_RATE, seed,
+                                       "cuda")
     cfg, chains = parallel_chains()
     single = {}
     if rank == 0:
         for name, chain in chains.items():
-            single[name] = host_ms(lambda: pt.render(chain, signal, cfg))
+            single[name] = pt.render(chain, signal, cfg)
             chain.captured_render().release()
     res = {"rank": rank, "meshes": {}}
     for c, t in shapes:
@@ -4165,11 +3634,11 @@ def parallel_rank(rank: int, world: int, port: int, shapes, seconds: float,
             r[name], got = captured_vs_eager(rend, signal, n)
             rend.captured.release()
             if rank == 0:
-                want, ms1 = single[name]
+                want = single[name]
                 got = got.reshape(CHANNELS, -1)[:, :want.shape[-1]]
                 r[name].update({"db_single_card": db_json(
                     snr_db_cuda(want, got)), "single_bit_equal": bool(
-                        torch.equal(want, got)), "single_card_ms": ms1})
+                        torch.equal(want, got))})
             del got
         if t > 1:
             r["device_rounds_played"] = device_rounds_played(
@@ -4244,7 +3713,7 @@ def run_ranks(world: int, shapes, seconds: float, seed: int) -> dict:
 def merge_ranks(per_rank: list) -> dict:
     """One mesh's results over its ranks: rank 0's single-card checks, each
     chain's captured-against-eager checks on every rank (launches summed),
-    times, rounds and memory by rank."""
+    rounds and walks by rank."""
     r0 = per_rank[0]
     out = {"capturable": r0["capturable"],
            "local_equal_to_global": all(r["local_equal_to_global"]
@@ -4260,8 +3729,7 @@ def merge_ranks(per_rank: list) -> dict:
         rs = [r[name] for r in per_rank]
         out[name] = {
             **{k: r0[name][k] for k in ("db_single_card", "single_bit_equal",
-                                        "single_card_ms", "pieces", "cuts",
-                                        "planned_cuts")
+                                        "pieces", "cuts", "planned_cuts")
                if k in r0[name]},
             "bit_equal": all(r["bit_equal"] for r in rs),
             "repeat_bit_equal": all(r["repeat_bit_equal"] for r in rs),
@@ -4272,11 +3740,7 @@ def merge_ranks(per_rank: list) -> dict:
             "rounds_graph": [r["rounds_graph"] for r in rs],
             "rounds_eager": [r["rounds_eager"] for r in rs],
             "walks_graph": [r["walks_graph"] for r in rs],
-            "walks_eager": [r["walks_eager"] for r in rs],
-            "ms_in_turns_by_rank": [r["ms_in_turns"] for r in rs],
-            "capture_ms_by_rank": [r["capture_ms"] for r in rs],
-            "held_by_the_program_mib_by_rank": [
-                r["held_by_the_program_mib"] for r in rs]}
+            "walks_eager": [r["walks_eager"] for r in rs]}
     return out
 
 
@@ -4312,8 +3776,8 @@ def parallel_phase(signal: torch.Tensor, n: int, smi: str, seed: int
     also bit-equal to Chain.render, and one NCCL all_gather and all_reduce
     captured in a graph and in a while node (:func:`nccl_world_capture`);
     (ii) two ranks on the one card over gloo, meshes (1, 2) and (2, 1);
-    (iii) four ranks, mesh (2, 2). The ranks share one card: their times are
-    not scaling."""
+    (iii) four ranks, mesh (2, 2). Then the kernels at a (1, 2) time
+    shard's shapes."""
     cfg, chains = parallel_chains()
     rounds = round_cases()
     torch.distributed.init_process_group(
@@ -4326,11 +3790,10 @@ def parallel_phase(signal: torch.Tensor, n: int, smi: str, seed: int
             rend = ShardedRenderer(chain, cfg, mesh)
             r, got = captured_vs_eager(rend, signal, n)
             rend.captured.release()
-            want, ms1 = host_ms(lambda: pt.render(chain, signal, cfg))
+            want = pt.render(chain, signal, cfg)
             chain.captured_render().release()
             r["chain_render_bit_equal"] = bool(torch.equal(
                 got.reshape(CHANNELS, -1)[:, :want.shape[-1]], want))
-            r["chain_render_ms"] = ms1
             check_captured("1x1", name, r)
             assert r["chain_render_bit_equal"] and r["pieces"] == 1, (name, r)
             one[name] = r
@@ -4347,12 +3810,8 @@ def parallel_phase(signal: torch.Tensor, n: int, smi: str, seed: int
           "nccl_capture": nccl_capture}
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
     two = run_ranks(2, [(1, 2), (2, 1)], SECONDS, seed)
-    two_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
     four = run_ranks(4, [(2, 2)], PARALLEL4_SECONDS, seed)
-    four_s = time.perf_counter() - t0
     for key, r in {**two, **four}.items():
         check_mesh(key, r)
     # the kernels at a (1, 2) time shard's shapes, in this process (CUDA
@@ -4389,13 +3848,10 @@ def parallel_phase(signal: torch.Tensor, n: int, smi: str, seed: int
     return {"phase": "parallel", "channels": CHANNELS, "B": PARALLEL_B,
             "chains": {"chain8": CHAIN8_NAMES, "eq_chain": EQ_CHAIN},
             "dynspec_route": DYNSPEC_ROUTE,
-            "note": "ranks share one card (gloo): per-render times are "
-                    "not scaling",
             "one_rank_nccl": r1,
-            "two_ranks_gloo": {"seconds_of_audio": SECONDS,
-                               "phase_s": two_s, **two},
+            "two_ranks_gloo": {"seconds_of_audio": SECONDS, **two},
             "four_ranks_gloo": {"seconds_of_audio": PARALLEL4_SECONDS,
-                                "phase_s": four_s, **four},
+                                **four},
             "kernel_ms_at_a_1x2_shard": shard_kernel_ms,
             "round_step": rounds,
             "launch_counts": launch_counts_by_run, "nvidia_smi": smi}
@@ -4563,8 +4019,8 @@ def lone_map_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
                                           use_kernels=False))
         maps[plan] = {
             **r, **rl.bound(cost, pk),
-            "kernel": {**kernel, **rl.classify(kernel["ms"] * 1e-3, cost,
-                                               pk)},
+            "kernel": {"ms": kernel,
+                       **rl.classify(kernel * 1e-3, cost, pk)},
             "plain": {"ms": plain,
                       **rl.classify(plain * 1e-3, cost, pk)}}
         launch_counts_by_run[f"{plan} offline"] = counts
@@ -4591,10 +4047,8 @@ def profiling_phase(signal: torch.Tensor, n: int, smi: str) -> dict:
     C = signal.shape[0]
     runs, launch_counts_by_run, chains = {}, {}, {}
     for B in BLOCK_SIZES:
-        cfg = pt.EngineConfig(SAMPLE_RATE, B)
-        effects = chain8_effects(cfg, "cuda")
-        fused = pt.Chain(effects, device="cuda")
-        bare = pt.Chain(effects, fuse=False, device="cuda")
+        cfg, fused = chain8(B)
+        bare = pt.Chain(fused.effects, fuse=False, device="cuda")
         ann = profiling.annotate_chain(fused)
         chains[B] = (cfg, bare, ann)
         assert [e.name for e in ann.exec_effects] == CHAIN8_EFFECTS
@@ -4712,8 +4166,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile", action="store_true",
-                    help="also trace a few renders with torch.profiler and "
-                         "print device time by kernel and the idle share")
+                    help="also trace a few renders and steps with "
+                         "torch.profiler and print device time by kernel")
     args = ap.parse_args()
 
     if not __debug__:
@@ -4761,42 +4215,14 @@ def main() -> None:
     # ---- 4. the paths: counts to 0, render, read counts
     C = CHANNELS
     n = int(SECONDS * SAMPLE_RATE)
-    signal = burst_noise(C, n, args.seed)
-
-    # the earlier path, chain7, at one block size over a shorter signal
-    B7 = BLOCK_SIZES[0]
-    n7 = int(CHAIN7_SECONDS * SAMPLE_RATE)
-    signal7 = signal[:, :n7].contiguous()
-    cfg7 = pt.EngineConfig(SAMPLE_RATE, B7)
-    chain7 = pt.Chain(chain7_effects(cfg7, "cuda"), device="cuda")
-    assert [e.name for e in chain7.exec_effects] == CHAIN7_NAMES
-    capture7_ms = prepare_render(chain7, signal7, cfg7)
-    zero_launch_counts()
-    out7 = pt.render(chain7, signal7, cfg7)
-    torch.cuda.synchronize()
-    launches7 = launch_counts()
-    assert launches7["segconv"] >= 1 and launches7["tail"] >= 1, launches7
-    assert sum(launches7.values()) == launches7["segconv"] + launches7["tail"]
-    check7 = check_render(chain7, cfg7, signal7, out7, n7)
-    emit({"phase": "main_path", "chain": "chain7 (earlier path)",
-          "channels": C, "seconds_of_audio": CHAIN7_SECONDS,
-          "samples_per_channel": n7, "launches": launches7,
-          "through": "the captured render (a CUDA graph)",
-          "warmup_and_capture_ms": capture7_ms,
-          "by_block_size": {str(B7): check7}, "nvidia_smi": smi})
-    del out7, signal7
+    signal = bench_signals.burst_noise(C, n, SAMPLE_RATE, args.seed, "cuda")
 
     # the main path, chain8, at both block sizes
-    chains = {}
-    for B in BLOCK_SIZES:
-        cfg = pt.EngineConfig(SAMPLE_RATE, B)
-        chains[B] = (cfg, pt.Chain(chain8_effects(cfg, "cuda"), device="cuda"))
-        assert [e.name for e in chains[B][1].exec_effects] == CHAIN8_NAMES
-    torch.cuda.synchronize()
+    chains = {B: chain8(B) for B in BLOCK_SIZES}
     # each render's graph captured first (its warm-up is an eager render):
     # the counted run is the replays'
-    capture_ms = {B: prepare_render(chains[B][1], signal, chains[B][0])
-                  for B in BLOCK_SIZES}
+    for B in BLOCK_SIZES:
+        prepare_render(chains[B][1], signal, chains[B][0])
 
     zero_launch_counts()
     outputs, walks, device_walks = {}, {}, {}
@@ -4825,11 +4251,8 @@ def main() -> None:
     for B in BLOCK_SIZES:
         cfg, chain = chains[B]
         main_checks[B] = check_render(chain, cfg, signal, outputs[B], n,
-                                      oracle_samples=ORACLE_EXCERPT,
-                                      db_plain_bar=CHAIN8_DB_PLAIN,
-                                      keep_oracle=oracles)
+                                      oracles)
         main_checks[B]["dynamics_walks"] = walks[B]
-        main_checks[B]["warmup_and_capture_ms"] = capture_ms[B]
     T = -(-n // BLOCK_SIZES[0]) * BLOCK_SIZES[0]
     emit({"phase": "main_path", "chain": "chain8", "channels": C,
           "seconds_of_audio": SECONDS, "samples_per_channel": n,
@@ -4848,12 +4271,12 @@ def main() -> None:
 
     # ---- 5. the streaming main path: counts to 0, stream, read counts
     timing = {name: {} for name in KERNELS}
-    stream_checks, stream_times, stream_launches = {}, {}, {}
+    stream_checks, stream_launches = {}, {}
     with tempfile.TemporaryDirectory() as workdir:
         for B in BLOCK_SIZES:
             cfg, chain = chains[B]
             t0 = time.perf_counter()
-            stream_checks[B], stream_times[B], stream_launches[B] = \
+            stream_checks[B], stream_launches[B] = \
                 stream_path(chain, cfg, signal, n, outputs.pop(B), oracles[B],
                             workdir)
             stream_checks[B]["seconds"] = round(time.perf_counter() - t0, 1)
@@ -4889,12 +4312,12 @@ def main() -> None:
         [kdyn.op_scalars(chains[512][1].exec_effects[1].params[0])],
         torch.zeros((1, 1), device="cuda"),
         torch.zeros((1, 1), dtype=torch.int32, device="cuda")))
-    emit({"phase": "stream_timing", "chain": "chain8", "channels": C,
+    emit({"phase": "stream_kernels", "chain": "chain8", "channels": C,
           "by_block_size": {str(B): {
-              **stream_times[B],
               "serial_walk": timing["serial_walk"][B],
               "conv_pairs": timing["conv_pairs"][B]} for B in BLOCK_SIZES},
-          "near_empty_launch": {"what": "serial_walk at C=1, T=1", **near_empty},
+          "near_empty_launch": {"what": "serial_walk at C=1, T=1",
+                                "ms": near_empty},
           "serial_walk_sweep": {str(B): sweep_serial_segments(
               chains[B][1], chains[B][0]) for B in BLOCK_SIZES},
           "conv_pairs_cluster_by_window": time_cluster_by_window(),
@@ -4927,7 +4350,7 @@ def main() -> None:
         if B == BLOCK_SIZES[0]:
             timing["segconv"][B]["reverb_parts"] = time_reverb_parts(x)
         y_dyn = time_dynamics(y_conv, dyn_e, timing, B)
-        stage_by_B[B] = time_dynamics_stage(y_conv, dyn_e, y_dyn)
+        stage_by_B[B] = check_dynamics_stage(y_conv, dyn_e, y_dyn)
         if B == BLOCK_SIZES[0]:
             gaps = (torch.sin(2 * torch.pi * torch.arange(T, device="cuda")
                               / SAMPLE_RATE) > 0.3).to(torch.float32)
@@ -4944,52 +4367,20 @@ def main() -> None:
           "dynamics_stage": {str(B): v for B, v in stage_by_B.items()},
           "segment_sweep": sweep})
 
-    # ---- 7. throughput of the whole render: 3 chained passes, o = chain(o)
-    # samples_per_s / render_ms: the eager render (the column the lane has
-    # always printed); captured_*: the captured render, which render replays
-    rates = {}
-    for B in BLOCK_SIZES:
-        cfg, chain = chains[B]
-        total = C * render_shape(signal, B)[-2] * B
-        eager_ms = chained_ms(lambda o: eager_render(chain, o, cfg), signal)
-        graph_ms_ = chained_ms(lambda o: pt.render(chain, o, cfg), signal)
-        chain.captured_render().walks()
-        rates[str(B)] = {"samples_per_s": total / eager_ms * 1e3,
-                         "render_ms": eager_ms,
-                         "captured_samples_per_s": total / graph_ms_ * 1e3,
-                         "captured_render_ms": graph_ms_,
-                         "samples": total}
-    emit({"phase": "throughput", "chain": "chain8", "channels": C,
-          "by_block_size": rates, "nvidia_smi": smi})
-
     if args.profile:
         emit({"phase": "profile", "chain": "chain8", "channels": C,
-              # the captured and the eager render, each idle share against
-              # its own host-clock time (throughput's runs)
               "by_block_size": {
-                  str(B): {
-                      "graph": profile_renders(
-                          chains[B][1], signal, chains[B][0],
-                          rates[str(B)]["captured_render_ms"]),
-                      "eager": profile_renders(
-                          chains[B][1], signal, chains[B][0],
-                          rates[str(B)]["render_ms"], eager=True)}
+                  str(B): profile_renders(chains[B][1], signal, chains[B][0])
                   for B in BLOCK_SIZES},
-              # the graph replays and the eager steps, each idle share
-              # against its own wall time a step (compiled_step's runs)
               "stream_by_block_size": {
                   str(B): {kind: profile_stream(
                       chains[B][1], chains[B][0], signal,
-                      statistics.mean(
-                          r["wall_ms_per_step"] for r in compiled[
-                              "by_block_size"][str(B)]["timing"][
-                              "tensors_in_and_out"][kind]),
                       steps=min(200, n // B - 8), eager=kind == "eager")
                       for kind in ("graph", "eager")}
                   for B in BLOCK_SIZES},
               "nvidia_smi": smi})
 
-    # ---- 8. the kernels, one line; headline numbers at block size 4096
+    # ---- 7. the kernels, one line; headline numbers at block size 4096
     head = BLOCK_SIZES[0]
     summary = []
     for name, (source, replaces) in KERNELS.items():
@@ -5012,7 +4403,7 @@ def main() -> None:
             **{k: h["roofline"]["ms"][k] for k in (
                 "hbm_roofline_pct", "fp32_roofline_pct", "bound")},
             # a bound the card can reach: a near-empty launch's device time
-            "launch_floor_ms": near_empty["ms"],
+            "launch_floor_ms": near_empty,
             # rows 7-8: a call's device time inside a graph of GRAPH_STEPS
             **({"in_graph_ms": h["in_graph_ms"]} if "in_graph_ms" in h
                else {}),

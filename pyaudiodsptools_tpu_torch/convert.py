@@ -26,7 +26,7 @@ What is carried across, per effect:
 * ``eq3band`` / ``eq_band_low`` / ``_mid`` / ``_high``: ``coeffs`` and
   ``coeffs_lo`` (the JAX package's float64 coefficients as f32 head and
   tail), summed in float64, and ``block_size``;
-* ``reverb``: ``lti_kernel`` (the combined kernel, route (a) offline), and
+* ``reverb``: ``lti_kernel`` (the combined kernel, which offline runs), and
   per line (``meta["line1"]``, ``meta["line2"]``) ``time_in_samples`` and
   ``n_taps``, its ``ramp`` (``params["line1"]["ramp"]``, ...), with
   ``meta["sample_rate"]``, which the JAX params do not carry and the

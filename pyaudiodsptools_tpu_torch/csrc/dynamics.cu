@@ -108,9 +108,7 @@
 //     a sample over the threshold; an op that saw none moved exactly as the
 //     closed form moves it, and the next entry is taken from the nearest
 //     segment to the left that did see one, advanced in closed form over the
-//     quiet segments between: a quiet stretch settles in one round. (The
-//     kernel also exists without this jump, kJump false, every entry the left
-//     neighbour's exit: only to be timed beside it.)
+//     quiet segments between: a quiet stretch settles in one round.
 // Sample i of a tile lies at shared-memory slot i + i/L: segments are L + 1
 // slots apart, so the threads of a warp, each reading its own segment, hit
 // different banks. Same automaton<> and cascade<> as the walks above with the
@@ -470,9 +468,8 @@ __device__ __forceinline__ int nearest_loud_left(const unsigned* quiet, int g) {
 // memory: G * (2^lseg + 1) floats for the tile's input, as many for its
 // output, then N_OPS * G ints for the segments' exit states. `rounds`, where
 // not null, receives per channel the rounds of the fixpoint loop (walks of a
-// segment) summed over the tiles. kJump false leaves out the jump over quiet
-// segments.
-template <int N_OPS, bool kJump>
+// segment) summed over the tiles.
+template <int N_OPS>
 __global__ void __launch_bounds__(SERIAL_MAX_THREADS)
 serial_walk_kernel(const float* __restrict__ x, float* __restrict__ out,
                    const DynCarry carry, const DynOps ops, int C, int T,
@@ -527,13 +524,11 @@ serial_walk_kernel(const float* __restrict__ x, float* __restrict__ out,
 #pragma unroll
       for (int j = 0; j < N_OPS; ++j) {
         if (g < G) seg_exit[j * G + g] = s[j];
-        if (kJump) {
-          // segment 0 starts from the true state: it counts as loud, so that
-          // every search to the left ends
-          const unsigned m = __ballot_sync(0xffffffffu, !loud[j] && g != 0);
-          if ((g & 31) == 0)
-            quiet[j * (SERIAL_MAX_THREADS / 32) + (g >> 5)] = m;
-        }
+        // segment 0 starts from the true state: it counts as loud, so that
+        // every search to the left ends
+        const unsigned m = __ballot_sync(0xffffffffu, !loud[j] && g != 0);
+        if ((g & 31) == 0)
+          quiet[j * (SERIAL_MAX_THREADS / 32) + (g >> 5)] = m;
       }
       __syncthreads();
       int changed = 0;
@@ -548,8 +543,8 @@ serial_walk_kernel(const float* __restrict__ x, float* __restrict__ out,
           // quiet bits, so this fixes at least one more segment a round,
           // like taking the neighbour's exit, and a whole quiet stretch at
           // once.
-          const int h = kJump ? nearest_loud_left(
-              quiet + j * (SERIAL_MAX_THREADS / 32), g) : g - 1;
+          const int h = nearest_loud_left(
+              quiet + j * (SERIAL_MAX_THREADS / 32), g);
           e[j] = advance_quiet(ops.op[j], seg_exit[j * G + h],
                                (g - 1 - h) * L);
         }
@@ -590,7 +585,7 @@ serial_walk_kernel(const float* __restrict__ x, float* __restrict__ out,
 
 int launch_serial(const float* x, float* out, const DynCarry& carry,
                   const DynOps* ops, int C, int T, int lseg, int segments,
-                  int threads, bool jump, int* rounds, void* stream) {
+                  int threads, int* rounds, void* stream) {
   if (ops->n_ops < 1 || ops->n_ops > DYN_MAX_OPS || T < 1 || C <= 0 ||
       lseg < 0 || lseg > 20 || segments < 1 || segments > threads ||
       threads % 32 != 0 || threads > SERIAL_MAX_THREADS)
@@ -598,17 +593,15 @@ int launch_serial(const float* x, float* out, const DynCarry& carry,
   const size_t smem = sizeof(float) * (size_t)segments *
                       (2 * ((1u << lseg) + 1) + ops->n_ops);
   cudaStream_t st = (cudaStream_t)stream;
-#define SERIAL_KERNEL(N, JUMP)                                               \
+#define SERIAL_CASE(N)                                                       \
   {                                                                          \
     cudaError_t err = cudaFuncSetAttribute(                                  \
-        serial_walk_kernel<N, JUMP>,                                         \
+        serial_walk_kernel<N>,                                               \
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);             \
     if (err != cudaSuccess) return (int)err;                                 \
-    serial_walk_kernel<N, JUMP><<<C, threads, smem, st>>>(                   \
+    serial_walk_kernel<N><<<C, threads, smem, st>>>(                         \
         x, out, carry, *ops, C, T, lseg, segments, rounds);                  \
   }
-#define SERIAL_CASE(N)                                                       \
-  if (jump) SERIAL_KERNEL(N, true) else SERIAL_KERNEL(N, false)
   switch (ops->n_ops) {
     case 1: SERIAL_CASE(1) break;
     case 2: SERIAL_CASE(2) break;
@@ -616,7 +609,6 @@ int launch_serial(const float* x, float* out, const DynCarry& carry,
     default: SERIAL_CASE(4) break;
   }
 #undef SERIAL_CASE
-#undef SERIAL_KERNEL
   return (int)cudaGetLastError();
 }
 
@@ -624,23 +616,20 @@ int launch_serial(const float* x, float* out, const DynCarry& carry,
 
 // Serial walk: out (C, T) and exit states (n_ops, C) from x (C, T),
 // channel-major, and entry states (n_ops, C), in tiles of `segments` segments
-// of 2^lseg samples, `threads` (>= segments, whole warps) a block.
-// quiet_jump: 1, or 0 for the kernel without the jump over quiet segments
-// (the same result in more rounds; for timing the two side by side). rounds:
+// of 2^lseg samples, `threads` (>= segments, whole warps) a block. rounds:
 // (C,) ints or null.
 extern "C" int dynamics_serial_walk_launch(const float* x, float* out,
                                            const int* entry, int* exit_state,
                                            const DynOps* ops, int C, int T,
                                            int lseg, int segments, int threads,
-                                           int quiet_jump, int* rounds,
-                                           void* stream) {
+                                           int* rounds, void* stream) {
   if (entry == nullptr || exit_state == nullptr)
     return (int)cudaErrorInvalidValue;
   DynCarry carry = {};
   carry.entry = entry;
   carry.exit_state = exit_state;
   return launch_serial(x, out, carry, ops, C, T, lseg, segments, threads,
-                       quiet_jump != 0, rounds, stream);
+                       rounds, stream);
 }
 
 // The streaming step: the same walk with the carried states as the four
@@ -655,7 +644,7 @@ extern "C" int dynamics_serial_step_launch(const float* x, float* out,
       carry->skip_out == nullptr)
     return (int)cudaErrorInvalidValue;
   return launch_serial(x, out, *carry, ops, C, T, lseg, segments, threads,
-                       true, nullptr, stream);
+                       nullptr, stream);
 }
 
 // Audio walk: out (C, T) and exit states (n_ops, C*G) from x (C, T), cut

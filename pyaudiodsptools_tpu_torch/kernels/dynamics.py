@@ -642,16 +642,15 @@ def _check_block(x: torch.Tensor) -> None:
 
 def _launch_serial(scalars, x: torch.Tensor, entry: torch.Tensor,
                    lseg: int | None = None, want_rounds: bool = False,
-                   quiet_jump: bool = True, out: torch.Tensor | None = None,
+                   out: torch.Tensor | None = None,
                    exit_state: torch.Tensor | None = None):
     """The kernel on encoded states: (out, exit) or, with ``want_rounds``,
     (out, exit, rounds (C,) int32: the walks of a segment the fixpoint loop
     took, summed over the tiles).
 
-    The keywords are for measurement only (chip_smoke.py's sweeps); no
-    wrapper passes them and the result depends on none: ``lseg`` overrides
-    the segment length, ``quiet_jump=False`` runs the kernel without the jump
-    over quiet segments (every entry its left neighbour's exit)."""
+    ``lseg`` and ``want_rounds`` are for measurement only (chip_smoke.py's
+    cases and sweeps); no wrapper passes them and the result depends on
+    neither: ``lseg`` overrides the segment length."""
     global serial_walk_launch_count
     C, T = x.shape
     if out is None:
@@ -663,11 +662,11 @@ def _launch_serial(scalars, x: torch.Tensor, entry: torch.Tensor,
     lseg, segments, threads = serial_geometry(T, lseg)
     fn = _build.launcher("dynamics", "dynamics_serial_walk_launch",
                    [ctypes.c_void_p] * 4 + [ctypes.POINTER(_Ops)]
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p, ctypes.c_void_p])
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p, ctypes.c_void_p])
     with _build.on_device(x.device):
         err = fn(x.data_ptr(), out.data_ptr(), entry.data_ptr(),
                  exit_state.data_ptr(), ctypes.byref(_ops_table(scalars)),
-                 C, T, lseg, segments, threads, int(quiet_jump),
+                 C, T, lseg, segments, threads,
                  rounds.data_ptr() if want_rounds else None,
                  torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:

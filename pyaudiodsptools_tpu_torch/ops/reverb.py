@@ -24,18 +24,10 @@ in-place add; at a block longer than that the taps are cut into
 ``ceil(B / time)`` interleaved groups, one add each. No atomics, so a stream
 is bit-reproducible.
 
-Offline, two routes compute the same function:
-
-* (a) :func:`offline_fir`, the JAX package's: ``fir`` on the combined
-  kernel (65,033 stripped taps at B=512, 66,825 at B=4096), the segmented
-  convolution in partitions (4 and 5 launches), the later ones adding into
-  the output;
-* (b) :func:`offline_lines`: each line's high-cut through the segmented
-  convolution, and its tap train (99 and 49 taps, reaching up to 65,439
-  samples) through the fused tail kernel's ``taps`` stage, the two lines
-  summed.
-
-``offline`` is route (a). The benchmark's cell ``reverb1500.offline``
+Offline (:func:`offline_fir`, the JAX package's route): ``fir`` on the
+combined kernel (65,033 stripped taps at B=512, 66,825 at B=4096), the
+segmented convolution in partitions (4 and 5 launches), the later ones
+adding into the output. The benchmark's cell ``reverb1500.offline``
 (``BENCHMARK.json``: compressor, gate and this reverb over 64 channels of
 10 minutes) measures it on the card, its five launches a render marked as
 stages ``reverb.part0`` ... ``reverb.part4`` under tracing; PERF.md's
@@ -66,7 +58,7 @@ class ReverbLineParams:
 class ReverbParams:
     line1: ReverbLineParams
     line2: ReverbLineParams
-    full: fft_filter.FIRParams   # the combined two-line kernel: route (a)
+    full: fft_filter.FIRParams   # the combined two-line kernel: offline
     block_size: int
 
 
@@ -204,52 +196,9 @@ def step(params: ReverbParams, state, block: torch.Tensor):
 
 def offline_fir(params: ReverbParams, blocks: torch.Tensor,
                 use_kernels: bool = True) -> torch.Tensor:
-    """Route (a): one FIR of the combined kernel, the segmented convolution
-    in partitions (one launch each on the card)."""
+    """One FIR of the combined kernel, the segmented convolution in
+    partitions (one launch each on the card)."""
     return fft_filter.fir_offline(params.full, blocks, use_kernels)
-
-
-def tail_plan(p: ReverbLineParams, device):
-    """The fused tail kernel's plan of one line's tap train: one wet
-    ``taps`` stage, its table on ``device``."""
-    from ..kernels import tail
-
-    offsets = tuple(p.time_in_samples * (k + 1) for k in range(p.n_taps))
-    return tail.make_plan([("taps", offsets, True, 0)], max(offsets), [p],
-                          device)
-
-
-def _taps_plain(p: ReverbLineParams, x: torch.Tensor) -> torch.Tensor:
-    """A line's wet tap train over (R, T), shifted adds in tap order."""
-    T = x.shape[-1]
-    acc = torch.zeros_like(x)
-    for k in range(p.n_taps):
-        d = p.time_in_samples * (k + 1)
-        if d < T:
-            acc[:, d:] += x[:, :T - d] * p.ramp[k]
-    return acc
-
-
-def offline_lines(params: ReverbParams, blocks: torch.Tensor,
-                  use_kernels: bool = True) -> torch.Tensor:
-    """Route (b): per line the high-cut through the segmented convolution
-    and the tap train through the fused tail kernel's taps stage (on a CUDA
-    tensor; the plain shifted adds on a CPU tensor or on request), the two
-    lines summed."""
-    shape = blocks.shape
-    T = shape[-2] * shape[-1]
-    out = None
-    for p in (params.line1, params.line2):
-        y = fft_filter.fir_offline(p.highcut, blocks, use_kernels
-                                   ).reshape(-1, T)
-        if blocks.is_cuda and use_kernels:
-            from ..kernels import tail
-
-            wet = tail.tail_kernel(tail_plan(p, y.device), y, None)
-        else:
-            wet = _taps_plain(p, y)
-        out = wet if out is None else out + wet
-    return out.reshape(shape)
 
 
 offline = offline_fir

@@ -1,7 +1,6 @@
-"""PyTorch/CUDA port, the reverb (``ops/reverb.py``): offline by both routes
-(the combined kernel through the partitioned FIR, and each line's high-cut
-plus its tap train), streamed block by block through the two lines'
-structure, the JAX state and params carried across in mid-stream, and a
+"""PyTorch/CUDA port, the reverb (``ops/reverb.py``): offline (the combined
+kernel through the partitioned FIR), streamed block by block through the
+two lines' structure, the JAX state and params carried across in mid-stream, and a
 lowcut fused with a reverb in a Chain as the JAX package fuses them; against
 the JAX package on the CPU and a float64 oracle."""
 
@@ -43,10 +42,10 @@ def _signal(C, n, seed):
 @pytest.mark.parametrize("ms,B", [(120.0, 512), (1500.0, 512),
                                   (1500.0, 4096)])
 def test_offline_routes_match_jax_and_oracle(ms, B):
-    """Both routes >= 100 dB to the JAX ``offline`` (its combined kernel's
-    segmented conv) and > 95 dB to float64, on a signal longer than the
-    reverb; route (a) is the effect's own, in 4 (B=512) and 5 (B=4096)
-    partitions at 1,500 ms."""
+    """The effect's ``offline``, the combined kernel through the partitioned
+    FIR, >= 100 dB to the JAX ``offline`` (its combined kernel's segmented
+    conv) and > 95 dB to float64, on a signal longer than the reverb; in 4
+    (B=512) and 5 (B=4096) partitions at 1,500 ms."""
     pe = pt.ops.reverb(pt.EngineConfig(44100, B), ms, device=CPU)
     je = jx.ops.reverb(jx.EngineConfig(44100, B), ms)
     np.testing.assert_array_equal(pe.lti_kernel, je.lti_kernel)
@@ -60,11 +59,11 @@ def test_offline_routes_match_jax_and_oracle(ms, B):
     want = np.asarray(je.offline(je.params, jnp.asarray(blocks))
                       ).reshape(2, -1)
     oracle = fft_conv64(x, pe.lti_kernel)
-    for route in (pt_rev.offline_fir, pt_rev.offline_lines):
-        got = route(pe.params, torch.from_numpy(blocks)).reshape(2, -1)
-        assert got.dtype == torch.float32
-        assert snr_db(want, got.numpy()) >= 100.0, route
-        assert snr_db(oracle, got.numpy()) > 95.0, route
+    got = pt_rev.offline_fir(pe.params, torch.from_numpy(blocks)
+                             ).reshape(2, -1)
+    assert got.dtype == torch.float32
+    assert snr_db(want, got.numpy()) >= 100.0
+    assert snr_db(oracle, got.numpy()) > 95.0
 
 
 @pytest.mark.parametrize("rate", [22050, 48000])

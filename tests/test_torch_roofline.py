@@ -121,7 +121,7 @@ def test_conv_cost_from_params_reads_a_fir_plan():
         rl.conv_cost(C, T, q.n, q.seg)["fp32_flops"] for q in plans)
     assert cost["bytes"] == 8 * C * T + sum(16 * q.n for q in plans)
     # the effects whose offline is a FIR they carry: the reverb's combined
-    # kernel (route (a)), the EQ's FIR-ised response
+    # kernel, the EQ's FIR-ised response
     rev = pt.ops.reverb(cfg, device="cpu")
     assert rl.conv_cost_from_params(C, T, rev.params) == \
         rl.conv_cost_from_params(C, T, rev.params.full)

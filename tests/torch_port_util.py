@@ -779,8 +779,7 @@ def advance_quiet(sc: tuple, s: int, d: int) -> int:
 
 
 def emulate_serial_walk(scalars, x_chan: np.ndarray, entry, lseg: int,
-                        threads: int, guess_offset: int = 0,
-                        quiet_jump: bool = True):
+                        threads: int, guess_offset: int = 0):
     """One channel of csrc/dynamics.cu's serial walk kernel, schedule and
     all: tiles of ``threads`` segments of ``2**lseg`` samples, one 'thread'
     a segment; the first guess is the carried state advanced in closed form;
@@ -790,9 +789,7 @@ def emulate_serial_walk(scalars, x_chan: np.ndarray, entry, lseg: int,
     loud sample, advanced in closed form over the quiet ones between; the
     loop ends with the round in which no entry differed. Returns (out (T,),
     exit states, rounds summed over the tiles). ``guess_offset`` shifts the
-    first guess (a wrong guess must only cost rounds). ``quiet_jump=False``
-    is the kernel's other instantiation: every next entry is the left
-    neighbour's exit."""
+    first guess (a wrong guess must only cost rounds)."""
     L, G = 1 << lseg, threads
     n_ops = len(scalars)
     carried = [int(v) for v in entry]
@@ -822,7 +819,7 @@ def emulate_serial_walk(scalars, x_chan: np.ndarray, entry, lseg: int,
                 row = []
                 for j in range(n_ops):
                     h = g - 1
-                    while quiet_jump and not louds[h][j]:
+                    while not louds[h][j]:
                         h -= 1
                     row.append(advance_quiet(scalars[j], exits[h][j],
                                              (g - 1 - h) * L))
