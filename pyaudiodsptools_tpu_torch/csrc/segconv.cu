@@ -46,9 +46,16 @@
 // store: chunks of four samples, 16 bytes wide from the first 16-byte
 // boundary of the window's span on, at most three samples alone at each end,
 // out-of-range samples (idx < 0, idx >= T) silence, so the wrapper pads
-// nothing. The store writes 16 bytes wide in the same way; the first
-// `shift` output samples are exact zeros (the output delay), not the
-// transform's rounding noise.
+// nothing. The first `shift` output samples are exact zeros (the output
+// delay), not the transform's rounding noise. One block fills an SM, and on
+// an H100 its gather costs little (blocks run out of phase across the SMs),
+// but its store does: 3.7 of a 32,768 block's 34.6 us, 5.8 of a 16,384
+// block's 30.6 (PERF.md). So a writing launch hands each window's whole
+// 16-byte chunks to the Tensor Memory Accelerator (bulk_store) and the block
+// leaves while they drain, and an accumulating launch loads all of a
+// thread's chunks of y before it adds and stores any (add_store). The sums
+// and their order are the same: the output is bit for bit the one of a
+// store a chunk at a time.
 //
 // Plain C interface: segconv_launch() enqueues on the given stream, allocates
 // nothing, and returns cudaGetLastError().
@@ -95,33 +102,151 @@ __device__ __forceinline__ void store1(float* yr, long long o, int T,
   }
 }
 
-// Output samples [o, o+4) of a row, as store1 does them. One 16-byte access
-// where all four lie at or past `shift` and below T (the caller has aligned
-// o).
-template <bool kAcc>
-__device__ __forceinline__ void store4(float* yr, long long o, int T,
-                                       int shift, float v0, float v1, float v2,
-                                       float v3) {
-  if (o >= shift && o + 4 <= T) {
-    float4* p = reinterpret_cast<float4*>(yr + o);
-    if (kAcc) {
-      const float4 a = *p;
-      *p = make_float4(a.x + v0, a.y + v1, a.z + v2, a.w + v3);
-    } else {
-      *p = make_float4(v0, v1, v2, v3);
-    }
-    return;
-  }
-  const float v[4] = {v0, v1, v2, v3};
-#pragma unroll
-  for (int e = 0; e < 4; ++e) store1<kAcc>(yr, o + e, T, shift, v[e]);
-}
-
 // Samples from s on (s may be < 0) before the row's first 16-byte boundary
 // at or after s (0..3).
 __device__ __forceinline__ int head_points(const float* row, long long s) {
   const uintptr_t a = (uintptr_t)row + (uintptr_t)(s * 4);
   return (int)(((16 - (a & 15)) & 15) >> 2);
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Points [lo, hi) of [i_lo, m) whose outputs o0 + i lie on whole 16-byte
+// chunks of the row at or past `shift` and below T (lo == hi: none).
+__device__ __forceinline__ void whole_chunks(const float* yr, long long o0,
+                                             int i_lo, int m, int T,
+                                             int shift, int* lo, int* hi) {
+  long long l = i_lo, h = m;
+  if (o0 + l < shift) l = shift - o0;
+  if (o0 + h > T) h = T - o0;
+  if (l < h) {
+    l += head_points(yr, o0 + l);
+    h -= (4 - head_points(yr, o0 + h)) & 3;
+  }
+  *lo = (int)l;
+  *hi = (int)(h > l ? h : l);
+}
+
+// The writing store. The wrap-free points' outputs leave by the Tensor
+// Memory Accelerator: the block is done once they lie in shared memory, and
+// the writes drain beside the next block's gather and transform. Each
+// thread takes its points of [i_lo, m) out of z into registers (at most
+// SEGCONV_POINTS a thread: a block of m points has m/16 threads at least)
+// and stores alone the few outside each window's whole 16-byte chunks.
+// After a barrier the rest go back into z as two runs, window a's and then
+// window b's. One thread hands both runs to cp.async.bulk and waits until
+// they have been read.
+#define SEGCONV_POINTS 16
+__device__ __forceinline__ void bulk_store(float2* z, float* yr, long long oa,
+                                           int seg, int i_lo, int m, int T,
+                                           int shift, bool has_b) {
+  int lo_a, hi_a, lo_b = 0, hi_b = 0;
+  whole_chunks(yr, oa, i_lo, m, T, shift, &lo_a, &hi_a);
+  if (has_b) whole_chunks(yr, oa + seg, i_lo, m, T, shift, &lo_b, &hi_b);
+  float2 v[SEGCONV_POINTS];
+#pragma unroll
+  for (int k = 0; k < SEGCONV_POINTS; ++k) {
+    const int i = i_lo + (int)threadIdx.x + k * (int)blockDim.x;
+    if (i < m) {
+      v[k] = z[pad(i)];
+      if (i < lo_a || i >= hi_a) store1<false>(yr, oa + i, T, shift, v[k].x);
+      if (has_b && (i < lo_b || i >= hi_b))
+        store1<false>(yr, oa + seg + i, T, shift, v[k].y);
+    }
+  }
+  __syncthreads();                    // z is read: the runs may overwrite it
+  float* run = reinterpret_cast<float*>(z);
+  const int la = hi_a - lo_a;         // a multiple of 4: run b on 16 bytes
+#pragma unroll
+  for (int k = 0; k < SEGCONV_POINTS; ++k) {
+    const int i = i_lo + (int)threadIdx.x + k * (int)blockDim.x;
+    if (i < m) {
+      if (i >= lo_a && i < hi_a) run[i - lo_a] = v[k].x;
+      if (i >= lo_b && i < hi_b) run[la + i - lo_b] = v[k].y;
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    if (la > 0)
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+              reinterpret_cast<uint64_t>(yr + oa + lo_a)),
+          "r"(smem_u32(run)), "r"(la * 4)
+          : "memory");
+    if (hi_b > lo_b)
+      asm volatile(
+          "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+              reinterpret_cast<uint64_t>(yr + oa + seg + lo_b)),
+          "r"(smem_u32(run + la)), "r"((hi_b - lo_b) * 4)
+          : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    // the block's shared memory stays until the copies have read it
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+
+// The accumulating store. Every chunk of y that a thread adds into is
+// loaded first, all in flight at once, then added and stored 16 bytes wide.
+// Chunk by chunk, each load would wait for the store before it (the
+// compiler cannot move a load of y past a store to y): a round trip a
+// chunk.
+__device__ __forceinline__ void add_store(const float2* z, float* yr,
+                                          long long oa, int seg, int i_lo,
+                                          int m, int T, int shift,
+                                          bool has_b) {
+  const int first = min(m, i_lo + head_points(yr, oa + i_lo));
+  const int nb2 = (m - first) >> 2;   // at most SEGCONV_CHUNKS a thread
+  const auto whole = [&](long long o) { return o >= shift && o + 4 <= T; };
+  float4 ya[SEGCONV_CHUNKS], yb[SEGCONV_CHUNKS];
+#pragma unroll
+  for (int u = 0; u < SEGCONV_CHUNKS; ++u) {
+    const int q = (int)threadIdx.x + u * (int)blockDim.x;
+    const long long o = oa + first + 4 * q;
+    if (q < nb2) {
+      if (whole(o)) ya[u] = *reinterpret_cast<const float4*>(yr + o);
+      if (has_b && whole(o + seg))
+        yb[u] = *reinterpret_cast<const float4*>(yr + o + seg);
+    }
+  }
+  const auto put = [&](long long o, float4 y, float v0, float v1, float v2,
+                       float v3) {
+    if (whole(o)) {
+      y.x += v0;
+      y.y += v1;
+      y.z += v2;
+      y.w += v3;
+      __stcg(reinterpret_cast<float4*>(yr + o), y);   // one 16-byte store
+    } else {                          // at the output delay or at T
+      store1<true>(yr, o, T, shift, v0);
+      store1<true>(yr, o + 1, T, shift, v1);
+      store1<true>(yr, o + 2, T, shift, v2);
+      store1<true>(yr, o + 3, T, shift, v3);
+    }
+  };
+#pragma unroll
+  for (int u = 0; u < SEGCONV_CHUNKS; ++u) {
+    const int q = (int)threadIdx.x + u * (int)blockDim.x;
+    if (q < nb2) {
+      const int i = first + 4 * q;
+      const float2 v0 = z[pad(i)], v1 = z[pad(i + 1)], v2 = z[pad(i + 2)],
+                   v3 = z[pad(i + 3)];
+      put(oa + i, ya[u], v0.x, v1.x, v2.x, v3.x);
+      if (has_b) put(oa + seg + i, yb[u], v0.y, v1.y, v2.y, v3.y);
+    }
+  }
+  // the points before the first chunk and after the last, one a thread
+  int i = -1;
+  if ((int)threadIdx.x < first - i_lo) i = i_lo + threadIdx.x;
+  else if ((int)threadIdx.x >= 4 && (int)threadIdx.x - 4 < m - first - 4 * nb2)
+    i = first + 4 * nb2 + (int)threadIdx.x - 4;
+  if (i >= 0) {
+    const float2 v = z[pad(i)];
+    store1<true>(yr, oa + i, T, shift, v.x);
+    if (has_b) store1<true>(yr, oa + seg + i, T, shift, v.y);
+  }
 }
 
 // P blocks a window pair (1, or a cluster of 2 or 4). Block `rank` of a
@@ -199,26 +324,10 @@ segconv_kernel(const float* __restrict__ x, float* __restrict__ y,
   const int i_lo = max(0, halo - base);
   if (i_lo >= m) return;
   const long long oa = (long long)s0 * seg + base - halo;
-  const int first = min(m, i_lo + head_points(yr, oa + i_lo));
-  const int nb2 = (m - first) >> 2;
-  for (int k = threadIdx.x; k < nb2; k += blockDim.x) {
-    const int i = first + 4 * k;
-    const float2 v0 = z[pad(i)], v1 = z[pad(i + 1)], v2 = z[pad(i + 2)],
-                 v3 = z[pad(i + 3)];
-    store4<kAcc>(yr, oa + i, T, shift, v0.x, v1.x, v2.x, v3.x);
-    if (has_b)
-      store4<kAcc>(yr, oa + seg + i, T, shift, v0.y, v1.y, v2.y, v3.y);
-  }
-  // the points before the first chunk and after the last, one a thread
-  int i = -1;
-  if ((int)threadIdx.x < first - i_lo) i = i_lo + threadIdx.x;
-  else if ((int)threadIdx.x >= 4 && (int)threadIdx.x - 4 < m - first - 4 * nb2)
-    i = first + 4 * nb2 + (int)threadIdx.x - 4;
-  if (i >= 0) {
-    const float2 v = z[pad(i)];
-    store1<kAcc>(yr, oa + i, T, shift, v.x);
-    if (has_b) store1<kAcc>(yr, oa + seg + i, T, shift, v.y);
-  }
+  if constexpr (kAcc)
+    add_store(z, yr, oa, seg, i_lo, m, T, shift, has_b);
+  else
+    bulk_store(z, yr, oa, seg, i_lo, m, T, shift, has_b);
 }
 
 template <int P, bool kAcc>

@@ -25,9 +25,13 @@ needed. A window wider than one block's shared memory (up to 65,536 points)
 is spread over a thread-block cluster of two or four blocks, whose top pass
 goes through distributed shared memory: at a long halo the wider window
 transforms fewer points for each one it keeps (:data:`CLUSTER_AT`, the
-version by window). The gather and the store move 16 bytes a thread where
-the signal's offset allows, and a thread issues all its loads before its
-first shared-memory store. Below the top pass of a window over a cluster
+version by window). The gather moves 16 bytes a thread where the signal's
+offset allows, and a thread issues all its loads before its first
+shared-memory store. The store is the part of the memory traffic a block
+waits for: a writing launch hands its outputs to the Tensor Memory
+Accelerator (bulk copies out of shared memory, drained while the next block
+runs), and an accumulating one loads every chunk of the output it adds into
+before its first add. Below the top pass of a window over a cluster
 each run of points belongs to the same warps in every pass, which wait only
 for the warps that share their points (a warp, or a group of at least
 :data:`OWNER_THREADS` threads at a hardware barrier of its own); those

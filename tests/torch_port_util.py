@@ -29,6 +29,11 @@
 * ``emulate_convpairs_step`` -- the step entry point of csrc/convpairs.cu:
   the window gathered from history and block, the kept samples, the next
   history.
+* ``emulate_segconv_store`` -- one block's store in csrc/segconv.cu: the
+  writing launch's two bulk-copy runs laid out in the block's shared memory
+  and the points stored alone, the accumulating launch's chunks of y loaded
+  before any add, the points alone; each output sample's value from the
+  block's window, so that an index or alignment error shows on the CPU.
 * ``emulate_stream_step`` -- the schedule of a FIR's step in partitions
   (``kernels/convpairs.stream_step``): each part's window gathered from the
   shared history and the block, its kept samples written or added in order
@@ -483,6 +488,110 @@ def emulate_segconv(x: np.ndarray, plan, blocks: int | None = None
                     y[c, o:o + w] = part[halo:halo + w]
     y[:, :shift] = 0.0      # the store masks the output delay to silence
     return y
+
+
+def _head_points(phase: int, s: int) -> int:
+    """csrc/segconv.cu ``head_points``: samples from s to the row's first
+    16-byte boundary at or after it, the row starting ``phase`` samples past
+    one."""
+    return (-(phase + s)) % 4
+
+
+def segconv_whole_chunks(phase: int, o0: int, i_lo: int, m: int, T: int,
+                         shift: int) -> tuple[int, int]:
+    """csrc/segconv.cu ``whole_chunks``: the points [lo, hi) of [i_lo, m)
+    whose outputs o0 + i lie on whole 16-byte chunks at or past ``shift``
+    and below T."""
+    lo, hi = i_lo, m
+    if o0 + lo < shift:
+        lo = shift - o0
+    if o0 + hi > T:
+        hi = T - o0
+    if lo < hi:
+        lo += _head_points(phase, o0 + lo)
+        hi -= (4 - _head_points(phase, o0 + hi)) & 3
+    return lo, max(hi, lo)
+
+
+def emulate_segconv_store(z: np.ndarray, y: np.ndarray, phase: int, oa: int,
+                          seg: int, i_lo: int, threads: int, T: int,
+                          shift: int, has_b: bool, accumulate: bool,
+                          points: int = 16, chunks: int = 4) -> dict:
+    """One block's store of its wrap-free points i in [i_lo, m) (m =
+    len(z), complex: window a real, b imaginary) into the row ``y`` (float32,
+    changed in place), as csrc/segconv.cu's ``bulk_store`` (writing) or
+    ``add_store`` (accumulating) does it. Returns what it did: the writing
+    store's runs (row offset, length, offset in the block's shared memory),
+    the points stored alone, every output sample touched and how often."""
+    m = len(z)
+    touched = {}
+
+    def touch(o):
+        touched[o] = touched.get(o, 0) + 1
+
+    def store1(o, v):                    # csrc/segconv.cu store1
+        if o >= T:
+            return
+        touch(o)
+        if o < shift:
+            if not accumulate:
+                y[o] = 0.0
+        else:
+            y[o] = y[o] + v if accumulate else v
+
+    wins = [(oa, z.real.astype(np.float32))]
+    if has_b:
+        wins.append((oa + seg, z.imag.astype(np.float32)))
+    out = {"runs": [], "alone": 0, "touched": touched}
+    if not accumulate:
+        assert m - i_lo <= points * threads, (m, i_lo, threads)
+        smem = np.full(2 * (m + m // 16), np.nan, np.float32)
+        at = 0
+        spans = []
+        for o0, v in wins:
+            lo, hi = segconv_whole_chunks(phase, o0, i_lo, m, T, shift)
+            for i in range(i_lo, m):
+                if not lo <= i < hi:
+                    store1(o0 + i, v[i])
+                    out["alone"] += 1
+            spans.append((o0, v, lo, hi, at))
+            at += hi - lo
+        for o0, v, lo, hi, off in spans:       # after the barrier
+            smem[off:off + hi - lo] = v[lo:hi]
+        for o0, v, lo, hi, off in spans:       # the bulk copies
+            if hi > lo:
+                out["runs"].append((o0 + lo, hi - lo, off))
+                y[o0 + lo:o0 + hi] = smem[off:off + hi - lo]
+                for o in range(o0 + lo, o0 + hi):
+                    touch(o)
+        return out
+    first = min(m, i_lo + _head_points(phase, oa + i_lo))
+    nb2 = (m - first) // 4
+    assert nb2 <= chunks * threads, (nb2, threads)
+    loaded = {}
+    for q in range(nb2):                       # every load first
+        for o0, _ in wins:
+            o = o0 + first + 4 * q
+            if o >= shift and o + 4 <= T:
+                assert _head_points(phase, o) == 0
+                loaded[o] = y[o:o + 4].copy()
+    for q in range(nb2):
+        i = first + 4 * q
+        for o0, v in wins:
+            o = o0 + i
+            if o >= shift and o + 4 <= T:
+                y[o:o + 4] = loaded.pop(o) + v[i:i + 4]
+                for e in range(4):
+                    touch(o + e)
+            else:
+                for e in range(4):
+                    store1(o + e, v[i + e])
+    assert not loaded
+    for i in list(range(i_lo, first)) + list(range(first + 4 * nb2, m)):
+        for o0, v in wins:
+            store1(o0 + i, v[i])
+            out["alone"] += 1
+    return out
 
 
 def emulate_convpairs(flat: np.ndarray, plan) -> np.ndarray:
