@@ -42,8 +42,9 @@ Tracing (``profiling.py``). A capture is the span ``graph.capture``, and
 (warm-up included) and the captures made, always. A graph captured with the
 program's tracing on records a stage mark (``profiling.mark``) before the
 first executed effect, after each and, in the step, after the state
-write-back, and in the render between the partitions of a FIR
-(``<effect>.part0``, ...); ``stages()`` names the stages in order.
+write-back, and between the partitions of a FIR (``<effect>.part0``, ...:
+the render's segconv launches, the step's convpairs launches);
+``stages()`` names the stages in order.
 Captured with tracing off, a graph holds no mark.
 
 Captures use ``capture_error_mode="thread_local"``: another thread's CUDA
@@ -88,6 +89,7 @@ from .stream import state_leaves
 
 # Every kernel wrapper's launch counter: (module, attribute).
 LAUNCH_COUNTERS = ((convpairs, "launch_count"),
+                   (convpairs, "accumulate_launch_count"),
                    (dynamics, "serial_walk_launch_count"),
                    (dynamics, "state_walk_launch_count"),
                    (dynamics, "audio_walk_launch_count"),
@@ -274,18 +276,20 @@ class CapturedStep:
         """The eager step on the state buffers (``chain_step``), the effect
         at work named in ``where[0]``; with a list for ``stages``, a mark
         before the first effect and after each, the effects' names
-        appended."""
+        appended (a FIR streamed in partitions marks between them too, its
+        parts' names appended: ``profiling.stage_parts``)."""
         state = _rebuild(self._template, iter(self._buffers))
         new = []
         if stages is not None:
             profiling.mark(self.device)
         for e, st in zip(self.effects, state):
             where[0] = e.name
-            st, block = e.step(e.params, st, block)
+            with profiling.stage_parts(stages is not None) as parts:
+                st, block = e.step(e.params, st, block)
             new.append(st)
             if stages is not None:
                 profiling.mark(self.device)
-                stages.append(e.name)
+                stages.extend(profiling.stage_names(e.name, len(parts)))
         where[0] = None
         return tuple(new), block
 
@@ -382,8 +386,9 @@ class CapturedStep:
 
     def stages(self, shape: tuple[int, ...]) -> list[str]:
         """The stages between the marks of the graph at ``shape``, in
-        order: the executed effects, then ``write_state``; none where it
-        was captured with tracing off."""
+        order: the executed effects, a FIR in partitions as its parts
+        (``<effect>.part0``, ...), then ``write_state``; none where it was
+        captured with tracing off."""
         return list(self._graphs[tuple(shape)].stages)
 
 

@@ -55,12 +55,16 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import profiling
 from . import _build, segconv
 
 # Number of kernel launches made by :func:`conv_pairs`,
 # :func:`conv_pairs_step` and :func:`stream_step` (and by nothing else) since
 # the caller last set it to 0.
 launch_count = 0
+# Of those, the launches in the accumulate mode (a :class:`StreamPart` with
+# ``add``: every partition of :func:`stream_step` after the first).
+accumulate_launch_count = 0
 
 # csrc/convpairs.cu spreads a pair of rows over 1, 2 or 4 thread blocks, all
 # bit-equal to each other. Up to one block's 16,384 points the cluster of four
@@ -229,7 +233,7 @@ def _launch_part(hist: torch.Tensor, block: torch.Tensor, out: torch.Tensor,
     contiguous; ``new_hist`` (R, H), written as ``concat(hist, block)[B:]``
     by this launch (its window must start at 0), or None. ``blocks`` as in
     :func:`_launch`, for measurement only."""
-    global launch_count
+    global launch_count, accumulate_launch_count
     plan = part.plan
     _check_plan(plan, hist.device)
     R, H = hist.shape
@@ -260,6 +264,8 @@ def _launch_part(hist: torch.Tensor, block: torch.Tensor, out: torch.Tensor,
     _raise_on(err, f"step: R={R}, n={plan.n}, history={H}, B={B}, "
                    f"start={st}, keep={part.keep}, blocks={blocks}")
     launch_count += 1
+    if part.add:
+        accumulate_launch_count += 1
 
 
 def _launch_step(hist: torch.Tensor, block: torch.Tensor, plan: PairsPlan,
@@ -347,7 +353,9 @@ def stream_step(hist: torch.Tensor, block: torch.Tensor, parts,
     (R, H)), both contiguous, the old history left as it was. On a CUDA
     tensor each part is ONE launch of the hand-written kernel, in order (the
     later partitions in its accumulate mode), and the first part whose window
-    starts at sample 0 also writes the next history; or the call raises."""
+    starts at sample 0 also writes the next history; or the call raises. In
+    a graph captured with tracing on, a stage mark lies between two parts
+    (``profiling.part``)."""
     H = hist.shape[-1]
     n = max(p.plan.n for p in parts)
     _check_step_tensors(hist, block, H, n)
@@ -370,6 +378,8 @@ def stream_step(hist: torch.Tensor, block: torch.Tensor, parts,
     out = torch.empty((R, B), dtype=torch.float32, device=hist.device)
     new_hist = torch.empty_like(hist)
     for k, part in enumerate(parts):
+        if k:
+            profiling.part(hist.device)
         _launch_part(hist, block, out, part,
                      new_hist if k == writer else None)
     return out, new_hist

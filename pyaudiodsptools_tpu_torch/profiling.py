@@ -22,9 +22,10 @@ Counterpart of ``pyaudiodsptools_tpu/profiling.py``, and beyond it:
     executed effect, between two, after the last, after the streaming
     step's state write-back, and around each exchange of a sharded program
     (under NCCL the mark after it waits for the collective, peers
-    included). In the offline render a FIR of two or more partitions also
-    marks between its partitions (``part``), its stages named
-    ``<effect>.part0``, ``<effect>.part1``, ... The graphs' ``stages()``
+    included). A FIR of two or more partitions also marks between its
+    partitions (``part``; the render's segconv launches, the streaming
+    step's convpairs launches), its stages named ``<effect>.part0``,
+    ``<effect>.part1``, ... The graphs' ``stages()``
     give the stage names in order. A
     replay runs the marks with it, so the trace's device clock puts every
     operation of a replay, and every idle gap between its first and last

@@ -141,19 +141,23 @@ def _card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("taps,B", [(65000, 4096), (65033, 512),
-                                    (32767, 65536), (65529, 32768)])
-def test_cuda_partitioned_step_bit_equal_to_its_schedule(taps, B):
+@pytest.mark.parametrize("taps,B,rows,lead", [
+    (65000, 4096, 8, 37), (65033, 512, 8, 37), (32767, 65536, 8, 37),
+    (65529, 32768, 8, 37),
+    # the benchmark's reverb_live send: 65,536 over a cluster of four,
+    # then the accumulating 1,024 window that writes the history
+    (65287, 512, 64, 1431)])
+def test_cuda_partitioned_step_bit_equal_to_its_schedule(taps, B, rows, lead):
     """Each part one launch, in order, the later partitions adding: bit for
     bit the mirror's schedule with each window convolved by the card's own
     ``conv_pairs`` (known bit-equal to the step's kernel on one window)."""
     _card()
-    eff = pt_fir.fir(_kernel(taps, 37, seed=taps), B, device="cuda")
+    eff = pt_fir.fir(_kernel(taps, lead, seed=taps), B, device="cuda")
     parts = eff.params.parts
     assert len(parts) > 1
     rng = np.random.default_rng(B)
-    hist = rng.standard_normal((8, eff.params.history)).astype(np.float32)
-    block = rng.standard_normal((8, B)).astype(np.float32)
+    hist = rng.standard_normal((rows, eff.params.history)).astype(np.float32)
+    block = rng.standard_normal((rows, B)).astype(np.float32)
 
     def on_card(window, plan):
         return convpairs.conv_pairs(torch.from_numpy(window).cuda(),
