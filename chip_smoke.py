@@ -2316,7 +2316,10 @@ def step_vs_plain(fir_e, block: torch.Tensor) -> dict:
     seeded random history and ``block`` (a slice of a longer signal, taken
     as it lies), against the same step's plain version: dB of the output,
     which must reach CONV_DB_PLAIN, and the next histories, which must be
-    equal."""
+    equal. Through the delay line (``spectral_vs_plain``) its one launch on
+    a seeded random state against the plain version on the CPU."""
+    if fir_e.params.spectral is not None:
+        return spectral_vs_plain(fir_e, block)
     gen = torch.Generator(device="cuda").manual_seed(fir_e.params.history)
     hist = torch.randn((block.shape[0], fir_e.params.history),
                        generator=gen, device="cuda")
@@ -2331,6 +2334,109 @@ def step_vs_plain(fir_e, block: torch.Tensor) -> dict:
     return r
 
 
+def random_line_state(fir_e, rows: int) -> dict:
+    """A seeded random state of a FIR's delay line on the card, its
+    position two steps before the end of its period."""
+    line = fir_e.params.spectral
+    gen = torch.Generator(device="cuda").manual_seed(line.slots)
+    st = {k: torch.randn(v.shape, generator=gen, device="cuda")
+          for k, v in fir_e.state((rows,)).items() if k != "pos"}
+    st["pos"] = torch.tensor(line.period - 2, dtype=torch.int32,
+                             device="cuda")
+    return st
+
+
+def spectral_vs_plain(fir_e, block: torch.Tensor) -> dict:
+    """One eager step of a FIR's delay line (one ``convpairs`` launch) on a
+    seeded random state and ``block``, against the plain version of the
+    same step on the CPU (the plain delay line runs there only): dB of the
+    output and of the spectrum ring, which must reach CONV_DB_PLAIN; the
+    input ring and the position, which must be equal; the rings, which must
+    have advanced in place."""
+    st = random_line_state(fir_e, block.shape[0])
+    cpu = fft_filter.fir(fir_e.lti_kernel, fir_e.params.block_size,
+                         device="cpu")
+    p_new, p_y = cpu.step(cpu.params, {k: v.cpu() for k, v in st.items()},
+                          block.cpu())
+    before = convpairs.spectral_launch_count
+    new, y = fir_e.step(fir_e.params, st, block)
+    torch.cuda.synchronize()
+    launches = convpairs.spectral_launch_count - before
+    r = {"db_step_plain": db_json(snr_db(p_y.numpy(), y.cpu().numpy())),
+         "db_ring_plain": db_json(snr_db(p_new["ring"].numpy(),
+                                         new["ring"].cpu().numpy())),
+         "step_max_abs_err": float((p_y - y.cpu()).abs().max()),
+         "input_ring_equal": bool(torch.equal(p_new["input"],
+                                              new["input"].cpu())),
+         "position_equal": int(p_new["pos"]) == int(new["pos"]),
+         "rings_in_place": new["ring"] is st["ring"]
+                           and new["input"] is st["input"],
+         "launches": launches}
+    assert r["db_step_plain"] >= CONV_DB_PLAIN \
+        and r["db_ring_plain"] >= CONV_DB_PLAIN and r["input_ring_equal"] \
+        and r["position_equal"] and r["rings_in_place"] \
+        and launches == 1, r
+    return r
+
+
+def line_shape(line) -> dict:
+    """A delay line's geometry, for the lane's records."""
+    return {"n": line.n, "B": line.block, "partitions": len(line.delays),
+            "first_delay": line.delays[0], "slots": line.slots,
+            "input_blocks": line.inputs,
+            "blocks_a_pair": convpairs.SPECTRAL_BLOCKS}
+
+
+# reverb_live's send: lowcut(160) and reverb(1500) fused at B = 512, 64 rows
+LIVE_SEND_BLOCK = 512
+
+
+def time_spectral_stream() -> dict:
+    """Row 8 through the frequency-domain delay line at reverb_live's
+    shapes (the send's fused 65,287-tap FIR at B = 512, 64 rows): one step
+    checked against the plain version (``spectral_vs_plain``), then the step
+    alone, its rings advanced in place as the captured step advances them,
+    GRAPH_STEPS of them in one CUDA graph and queued behind a spin; beside
+    them the bytes the step reads (the ring's used slots, the filters' slices
+    each pair reads) and the benchmark's frozen bound for the cell
+    (``4 R (K - 1 + 3 B)`` bytes at the HBM peak)."""
+    B, C = LIVE_SEND_BLOCK, CHANNELS
+    cfg = pt.EngineConfig(SAMPLE_RATE, B)
+    chain = pt.Chain([pt.ops.lowcut(cfg, 160.0, device="cuda"),
+                      pt.ops.reverb(cfg, 1500.0, device="cuda")],
+                     device="cuda")
+    (fir_e,) = chain.exec_effects
+    line = fir_e.params.spectral
+    assert line is not None and fir_e.params.parts == ()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    block = torch.randn((C, B), generator=gen, device="cuda")
+    check = spectral_vs_plain(fir_e, block)
+    st = random_line_state(fir_e, C)
+    inputs = st["input"].view(C, line.inputs, B)
+
+    def step():
+        return convpairs.spectral_step(st["ring"], inputs, st["pos"], block,
+                                       line)
+
+    in_graph = graph_ms(step)
+    pairs = (C + 1) // 2
+    ring_bytes = len(line.delays) * pairs * line.n * 8
+    filter_bytes = len(line.delays) * pairs * line.n * 8
+    bound_bytes = 4 * C * (fir_e.params.kernel_len - 1 + 3 * B)
+    peak = rl.peaks_for(torch.cuda.get_device_name())
+    bound_ms = bound_bytes / peak.hbm_bytes_per_s * 1e3
+    return {"what": f"{fir_e.name} at B={B}, {C} rows",
+            "taps": fir_e.params.kernel_len, "lead": fir_e.params.lead,
+            **line_shape(line), "check": check,
+            "headline_is": "spectral_step(ring, input, pos, block, plan), "
+                           "rings in place",
+            "in_graph_ms": in_graph, "queued_ms": queued_ms(step),
+            "ring_read_bytes": ring_bytes,
+            "filter_read_bytes": filter_bytes,
+            "frozen_bound_bytes": bound_bytes, "frozen_bound_ms": bound_ms,
+            "frozen_bound_pct_in_graph": 100.0 * bound_ms / in_graph}
+
+
 def long_windows(signal: torch.Tensor, n: int) -> dict:
     """What the windows past one thread block buy, on the main path's
     signal: (1) a lowcut and (2) chain8 streamed at B=16,384 (windows of
@@ -2340,12 +2446,16 @@ def long_windows(signal: torch.Tensor, n: int) -> dict:
     offline at 64 ch x 30 s through its three partitions (one launch each,
     the later ones adding into the output), held to the plain version, the
     oracle and the partitions summed by ``torch.add``, and timed; (4) a
-    65,000-tap FIR at B=4096: four partitions offline, and streamed in two
-    (its window would be 69,099 samples), held to its offline render; (5) a
+    65,000-tap FIR at B=4096: four partitions offline, and streamed through
+    the frequency-domain delay line (its window would be 69,099 samples;
+    windows of 8,192, one launch a step), held to its offline render; (5) a
     lowcut at B=65,536 streamed in two sub-blocks; (6) chain8 at B=32,768,
-    its three filters fused into one FIR that streams in two partitions. In
-    (4), (5) and (6) one step of the partitioned FIR is also held to its
-    plain version on the same history and block (``step_vs_plain``)."""
+    its three filters fused into one FIR that streams through the delay
+    line (windows of 65,536); (7) a 65,000-tap FIR at B=65,536, past the
+    delay line's reach: two partitions, each in two sub-blocks, the second
+    partition's launches adding into the output. In (4) to (7) one step of
+    the long FIR is also held to its plain version on the same state and
+    block (``step_vs_plain``)."""
     C, B = signal.shape[0], LONG_BLOCK
     T = LONG_STEPS * B
     x = signal[:, :T].contiguous()
@@ -2446,10 +2556,12 @@ def long_windows(signal: torch.Tensor, n: int) -> dict:
     assert db_plain >= CONV_DB_PLAIN and db_oracle >= CONV_DB_ORACLE, r
     del got, xm
 
-    # (4) 65,000 taps at B=4096: offline in four partitions; streamed in two
+    # (4) 65,000 taps at B=4096: offline in four partitions; streamed
+    # through the delay line
     longer = fft_filter.fir(long_kernel(LONGER_FIR_TAPS, 2), 4096,
                             device="cuda")
-    assert len(longer.params.plans) == 4 and len(longer.params.parts) == 2
+    assert len(longer.params.plans) == 4 \
+        and longer.params.spectral is not None
     xs = signal[:, :LONGER_STEPS * 4096].contiguous()
     got = longer.offline(longer.params, xs.reshape(C, LONGER_STEPS, 4096))
     want = longer.offline(longer.params, xs.reshape(C, LONGER_STEPS, 4096),
@@ -2458,16 +2570,13 @@ def long_windows(signal: torch.Tensor, n: int) -> dict:
     cfg4 = pt.EngineConfig(SAMPLE_RATE, 4096)
     outs, counts = stream_run(pt.Chain([longer], device="cuda"), cfg4, xs)
     streamed = torch.cat(outs, dim=-1)
-    assert counts["conv_pairs"] == 2 * LONGER_STEPS \
-        and sum(counts.values()) == 2 * LONGER_STEPS, counts
+    assert counts["conv_pairs"] == LONGER_STEPS \
+        and sum(counts.values()) == LONGER_STEPS, counts
     db_stream = snr_db_cuda(got.reshape(C, -1), streamed)
     r["longer_fir"] = {
         "taps": LONGER_FIR_TAPS, "B": 4096,
         "partitions": len(longer.params.plans), "db_plain": db_json(db),
-        "stream_parts": [{"n": q.plan.n, "taps": q.plan.kernel_len,
-                          "start": q.start, "add": q.add}
-                         for q in longer.params.parts],
-        "history_samples": longer.params.history,
+        "delay_line": line_shape(longer.params.spectral),
         "steps": LONGER_STEPS, "launches": counts,
         "launches_a_step": counts["conv_pairs"] // LONGER_STEPS,
         "db_stream_to_offline": db_json(db_stream),
@@ -2502,16 +2611,43 @@ def long_windows(signal: torch.Tensor, n: int) -> dict:
     xc = signal[:, :WIDE_STEPS * 2 * Bc].contiguous()
     outs, counts = stream_run(chain, cfgc, xc)
     steps = WIDE_STEPS * 2
-    assert counts["conv_pairs"] == len(fir_e.params.parts) * steps \
+    line = fir_e.params.spectral
+    assert line is not None
+    assert counts["conv_pairs"] == steps \
         and counts["serial_walk"] == steps, counts
     db = snr_db_cuda(pt.render(chain, xc, cfgc), torch.cat(outs, dim=-1))
     r["chain8_32768"] = {"B": Bc, "fused": fir_e.name,
                          "fir_taps": fir_e.params.kernel_len,
-                         "stream_parts": len(fir_e.params.parts),
+                         "delay_line": line_shape(line),
                          "steps": steps, "launches": counts,
                          "db_offline": db_json(db),
                          **step_vs_plain(fir_e, xc[:, :Bc])}
     assert db >= CHAIN8_DB_PLAIN, r
+    del outs, xc
+
+    # (7) 65,000 taps at B=65,536: partitions and sub-blocks, adding
+    widest = fft_filter.fir(long_kernel(LONGER_FIR_TAPS, 3), Bw,
+                            device="cuda")
+    parts = widest.params.parts
+    adding = sum(q.add for q in parts)
+    assert widest.params.spectral is None and len(parts) == 4 and adding, \
+        parts
+    xw = signal[:, :WIDE_STEPS * Bw].contiguous()
+    outs, counts = stream_run(pt.Chain([widest], device="cuda"), cfgw, xw)
+    assert counts["conv_pairs"] == len(parts) * WIDE_STEPS \
+        and sum(counts.values()) == len(parts) * WIDE_STEPS, counts
+    off = widest.offline(widest.params, xw.reshape(C, WIDE_STEPS, Bw))
+    db = snr_db_cuda(off.reshape(C, -1), torch.cat(outs, dim=-1))
+    before = convpairs.accumulate_launch_count
+    vs_plain = step_vs_plain(widest, xw[:, :Bw])
+    added = convpairs.accumulate_launch_count - before
+    r["partitioned_65536"] = {
+        "B": Bw, "taps": widest.params.kernel_len,
+        "parts": [(q.plan.n, q.start, q.out0, q.keep, q.add) for q in parts],
+        "steps": WIDE_STEPS, "launches": counts,
+        "adding_launches_a_step": added, "db_offline": db_json(db),
+        **vs_plain}
+    assert db >= STREAM_FIR_DB and added == adding, r
     return {"phase": "long_windows", **r}
 
 
@@ -4322,6 +4458,7 @@ def main() -> None:
               chains[B][1], chains[B][0]) for B in BLOCK_SIZES},
           "conv_pairs_cluster_by_window": time_cluster_by_window(),
           "conv_pairs_full_card_batch": time_full_batch(),
+          "conv_pairs_delay_line": time_spectral_stream(),
           "nvidia_smi": smi})
     t0 = time.perf_counter()
     emit({**long_windows(signal, n), "nvidia_smi": smi,

@@ -50,7 +50,11 @@ reverb line's high-cut's): the JAX step keeps ``halo_stream`` whole blocks
 for its own window, the port keeps the samples its windows reach back
 (``fft_filter.history_len``), so the history is cut from the end of the JAX
 one and padded with silence in front where the JAX one is shorter (those
-samples meet no tap that reaches an output still to come). An EQ's state
+samples meet no tap that reaches an output still to come). A FIR that the
+port streams through its frequency-domain delay line keeps no history: its
+one JAX leaf becomes the delay line's three, the spectra of the windows
+that end at each of the last blocks, the last blocks and the position
+(``fft_filter.spectral_state_from_history``). An EQ's state
 words are (hi, lo) float32 pairs on the JAX side (``x1``, ``x1l``, ...) and
 one float64 here: each pair is summed in float64.
 """
@@ -62,7 +66,7 @@ import torch
 
 from .core.config import DEFAULT_DEVICE, EngineConfig, resolve_device
 from .engine.chain import Chain
-from .engine.stream import state_from_leaves, state_paths
+from .engine.stream import state_from_leaves, state_leaves, state_paths
 from .ops import dynamics, fft_filter, waveshapers as ws
 from .ops.base import Effect, host_scalar
 # ``ops.delay`` / ``ops.tremolo`` name the factories; the modules behind them:
@@ -178,7 +182,12 @@ def chain_from_numpy(spec, device=DEFAULT_DEVICE, fuse: bool = True) -> Chain:
 def state_from_numpy(chain: Chain, jax_state_leaves):
     """The port's streaming state of ``chain`` from the numpy leaves of the
     JAX chain's state for the same effects (see the module docstring)."""
-    bare = state_paths(chain.init_state(()))
+    # the leaves that take one JAX leaf each: a delay line's first leaf
+    # takes its effect's JAX history, its other leaves none
+    lines = {i for i, e in enumerate(chain.exec_effects)
+             if getattr(e.params, "spectral", None) is not None}
+    bare = [(path, own) for path, own in state_paths(chain.init_state(()))
+            if path[0] not in lines or path[1:] == ("input",)]
     eq = {i for i, e in enumerate(chain.exec_effects)
           if isinstance(e.params, EQ3BandParams)}
     # an EQ's (hi, lo) words, adjacent in the JAX order (x1, x1l, x2, ...),
@@ -199,23 +208,30 @@ def state_from_numpy(chain: Chain, jax_state_leaves):
     # axes (a JAX FIR history has two of its own, blocks and samples, behind
     # it; an EQ word has the bands in front of it). The tremolo's position
     # has none: its leaves keep their shape whatever the batch.
-    probe = state_paths(chain.init_state((1,)))
+    probe = {path: one for path, one in state_paths(chain.init_state((1,)))}
     batch_shape = ()
-    for (path, own), (_, one), leaf in zip(bare, probe, leaves):
-        if one.dim() == own.dim():
+    for (path, own), leaf in zip(bare, leaves):
+        if probe[path].dim() == own.dim():
             continue
         if path[0] in eq:
             batch_shape = tuple(leaf.shape[1:])
         else:
-            own_axes = 2 if path[-1] == "hist" else own.dim()
+            own_axes = 2 if path[-1] == "hist" or path[0] in lines \
+                else own.dim()
             batch_shape = tuple(leaf.shape[:leaf.ndim - own_axes])
         break
-    template = state_paths(chain.init_state(batch_shape))
+    template = dict(state_paths(chain.init_state(batch_shape)))
     converted = []
-    for (path, own), leaf in zip(template, leaves):
+    for (path, _), leaf in zip(bare, leaves):
+        if path[0] in lines:
+            line = fft_filter.spectral_state_from_history(
+                chain.exec_effects[path[0]].params,
+                leaf.reshape(batch_shape + (-1,)))
+            converted += [t.numpy() for t in state_leaves(line)]
+            continue
         if path[-1] == "hist":
             flat = leaf.reshape(batch_shape + (-1,)).astype(np.float32)
-            keep = own.shape[-1]
+            keep = template[path].shape[-1]
             flat = flat[..., max(flat.shape[-1] - keep, 0):]
             pad = keep - flat.shape[-1]
             leaf = np.pad(flat, [(0, 0)] * len(batch_shape) + [(pad, 0)])

@@ -570,6 +570,196 @@ __device__ __forceinline__ void convolve_window_cluster(
   cluster.sync();
 }
 
+// The transform in halves, for a kernel that does more between the forward
+// transform and its adjoint than one spectrum multiply (csrc/convpairs.cu's
+// frequency-domain delay line stores the window's spectrum and sums the
+// products of many stored spectra with many filters'). The halves run the
+// operations of convolve_levels' passes on the same operands in the same
+// order: the forward passes down and the forward half of the innermost pass
+// leave the window's spectrum in z, in the forward transform's output order
+// (the order of the host's spectrum tables); the inverse half of the
+// innermost pass and the adjoint passes take it back up.
+
+// The forward half of center_pass_16: levels 16 and 4 on 16 neighbouring
+// points a thread.
+__device__ __forceinline__ void center_forward_16(float2* z, int ln) {
+  for (int t = threadIdx.x; t < (1 << (ln - 4)); t += blockDim.x) {
+    const int i0 = t << 4;
+    float2 x[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) x[a][c] = z[pad(i0 + c + 4 * a)];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      dft4_forward(x[0][c], x[1][c], x[2][c], x[3][c]);
+#pragma unroll
+      for (int p = 1; p < 4; ++p) x[p][c] = mul_w16(x[p][c], c * p);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      dft4_forward(x[a][0], x[a][1], x[a][2], x[a][3]);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) z[pad(i0 + c + 4 * a)] = x[a][c];
+    }
+  }
+}
+
+// The inverse half of center_pass_16.
+__device__ __forceinline__ void center_inverse_16(float2* z, int ln) {
+  for (int t = threadIdx.x; t < (1 << (ln - 4)); t += blockDim.x) {
+    const int i0 = t << 4;
+    float2 x[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) x[a][c] = z[pad(i0 + c + 4 * a)];
+      dft4_inverse(x[a][0], x[a][1], x[a][2], x[a][3]);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+#pragma unroll
+      for (int p = 1; p < 4; ++p) x[p][c] = mul_w16(x[p][c], 16 - c * p);
+      dft4_inverse(x[0][c], x[1][c], x[2][c], x[3][c]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) z[pad(i0 + c + 4 * a)] = x[a][c];
+  }
+}
+
+// The forward half of center_pass_8: level 8 and the radix-2 level on 8
+// neighbouring points a thread.
+__device__ __forceinline__ void center_forward_8(float2* z, int ln) {
+  for (int t = threadIdx.x; t < (1 << (ln - 3)); t += blockDim.x) {
+    const int i0 = t << 3;
+    float2 x[4][2];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) x[a][c] = z[pad(i0 + c + 2 * a)];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      dft4_forward(x[0][c], x[1][c], x[2][c], x[3][c]);
+#pragma unroll
+      for (int p = 1; p < 4; ++p) x[p][c] = mul_w16(x[p][c], 2 * c * p);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      z[pad(i0 + 2 * a)] = cadd(x[a][0], x[a][1]);
+      z[pad(i0 + 2 * a + 1)] = csub(x[a][0], x[a][1]);
+    }
+  }
+}
+
+// The inverse half of center_pass_8.
+__device__ __forceinline__ void center_inverse_8(float2* z, int ln) {
+  for (int t = threadIdx.x; t < (1 << (ln - 3)); t += blockDim.x) {
+    const int i0 = t << 3;
+    float2 x[4][2];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      const float2 s = z[pad(i0 + 2 * a)], d = z[pad(i0 + 2 * a + 1)];
+      x[a][0] = cadd(s, d);
+      x[a][1] = csub(s, d);
+    }
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+#pragma unroll
+      for (int p = 1; p < 4; ++p) x[p][c] = mul_w16(x[p][c], 16 - 2 * c * p);
+      dft4_inverse(x[0][c], x[1][c], x[2][c], x[3][c]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) z[pad(i0 + c + 2 * a)] = x[a][c];
+  }
+}
+
+// The forward half of convolve_levels (same arguments, no spectrum): the
+// passes down and the innermost pass's forward half. z (already
+// synchronised) ends as its spectrum; it ends in a barrier.
+__device__ __forceinline__ void forward_levels(float2* z,
+                                               const float2* __restrict__ tw,
+                                               int ln, int lm_top) {
+  const int inner = (lm_top & 1) ? 3 : 4;
+  int lm = lm_top;
+  for (; lm - 4 >= inner; lm -= 4) {
+    pass_two_levels<true>(z, tw, ln, lm);
+    tw += 6 << (lm - 4);
+    __syncthreads();
+  }
+  if (lm > inner) {
+    pass_one_level<true>(z, tw, ln, lm);
+    __syncthreads();
+  }
+  if (lm_top & 1) center_forward_8(z, ln);
+  else center_forward_16(z, ln);
+  __syncthreads();
+}
+
+// The inverse half of convolve_levels: from a spectrum in z (synchronised)
+// back up. `tw` as for forward_levels; it ends in a barrier.
+__device__ __forceinline__ void inverse_levels(float2* z,
+                                               const float2* __restrict__ tw,
+                                               int ln, int lm_top) {
+  const int inner = (lm_top & 1) ? 3 : 4;
+  int lm = lm_top;
+  for (; lm - 4 >= inner; lm -= 4) tw += 6 << (lm - 4);
+  const bool single = lm > inner;
+  if (lm_top & 1) center_inverse_8(z, ln);
+  else center_inverse_16(z, ln);
+  __syncthreads();
+  if (single) {
+    pass_one_level<false>(z, tw, ln, lm);
+    __syncthreads();
+  }
+  for (lm += 4; lm <= lm_top; lm += 4) {
+    tw -= 6 << (lm - 4);
+    pass_two_levels<false>(z, tw, ln, lm);
+    __syncthreads();
+  }
+}
+
+// The forward half of convolve_window_cluster<P>: z (filled, not yet
+// synchronised) ends as this block's slice of the window's spectrum,
+// entries [rank * n/P, (rank + 1) * n/P) of the forward transform's output
+// order; it ends in a block barrier.
+template <int P>
+__device__ __forceinline__ void forward_window_cluster(
+    float2* z, const float2* __restrict__ tw, int ln) {
+  namespace cg = cooperative_groups;
+  static_assert(P == 2 || P == 4, "a cluster of 2 or 4 blocks");
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  float2* zq[P];
+#pragma unroll
+  for (int a = 0; a < P; ++a) zq[a] = cluster.map_shared_rank(z, a);
+  cluster.sync();
+  pass_two_levels_cluster<P, true>(zq, tw, ln, rank);
+  cluster.sync();
+  forward_levels(z, tw + (6 << (ln - 4)), ln - (P == 4 ? 2 : 1), ln - 4);
+}
+
+// The inverse half of convolve_window_cluster<P>: from each block's slice
+// of a spectrum in z (synchronised in the block) to the window; it ends in
+// a cluster barrier, after which a block may read its own z.
+template <int P>
+__device__ __forceinline__ void inverse_window_cluster(
+    float2* z, const float2* __restrict__ tw, int ln) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  float2* zq[P];
+#pragma unroll
+  for (int a = 0; a < P; ++a) zq[a] = cluster.map_shared_rank(z, a);
+  inverse_levels(z, tw + (6 << (ln - 4)), ln - (P == 4 ? 2 : 1), ln - 4);
+  cluster.sync();
+  pass_two_levels_cluster<P, false>(zq, tw, ln, rank);
+  cluster.sync();
+}
+
 // log2(n) for a power of two n >= 16, else -1.
 inline int window_log2(int n) {
   int ln = 0;

@@ -102,8 +102,11 @@ class Chain:
     def step(self, state, block: torch.Tensor):
         """Process one ``(..., block_size)`` block (on the chain's device)
         through the whole chain: (state, block) -> (state, block), eagerly.
-        On the card a step is a few dozen launches and reads nothing back."""
-        return chain_step(self._exec_effects, self.params, state, block)
+        On the card a step is a few dozen launches and reads nothing back.
+        The state given is left as it was: the effects step a copy of it
+        (a FIR longer than one window advances its delay line in place)."""
+        return chain_step(self._exec_effects, self.params, copy_state(state),
+                          block)
 
     def captured_step(self, batch_shape: tuple[int, ...] = ()):
         """The streaming step as CUDA graphs, the state of ``batch_shape``
@@ -249,6 +252,15 @@ def fuse_tail_runs(effects: tuple[Effect, ...]) -> tuple[Effect, ...]:
             out.append(e)
     flush()
     return tuple(out)
+
+
+def copy_state(state):
+    """A state tree with each tensor cloned."""
+    if isinstance(state, dict):
+        return {k: copy_state(v) for k, v in state.items()}
+    if isinstance(state, (tuple, list)):
+        return type(state)(copy_state(part) for part in state)
+    return state.clone() if isinstance(state, torch.Tensor) else state
 
 
 def chain_step(effects, params, state, block):

@@ -18,7 +18,11 @@ of them reading and writing the same state buffers. For each shape it:
   and loaded; cuBLAS, which the EQ's float64 products go through, makes its
   handle and workspace), and discards the result;
 * captures the step once, followed inside the graph by copies of the new
-  state into the state buffers, so that a replay advances the state;
+  state into the state buffers, so that a replay advances the state (a
+  step that advances a leaf in place, the delay line of a FIR longer than
+  one window, returns the buffer itself, which needs no copy; the warm-up
+  leaves such a leaf as the step it is given would find it: the delay
+  line's slots it writes are the ones the step writes before reading);
 * on each block copies the input into the graph's input buffer and replays.
   The output lies in the graph's own buffer, which the next replay
   overwrites: :meth:`CapturedStep.replay` returns that buffer and
@@ -90,6 +94,7 @@ from .stream import state_leaves
 # Every kernel wrapper's launch counter: (module, attribute).
 LAUNCH_COUNTERS = ((convpairs, "launch_count"),
                    (convpairs, "accumulate_launch_count"),
+                   (convpairs, "spectral_launch_count"),
                    (dynamics, "serial_walk_launch_count"),
                    (dynamics, "state_walk_launch_count"),
                    (dynamics, "audio_walk_launch_count"),
@@ -236,10 +241,14 @@ class CapturedStep:
                 raise ValueError(f"effect {e.name!r} was built for "
                                  f"{e.device}, not for the card")
         self.batch_shape = tuple(batch_shape)
-        self._template = self._init_state()
+        initial = self._init_state()
         # distinct buffers: an initial state may share one zero tensor
         # between fields, and each field is written on its own
-        self._buffers = [leaf.clone() for leaf in state_leaves(self._template)]
+        self._buffers = [leaf.clone() for leaf in state_leaves(initial)]
+        # the state's structure alone: the buffers are the only copy of its
+        # tensors that the step keeps
+        self._template = _rebuild(initial, iter([None] * len(self._buffers)))
+        del initial
         self._graphs: dict[tuple[int, ...], _Graph] = {}
 
     def _init_state(self):
@@ -274,10 +283,11 @@ class CapturedStep:
 
     def _step(self, block: torch.Tensor, where: list, stages=None):
         """The eager step on the state buffers (``chain_step``), the effect
-        at work named in ``where[0]``; with a list for ``stages``, a mark
-        before the first effect and after each, the effects' names
-        appended (a FIR streamed in partitions marks between them too, its
-        parts' names appended: ``profiling.stage_parts``)."""
+        at work named in ``where[0]``, the buffers the step's own (a leaf
+        may advance in place); with a list for
+        ``stages``, a mark before the first effect and after each, the
+        effects' names appended (a FIR streamed in partitions marks between
+        them too, its parts' names appended: ``profiling.stage_parts``)."""
         state = _rebuild(self._template, iter(self._buffers))
         new = []
         if stages is not None:

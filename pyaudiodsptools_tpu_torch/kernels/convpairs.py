@@ -39,12 +39,19 @@ beside the transforming ones of the part whose window starts at the
 history's first sample. :func:`conv_pairs_step` is its one-part case: a FIR
 that fits one window, ONE launch a step.
 
+:func:`spectral_step` is the step of a FIR longer than one window whose
+blocks fit half of one (``ops/fft_filter.fir`` routes it there): a
+frequency-domain delay line (:class:`SpectralPlan`), the kernel cut into
+partitions of B taps, the spectra of the last windows kept in a ring in the
+state; ONE launch of the same kernel a step (another mode of it), whatever
+the kernel's length, with both rings written in place.
+
 The CUDA source is ``csrc/convpairs.cu``. The plain versions,
 :func:`conv_pairs_plain` (the same function on ``torch.fft``),
 :func:`stream_step_plain` (join, convolve, slice, and add in order), run for
 CPU tensors,
 or on request (``use_kernels=False``), and are never a fallback for a CUDA
-tensor.
+tensor; :func:`spectral_step_plain` runs for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -65,6 +72,9 @@ launch_count = 0
 # Of those, the launches in the accumulate mode (a :class:`StreamPart` with
 # ``add``: every partition of :func:`stream_step` after the first).
 accumulate_launch_count = 0
+# Of those, the launches of :func:`spectral_step` (the frequency-domain delay
+# line).
+spectral_launch_count = 0
 
 # csrc/convpairs.cu spreads a pair of rows over 1, 2 or 4 thread blocks, all
 # bit-equal to each other. Up to one block's 16,384 points the cluster of four
@@ -383,3 +393,203 @@ def stream_step(hist: torch.Tensor, block: torch.Tensor, parts,
         _launch_part(hist, block, out, part,
                      new_hist if k == writer else None)
     return out, new_hist
+
+
+# ---------------------------------------------------------------------------
+# the frequency-domain delay line
+
+# Thread blocks a row pair of the delay line takes besides its window's
+# (csrc/convpairs.cu's SPECTRAL_BLOCKS): the multiply-accumulate reads every
+# stored spectrum once, S x n points a pair (33.8 MB a step at 64 rows in
+# reverb_live), and four blocks a pair, each summing a quarter of the
+# spectrum beside the block that transforms, spread those reads over four
+# times the pairs' SMs. Past one block's 16,384 points the window itself
+# goes over a cluster of four, each block summing the quarter it holds.
+SPECTRAL_BLOCKS = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class SpectralPlan:
+    """Device tables of a FIR streamed through a frequency-domain delay
+    line: the kernel (its zero lead included) cut into partitions of
+    ``block`` taps, partition p delayed by p blocks, each used (not wholly
+    zero) partition's ``n``-point spectrum, ``n`` the smallest power of two
+    >= 2 x ``block``. The state (:func:`spectral_init_state`) keeps the
+    spectra of the last ``slots`` windows and the last ``inputs`` blocks."""
+
+    n: int
+    block: int                  # B: the block size and a partition's taps
+    kernel_len: int             # taps, the lead included
+    slots: int                  # S: the last used partition's delay + 1
+    inputs: int                 # T: blocks the window reaches back, + 1
+    delays: tuple[int, ...]     # each used partition's delay in blocks
+    delay_table: torch.Tensor   # the same, (U,) int32 on the device
+    spectra: torch.Tensor       # (U, n, 2) f32: each used partition's full
+                                # spectrum / n in the forward DIF's output
+                                # order (``PairsPlan.spectrum_dif``'s form)
+    twiddle: torch.Tensor       # (L, 2) f32: per-pass twiddle rows
+
+    @property
+    def period(self) -> int:
+        """The position's period: a whole number of turns of both rings."""
+        return self.slots * self.inputs
+
+
+def spectral_window(block: int) -> int:
+    """The delay line's window for blocks of ``block`` samples: the
+    smallest power of two >= 2 x ``block`` (16 at least)."""
+    n = segconv.MIN_WINDOW
+    while n < 2 * block:
+        n *= 2
+    return n
+
+
+def make_spectral_plan(kernel: np.ndarray, block: int,
+                       device) -> SpectralPlan:
+    """The delay line of a real float64 ``kernel`` (its zero lead kept: the
+    lead's partitions are zero and left out) streamed in blocks of
+    ``block`` samples."""
+    kernel = np.asarray(kernel, dtype=np.float64)
+    n = spectral_window(block)
+    segconv.check_window(n, MAX_WINDOW)
+    if kernel.ndim != 1 or not np.any(kernel):
+        raise ValueError("a delay line takes a 1-d kernel with a nonzero tap")
+    device = torch.device(device)
+    pieces = [kernel[o:o + block] for o in range(0, len(kernel), block)]
+    delays = tuple(p for p, piece in enumerate(pieces) if np.any(piece))
+    spectra = torch.stack([segconv.spectrum_tables(pieces[p], n, device)[1]
+                           for p in delays])
+    return SpectralPlan(
+        n=n, block=block, kernel_len=len(kernel), slots=delays[-1] + 1,
+        inputs=-(-(n - block) // block) + 1, delays=delays,
+        delay_table=torch.tensor(delays, dtype=torch.int32, device=device),
+        spectra=spectra, twiddle=segconv.pass_twiddles(n, device))
+
+
+def spectral_init_state(plan: SpectralPlan, batch_shape: tuple[int, ...],
+                        device) -> dict:
+    """Silence for rows of ``batch_shape``: ``{"input": (..., T, B), "pos":
+    () int32, "ring": (S, pairs, n, 2)}``, pairs = ceil(rows / 2)."""
+    rows = int(np.prod(batch_shape, dtype=np.int64))
+    return {"input": torch.zeros(tuple(batch_shape) + (plan.inputs,
+                                                        plan.block),
+                                 dtype=torch.float32, device=device),
+            "pos": torch.zeros((), dtype=torch.int32, device=device),
+            "ring": torch.zeros((plan.slots, (rows + 1) // 2, plan.n, 2),
+                                dtype=torch.float32, device=device)}
+
+
+def _check_spectral(ring: torch.Tensor, inputs: torch.Tensor,
+                    pos: torch.Tensor, block: torch.Tensor,
+                    plan: SpectralPlan) -> None:
+    if block.dim() != 2 or block.shape[1] != plan.block \
+            or block.dtype != torch.float32 or block.stride(1) != 1 \
+            or (block.shape[0] > 1 and block.stride(0) < plan.block):
+        raise ValueError(
+            f"spectral_step takes a (R, {plan.block}) float32 block whose "
+            f"rows have unit stride and do not overlap, got "
+            f"{tuple(block.shape)} {block.dtype} strides {block.stride()}")
+    R = block.shape[0]
+    want = {"ring": (ring, (plan.slots, (R + 1) // 2, plan.n, 2),
+                     torch.float32),
+            "input": (inputs, (R, plan.inputs, plan.block), torch.float32),
+            "pos": (pos, (), torch.int32)}
+    for name, (t, shape, dtype) in want.items():
+        if tuple(t.shape) != shape or t.dtype != dtype \
+                or not t.is_contiguous() or t.device != block.device:
+            raise ValueError(
+                f"spectral_step takes a contiguous {shape} {dtype} {name} on "
+                f"{block.device}, got {tuple(t.shape)} {t.dtype} on "
+                f"{t.device}")
+
+
+def spectral_step_plain(ring: torch.Tensor, inputs: torch.Tensor,
+                        pos: torch.Tensor, block: torch.Tensor,
+                        plan: SpectralPlan) -> tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """The plain PyTorch version of :func:`spectral_step`, for CPU tensors:
+    the same rings, written in place, through ``torch.fft``; the position
+    is used as a tensor (nothing is read back to the host)."""
+    if block.is_cuda:
+        raise ValueError("the delay line's plain version runs on the CPU; "
+                         "on the card the kernel runs")
+    R, B = block.shape
+    n, S, T = plan.n, plan.slots, plan.inputs
+    # window sample i < n - B lies d = ceil((n - B - i) / B) blocks back, in
+    # the input ring's slot (pos - d) % T
+    i = torch.arange(n - B)
+    d = (n - 1 - i) // B
+    slot = torch.remainder(pos.long() - d, T)
+    past = inputs.reshape(R, T * B)[:, slot * B + i + d * B - (n - B)]
+    window = torch.cat([past, block], dim=-1)
+    if R % 2:
+        window = torch.cat([window, window.new_zeros((1, n))])
+    order = torch.from_numpy(segconv.dif_positions(n))
+    x = torch.empty((window.shape[0] // 2, n), dtype=torch.complex64)
+    x[:, order] = torch.fft.fft(torch.complex(window[0::2], window[1::2]),
+                                dim=-1)
+    here = torch.remainder(pos.long(), S).reshape(1)
+    ring.index_copy_(0, here, torch.view_as_real(x).unsqueeze(0))
+    slots = torch.remainder(here - plan.delay_table.long(), S)
+    y = (torch.view_as_complex(ring.index_select(0, slots))
+         * torch.view_as_complex(plan.spectra).unsqueeze(1)).sum(0)
+    w = torch.fft.ifft(y[:, order], dim=-1, norm="forward")
+    out = torch.stack([w.real, w.imag], 1).reshape(-1, n)[:R, n - B:]
+    inputs.index_copy_(1, torch.remainder(pos.long(), T).reshape(1),
+                       block.unsqueeze(1))
+    return out.contiguous(), torch.remainder(pos + 1, plan.period).to(
+        torch.int32)
+
+
+def _launch_spectral(ring: torch.Tensor, inputs: torch.Tensor,
+                     pos: torch.Tensor, block: torch.Tensor,
+                     plan: SpectralPlan):
+    """The kernel on checked tensors."""
+    global launch_count, spectral_launch_count
+    R, B = block.shape
+    out = torch.empty((R, B), dtype=torch.float32, device=block.device)
+    next_pos = torch.empty((), dtype=torch.int32, device=block.device)
+    fn = _build.launcher("convpairs", "convpairs_spectral_launch",
+                         [ctypes.c_void_p, ctypes.c_longlong]
+                         + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                         + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+                         + [ctypes.c_void_p])
+    with _build.on_device(block.device):
+        err = fn(block.data_ptr(), block.stride(0) if R > 1 else B,
+                 out.data_ptr(), inputs.data_ptr(), ring.data_ptr(),
+                 pos.data_ptr(), next_pos.data_ptr(),
+                 plan.delay_table.data_ptr(), len(plan.delays), plan.slots,
+                 plan.inputs, plan.period, B, plan.spectra.data_ptr(),
+                 plan.twiddle.data_ptr(), R, plan.n,
+                 torch.cuda.current_stream(block.device).cuda_stream)
+    _raise_on(err, f"spectral step: R={R}, n={plan.n}, B={B}, "
+                   f"partitions={len(plan.delays)}, slots={plan.slots}")
+    launch_count += 1
+    spectral_launch_count += 1
+    return out, next_pos
+
+
+def spectral_step(ring: torch.Tensor, inputs: torch.Tensor,
+                  pos: torch.Tensor, block: torch.Tensor, plan: SpectralPlan,
+                  use_kernels: bool = True):
+    """One step of a FIR streamed through a frequency-domain delay line:
+    ``block`` (R, B) float32, unit stride along a row; ``ring`` (S, pairs,
+    n, 2), ``inputs`` (R, T, B) and ``pos`` (0-d int32), the state
+    (:func:`spectral_init_state`), all contiguous -> (the block's output
+    (R, B), the next position: a new 0-d int32 tensor). ``ring`` and
+    ``inputs`` are ADVANCED IN PLACE: the window's spectrum goes into the
+    ring's slot ``pos % S``, the block into the input ring's slot
+    ``pos % T``; a caller that must keep the old state passes copies.
+
+    Row r's window is the last n samples of its input, block included; the
+    output is the last B samples of the inverse transform of the sum over
+    the used partitions p of the spectrum stored p steps ago times
+    partition p's: ``conv(x, kernel)`` block by block. On a CUDA tensor all
+    of it is ONE launch of the hand-written kernel (a row pair over a
+    cluster: the window's block and :data:`SPECTRAL_BLOCKS` summing ones, or
+    past 16,384 points the window over :data:`SPECTRAL_BLOCKS`), or the call
+    raises; for a CPU tensor the plain version runs."""
+    _check_spectral(ring, inputs, pos, block, plan)
+    if block.is_cuda and use_kernels:
+        return _launch_spectral(ring, inputs, pos, block, plan)
+    return spectral_step_plain(ring, inputs, pos, block, plan)

@@ -31,14 +31,27 @@ gathers the window from the history and the block, stores only the block's
 output and writes the next history to a new tensor; nothing is read back to
 the host.
 
-Where that window would exceed ``STREAM_WINDOW`` (65,536), the stripped kernel
-streams in consecutive partitions (:func:`plan_stream`), as it renders
-offline: each its own power-of-two window and its own delay
-``lead + offset``, one launch each, the later ones adding into the output in
-order (``kernels/convpairs.stream_step``), all reading one shared history;
-and where even one tap and the block would outgrow that window (B > 32,768),
-the block is also cut into sub-blocks, one window each. Any kernel streams at
-any block size.
+Where that window would exceed ``STREAM_WINDOW`` (65,536) and a window of
+twice the block does not (B <= 32,768), the kernel streams through a
+frequency-domain delay line (``kernels/convpairs.spectral_step``, uniformly
+partitioned overlap-save): the kernel, its zero lead included, cut into
+partitions of B taps, each partition's spectrum at the smallest power of two
+``n >= 2 B`` held on the device, and the state the spectra of the last
+windows (a ring, one slot a partition; the lead's partitions are zero and
+left out of the sum) with the last blocks of input and a position. A step is
+ONE launch, whatever the kernel's length: the new window's transform, its
+spectrum stored, the sum over the ring, the inverse transform. The step
+advances the rings of the state it is given in place and returns them (the
+captured step's buffers need no copy); ``Chain.step``, which leaves the
+state it is given as it was, steps a copy.
+
+Where even one tap and the block would outgrow the largest window
+(B > 32,768), the stripped kernel streams in consecutive partitions
+(:func:`plan_stream`), as it renders offline: each its own power-of-two
+window and its own delay ``lead + offset``, one launch each, the later ones
+adding into the output in order (``kernels/convpairs.stream_step``), all
+reading one shared history, and the block cut into sub-blocks, one window
+each. Any kernel streams at any block size.
 """
 
 from __future__ import annotations
@@ -242,11 +255,16 @@ class FIRParams:
                              # kernel_len)
     parts: tuple[convpairs.StreamPart, ...]   # the step's launches
                              # (plan_stream): one, or partitions x
-                             # sub-blocks, the first partition first
+                             # sub-blocks, the first partition first; none
+                             # where the delay line streams the kernel
+    spectral: convpairs.SpectralPlan | None   # the frequency-domain delay
+                             # line (a kernel past one window, a block
+                             # within half of one), else None
     block_size: int          # ENGINE block size
     lead: int                # stripped zero prefix, re-applied as delay
     kernel_len: int          # taps of the stripped kernel
-    history: int             # samples of input a stream keeps per channel
+    history: int             # samples of input a stream keeps per
+                             # channel (0: the delay line keeps its own)
 
     @property
     def stream(self) -> convpairs.PairsPlan:
@@ -255,16 +273,28 @@ class FIRParams:
         return self.parts[0].plan
 
 
+def streams_spectrally(kernel_len: int, block_size: int) -> bool:
+    """Whether a stripped kernel of this length streams at this block size
+    through the frequency-domain delay line: where :func:`plan_stream` needs
+    more than one launch and a window of twice the block fits
+    ``STREAM_WINDOW``."""
+    sub, pieces = plan_stream(kernel_len, block_size)
+    return len(pieces) * -(-block_size // sub) > 1 \
+        and convpairs.spectral_window(block_size) <= STREAM_WINDOW
+
+
 def fir(kernel: np.ndarray, block_size: int, name: str = "fir",
         device=DEFAULT_DEVICE) -> Effect:
     """An Effect computing ``y = conv(x, kernel)`` (causal, zero-latency
     beyond what the kernel itself encodes): offline through the segmented
     overlap-save path (in partitions where the kernel is longer than one
     window takes), streaming through one circular convolution of a
-    power-of-two window per block (in partitions where the kernel and the
-    block outgrow ``STREAM_WINDOW``). Fused cascades carry a long EXACT-ZERO
-    prefix (each member's latency shift): it is stripped and re-applied as a
-    free output delay, which shrinks the halo by the prefix length."""
+    power-of-two window per block where the kernel and the block fit
+    ``STREAM_WINDOW``, else through the frequency-domain delay line
+    (:func:`streams_spectrally`), else in partitions. Fused cascades carry a
+    long EXACT-ZERO prefix (each member's latency shift): it is stripped and
+    re-applied as a free output delay, which shrinks the halo by the prefix
+    length (the delay line keeps it: its zero partitions cost nothing)."""
     dev = resolve_device(device)
     kernel = np.asarray(kernel, dtype=np.float64)
     nz = np.flatnonzero(kernel)
@@ -273,18 +303,22 @@ def fir(kernel: np.ndarray, block_size: int, name: str = "fir",
     plans = tuple(
         segconv.make_plan(stripped[o:o + taps], halo, seg, lead + o, dev)
         for o, taps, halo, seg in plan_partitions(len(stripped)))
-    sub, pieces = plan_stream(len(stripped), block_size)
-    # the history reaches back to the oldest sample of the first
-    # sub-block's windows
-    history = max(lead + o + n for o, _, n in pieces) - sub
-    parts = []
-    for p, (o, taps, n) in enumerate(pieces):
-        plan = convpairs.make_plan(stripped[o:o + taps], n, dev)
-        for s0 in range(0, block_size, sub):
-            keep = min(sub, block_size - s0)
-            parts.append(convpairs.StreamPart(
-                plan, history + s0 + keep - (lead + o) - n, s0, keep, p > 0))
-    params = FIRParams(plans=plans, parts=tuple(parts),
+    spectral, parts, history = None, [], 0
+    if streams_spectrally(len(stripped), block_size):
+        spectral = convpairs.make_spectral_plan(kernel, block_size, dev)
+    else:
+        sub, pieces = plan_stream(len(stripped), block_size)
+        # the history reaches back to the oldest sample of the first
+        # sub-block's windows
+        history = max(lead + o + n for o, _, n in pieces) - sub
+        for p, (o, taps, n) in enumerate(pieces):
+            plan = convpairs.make_plan(stripped[o:o + taps], n, dev)
+            for s0 in range(0, block_size, sub):
+                keep = min(sub, block_size - s0)
+                parts.append(convpairs.StreamPart(
+                    plan, history + s0 + keep - (lead + o) - n, s0, keep,
+                    p > 0))
+    params = FIRParams(plans=plans, parts=tuple(parts), spectral=spectral,
                        block_size=block_size, lead=lead,
                        kernel_len=len(stripped), history=history)
     return Effect(name=name, params=params, init_state=fir_init_state,
@@ -293,15 +327,55 @@ def fir(kernel: np.ndarray, block_size: int, name: str = "fir",
 
 
 def history_len(params: FIRParams) -> int:
-    """Samples of input a streaming FIR keeps per channel."""
+    """Samples of input a streaming FIR keeps per channel in its history
+    (0 where the delay line streams it: :func:`spectral_state_from_history`
+    builds that state from a history)."""
     return params.history
 
 
 def fir_init_state(params: FIRParams, batch_shape: tuple[int, ...] = ()):
-    """Silence: ``{"hist": (..., history)}`` on the plan's device."""
+    """Silence on the plan's device: ``{"hist": (..., history)}``, or the
+    delay line's rings and position (``{"input": (..., T, B), "pos": (),
+    "ring": (S, pairs, n, 2)}``, ``convpairs.spectral_init_state``)."""
+    device = params.plans[0].twiddle.device
+    if params.spectral is not None:
+        return convpairs.spectral_init_state(params.spectral, batch_shape,
+                                             device)
     return {"hist": torch.zeros(
         tuple(batch_shape) + (params.history,), dtype=torch.float32,
-        device=params.plans[0].twiddle.device)}
+        device=device)}
+
+
+def spectral_state_from_history(params: FIRParams, hist: np.ndarray):
+    """The delay line's state after the input whose last samples are
+    ``hist`` (..., L) (a longer history is cut to what the ring reaches, a
+    shorter one taken as silence before it): each ring slot the spectrum of
+    its window, in float64 rounded to float32, the position 0."""
+    plan = params.spectral
+    n, B, S = plan.n, plan.block, plan.slots
+    batch = hist.shape[:-1]
+    rows = int(np.prod(batch, dtype=np.int64))
+    # the windows of the last S - 1 blocks: (S - 2) B + n samples
+    need = (S - 2) * B + n
+    flat = np.asarray(hist, dtype=np.float64).reshape(rows, -1)
+    flat = flat[:, max(flat.shape[-1] - need, 0):]
+    flat = np.pad(flat, [(0, rows % 2), (need - flat.shape[-1], 0)])
+    z = flat[0::2] + 1j * flat[1::2]
+    ring = np.zeros((S, (rows + 1) // 2, n), dtype=np.complex128)
+    order = segconv.dif_positions(n)
+    for p in range(1, S):
+        # the window that ends p - 1 blocks before the end, in slot -p
+        end = need - (p - 1) * B
+        ring[S - p][:, order] = np.fft.fft(z[:, end - n:end], axis=-1)
+    state = convpairs.spectral_init_state(plan, batch, "cpu")
+    state["ring"] = torch.from_numpy(np.stack(
+        [ring.real, ring.imag], axis=-1).astype(np.float32))
+    blocks = flat[:rows, need - (plan.inputs - 1) * B:].reshape(
+        batch + (plan.inputs - 1, B))
+    # the last block in slot -1, the one before in slot -2, ...: at
+    # position 0 slot T - d holds the block d steps back
+    state["input"][..., 1:, :] = torch.from_numpy(blocks.astype(np.float32))
+    return state
 
 
 def fir_step(params: FIRParams, state, block: torch.Tensor,
@@ -311,18 +385,36 @@ def fir_step(params: FIRParams, state, block: torch.Tensor,
     block's output is the window's last ``B`` (wrap-free) samples, and the
     next history is a new tensor (the old state stays valid). All of it is
     ``kernels/convpairs.stream_step`` on the plan's parts: one launch a part
-    on a CUDA tensor, so one launch where the kernel fits one window."""
+    on a CUDA tensor, so one launch where the kernel fits one window.
+    Through the delay line (``params.spectral``) it is
+    ``kernels/convpairs.spectral_step``, one launch, and the state's rings
+    ADVANCE IN PLACE: the new state holds the same ring tensors (a caller
+    that keeps the old state steps a copy, as ``Chain.step`` does)."""
     B = block.shape[-1]
     if B != params.block_size:
         raise ValueError(
             f"this FIR streams blocks of {params.block_size} samples, got "
             f"{B}")
+    if params.spectral is not None:
+        return _spectral_step(params.spectral, state, block, use_kernels)
     hist = state["hist"]
     flat_hist = hist.reshape(-1, hist.shape[-1]).contiguous()
     flat = block.to(torch.float32).reshape(-1, B)
     out, new_hist = convpairs.stream_step(flat_hist, flat, params.parts,
                                           use_kernels)
     return {"hist": new_hist.reshape(hist.shape)}, out.reshape(block.shape)
+
+
+def _spectral_step(plan: convpairs.SpectralPlan, state, block: torch.Tensor,
+                   use_kernels: bool):
+    ring, inputs = state["ring"], state["input"]
+    B = block.shape[-1]
+    flat = block.to(torch.float32).reshape(-1, B)
+    out, pos = convpairs.spectral_step(
+        ring, inputs.view(flat.shape[0], plan.inputs, B), state["pos"], flat,
+        plan, use_kernels)
+    return {"input": inputs, "pos": pos, "ring": ring}, \
+        out.reshape(block.shape)
 
 
 def fir_offline(params: FIRParams, blocks: torch.Tensor,

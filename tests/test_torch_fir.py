@@ -105,12 +105,17 @@ def test_kernel_too_long_names_the_later_slice():
     assert [(p.shift, p.kernel_len) for p in longer.params.plans] == [
         (7, 16385), (7 + 16385, 16385), (7 + 32770, 16385),
         (7 + 49155, 15845)]
-    # ... and it streams in partitions too: two windows at B=4096, the
-    # history shared (the second partition's window reaches furthest back)
-    assert longer.state((2,))["hist"].shape == (2, 7 + 61441 + 8192 - 4096)
-    assert [(q.plan.n, q.plan.kernel_len, q.start, q.keep, q.add)
-            for q in longer.params.parts] == [
-        (65536, 61441, 4097, 4096, False), (8192, 3559, 0, 4096, True)]
+    # ... and it streams through the frequency-domain delay line (one
+    # window would take 69,099 samples): windows of 8,192, the kernel with
+    # its lead in 16 partitions of 4,096 taps, none of them zero; the state
+    # a ring of 16 spectra of the one row pair, the last block of input and
+    # a position, no history
+    assert longer.params.parts == () and longer.params.history == 0
+    line = longer.params.spectral
+    assert (line.n, line.block, line.slots, line.inputs, line.delays) == (
+        8192, 4096, 16, 2, tuple(range(16)))
+    assert {k: tuple(v.shape) for k, v in longer.state((2,)).items()} == {
+        "input": (2, 2, 4096), "pos": (), "ring": (16, 1, 8192, 2)}
     # the stream's planner: one window where the kernel and the block fit
     # 65,536, else partitions of 65,537 - B taps, and sub-blocks past
     # B = 32,768

@@ -71,12 +71,13 @@ def test_chain8_fuses_its_filters_at_long_blocks_like_jax(B):
     assert fir_e.params.kernel_len == taps
     assert fir_e.params.stream.n == {8192: 32768, 16384: 65536}[B]
     # at B=32,768 the three would need 98,296 samples: they fuse all the
-    # same (the JAX Chain fuses every LTI run), and stream in two partitions
+    # same (the JAX Chain fuses every LTI run), and stream through the
+    # frequency-domain delay line, windows of 65,536
     wide = pt.Chain(_chain8_effects(pt, pt.EngineConfig(44100, 32768),
                                     device=CPU), device=CPU)
     assert [e.name for e in wide.exec_effects] == \
         [FIR_NAME, DYN_NAME, TAIL8_NAME]
-    assert len(wide.exec_effects[0].params.parts) == 2
+    assert wide.exec_effects[0].params.spectral.n == 65536
 
 
 
@@ -210,21 +211,22 @@ def test_one_window_kernel_keeps_one_plan():
 
 
 # ---------------------------------------------------------------------------
-# streams past the largest window: partitions
+# streams past the largest window: the frequency-domain delay line
 
 
 @pytest.mark.parametrize("taps,nb", [(40000, 12), (65000, 18)])
 def test_long_fir_streams_at_4096_like_jax_fir_step(taps, nb):
     """A 40,000-tap FIR at B=4096 streams through one window of 65,536; a
     65,000-tap one needs 69,099 samples, more than the largest window, and
-    streams in two partitions (windows of 65,536 and 8,192, one shared
-    history): block by block past the kernel's length >= 100 dB to the JAX
-    ``fir_step``, and > 95 dB to float64."""
+    streams through the frequency-domain delay line (windows of 8,192,
+    partitions of 4,096 taps): block by block past the kernel's length
+    >= 100 dB to the JAX ``fir_step``, and > 95 dB to float64."""
     B = 4096
     kernel = _long_kernel(taps, seed=taps)
     peff = pt_fir.fir(kernel, B, device=CPU)
     jeff = jx_fir.fir(kernel, B)
-    assert len(peff.params.parts) == {40000: 1, 65000: 2}[taps]
+    assert len(peff.params.parts) == {40000: 1, 65000: 0}[taps]
+    assert (peff.params.spectral is not None) == (taps == 65000)
     x = (np.random.default_rng(taps).standard_normal((1, nb * B)) * 0.4
          ).astype(np.float32)
     pst, jst = peff.state((1,)), jeff.init_state(jeff.params, (1,))
@@ -242,8 +244,10 @@ def test_long_fir_streams_at_4096_like_jax_fir_step(taps, nb):
 
 def test_chain8_streams_at_32768_fused_like_jax_chain_step():
     """chain8 at B=32,768: its three filters fuse into ONE FIR as in the JAX
-    Chain (65,529 stripped taps), which streams in two partitions of the
-    largest window, 65,536. The fused stage streamed block by block against
+    Chain (65,529 stripped taps), which streams through the frequency-domain
+    delay line at the largest window, 65,536 (its lead of 73,731 in the two
+    partitions it leaves out, the taps in three partitions of 32,768). The
+    fused stage streamed block by block against
     the JAX chain's fused FIR step >= 100 dB (the whole chain streams at
     this block size on the card, chip_smoke.py's ``long_windows``: the
     port's plain dynamics step walks 32,768 samples a block in Python,
@@ -258,8 +262,9 @@ def test_chain8_streams_at_32768_fused_like_jax_chain_step():
     assert jfir.name == FIR_NAME
     np.testing.assert_array_equal(fir_e.lti_kernel, jfir.lti_kernel)
     assert fir_e.params.kernel_len == 65529
-    assert [(q.plan.n, q.add) for q in fir_e.params.parts] == \
-        [(65536, False), (65536, True)]
+    line = fir_e.params.spectral
+    assert fir_e.params.parts == ()
+    assert (line.n, line.slots, line.delays) == (65536, 5, (2, 3, 4))
     x = _signal(2, nb * Bb, seed=18)
     jst = jfir.init_state(jfir.params, (2,))
     pst = fir_e.state((2,))

@@ -4,10 +4,11 @@ a live desk's reverb send) on the port's streaming path: ``Chain.step``
 folded over the configuration's test size on the CPU against the
 benchmark's plain float64 reference under the cell's limits, and against
 the JAX package's chain step; the bfloat16 control against the same
-limits; the fused FIR's stream plan, exactly. The ``cuda`` test imports no
-JAX (``--noconftest -m cuda`` on the card's machine): the captured step's
-two convpairs launches a replay, the second accumulating, and its traced
-stages."""
+limits; the fused FIR's stream plan, exactly: a frequency-domain delay line
+of 131 partitions of 512 taps, the lead's two left out. The ``cuda`` test
+imports no JAX (``--noconftest -m cuda`` on the card's machine): the
+captured step's one convpairs launch a replay, through the delay line, and
+its traced stages."""
 
 import functools
 import json
@@ -34,7 +35,10 @@ SEED = 3000000019
 # the reverb into one FIR
 DYNAMICS = "dynamics_cascade:compressor+gate"
 FIR = "fir_cascade:lowcut+reverb"
-TAPS, LEAD, HISTORY = 65287, 1431, 66968
+TAPS, LEAD = 65287, 1431
+# the delay line: windows of 1,024, (1,431 + 65,287) / 512 -> 131
+# partitions, the first two (the lead's) zero
+WINDOW, SLOTS, USED = 1024, 131, 129
 
 
 def config() -> dict:
@@ -127,41 +131,53 @@ def test_the_stream_agrees_with_the_jax_chain_step():
 
 def test_the_chain_fuses_the_send_into_one_fir_in_two_parts():
     """The compressor and the gate one walk, the high-pass and the reverb
-    one FIR of 65,287 stripped taps, streamed in two launches: a 65,536
-    window from sample 513 writing the output, and a 1,024 window from
-    sample 0 adding into it and writing the next history."""
+    one FIR of 65,287 stripped taps behind a lead of 1,431, streamed through
+    the frequency-domain delay line: windows of 1,024, the kernel with its
+    lead in 131 partitions of 512 taps, the first two (all lead) left out;
+    the state a ring of 131 spectra of 2 row pairs, the last 2 blocks of
+    input and a position; no partitions in convpairs windows, no history."""
     chain, _ = port.chain(config(), B, "cpu")
     assert [e.name for e in chain.exec_effects] == [DYNAMICS, FIR]
     fir = chain.exec_effects[1].params
-    assert (fir.kernel_len, fir.lead, fir.history) == (TAPS, LEAD, HISTORY)
-    assert [(p.plan.n, p.start, p.out0, p.keep, p.add) for p in fir.parts] \
-        == [(65536, 513, 0, 512, False), (1024, 0, 0, 512, True)]
-    assert [p.plan.kernel_len for p in fir.parts] == [65025, 262]
+    assert (fir.kernel_len, fir.lead, fir.history) == (TAPS, LEAD, 0)
+    assert fir.parts == ()
+    line = fir.spectral
+    assert (line.n, line.block, line.slots, line.inputs,
+            line.kernel_len) == (WINDOW, B, SLOTS, 2, LEAD + TAPS)
+    assert line.delays == tuple(range(SLOTS - USED, SLOTS))
+    assert tuple(line.spectra.shape) == (USED, WINDOW, 2)
     state = chain.init_state((4,))
-    assert state[1]["hist"].shape == (4, HISTORY)
+    assert sorted(state[1]) == ["input", "pos", "ring"]
+    assert state[1]["ring"].shape == (SLOTS, 2, WINDOW, 2)
+    assert state[1]["input"].shape == (4, 2, B)
+    assert state[1]["pos"].shape == () \
+        and state[1]["pos"].dtype == torch.int32
 
 
 def test_the_plain_streamed_parts_mark_and_count_nothing(monkeypatch):
-    """On a CPU tensor the two parts are the plain version: no launch, no
+    """On a CPU tensor the delay line is the plain version: no launch, no
     count, no mark, even inside a traced stage."""
     monkeypatch.setattr(profiling, "mark", lambda device=None: 1 / 0)
     chain, _ = port.chain(config(), B, "cpu")
     fir = chain.exec_effects[1]
-    before = (convpairs.launch_count, convpairs.accumulate_launch_count)
+    before = (convpairs.launch_count, convpairs.accumulate_launch_count,
+              convpairs.spectral_launch_count)
     with profiling.stage_parts() as parts:
         fir.step(fir.params, fir.state((2,)), torch.zeros(2, B))
     assert parts == []
-    assert (convpairs.launch_count,
-            convpairs.accumulate_launch_count) == before
+    assert (convpairs.launch_count, convpairs.accumulate_launch_count,
+            convpairs.spectral_launch_count) == before
 
 
 @pytest.mark.cuda
-def test_cuda_captured_step_streams_the_fir_in_two_marked_parts():
-    """On the card a replay of the configuration's captured step makes two
-    convpairs launches, one accumulating, and one serial walk; captured with
-    tracing on, its stages name the FIR's two parts; with tracing off it
-    holds no mark and the same launches; both replays equal the eager
-    ``Chain.step`` bit for bit."""
+def test_cuda_captured_step_streams_the_fir_in_one_launch():
+    """On the card a replay of the configuration's captured step makes one
+    convpairs launch, through the delay line, none accumulating, and one
+    serial walk; captured with tracing on, its stages name the FIR as one
+    stage; with tracing off it holds no mark and the same launches; both
+    replays equal the eager ``Chain.step`` bit for bit, the delay line's
+    rings advancing in the graph's own buffers; its state round-trips
+    through ``state`` / ``load_state``."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     c = config()
@@ -175,11 +191,10 @@ def test_cuda_captured_step_streams_the_fir_in_two_marked_parts():
     finally:
         profiling.enable(was)
     shape = (c["channels"], B)
-    assert traced.stages(shape) == [DYNAMICS, f"{FIR}.part0", f"{FIR}.part1",
-                                    "write_state"]
+    assert traced.stages(shape) == [DYNAMICS, FIR, "write_state"]
     launches = traced.launches_per_step(shape)
-    assert launches == {"convpairs.launch_count": 2,
-                        "convpairs.accumulate_launch_count": 1,
+    assert launches == {"convpairs.launch_count": 1,
+                        "convpairs.spectral_launch_count": 1,
                         "dynamics.serial_walk_launch_count": 1}
     untraced_chain, _ = port.chain(c, B, "cuda")
     untraced = untraced_chain.captured_step((c["channels"],))
@@ -188,7 +203,8 @@ def test_cuda_captured_step_streams_the_fir_in_two_marked_parts():
     assert untraced.launches_per_step(shape) == launches
 
     state = chain.init_state((c["channels"],))
-    before = (convpairs.launch_count, convpairs.accumulate_launch_count)
+    before = (convpairs.launch_count, convpairs.accumulate_launch_count,
+              convpairs.spectral_launch_count)
     for i in range(8):
         blk = x[:, i * B:(i + 1) * B]
         state, want = chain.step(state, blk)
@@ -196,7 +212,19 @@ def test_cuda_captured_step_streams_the_fir_in_two_marked_parts():
             got = step(blk)
             assert torch.equal(got, want), i
     torch.cuda.synchronize()
-    # 8 blocks, each an eager step and two replays, each of them two
-    # launches of which one accumulates
+    # 8 blocks, each an eager step and two replays, each of them one
+    # launch through the delay line
     assert (convpairs.launch_count - before[0],
-            convpairs.accumulate_launch_count - before[1]) == (48, 24)
+            convpairs.accumulate_launch_count - before[1],
+            convpairs.spectral_launch_count - before[2]) == (24, 0, 24)
+    # the graph's buffers hold the eager state; loaded back after a detour,
+    # the replay goes on as the eager step
+    kept = untraced.state
+    for k in ("input", "pos", "ring"):
+        assert torch.equal(kept[1][k], state[1][k]), k
+    untraced.reset()
+    untraced(x[:, :B])
+    untraced.load_state(kept)
+    blk = x[:, 3 * B:4 * B]
+    _, want = chain.step(state, blk)
+    assert torch.equal(untraced(blk), want)

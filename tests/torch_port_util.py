@@ -356,32 +356,195 @@ def emulate_window_fft(z: np.ndarray, plan, blocks: int = 1,
     m = n // P
     lm = m.bit_length() - 1
     zq = [_padded(z[q * m:(q + 1) * m]) for q in range(P)]
-    q2 = 1 << (ln - 4)
-    q1 = q2 << 2
-    share = q2 // P
-
-    def top(forward):
-        for rank in range(P):
-            j = rank * share + np.arange(share)
-            w = [tw[p * q2 + j] for p in range(6)]
-            where = [[(a * P // 4, _pad((a % (4 // P)) * q1 + j + c * q2))
-                      for c in range(4)] for a in range(4)]
-            x = [[zq[b][i] for b, i in row] for row in where]
-            _two_levels_regs(x, w, forward)
-            for a in range(4):
-                for c in range(4):
-                    b, i = where[a][c]
-                    zq[b][i] = x[a][c]
-
-    top(True)
+    _cluster_top(zq, tw, ln, True)
     for q in range(P):
         args = (zq[q], lm, ln - 4, tw, 6 << (ln - 4), spec[q * m:(q + 1) * m])
         if owned:
             _owned_levels(*args, groups)
         else:
             _levels(*args)
-    top(False)
+    _cluster_top(zq, tw, ln, False)
     return np.concatenate([zq[q][_pad(np.arange(m))] for q in range(P)])
+
+
+def _cluster_top(zq, tw, ln, forward):
+    """csrc/window_fft.cuh's top pass of a window over a cluster of
+    len(zq) blocks (pass_two_levels_cluster), each rank's share of j."""
+    P = len(zq)
+    q2 = 1 << (ln - 4)
+    q1 = q2 << 2
+    share = q2 // P
+    for rank in range(P):
+        j = rank * share + np.arange(share)
+        w = [tw[p * q2 + j] for p in range(6)]
+        where = [[(a * P // 4, _pad((a % (4 // P)) * q1 + j + c * q2))
+                  for c in range(4)] for a in range(4)]
+        x = [[zq[b][i] for b, i in row] for row in where]
+        _two_levels_regs(x, w, forward)
+        for a in range(4):
+            for c in range(4):
+                b, i = where[a][c]
+                zq[b][i] = x[a][c]
+
+
+def _center_half(sm, t, width, forward):
+    """csrc/window_fft.cuh's center_forward_16 / _8 (``forward``) or
+    center_inverse_16 / _8 on the items ``t``: the innermost pass without
+    its spectrum multiply."""
+    span = 4 * width
+    i0 = t * span
+    step = 16 // span
+    x = [[sm[_pad(i0 + c + width * a)] for c in range(width)]
+         for a in range(4)]
+
+    def rows(sign):
+        for a in range(4):
+            if width == 4:
+                x[a] = _dft4(x[a], sign)
+            else:
+                x[a] = [_c64(x[a][0] + x[a][1]), _c64(x[a][0] - x[a][1])]
+
+    if forward:
+        for c in range(width):
+            col = _dft4([x[a][c] for a in range(4)], -1)
+            for a in range(4):
+                x[a][c] = _c64(col[a] * _W16[(step * c * a) & 15])
+        rows(-1)
+    else:
+        rows(+1)
+        for c in range(width):
+            col = _dft4([_c64(x[a][c] * _W16[(16 - step * c * a) & 15])
+                         for a in range(4)], +1)
+            for a in range(4):
+                x[a][c] = col[a]
+    for a in range(4):
+        for c in range(width):
+            sm[_pad(i0 + c + width * a)] = x[a][c]
+
+
+def _levels_half(sm, ln, lm_top, tw, tw_off, forward):
+    """csrc/window_fft.cuh's forward_levels (``forward``) or
+    inverse_levels: convolve_levels' passes down to the innermost pass's
+    forward half, or from its inverse half back up."""
+    passes = _level_passes(lm_top, tw_off)
+    half = len(passes) // 2
+    todo = passes[:half + 1] if forward else passes[half:]
+    for kind, lm, off, k, fwd in todo:
+        t = np.arange(1 << (ln - k))
+        if kind == "two":
+            _two_levels(sm, t, lm, tw, off, fwd)
+        elif kind == "one":
+            _one_level(sm, t, lm, tw, off, fwd)
+        else:
+            _center_half(sm, t, lm, forward)
+
+
+# csrc/convpairs.cu's SPECTRAL_THREADS and SPECTRAL_SPLIT_THREADS
+SPECTRAL_THREADS = 512
+SPECTRAL_SPLIT_THREADS = 256
+
+
+def _sum_slice(ring, spectra, pair, pts, here, plan, u_first, threads):
+    """csrc/convpairs.cu's sum_slice on the spectrum points ``pts`` of one
+    row pair: group g of the kernel's groups sums the partitions
+    u_first + g, + G, ... in order, the groups' sums added in group
+    order."""
+    S = plan.slots
+    lanes = (pts.stop - pts.start) // 2
+    G = threads // lanes if threads > lanes else 1
+    partial = []
+    for grp in range(G):
+        y = np.zeros(pts.stop - pts.start, np.complex64)
+        for u in range(u_first + grp, len(plan.delays), G):
+            s = (here - plan.delays[u] + S) % S
+            y = _c64(y + _c64(ring[s, pair, pts] * spectra[u, pts]))
+        partial.append(y)
+    y = partial[0]
+    for v in partial[1:]:
+        y = _c64(y + v)
+    return y
+
+
+def emulate_spectral_step(ring: np.ndarray, inputs: np.ndarray, pos: int,
+                          block: np.ndarray, plan):
+    """csrc/convpairs.cu's delay-line step in numpy, on copies of the state:
+    ``ring`` (S, pairs, n, 2) and ``inputs`` (R, T, B) float32, ``pos`` an
+    int, ``block`` (R, B). Each row pair's window gathered by the kernel's
+    index arithmetic (sample g of the block, or of the block d steps back in
+    the input ring's slot (pos - d) % T) and transformed, its spectrum
+    stored in slot pos % S. Up to 16,384 points the window in one block and
+    SPECTRAL_BLOCKS slices of the spectrum summed beside it over the
+    partitions of delay >= 1 (groups of lanes, every G-th partition, in
+    order, the groups' partial sums added in group order), added to the
+    window's spectrum times the delay-0 partition's where there is one;
+    past it the window over a cluster of SPECTRAL_BLOCKS (the top pass, then
+    each block's levels), each block's slice summed over every partition.
+    Transformed back; the block into the input ring's slot pos % T. Returns
+    (out, ring, inputs, next pos); output samples no block wrote are NaN."""
+    from pyaudiodsptools_tpu_torch.kernels.convpairs import SPECTRAL_BLOCKS
+    from pyaudiodsptools_tpu_torch.kernels.segconv import BLOCK_WINDOW
+
+    n, S, T = plan.n, plan.slots, plan.inputs
+    R, B = block.shape
+    ln = n.bit_length() - 1
+    split = n <= BLOCK_WINDOW
+    P = 1 if split else SPECTRAL_BLOCKS
+    m = n // P
+    ring = _c64(ring[..., 0] + 1j * ring[..., 1])
+    inputs = inputs.copy()
+    tw = _c64(plan.twiddle.cpu().numpy() @ np.array([1, 1j]))
+    spectra = plan.spectra.cpu().numpy()
+    spectra = _c64(spectra[..., 0] + 1j * spectra[..., 1])
+    out = np.full((R, B), np.nan, np.float32)
+    g = np.arange(n) - (n - B)
+    d = (B - 1 - g) // B
+    at = ((pos % T - d + T) % T) * B + g + d * B
+    here = pos % S
+    for pair in range((R + 1) // 2):
+        rows = [r for r in (2 * pair, 2 * pair + 1) if r < R]
+        win = [np.where(g >= 0, block[r, np.clip(g, 0, B - 1)],
+                        inputs[r].reshape(-1)[np.clip(at, 0, T * B - 1)])
+               for r in rows]
+        z = win[0] + 1j * (win[1] if len(win) > 1 else 0)
+        if split:
+            zq = [_padded(z)]
+            _levels_half(zq[0], ln, ln, tw, 0, True)
+        else:
+            zq = [_padded(z[q * m:(q + 1) * m]) for q in range(P)]
+            _cluster_top(zq, tw, ln, True)
+            for q in range(P):
+                _levels_half(zq[q], m.bit_length() - 1, ln - 4, tw,
+                             6 << (ln - 4), True)
+        for q in range(P):
+            ring[here, pair, q * m:(q + 1) * m] = zq[q][_pad(np.arange(m))]
+        if split:
+            x = ring[here, pair]
+            now = plan.delays[0] == 0
+            h = n // SPECTRAL_BLOCKS
+            y = np.concatenate([
+                _sum_slice(ring, spectra, pair, slice(k * h, (k + 1) * h),
+                           here, plan, int(now), SPECTRAL_SPLIT_THREADS)
+                for k in range(SPECTRAL_BLOCKS)])
+            if now:
+                y = _c64(_c64(x * spectra[0]) + y)
+            zq[0][_pad(np.arange(n))] = y
+            _levels_half(zq[0], ln, ln, tw, 0, False)
+        else:
+            for q in range(P):
+                zq[q][_pad(np.arange(m))] = _sum_slice(
+                    ring, spectra, pair, slice(q * m, (q + 1) * m), here,
+                    plan, 0, SPECTRAL_THREADS)
+            for q in range(P):
+                _levels_half(zq[q], m.bit_length() - 1, ln - 4, tw,
+                             6 << (ln - 4), False)
+            _cluster_top(zq, tw, ln, False)
+        w = np.concatenate([zq[q][_pad(np.arange(m))] for q in range(P)])
+        out[rows[0]] = w.real[n - B:]
+        if len(rows) > 1:
+            out[rows[1]] = w.imag[n - B:]
+    inputs[:, pos % T] = block
+    ring = np.stack([ring.real, ring.imag], -1).astype(np.float32)
+    return out, ring, inputs, (pos + 1) % plan.period
 
 
 def _pass_points(kind, lm, ln, t):
